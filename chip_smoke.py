@@ -5,16 +5,23 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device  — CUDA present, card name and power limit, TF32 off;
-  2. build   — nvcc builds the paged-attention kernel from csrc/;
-  3. kernel  — the CUDA kernel vs its plain PyTorch version on the card:
-               shape cases, poisoned slots, the olmo-1b decode shape, the
-               extend fold, a zero-length row;
-  4. timing  — the kernel at the olmo-1b decode shape beside its HBM
-               bound, the plain version and SDPA over the same K/V;
-  5. model   — olmo-1b at its published width, one decode_paged and one
-               ragged extend_paged step, kernel vs plain attention logits;
+  2. build   — nvcc builds the three kernel libraries from csrc/, one nvcc
+               per source, all at once;
+  3. kernel  — every CUDA kernel vs its plain PyTorch version on the card:
+               paged attention over fp pages (shape cases, poisoned slots,
+               the olmo-1b decode shape, the extend fold, a zero-length
+               row), over KIVI pages (shape cases x bits x dtypes, poisoned
+               slots, tail-only and pages-only rows, the extend fold, the
+               olmo-1b decode shape), and the pack / unpack (byte-equal);
+  4. timing  — each kernel at the olmo-1b serving shape beside its bound,
+               its plain version and, where one exists, one PyTorch call
+               computing the same function;
+  5. model   — olmo-1b at its published width, decode_paged and ragged
+               extend_paged over fp pages and over KIVI pages, kernel vs
+               plain attention logits;
   6. serve   — the serving engine (launch/serve.py's build_engine) at full
-               width: 8 requests, greedy, kernel launch count checked.
+               width: 8 requests, greedy, kernel launch counts checked;
+               then the same traffic with KIVI 8-bit pages.
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -37,18 +44,29 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import Request, SamplingParams, SchedulerConfig  # noqa: E402
+from repro_torch.core import (QuantConfig, Request, SamplingParams,  # noqa: E402
+                              SchedulerConfig)
 from repro_torch.core.telemetry import StepTracer  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.kv_quant import kv_quant as kvmod  # noqa: E402
+from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
+    dequantize_pages_ref, quantize_pages_ref)
 from repro_torch.kernels.paged_attention import ops  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as kmod  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention_quant as qmod  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
-    paged_attention_chunked_ref, paged_attention_ref)
+    paged_attention_chunked_quant_ref, paged_attention_chunked_ref,
+    paged_attention_quant_ref, paged_attention_ref)
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
-# the kernel's wrapper and its launch count, held here so that phase 5's
-# plain-attention patch of the module attribute does not hide them
+# the kernels' wrappers and their launch counts, held here so that phase
+# 5's plain-attention patches of the module attributes do not hide them
 KERNEL = kmod.paged_attention
+QKERNEL = qmod.paged_attention_quant
+PACK = kvmod.quantize_pages
+UNPACK = kvmod.dequantize_pages
+SOURCES = [kmod.SOURCE, qmod.SOURCE, kvmod.SOURCE]
 
 # data-sheet HBM bandwidth and non-tensor-core fp32 rate, by card name
 # (NVIDIA data sheets; the first matching substring wins)
@@ -85,6 +103,11 @@ def plain_attention():
     def plain(q, k, v, tables, lengths, *, scale):
         return paged_attention_ref(q, k, v, tables, lengths, scale=scale)
     return mock.patch.object(kmod, "paged_attention", plain)
+
+
+def plain_quant_attention():
+    """``plain_attention`` for the quantized kernel (phase 5 only)."""
+    return mock.patch.object(qmod, "paged_attention_quant", paged_attention_quant_ref)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -127,6 +150,49 @@ def inputs(seed, B, KV, G, D, P, NB, NP, dtype, lengths=None):
     return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
             torch.tensor(tables, dtype=torch.int32, device=dev),
             torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def quant_inputs(seed, B, KV, G, D, P, NB, NP, T, bits, dtype, tail_start=None,
+                 lengths=None, tables=None):
+    """q, KIVI pages packed on the card by the plain pack (planes f16, as the
+    engine stores them), fp tails, per-row tables, tail_start and lengths:
+    the argument tuple of ``paged_attention_quant``."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, D)).astype(np.float32))
+    leaves = []
+    for axis in ("channel", "token"):
+        fp = torch.from_numpy(rng.normal(size=(KV * NB, P, D)).astype(np.float32))
+        c, s_, z = quantize_pages_ref(fp.to(dev), bits=bits, axis=axis)
+        leaves += [t.reshape((KV, NB) + t.shape[1:]) for t in (c, s_.half(), z.half())]
+    tails = [torch.from_numpy(rng.normal(size=(B, T, KV, D)).astype(np.float32))
+             .to(dev, dtype) for _ in range(2)]
+    if tables is None:
+        tables = np.stack([rng.choice(NB, size=NP, replace=False) for _ in range(B)])
+    if tail_start is None:
+        tail_start = rng.integers(0, NP * P + 1, size=(B,))
+    if lengths is None:
+        lengths = np.asarray(tail_start) + rng.integers(0, T + 1, size=(B,))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)  # noqa: E731
+    return (q.to(dev, dtype), *leaves, *tails, i32(tables), i32(lengths),
+            i32(tail_start))
+
+
+def pack_pages(seed, NP, P, C):
+    """Random f32 pages on the card, page 0 constant (scale 0 -> 1), page 1
+    seven repeated values."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(NP, P, C)).astype(np.float32) * 3
+    x[0] = -0.75
+    x[1] = ((np.arange(P)[:, None] + np.arange(C)[None, :]) % 7 + 0.5) / 7
+    return torch.from_numpy(x).cuda()
+
+
+def check_equal(name, got, want) -> None:
+    ok = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    log(f"  {name}: {'byte-equal' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel bytes differ from the plain version's")
 
 
 def check(name, got, want, atol) -> float:
@@ -194,12 +260,16 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    path, report = kmod.build()
+    built = _build.build_many(SOURCES)  # one nvcc per source, all at once
     kmod._load()
-    log(f"[2 build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    _build.load(qmod.SOURCE, qmod.SIGNATURES)
+    _build.load(kvmod.SOURCE, kvmod.SIGNATURES)
+    log(f"[2 build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
+    for path, report in built:
+        log(f"  {os.path.relpath(path, ROOT)}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
 
 
 def phase_kernel():
@@ -249,6 +319,84 @@ def phase_kernel():
     torch.cuda.synchronize()
 
 
+QCASES = CASES + [(2, 2, 2, 256, 4, 16, 3)]  # the largest head_dim, P = 4
+
+
+def phase_kernel_quant():
+    log("[3 kernel vs plain version on the card: KIVI pages, pack, unpack]")
+    for case in QCASES:
+        for bits in (4, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = quant_inputs(1, *case, 17, bits, dtype)
+                D = case[3]
+                check(f"quant case {case} T=17 {bits}-bit {str(dtype)[6:]}",
+                      QKERNEL(*args, scale=D ** -0.5, deq_dtype=dtype),
+                      paged_attention_quant_ref(*args, scale=D ** -0.5, deq_dtype=dtype),
+                      ATOL[dtype])
+    # rows: tail only (tail_start 0), pages only (lengths == tail_start),
+    # nothing valid, a mid-page split; then every slot the rows must not
+    # read poisoned (codes 255, planes +-inf, tail +-inf)
+    B, KV, G, D, P, NB, NP, T = 4, 2, 2, 64, 8, 20, 4, 5
+    ts, ln = [0, 16, 0, 13], [4, 16, 0, 17]
+    tables = np.arange(B * NP).reshape(B, NP)  # disjoint rows
+    args = quant_inputs(2, B, KV, G, D, P, NB, NP, T, 8, torch.float32,
+                        tail_start=ts, lengths=ln, tables=tables)
+    clean = QKERNEL(*args, scale=0.2)
+    bad = [a.clone() for a in args]
+    kc, ks, kz, vc, vs, vz, kt, vt = bad[1:9]
+    for b in range(B):
+        for page in range(NP):
+            blk = int(tables[b, page])
+            dead = slice(max(0, ts[b] - page * P), P)
+            kc[:, blk, dead] = vc[:, blk, dead] = 255
+            vs[:, blk, dead] = float("inf")
+            if page * P >= ts[b]:
+                ks[:, blk], kz[:, blk] = float("inf"), float("-inf")
+        kt[b, ln[b] - ts[b]:], vt[b, ln[b] - ts[b]:] = float("inf"), float("-inf")
+    check("quant edge rows vs plain", clean, paged_attention_quant_ref(*args, scale=0.2),
+          1e-5)
+    check("quant poisoned slots", QKERNEL(*bad, scale=0.2), clean, 1e-6)
+    check("quant row with nothing valid", clean[2], torch.zeros_like(clean[2]), 0.0)
+    # the extend fold (prefill) vs the chunked quantized oracle
+    for dtype in (torch.float32, torch.bfloat16):
+        B, C, KV, G, D, P, NB, NP = 3, 8, 2, 4, 64, 16, 32, 4
+        starts = np.asarray([0, P - 1, 2 * P + 3])
+        args = quant_inputs(4, B, KV, G, D, P, NB, NP, P + C, 8, dtype,
+                            tail_start=starts // P * P, lengths=starts)
+        qc = torch.randn(B, C, KV * G, D, generator=torch.Generator(
+            device="cuda").manual_seed(4), device="cuda").to(dtype)
+        pk = dict(zip(("codes", "scale", "zero"), args[1:4]))
+        pv = dict(zip(("codes", "scale", "zero"), args[4:7]))
+        check(f"quant extend fold C={C} {str(dtype)[6:]}",
+              ops.paged_attend_extend_quant(qc, pk, pv, *args[7:12], scale=0.125,
+                                            deq_dtype=dtype),
+              paged_attention_chunked_quant_ref(
+                  qc.reshape(B, C, KV, G, D), *args[1:12], scale=0.125,
+                  deq_dtype=dtype).reshape(B, C, KV * G, D), ATOL[dtype])
+    # the olmo-1b decode shape, random split points
+    c = OLMO
+    NP = c["L"] // c["P"]
+    args = quant_inputs(3, c["B"], c["KV"], c["G"], c["D"], c["P"], c["B"] * NP, NP,
+                        c["P"] + 1, 8, torch.bfloat16)
+    check("quant olmo-1b decode shape bf16",
+          QKERNEL(*args, scale=c["D"] ** -0.5, deq_dtype=torch.bfloat16),
+          paged_attention_quant_ref(*args, scale=c["D"] ** -0.5, deq_dtype=torch.bfloat16),
+          ATOL[torch.bfloat16])
+    # pack and unpack: byte-equal to the plain versions
+    for bits in (2, 4, 8):
+        for axis in ("channel", "token"):
+            x = pack_pages(bits, 37, 16, 128)
+            check_equal(f"pack {bits}-bit {axis}", PACK(x, bits=bits, axis=axis),
+                        quantize_pages_ref(x, bits=bits, axis=axis))
+    for axis in ("channel", "token"):
+        packed = quantize_pages_ref(pack_pages(5, 19, 8, 64), bits=8, axis=axis)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_equal(f"unpack {axis} -> {str(dtype)[6:]}",
+                        [UNPACK(*packed, out_dtype=dtype)],
+                        [dequantize_pages_ref(*packed, out_dtype=dtype)])
+    torch.cuda.synchronize()
+
+
 def phase_timing(card):
     c = OLMO
     B, KV, G, D, P, L = c["B"], c["KV"], c["G"], c["D"], c["P"], c["L"]
@@ -285,9 +433,85 @@ def phase_timing(card):
                 max_abs_err=err)
 
 
-def phase_model():
-    """Full published width; one decode and one ragged extend step, kernel
-    vs plain attention on the same inputs and the same page pools."""
+def bound(card, nbytes, flops):
+    """The least time in ms for ``nbytes`` of HBM traffic and ``flops`` fp32
+    operations on the CUDA cores, and which of the two sets it."""
+    bytes_ms, ops_ms = nbytes / card[1] * 1e3, flops / card[2] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def phase_timing_quant(card):
+    """paged_attention_quant at the olmo-1b decode shape of a serve step
+    (every row 1024 tokens, 1008 of them in packed pages, a 17-slot tail),
+    and the pack / unpack at the pack shapes of the serve."""
+    c = OLMO
+    B, KV, G, D, P, L = c["B"], c["KV"], c["G"], c["D"], c["P"], c["L"]
+    NP, T, ts = L // P, P + 1, L - P
+    args = quant_inputs(5, B, KV, G, D, P, B * NP, NP, T, 8, torch.bfloat16,
+                        tail_start=[ts] * B, lengths=[L] * B)
+    kw = dict(scale=D ** -0.5, deq_dtype=torch.bfloat16)
+    err = check("quant timed shape vs plain", QKERNEL(*args, **kw),
+                paged_attention_quant_ref(*args, **kw), ATOL[torch.bfloat16])
+    ms = cuda_ms(lambda: QKERNEL(*args, **kw))
+    plain_ms = cuda_ms(lambda: paged_attention_quant_ref(*args, **kw))
+    isz = args[0].element_size()
+    rows = B * KV
+    nbytes = (rows * ts * D * 2  # K and V codes of the valid page slots
+              + rows * math.ceil(ts / P) * D * 2 * 2  # K scale + zero (f16) per page
+              + rows * ts * 2 * 2  # V scale + zero (f16) per slot
+              + rows * (L - ts) * D * 2 * isz  # valid tail slots, K and V
+              + 2 * args[0].numel() * isz  # q in, out
+              + B * (math.ceil(ts / P) + 2) * 4)  # table entries, lengths, tail_start
+    flops = 4 * rows * G * L * D + 4 * rows * ts * D  # q.k, p.v; dequant K, V
+    bound_ms, bound_by = bound(card, nbytes, flops)
+    log(f"[4 timing] paged_attention_quant B={B} KV={KV} G={G} D={D} P={P} L={L} "
+        f"tail_start={ts} T={T} 8-bit bf16: kernel {ms * 1e3:.1f} us, bound "
+        f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB / {card[1] / 1e12:g} TB/s, "
+        f"{bound_by}), plain {plain_ms * 1e3:.1f} us, library: none (no single "
+        f"PyTorch call attends over uint8 codes with scale/zero planes and an fp "
+        f"tail); {bound_ms / ms:.1%} of bound")
+    out = {"paged_attention_quant": dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+        bound_by=bound_by, max_abs_err=err)}
+    # the pack: one call per grouping axis per step, every layer's filled
+    # pages at once (16 layers x 16 KV heads per filled block). A decode step
+    # that fills one block packs 256 (16, 128) pages; a prefill step of 4 x 64
+    # tokens fills 16 blocks: 4096 pages
+    shapes = [(256, "channel"), (4096, "token"), (4096, "channel")]
+    for n, axis in shapes:
+        x = pack_pages(n, n, P, D)
+        check_equal(f"pack timed shape ({n}, {P}, {D}) {axis}", PACK(x, bits=8, axis=axis),
+                    quantize_pages_ref(x, bits=8, axis=axis))
+        ms = cuda_ms(lambda: PACK(x, bits=8, axis=axis))
+        plain_ms = cuda_ms(lambda: quantize_pages_ref(x, bits=8, axis=axis))
+        groups = n * (D if axis == "channel" else P)
+        nbytes = x.numel() * 4 + x.numel() + 2 * groups * 4
+        bound_ms, bound_by = bound(card, nbytes, 6 * x.numel())
+        log(f"[4 timing] quantize_pages ({n}, {P}, {D}) f32 -> 8-bit, {axis}: kernel "
+            f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
+            f"{bound_by}), plain {plain_ms * 1e3:.1f} us, library: none (no PyTorch "
+            f"call computes min/max-grouped asymmetric codes); "
+            f"{bound_ms / ms:.1%} of bound")
+        out["quantize_pages"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                     bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+    codes, sc, zr = quantize_pages_ref(x, bits=8, axis="channel")
+    kw = dict(out_dtype=torch.bfloat16)
+    got, want = UNPACK(codes, sc, zr, **kw), dequantize_pages_ref(codes, sc, zr, **kw)
+    check_equal("unpack timed shape", [got], [want])
+    ms = cuda_ms(lambda: UNPACK(codes, sc, zr, **kw))
+    plain_ms = cuda_ms(lambda: dequantize_pages_ref(codes, sc, zr, **kw))
+    nbytes = codes.numel() * (1 + 2) + 2 * sc.numel() * 4
+    bound_ms, bound_by = bound(card, nbytes, 2 * codes.numel())
+    log(f"[4 timing] dequantize_pages ({n}, {P}, {D}) 8-bit -> bf16, channel: kernel "
+        f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
+        f"{bound_by}), plain {plain_ms * 1e3:.1f} us, library: none; "
+        f"{bound_ms / ms:.1%} of bound")
+    out["dequantize_pages"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+    return out
+
+
+def build_olmo():
     cfg = configs.get_config("olmo-1b")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
@@ -296,54 +520,91 @@ def phase_model():
     nparam = sum(x.numel() for x in _leaves(params))
     log(f"[5 model] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{nparam / 1e9:.2f} B params bf16, built in {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def model_steps(model, params, pages, tails, counter, patch, label):
+    """One decode and one ragged extend step at full width, kernel vs plain
+    attention on the same inputs and the same page pools (``tails``: per
+    step kind, per layer, the quantized path's fp tails)."""
+    cfg = model.cfg
     P, NP, B = 16, 64, 4
     rng = np.random.default_rng(6)
     NB = B * NP + 1  # block 0 is the scratch page
-    pages = model.init_pages(NB, P)
+    tables = torch.tensor(rng.permutation(np.arange(1, NB))[: B * NP].reshape(B, NP),
+                          dtype=torch.int64, device="cuda")
+
+    def fresh(kind, copy=True):  # a compared run writes its own copy
+        cp = (lambda x: x.clone()) if copy else (lambda x: x)  # noqa: E731
+        if tails is None:
+            return [{n: cp(x) for n, x in pg.items()} for pg in pages]
+        return [{n: dict(pg[n], tail=cp(tails[kind][i][n])) for n in pg}
+                for i, pg in enumerate(pages)]
+
+    def run(step, kind, *args):
+        before = counter.launches
+        logits = step(params, args[0], fresh(kind), tables, *args[1:])[0]
+        torch.cuda.synchronize()
+        return logits.float(), counter.launches - before
+
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, 1)), device="cuda")
+    lengths = torch.tensor([100, 300, 517, 1000], dtype=torch.int32, device="cuda")
+    lk, n = run(model.decode_paged, "decode", tok, lengths)
+    assert n == cfg.num_layers, n
+    with patch():
+        lp, _ = run(model.decode_paged, "decode", tok, lengths)
+    assert lk.shape == (B, 1, cfg.vocab_size) and torch.isfinite(lk).all()
+    check(f"{label}decode_paged logits, kernel vs plain", lk, lp, MODEL_ATOL)
+    C = 64
+    tokc = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, C)), device="cuda")
+    lengthsc = torch.tensor([0, 100, 513, 300], dtype=torch.int32, device="cuda")
+    chunk_lens = torch.tensor([64, 17, 1, 40], dtype=torch.int32, device="cuda")
+    lk, n = run(model.extend_paged, "extend", tokc, lengthsc, chunk_lens, 0)
+    assert n == cfg.num_layers, n
+    with patch():
+        lp, _ = run(model.extend_paged, "extend", tokc, lengthsc, chunk_lens, 0)
+    real = torch.arange(C, device="cuda")[None, :] < chunk_lens[:, None]
+    assert torch.isfinite(lk[real]).all()
+    check(f"{label}ragged extend_paged logits, kernel vs plain", lk[real], lp[real],
+          MODEL_ATOL)
+    # where a full-width step's time goes (the kernel path; writes land in
+    # the same slots on every call)
+    dec, ext = fresh("decode", copy=False), fresh("extend", copy=False)
+    device_profile(f"{label}decode_paged B={B}", lambda: model.decode_paged(
+        params, tok, dec, tables, lengths))
+    device_profile(f"{label}extend_paged B={B} C={C}", lambda: model.extend_paged(
+        params, tokc, ext, tables, lengthsc, chunk_lens, 0))
+
+
+def phase_model(model, params):
+    """Full published width over fp pages."""
+    P, NP, B = 16, 64, 4
+    pages = model.init_pages(B * NP + 1, P)
     g = torch.Generator(device="cuda").manual_seed(6)
     for pg in pages:
         for x in pg.values():
             x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
-    tables = torch.tensor(rng.permutation(np.arange(1, NB))[: B * NP].reshape(B, NP),
-                          dtype=torch.int64, device="cuda")
+    model_steps(model, params, pages, None, KERNEL, plain_attention, "")
 
-    def run(step, *args):
-        fresh = [{n: x.clone() for n, x in pg.items()} for pg in pages]
-        before = KERNEL.launches
-        logits = step(params, args[0], fresh, tables, *args[1:])[0]
-        torch.cuda.synchronize()
-        return logits.float(), KERNEL.launches - before
 
-    tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, 1)), device="cuda")
-    lengths = torch.tensor([100, 300, 517, 1000], dtype=torch.int32, device="cuda")
-    lk, n = run(model.decode_paged, tok, lengths)
-    assert n == cfg.num_layers, n
-    with plain_attention():
-        lp, _ = run(model.decode_paged, tok, lengths)
-    assert lk.shape == (B, 1, cfg.vocab_size) and torch.isfinite(lk).all()
-    check("decode_paged logits, kernel vs plain", lk, lp, MODEL_ATOL)
-    C = 64
-    tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, C)), device="cuda")
-    lengths = torch.tensor([0, 100, 513, 300], dtype=torch.int32, device="cuda")
-    chunk_lens = torch.tensor([64, 17, 1, 40], dtype=torch.int32, device="cuda")
-    lk, n = run(model.extend_paged, tok, lengths, chunk_lens, 0)
-    assert n == cfg.num_layers, n
-    with plain_attention():
-        lp, _ = run(model.extend_paged, tok, lengths, chunk_lens, 0)
-    real = torch.arange(C, device="cuda")[None, :] < chunk_lens[:, None]
-    assert torch.isfinite(lk[real]).all()
-    check("ragged extend_paged logits, kernel vs plain", lk[real], lp[real],
-          MODEL_ATOL)
-    # where a full-width step's time goes (the kernel path; writes land in
-    # the same slots on every call)
-    tok1 = tok[:, :1].contiguous()
-    lengths1 = torch.tensor([100, 300, 517, 1000], dtype=torch.int32, device="cuda")
-    device_profile(f"decode_paged B={B}", lambda: model.decode_paged(
-        params, tok1, pages, tables, lengths1))
-    device_profile(f"extend_paged B={B} C={C}", lambda: model.extend_paged(
-        params, tok, pages, tables, lengths, chunk_lens, 0))
-    del model, params, pages
-    torch.cuda.empty_cache()
+def phase_model_quant(model, params):
+    """Full published width over KIVI 8-bit pages: codes and f16 planes
+    packed on the card from random pages, random bf16 tails of P + C slots."""
+    cfg = model.cfg
+    P, NP, B = 16, 64, 4
+    pages = model.init_pages(B * NP + 1, P, quantized=True)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    KV, D = cfg.num_kv_heads, cfg.head_dim
+    for pg in pages:
+        for name, axis in (("k", "channel"), ("v", "token")):
+            fp = torch.randn(KV * (B * NP + 1), P, D, generator=g, device="cuda")
+            for key, t in zip(("codes", "scale", "zero"),
+                              quantize_pages_ref(fp, bits=8, axis=axis)):
+                pg[name][key].copy_(t.reshape(pg[name][key].shape))
+    tails = {kind: [{n: torch.randn(B, P + C, KV, D, generator=g, device="cuda")
+                     .to(model.dtype) for n in ("k", "v")} for _ in pages]
+             for kind, C in (("decode", 1), ("extend", 64))}
+    model_steps(model, params, pages, tails, QKERNEL, plain_quant_attention, "KIVI ")
 
 
 def _leaves(tree):
@@ -357,50 +618,51 @@ def _leaves(tree):
         yield tree
 
 
-def phase_serve():
-    engine = build_engine(
+def serve_engine(kv_quant=None):
+    return build_engine(
         "olmo-1b", debug=False, device="cuda", max_model_len=1024,
-        num_blocks=640, block_size=16,
+        num_blocks=640, block_size=16, kv_quant=kv_quant,
         scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=256,
                                   prefill_chunk=64))
-    cfg = engine.model.cfg
-    rng = np.random.default_rng(7)
+
+
+def add_traffic(engine, rng, prefix):
+    """8 requests, prompts of 128-512 random tokens, 32 greedy tokens each."""
+    vocab = engine.model.cfg.vocab_size
     for i in range(8):
         n = int(rng.integers(128, 513))
         engine.add_request(Request(
-            request_id=f"r{i}", prompt=[int(x) for x in rng.integers(2, cfg.vocab_size, n)],
+            request_id=f"{prefix}{i}", prompt=[int(x) for x in rng.integers(2, vocab, n)],
             sampling=SamplingParams(temperature=0.0, max_new_tokens=32)))
-    KERNEL.launches = 0  # the main path's count starts here
+
+
+def run_served(engine, counters):
+    """Serve the queued traffic with every kernel count set to 0 just
+    before; returns (metrics, seconds, launches by kernel)."""
+    for k in counters.values():
+        k.launches = 0  # the main path's count starts here
     t0 = time.perf_counter()
     metrics = engine.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = KERNEL.launches
-    gen = sum(m.num_generated for m in metrics)
+    launches = {name: k.launches for name, k in counters.items()}
+    cfg = engine.model.cfg
     assert len(metrics) == 8 and all(m.num_generated == 32 for m in metrics), \
         [m.num_generated for m in metrics]
     assert all(0 <= tok < cfg.vocab_size for s in engine.seqs.values()
                for tok in s.generated)
     assert engine.host_copy_bytes == 0, engine.host_copy_bytes
     assert engine.paged_steps == engine.steps > 0
-    assert launches == cfg.num_layers * engine.paged_steps, \
-        (launches, engine.paged_steps)
-    ttft = statistics.median(m.ttft for m in metrics)
-    prompt = sum(m.num_prompt for m in metrics)
-    log(f"[6 serve] {cfg.name} full width: 8 requests, {prompt} prompt + {gen} "
-        f"generated tokens in {dt:.2f} s = {gen / dt:.1f} generated tok/s, "
-        f"TTFT p50 {ttft * 1e3:.0f} ms, {engine.steps} steps "
-        f"({engine.paged_steps} paged), {launches} kernel launches "
-        f"(= {cfg.num_layers} x steps), host_copy_bytes 0")
-    # the same traffic again (fresh prompts), traced: host-clock spans per
-    # engine layer; the run above, untraced, gives the end-to-end numbers
+    return metrics, dt, launches
+
+
+def traced_rerun(engine, rng):
+    """The same traffic again (fresh prompts), traced: host-clock spans per
+    engine layer (``tail_upload`` and ``writeback`` run inside ``dispatch``);
+    the untraced run gives the end-to-end numbers."""
     tracer = StepTracer()
     engine.trace = engine.paged_runner.trace = tracer
-    for i in range(8):
-        n = int(rng.integers(128, 513))
-        engine.add_request(Request(
-            request_id=f"t{i}", prompt=[int(x) for x in rng.integers(2, cfg.vocab_size, n)],
-            sampling=SamplingParams(temperature=0.0, max_new_tokens=32)))
+    add_traffic(engine, rng, "t")
     steps0, t0 = engine.steps, time.perf_counter()
     traced = engine.run()[8:]
     dt_traced = time.perf_counter() - t0
@@ -414,23 +676,100 @@ def phase_serve():
         f"{dt_traced:.2f} s over {engine.steps - steps0} steps; host-clock spans: "
         + ", ".join(f"{k} {n_}x {us / 1e3:.0f} ms"
                     for k, (n_, us) in sorted(spans.items(), key=lambda kv: -kv[1][1])))
-    return launches
+
+
+COUNTERS = {"paged_attention": KERNEL, "paged_attention_quant": QKERNEL,
+            "quantize_pages": PACK, "dequantize_pages": UNPACK}
+
+
+def phase_serve():
+    engine = serve_engine()
+    cfg = engine.model.cfg
+    rng = np.random.default_rng(7)
+    add_traffic(engine, rng, "r")
+    metrics, dt, counts = run_served(engine, COUNTERS)
+    launches = counts["paged_attention"]
+    gen = sum(m.num_generated for m in metrics)
+    assert launches == cfg.num_layers * engine.paged_steps, \
+        (launches, engine.paged_steps)
+    assert counts["paged_attention_quant"] == counts["quantize_pages"] == 0, counts
+    ttft = statistics.median(m.ttft for m in metrics)
+    prompt = sum(m.num_prompt for m in metrics)
+    log(f"[6 serve] {cfg.name} full width: 8 requests, {prompt} prompt + {gen} "
+        f"generated tokens in {dt:.2f} s = {gen / dt:.1f} generated tok/s, "
+        f"TTFT p50 {ttft * 1e3:.0f} ms, {engine.steps} steps "
+        f"({engine.paged_steps} paged), {launches} kernel launches "
+        f"(= {cfg.num_layers} x steps), host_copy_bytes 0")
+    traced_rerun(engine, rng)
+    return counts
+
+
+def phase_serve_quant():
+    """The same 8-request traffic on KIVI 8-bit pages."""
+    qc = QuantConfig(bits=8)
+    engine = serve_engine(kv_quant=qc)
+    cfg, store, runner = engine.model.cfg, engine.store, engine.paged_runner
+    assert store.quantized
+    rng = np.random.default_rng(7)  # the fp serve's prompts, then its rerun's
+    add_traffic(engine, rng, "r")
+    metrics, dt, counts = run_served(engine, COUNTERS)
+    gen = sum(m.num_generated for m in metrics)
+    assert counts["paged_attention_quant"] == cfg.num_layers * engine.paged_steps, \
+        (counts, engine.paged_steps)
+    assert counts["paged_attention"] == 0, counts
+    assert counts["quantize_pages"] >= 1, counts
+    ttft = statistics.median(m.ttft for m in metrics)
+    ratio = store.kv_fp16_bytes_per_block() / store.kv_bytes_per_block()
+    log(f"[6 serve] {cfg.name} full width, kv_quant {qc.bits}-bit: 8 requests, {gen} "
+        f"generated tokens in {dt:.2f} s = {gen / dt:.1f} generated tok/s, TTFT p50 "
+        f"{ttft * 1e3:.0f} ms, {engine.steps} steps ({engine.paged_steps} paged); "
+        f"launches: paged_attention_quant {counts['paged_attention_quant']} "
+        f"(= {cfg.num_layers} x steps), quantize_pages {counts['quantize_pages']}, "
+        f"paged_attention {counts['paged_attention']}, dequantize_pages "
+        f"{counts['dequantize_pages']}; tail_upload_bytes {runner.tail_upload_bytes}, "
+        f"mirror_upload_bytes {runner.mirror_upload_bytes}, pack_transfer_bytes "
+        f"{store.pack_transfer_bytes}, writeback_bytes {runner.writeback_bytes}, "
+        f"host_copy_bytes 0; {store.kv_bytes_per_block()} "
+        f"B per block vs {store.kv_fp16_bytes_per_block()} B as fp16 pages = "
+        f"{ratio:.3f}x capacity")
+    traced_rerun(engine, rng)
+    return counts
+
+
+REPLACES = {
+    "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
+    "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
+    "quantize_pages": "src/repro/kernels/kv_quant/kv_quant.py:30",
+    "dequantize_pages": "src/repro/kernels/kv_quant/kv_quant.py:60",
+}
 
 
 def main() -> None:
     name, card = phase_device()
     phase_build()
     phase_kernel()
-    timing = phase_timing(card)
-    phase_model()
-    launches = phase_serve()
-    src = os.path.relpath(kmod.SOURCE, ROOT)
-    kernels = [dict(name="paged_attention", route="cuda", source=src,
-                    replaces="src/repro/kernels/paged_attention/paged_attention.py:73",
-                    launches=launches, max_abs_err=timing["max_abs_err"],
-                    ms=timing["ms"], plain_ms=timing["plain_ms"],
-                    bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
-                    library_ms=timing["library_ms"])]
+    phase_kernel_quant()
+    timing = {"paged_attention": phase_timing(card), **phase_timing_quant(card)}
+    model, params = build_olmo()
+    phase_model(model, params)
+    phase_model_quant(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    fp_counts = phase_serve()
+    torch.cuda.empty_cache()
+    q_counts = phase_serve_quant()
+    # each kernel's launches on the path it serves: fp pages for
+    # paged_attention, KIVI pages for the rest (dequantize_pages is on no
+    # serving path: only tests call it in the reference)
+    launches = dict(q_counts, paged_attention=fp_counts["paged_attention"])
+    sources = {"paged_attention": kmod.SOURCE, "paged_attention_quant": qmod.SOURCE,
+               "quantize_pages": kvmod.SOURCE, "dequantize_pages": kvmod.SOURCE}
+    kernels = [dict(name=k, route="cuda", source=os.path.relpath(sources[k], ROOT),
+                    replaces=REPLACES[k], launches=launches[k],
+                    max_abs_err=timing[k]["max_abs_err"], ms=timing[k]["ms"],
+                    plain_ms=timing[k]["plain_ms"], bound_ms=timing[k]["bound_ms"],
+                    bound_by=timing[k]["bound_by"], library_ms=timing[k]["library_ms"])
+               for k in REPLACES]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -7,6 +7,7 @@ from repro_torch.core.executor import (  # noqa: F401
     PagedModelState,
     PagedRunner,
 )
+from repro_torch.core.kv_quant import QuantConfig  # noqa: F401
 from repro_torch.core.metrics import (  # noqa: F401
     VTCCounter,
     finalize_request,

@@ -11,7 +11,11 @@ attention kernel on the card.
 The engine runs on ``EngineConfig.device`` (``cuda`` by default; ``cpu``
 for the tests) and raises when CUDA is asked for and absent. Only the paged
 backend exists: ``execution_backend`` "gathered" and "speculative" raise
-``NotImplementedError`` naming their ROADMAP item. Sampling randomness
+``NotImplementedError`` naming their ROADMAP item. ``EngineConfig.kv_quant``
+stores KIVI-quantized pages (uint8 codes + f16 scale/zero planes) that the
+quantized CUDA kernel reads; only the KIVI axes without a GEAR residual
+have a paged layout, and any other ``QuantConfig`` raises, since it needs
+the gathered backend. Sampling randomness
 comes from one ``torch.Generator`` seeded from ``EngineConfig.seed``.
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from repro_torch.core.block_manager import BlockManager, OutOfBlocks
 from repro_torch.core.executor import PagedModelState, PagedRunner, marshal_batch
 from repro_torch.core.executor.base import ModelRunner
+from repro_torch.core.kv_quant import QuantConfig
 from repro_torch.core.metrics import RequestMetrics, VTCCounter, finalize_request
 from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.request import Request, SeqState, SeqStatus
@@ -51,6 +56,7 @@ class EngineConfig:
     execution_backend: str = "auto"  # auto | paged
     device: str = "cuda"  # where the model, the page mirror and the kernels run
     seed: int = 0
+    kv_quant: Optional[QuantConfig] = None  # KIVI pages at rest
 
 
 class LLMEngine:
@@ -72,7 +78,14 @@ class LLMEngine:
         self.vtc = VTCCounter()
         self.scheduler = Scheduler(self.cfg.scheduler, self.vtc)
         self.bm = BlockManager(self.cfg.num_blocks, self.cfg.block_size)
-        self.store = PagedModelState(model.cfg, self.cfg)
+        self.store = PagedModelState(model.cfg, self.cfg, device=self.device)
+        if self.cfg.kv_quant is not None and not self.store.quantized:
+            # the twin of make_runners' eligibility rule: quant configs the
+            # page layout cannot hold run only on the gathered backend
+            raise NotImplementedError(
+                f"kv_quant={self.cfg.kv_quant}: only the KIVI axes (keys per "
+                "channel, values per token) without a GEAR residual have a "
+                f"paged layout; the rest needs {_NOT_PORTED['gathered']}")
         self.paged_runner = PagedRunner(model, params, self.cfg, self.store)
         self.runner: ModelRunner = self.paged_runner
         # sacrificial page: ragged-chunk padding writes land here — reserved
@@ -103,6 +116,7 @@ class LLMEngine:
         reg, bm = self.metrics, self.bm
         reg.gauge("engine.steps", lambda: self.steps)
         reg.gauge("engine.host_copy_bytes", lambda: self.store.host_copy_bytes)
+        reg.gauge("store.pack_transfer_bytes", lambda: self.store.pack_transfer_bytes)
         reg.gauge("engine.host_transfer_bytes", lambda: self.host_transfer_bytes)
         reg.gauge("block_manager.num_blocks", lambda: bm.num_blocks)
         reg.gauge("block_manager.used_blocks", lambda: bm.used_blocks)
@@ -126,6 +140,7 @@ class LLMEngine:
         reg.gauge("runner.paged.steps", lambda: r.steps)
         reg.gauge("runner.paged.mirror_upload_bytes", lambda: r.mirror_upload_bytes)
         reg.gauge("runner.paged.writeback_bytes", lambda: r.writeback_bytes)
+        reg.gauge("runner.paged.tail_upload_bytes", lambda: r.tail_upload_bytes)
 
     def metrics_snapshot(self) -> Dict[str, float]:
         """Flat name -> value dict over every registered instrument."""

@@ -16,6 +16,15 @@ Mirror coherency: the mirror starts as zeros (like the host store); engine-
 side page mutations (CoW copy, host-tier restore) bump ``store.version`` and
 record dirty block ids; the next step re-uploads just those blocks with
 ``index_copy_`` (everything when most of the pool is dirty).
+
+Quantized stores (``EngineConfig.kv_quant``) change two things. Mirror
+leaves become {"codes", "scale", "zero"} uint8 + f16 triples in the same
+layout, and the model does not write them: each step marshals every
+sequence's still-filling page from the host staging store as a full-
+precision TAIL (``call_pages``, counted in ``tail_upload_bytes``), the
+quantized kernel attends packed pages + tail, and the writeback stages the
+step's K/V on the host, where a page packs (and dirties the mirror) only
+when its last slot fills.
 """
 from __future__ import annotations
 
@@ -49,6 +58,9 @@ class PagedRunner(ModelRunner):
         self.trace = NULL_TRACER
         self.mirror_upload_bytes = 0
         self.writeback_bytes = 0
+        # quantized stores only: the per-step fp tails (each sequence's
+        # still-filling page plus C slots), host -> device
+        self.tail_upload_bytes = 0
         self.steps = 0
 
     # ------------------------------------------------------------------
@@ -62,20 +74,19 @@ class PagedRunner(ModelRunner):
         if self._pages is None:
             # zeros equal a fresh host store; every mutation since is dirty
             self._pages = self.model.init_pages(self.cfg.num_blocks,
-                                                self.cfg.block_size)
+                                                self.cfg.block_size,
+                                                quantized=self.store.quantized)
         full = self._full_sync or len(dirty) > self.cfg.num_blocks // 2
         if full:
-            for layer, name, idx in self.leaves:
-                src = self.store.stores[idx]
-                self._pages[layer][name].copy_(src)
+            for src, dst in self._mirror_pairs():
+                dst.copy_(src)
                 self.mirror_upload_bytes += src.numel() * src.element_size()
         elif dirty:
             ids = torch.tensor(dirty, dtype=torch.long)
             ids_dev = ids.to(self.device)
-            for layer, name, idx in self.leaves:
-                payload = self.store.stores[idx][:, ids]  # (KV, n, P, D)
-                self._pages[layer][name].index_copy_(1, ids_dev,
-                                                     payload.to(self.device))
+            for src, dst in self._mirror_pairs():
+                payload = src[:, ids]  # (KV, n, ...)
+                dst.index_copy_(1, ids_dev, payload.to(self.device))
                 self.mirror_upload_bytes += payload.numel() * payload.element_size()
         self.store.dirty_blocks.clear()
         self._full_sync = False
@@ -85,6 +96,50 @@ class PagedRunner(ModelRunner):
                               self.trace.now() - t0, full=bool(full),
                               dirty_blocks=len(dirty),
                               upload_bytes=self.mirror_upload_bytes - b0)
+
+    def _mirror_pairs(self):
+        """(host tensor, mirror tensor) for every tensor the mirror holds:
+        each fp page store, or a quantized leaf's codes and planes."""
+        for layer, name, idx in self.leaves:
+            dev = self._pages[layer][name]
+            if idx in self.store.qplanes:
+                yield self.store.stores[idx], dev["codes"]
+                for pname, plane in self.store.qplanes[idx].items():
+                    yield plane, dev[pname]
+            else:
+                yield self.store.stores[idx], dev
+
+    # ------------------------------------------------------------------
+    def call_pages(self, tables: np.ndarray, lengths: np.ndarray, C: int):
+        """The pages argument of one quantized step: the mirror leaves plus
+        a per-leaf fp TAIL (B, P + C, KV, D) — each sequence's still-filling
+        page from the host staging store, then C empty slots the model fills
+        with the step's own K/V. fp stores pass the mirror through."""
+        if not self.store.quantized:
+            return self._pages
+        bs = self.cfg.block_size
+        B = len(lengths)
+        part = torch.from_numpy(np.take_along_axis(
+            tables.astype(np.int64), (lengths.astype(np.int64) // bs)[:, None],
+            axis=1)[:, 0])
+        pages = [{name: dict(leaf) for name, leaf in pg.items()} for pg in self._pages]
+        with self.trace.span("tail_upload", track="executor"):
+            for layer, name, idx in self.leaves:
+                # (KV, B, bs, D) -> (B, bs, KV, D)
+                stage = self.store.qstage[idx][:, part].permute(1, 2, 0, 3)
+                tail = torch.cat([stage, stage.new_zeros((B, C) + stage.shape[2:])],
+                                 dim=1)
+                self.tail_upload_bytes += tail.numel() * tail.element_size()
+                pages[layer][name]["tail"] = tail.to(self.device)
+        return pages
+
+    def strip_tails(self, pages):
+        """The mirror again from a step's pages: the per-step tails dropped,
+        so sync's block-indexed updates only ever see (KV, NB, ...) leaves."""
+        if not self.store.quantized:
+            return pages
+        return [{name: {k: v for k, v in leaf.items() if k != "tail"}
+                 for name, leaf in pg.items()} for pg in pages]
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -105,11 +160,14 @@ class PagedRunner(ModelRunner):
             raise
 
     def _execute_decode(self, batch: ExecBatch, lengths: np.ndarray) -> np.ndarray:
-        logits, _, writes = self.model.decode_paged(
-            self.params, self._dev(batch.tokens), self._pages,
+        logits, pages, writes = self.model.decode_paged(
+            self.params, self._dev(batch.tokens),
+            self.call_pages(batch.tables, lengths, 1),
             self._dev(batch.tables), self._dev(lengths))
+        self._pages = self.strip_tails(pages)
         # O(token) writeback keeps the host store authoritative; the device
-        # mirror already holds the same write
+        # mirror already holds the same write (quantized stores instead
+        # stage it on the host until the page fills)
         self.writeback_bytes += self.writeback_tokens(
             batch.tables, lengths, 1, writes, len(batch.chunks))
         self.steps += 1
@@ -142,9 +200,11 @@ class PagedRunner(ModelRunner):
                 (pad, tables.shape[1]), self.scratch_block, tables.dtype)])
             lengths = np.concatenate([lengths, np.repeat(lengths[:1], pad)])
             chunk_lens = np.concatenate([chunk_lens, np.zeros(pad, np.int32)])
-        logits, _, writes = self.model.extend_paged(
-            self.params, self._dev(tokens), self._pages, self._dev(tables),
-            self._dev(lengths), self._dev(chunk_lens), self.scratch_block)
+        logits, pages, writes = self.model.extend_paged(
+            self.params, self._dev(tokens), self.call_pages(tables, lengths, C),
+            self._dev(tables), self._dev(lengths), self._dev(chunk_lens),
+            self.scratch_block)
+        self._pages = self.strip_tails(pages)
         self.writeback_bytes += self.writeback_tokens(
             batch.tables, batch.cache_lens, C, writes, B,
             chunk_lens=chunk_lens[:B])
@@ -170,9 +230,12 @@ class PagedRunner(ModelRunner):
                               for b, p in enumerate(rows)])
         off = pos % bs
         real = np.arange(C)[None, :] < np.asarray(chunk_lens)[:, None]  # (B, C)
-        stacked = torch.stack([writes[layer][name] for layer, name, _ in self.leaves])
-        stacked = stacked[:, :B].reshape((len(self.leaves), B, C) + stacked.shape[-2:])
-        host = stacked[:, torch.from_numpy(real).to(stacked.device)].cpu()
-        return self.store.write_token_group(
-            [idx for _, _, idx in self.leaves], torch.from_numpy(blk),
-            torch.from_numpy(off), list(host))
+        # the span covers the copy to the host and, on quantized stores, the
+        # staging writes and the packs of filled pages
+        with self.trace.span("writeback", track="executor"):
+            stacked = torch.stack([writes[layer][name] for layer, name, _ in self.leaves])
+            stacked = stacked[:, :B].reshape((len(self.leaves), B, C) + stacked.shape[-2:])
+            host = stacked[:, torch.from_numpy(real).to(stacked.device)].cpu()
+            return self.store.write_token_group(
+                [idx for _, _, idx in self.leaves], torch.from_numpy(blk),
+                torch.from_numpy(off), list(host))

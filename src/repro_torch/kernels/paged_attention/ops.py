@@ -6,19 +6,25 @@ Twins of ``repro.kernels.paged_attention.ops``, with the same layouts:
     (KV, NB, P, D), per-sequence block tables (B, NP);
   * ``paged_attend`` — model layout: q (B, 1, H, D); casts engine int64
     tables to int32 and regroups heads into (KV, G = H // KV);
-  * ``paged_attend_extend`` — chunked extend: q (B, C, H, D).
+  * ``paged_attend_extend`` — chunked extend: q (B, C, H, D);
+  * ``paged_decode_attention_quant`` / ``paged_attend_quant`` /
+    ``paged_attend_extend_quant`` — the same three over KIVI pages:
+    ``{"codes", "scale", "zero"}`` dicts plus a full-precision tail.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors run the
-hand-written kernel (``paged_attention.paged_attention``), CPU tensors the
-plain PyTorch oracles in ``ref.py``. There is no implementation switch and
-no fallback from one to the other.
+hand-written kernels (``paged_attention.paged_attention``,
+``paged_attention_quant.paged_attention_quant``), CPU tensors the plain
+PyTorch oracles in ``ref.py``. There is no implementation switch and no
+fallback from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.paged_attention import paged_attention as _kernel
-from repro_torch.kernels.paged_attention.ref import paged_attention_chunked_ref
+from repro_torch.kernels.paged_attention import paged_attention_quant as _qkernel
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_chunked_quant_ref, paged_attention_chunked_ref)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -83,4 +89,82 @@ def paged_attend_extend(q, k_pages, v_pages, block_tables, lengths, *,
     out = paged_attention_chunked_ref(
         q.reshape(B, C, KV, H // KV, D), k_pages, v_pages,
         block_tables.to(torch.int32), lengths.to(torch.int32), scale=scale)
+    return out.reshape(B, C, H, D)
+
+
+# ---------------------------------------------------------------------------
+# quantized pages (KIVI at rest)
+# ---------------------------------------------------------------------------
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def paged_decode_attention_quant(q, k_pages, v_pages, k_tail, v_tail,
+                                 block_tables, lengths, tail_start, *,
+                                 scale: float, deq_dtype=torch.float32,
+                                 rows_per_seq: int = 1):
+    """Kernel layout over quantized pages. ``k_pages``/``v_pages`` are
+    {"codes", "scale", "zero"} dicts (codes (KV, NB, P, D) uint8, key planes
+    (KV, NB, 1, D), value planes (KV, NB, P, 1)); ``k_tail``/``v_tail``
+    (B, T, KV, D) hold positions ``tail_start`` up. ``deq_dtype`` is the
+    cache's logical dtype. CUDA tensors launch the kernel; CPU tensors run
+    ``paged_attention_quant_ref``."""
+    return _qkernel.paged_attention_quant(
+        q.contiguous(), k_pages["codes"], k_pages["scale"], k_pages["zero"],
+        v_pages["codes"], v_pages["scale"], v_pages["zero"],
+        k_tail.contiguous(), v_tail.contiguous(), _i32(block_tables),
+        _i32(lengths), _i32(tail_start), scale=scale, deq_dtype=deq_dtype,
+        rows_per_seq=rows_per_seq)
+
+
+def paged_attend_quant(q, k_pages, v_pages, k_tail, v_tail, block_tables,
+                       lengths, tail_start, *, scale: float,
+                       deq_dtype=torch.float32):
+    """Model-layout adapter for quantized pages: q (B, 1, H, D) ->
+    (B, 1, H, D), heads regrouped like ``paged_attend``. ``lengths`` counts
+    valid tokens INCLUDING the tail tokens this row attends; ``tail_start``
+    counts the tokens resident in the quantized pages."""
+    B, _, H, D = q.shape
+    KV = k_pages["codes"].shape[0]
+    out = paged_decode_attention_quant(
+        q.reshape(B, KV, H // KV, D), k_pages, v_pages, k_tail, v_tail,
+        block_tables, lengths, tail_start, scale=scale, deq_dtype=deq_dtype)
+    return out.reshape(B, 1, H, D)
+
+
+def paged_attend_extend_quant(q, k_pages, v_pages, k_tail, v_tail,
+                              block_tables, lengths, tail_start, *,
+                              scale: float, deq_dtype=torch.float32):
+    """Chunked extend attention over quantized pages: q (B, C, H, D) ->
+    (B, C, H, D), query j of sequence b at position ``lengths[b] + j``.
+
+    Quantized page slots serve positions ``< tail_start[b]``; everything from
+    ``tail_start`` up — the still-filling page AND this chunk's own K/V,
+    already at their tail slots — comes from the fp tail (B, T, KV, D).
+    CUDA: the C query positions fold into the kernel's batch axis, row
+    b*C + j with length ``lengths[b] + j + 1`` (in-chunk causality), taking
+    sequence b's table, ``tail_start`` and tail (``rows_per_seq=C``, so
+    they are not repeated in memory). CPU: the direct chunked oracle, which
+    dequantizes each sequence's pages once rather than C times."""
+    B, C, H, D = q.shape
+    KV = k_pages["codes"].shape[0]
+    G = H // KV
+    if q.device.type == "cuda":
+        row_len = (lengths.to(torch.int32)[:, None]
+                   + torch.arange(C, dtype=torch.int32, device=q.device)[None, :]
+                   + 1).reshape(B * C)
+        out = paged_decode_attention_quant(
+            q.reshape(B * C, KV, G, D), k_pages, v_pages, k_tail, v_tail,
+            block_tables, row_len, tail_start, scale=scale, deq_dtype=deq_dtype,
+            rows_per_seq=C)
+        return out.reshape(B, C, H, D)
+    if q.device.type != "cpu":
+        raise ValueError(f"paged_attend_extend_quant: no path for device {q.device}")
+    out = paged_attention_chunked_quant_ref(
+        q.reshape(B, C, KV, G, D),
+        k_pages["codes"], k_pages["scale"], k_pages["zero"],
+        v_pages["codes"], v_pages["scale"], v_pages["zero"],
+        k_tail, v_tail, block_tables.to(torch.int32), lengths.to(torch.int32),
+        tail_start.to(torch.int32), scale=scale, deq_dtype=deq_dtype)
     return out.reshape(B, C, H, D)

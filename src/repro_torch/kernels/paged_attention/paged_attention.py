@@ -3,8 +3,9 @@
 ``csrc/paged_attention.cu`` replaces the Pallas TPU kernel
 ``repro/kernels/paged_attention/paged_attention.py::paged_attention``. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use (cached in ``build/kernels/`` by source hash) and
-loaded with ``ctypes``; the launch runs on PyTorch's current stream.
+interface at first use (``kernels/_build.py``: cached in ``build/kernels/``
+by source hash) and loaded with ``ctypes``; the launch runs on PyTorch's
+current stream.
 
 ``paged_attention`` dispatches on the device its tensors live on: CPU
 tensors take the plain PyTorch version (``ref.paged_attention_ref``), CUDA
@@ -15,79 +16,35 @@ runtime's message. ``paged_attention.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 SOURCE = Path(__file__).resolve().with_name("csrc") / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SIGNATURES = {
+    "paged_attention_launch": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "paged_attention_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "paged_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128, 256)
-_MAX_SMEM_BYTES = 232_448  # per-block dynamic shared memory on sm_90
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def find_nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-        path = str(cand) if cand.exists() else None
-    if path is None:
-        raise RuntimeError(
-            "nvcc not found (PATH, CUDA_HOME/bin): the paged-attention CUDA "
-            "kernel cannot be built")
-    return path
 
 
 def build(build_dir: Optional[Path] = None) -> Tuple[Path, str]:
-    """Compile ``csrc/paged_attention.cu`` -> ``libpaged_attention_<hash>.so``.
-
-    Returns (library path, compiler output — ``ptxas -v`` register and
-    shared-memory report; empty when the library was already built). Raises
-    RuntimeError carrying nvcc's output if the compile fails."""
-    out_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = out_dir / f"libpaged_attention_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    nvcc = find_nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial .so
-    return lib, proc.stdout + proc.stderr
+    """Compile ``csrc/paged_attention.cu`` (see ``kernels/_build.py``).
+    Returns (library path, compiler output); raises with nvcc's output."""
+    return _build.build(SOURCE, build_dir)
 
 
 def _load() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        lib.paged_attention_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.paged_attention_launch.restype = ctypes.c_int
-        lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
-        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-        lib.paged_attention_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    return _build.load(SOURCE, SIGNATURES)
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
@@ -139,9 +96,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     NP = block_tables.shape[1]
     lib = _load()
     smem = lib.paged_attention_smem_bytes(G, D, q.element_size())
-    if smem > _MAX_SMEM_BYTES:
+    if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"paged_attention: G={G}, D={D}, {q.dtype} needs {smem} "
-                         f"bytes of shared memory, more than {_MAX_SMEM_BYTES}")
+                         f"bytes of shared memory, more than {_build.MAX_SMEM_BYTES}")
     out = torch.empty_like(q)
     if B * KV == 0:
         return out
@@ -151,10 +108,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), B, KV, G, D, NB, P, NP, float(scale), stream)
-    if err != 0:
-        msg = lib.paged_attention_error_string(err).decode()
-        raise RuntimeError(f"paged_attention launch failed: CUDA error {err} "
-                           f"({msg})")
+    _build.check_launch(lib.paged_attention_error_string, "paged_attention", err)
     paged_attention.launches += 1
     return out
 

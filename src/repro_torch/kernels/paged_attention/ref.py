@@ -1,7 +1,10 @@
-"""Plain PyTorch oracles for paged decode attention (fp pages).
+"""Plain PyTorch oracles for paged decode attention, fp and KIVI pages.
 
-Twins of ``repro.kernels.paged_attention.ref.paged_attention_ref`` and
-``paged_attention_chunked_ref``, with the same masking: invalid positions
+Twins of ``repro.kernels.paged_attention.ref``: ``paged_attention_ref`` and
+``paged_attention_chunked_ref`` over fp pages, and
+``paged_attention_quant_ref`` / ``paged_attention_chunked_quant_ref`` over
+uint8 codes with scale/zero planes plus a full-precision tail
+(``dequantize_page_leaves``). All share the same masking: invalid positions
 score ``NEG_INF`` and get probability exactly 0, and the normalizer is
 clamped at ``1e-30`` so a row with no valid position returns zeros.
 
@@ -70,3 +73,100 @@ def paged_attention_chunked_ref(q, k_pages, v_pages, block_tables, lengths,
     valid = (pos[None, None, :] <= qpos[:, :, None])[:, :, None, None, :]
     p = _softmax(s, valid)
     return torch.einsum("bckgs,bksd->bckgd", p, v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# quantized pages (KIVI at rest): uint8 codes + scale/zero planes for packed
+# pages, a full-precision tail for everything from ``tail_start`` up
+# ---------------------------------------------------------------------------
+
+def dequantize_page_leaves(codes, scale, zero, deq_dtype):
+    """uint8 codes (+ broadcastable scale/zero planes) -> values in the
+    cache's logical dtype. ``codes * scale + zero`` in f32, then rounded to
+    ``deq_dtype``: the kernel must see the same rounded values, or greedy
+    parity with a backend that stages windows in the cache dtype breaks."""
+    x = codes.float() * scale.float() + zero.float()
+    return x.to(deq_dtype)
+
+
+def _quant_kv(k_codes, k_scale, k_zero, v_codes, v_scale, v_zero, k_tail,
+              v_tail, block_tables, deq_dtype):
+    """Gather the tables' pages, dequantize them and append the tails:
+    -> k, v (B, KV, NP * P + T, D) in ``deq_dtype``."""
+    KV, _, P, D = k_codes.shape
+    B, NP = block_tables.shape
+    t = block_tables.long()
+    k = dequantize_page_leaves(k_codes[:, t], k_scale[:, t], k_zero[:, t], deq_dtype)
+    v = dequantize_page_leaves(v_codes[:, t], v_scale[:, t], v_zero[:, t], deq_dtype)
+    k = k.transpose(0, 1).reshape(B, KV, NP * P, D)
+    v = v.transpose(0, 1).reshape(B, KV, NP * P, D)
+    k = torch.cat([k, k_tail.to(deq_dtype).transpose(1, 2)], dim=2)
+    v = torch.cat([v, v_tail.to(deq_dtype).transpose(1, 2)], dim=2)
+    return k.float(), v.float()
+
+
+def _dead_to_zero(v, valid):
+    """v (B, KV, S, D) with the positions no query attends (``valid`` (B, S)
+    false) set to 0: dead slots may hold anything, and a 0 weight times an
+    infinite value would be NaN. The quantized kernel never loads them."""
+    return torch.where(valid[:, None, :, None], v, torch.zeros_like(v))
+
+
+def paged_attention_quant_ref(q, k_codes, k_scale, k_zero, v_codes, v_scale,
+                              v_zero, k_tail, v_tail, block_tables, lengths,
+                              tail_start, *, scale, deq_dtype=torch.float32,
+                              rows_per_seq=1):
+    """q: (B, KV, G, D); k_codes/v_codes: (KV, NB, P, D) uint8;
+    k_scale/k_zero: (KV, NB, 1, D) — per-channel key groups;
+    v_scale/v_zero: (KV, NB, P, 1) — per-token value groups;
+    k_tail/v_tail: (B, T, KV, D) full-precision K/V from ``tail_start`` up;
+    block_tables: (B, NP) int; lengths: (B,) valid tokens INCLUDING the
+    tail tokens this row may attend; tail_start: (B,) tokens resident in the
+    quantized pages (tail token i is at position tail_start + i).
+    -> (B, KV, G, D). ``rows_per_seq`` > 1 is the extend fold of the CUDA
+    kernel's interface: q and lengths have B * rows_per_seq rows, and row r
+    takes sequence r // rows_per_seq's tails, table and tail_start."""
+    if rows_per_seq > 1:
+        k_tail, v_tail, block_tables, tail_start = (
+            torch.repeat_interleave(t, rows_per_seq, dim=0)
+            for t in (k_tail, v_tail, block_tables, tail_start))
+    NP, P, T = block_tables.shape[1], k_codes.shape[2], k_tail.shape[1]
+    k, v = _quant_kv(k_codes, k_scale, k_zero, v_codes, v_scale, v_zero,
+                     k_tail, v_tail, block_tables, deq_dtype)
+    dev = q.device
+    ts = tail_start.long()[:, None]
+    valid = torch.cat(
+        [torch.arange(NP * P, device=dev)[None, :] < ts,  # page slots past the tail are dead
+         ts + torch.arange(T, device=dev)[None, :] < lengths.long()[:, None]],
+        dim=1)  # (B, NP * P + T)
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(), k) * scale
+    p = _softmax(s, valid[:, None, None, :])
+    return torch.einsum("bkgs,bksd->bkgd", p, _dead_to_zero(v, valid)).to(q.dtype)
+
+
+def paged_attention_chunked_quant_ref(q, k_codes, k_scale, k_zero, v_codes,
+                                      v_scale, v_zero, k_tail, v_tail,
+                                      block_tables, lengths, tail_start, *,
+                                      scale, deq_dtype=torch.float32):
+    """Chunked-extend oracle over KIVI pages: q (B, C, KV, G, D), query j of
+    sequence b at absolute position ``lengths[b] + j``. Page slots serve
+    positions ``< tail_start[b]`` (dequantized once per sequence);
+    everything from ``tail_start`` up, including the chunk's own K/V at its
+    tail slots, comes from the shared fp tail, masked per query row by
+    in-chunk causality (``pos <= lengths[b] + j``). -> (B, C, KV, G, D)."""
+    C = q.shape[1]
+    NP, P, T = block_tables.shape[1], k_codes.shape[2], k_tail.shape[1]
+    k, v = _quant_kv(k_codes, k_scale, k_zero, v_codes, v_scale, v_zero,
+                     k_tail, v_tail, block_tables, deq_dtype)
+    dev = q.device
+    ts = tail_start.long()
+    qpos = lengths.long()[:, None] + torch.arange(C, device=dev)[None, :]  # (B, C)
+    pages_ok = torch.arange(NP * P, device=dev)[None, :] < ts[:, None]  # (B, S)
+    pos_tail = ts[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
+    valid = torch.cat(
+        [pages_ok[:, None, :].expand(-1, C, -1),
+         pos_tail[:, None, :] <= qpos[:, :, None]], dim=-1)  # (B, C, S + T)
+    s = torch.einsum("bckgd,bksd->bckgs", q.float(), k) * scale
+    p = _softmax(s, valid[:, :, None, None, :])
+    return torch.einsum("bckgs,bksd->bckgd", p,
+                        _dead_to_zero(v, valid.any(dim=1))).to(q.dtype)

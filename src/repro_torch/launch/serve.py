@@ -4,6 +4,8 @@
         --no-debug --requests 8          # full published width, on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2                     # smoke width on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 2 --kv-quant-bits 8   # KIVI-quantized pages
 
 ``--debug`` (the default) serves the reduced smoke config, ``--no-debug``
 the published one. ``--device`` defaults to ``cuda``; there is no CPU
@@ -19,22 +21,25 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch import configs
-from repro_torch.core import (EngineConfig, LLMEngine, Request, SamplingParams,
-                              SchedulerConfig)
+from repro_torch.core import (EngineConfig, LLMEngine, QuantConfig, Request,
+                              SamplingParams, SchedulerConfig)
 from repro_torch.models import build_model
 
 
 def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
                  backend: str = "auto", policy: str = "fcfs", seed: int = 0,
+                 kv_quant: Optional[QuantConfig] = None,
                  **engine_kw) -> LLMEngine:
     """Model (smoke or published config) + random weights + engine.
-    ``engine_kw`` overrides the serving defaults below (EngineConfig
-    fields, e.g. ``max_model_len`` or a ``scheduler``)."""
+    ``kv_quant`` stores KIVI-quantized pages; ``engine_kw`` overrides the
+    serving defaults below (EngineConfig fields, e.g. ``max_model_len`` or
+    a ``scheduler``)."""
     cfg = configs.smoke_config(arch) if debug else configs.get_config(arch)
     model = build_model(cfg, device=device)
     params = model.init(seed)
     kw = dict(block_size=16, num_blocks=512, max_model_len=256,
               execution_backend=backend, device=device, seed=seed,
+              kv_quant=kv_quant,
               scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=128,
                                         prefill_chunk=32, policy=policy))
     kw.update(engine_kw)
@@ -51,12 +56,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="execution backend (only auto/paged are ported)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model and kernels run on")
+    ap.add_argument("--kv-quant-bits", type=int, default=0,
+                    help="KIVI-quantize KV pages at rest at this many bits "
+                         "(2, 4 or 8; keys per channel, values per token); "
+                         "0 = fp pages")
     ap.add_argument("--debug", action=argparse.BooleanOptionalAction,
                     default=True, help="smoke config (--no-debug: published)")
     args = ap.parse_args(argv)
 
+    kv_quant = QuantConfig(bits=args.kv_quant_bits) if args.kv_quant_bits else None
     engine = build_engine(args.arch, debug=args.debug, device=args.device,
-                          backend=args.backend, policy=args.policy)
+                          backend=args.backend, policy=args.policy,
+                          kv_quant=kv_quant)
     cfg = engine.model.cfg
     rng = np.random.default_rng(0)
     t0 = time.time()
@@ -72,13 +83,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     dt = time.time() - t0
     gen = sum(m.num_generated for m in metrics)
     snap = engine.metrics_snapshot()
+    quant = ""
+    if kv_quant is not None:
+        st = engine.store
+        quant = (f", kv_quant={kv_quant.bits}bit "
+                 f"({st.kv_fp16_bytes_per_block() / st.kv_bytes_per_block():.2f}x "
+                 "capacity vs fp16)")
     print(f"{cfg.name} on {engine.device}: {len(metrics)} requests, {gen} tokens, "
           f"{gen/dt:.1f} tok/s, {engine.steps} steps "
           f"({engine.paged_steps} paged), "
           f"host_copy={snap['engine.host_copy_bytes']/1e6:.1f}MB, "
           f"kv_util_peak={snap['block_manager.peak_used']/snap['block_manager.num_blocks']:.2f}, "
           f"preempts={snap['engine.preemptions']}, "
-          f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms")
+          f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{quant}")
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ page stores before the paged-attention op attends over the block tables.
 Unlike JAX, the page writes happen IN PLACE on the given tensors
 (``index_put_``): the runner's device mirror is updated without a copy.
 The functions still return the pages so call sites read like the JAX ones.
-Global attention only; LoRA, KIVI pages and tensor parallelism come with
-their own slices.
+KIVI-quantized page stores (``quantized_pages``) take ``_attn_chunk_quant``:
+the pages stay read-only and the step's K/V joins a full-precision tail.
+Global attention only; LoRA and tensor parallelism come with their own
+slices.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.paged_attention import paged_attend, paged_attend_extend
+from repro_torch.kernels.paged_attention import (paged_attend, paged_attend_extend,
+                                                paged_attend_extend_quant)
 from repro_torch.models.common import apply_rope, normal_init
 
 
@@ -75,6 +78,55 @@ def _scale(cfg) -> float:
     return cfg.softmax_scale or 1.0 / math.sqrt(cfg.head_dim)
 
 
+def quantized_pages(pages) -> bool:
+    """Whether a paged K/V dict holds KIVI-quantized stores (codes + scale/
+    zero planes) instead of fp page tensors."""
+    return isinstance(pages.get("k"), dict) and "codes" in pages["k"]
+
+
+def _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths):
+    """C-token attention against KIVI-quantized page stores.
+
+    ``pages[name]`` holds uint8 ``codes`` and f16 ``scale``/``zero`` planes
+    for every FILLED page, and a per-step ``tail`` (B, P + C, KV, D) in the
+    cache dtype: slot i holds position ``tail_start + i`` with
+    ``tail_start = lengths // P * P``, i.e. each sequence's still-filling
+    page, then C empty slots. This step's C tokens are written into their
+    tail slots ``(lengths - tail_start) + j`` — in place, on the per-step
+    tail, never into the quantized pages: a page packs on the host when it
+    fills — and come back in ``(k_new, v_new)`` for the host writeback. The
+    C query positions attend through ``paged_attend_extend_quant``: row
+    (b, j) sees the quantized positions [0, tail_start_b) plus tail tokens
+    up to its own. A chunk crossing several page fills works unchanged,
+    since the tail covers [tail_start, tail_start + P + C). Padded positions
+    of ragged chunks land in the row's own tail past its valid length, which
+    nothing reads, so no scratch redirect is needed.
+
+    Returns (out (B, C, d), pages unchanged, (k_new, v_new)) with
+    k_new/v_new (B, C, KV, D) in the cache dtype."""
+    B, C, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    pos = lengths.long()[:, None] + torch.arange(C, device=x.device)
+    if _uses_rope(cfg, spec):
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    k_tail, v_tail = pages["k"]["tail"], pages["v"]["tail"]
+    dt = k_tail.dtype  # the cache's logical (at-rest) dtype
+    k_new = k.to(dt)  # (B, C, KV, D)
+    v_new = v.to(dt)
+    P = pages["k"]["codes"].shape[2]
+    lengths = lengths.long()
+    tail_start = lengths // P * P
+    bidx = torch.arange(B, device=x.device)[:, None]
+    slots = (lengths - tail_start)[:, None] + torch.arange(C, device=x.device)
+    k_tail[bidx, slots] = k_new
+    v_tail[bidx, slots] = v_new
+    out = paged_attend_extend_quant(q, pages["k"], pages["v"], k_tail, v_tail,
+                                    block_tables, lengths, tail_start,
+                                    scale=_scale(cfg), deq_dtype=dt)
+    return proj_out_lora(p["wo"], out), pages, (k_new, v_new)
+
+
 def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths):
     """One-token decode directly against block-indexed page stores.
 
@@ -83,7 +135,12 @@ def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths):
     written in place into page [lengths // P, lengths % P], then the
     paged-attention op attends with ``lengths + 1`` valid tokens. Returns
     (out (B, 1, d), pages, (k_new, v_new)) with k_new/v_new (B, KV, D) for
-    the host-store writeback."""
+    the host-store writeback. Quantized stores (``quantized_pages``) take
+    ``_attn_chunk_quant`` with C = 1."""
+    if quantized_pages(pages):
+        out, pages, (k_new, v_new) = _attn_chunk_quant(
+            p, cfg, spec, x, pages, block_tables, lengths)
+        return out, pages, (k_new[:, 0], v_new[:, 0])
     B = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     pos = lengths.long()
@@ -115,7 +172,10 @@ def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
     table, so duplicate write indices can only collide there.
 
     Returns (out (B, C, d), pages, (k_new, v_new)) with k_new/v_new
-    (B, C, KV, D)."""
+    (B, C, KV, D). Quantized stores take ``_attn_chunk_quant`` (fp tail, no
+    page writes, no scratch needed)."""
+    if quantized_pages(pages):
+        return _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths)
     B, C, _ = x.shape
     q, k, v = _qkv(p, cfg, x)
     pos = lengths.long()[:, None] + torch.arange(C, device=x.device)

@@ -10,7 +10,9 @@ layer in ``cfg.layer_specs()`` order — the JAX package stacks repeats
 along a leading axis instead; ``models/convert.py`` unstacks them.
 
 Pages are a list over layers of ``{"k", "v"}`` tensors in kernel layout
-(KV, NB, P, D), written in place. ``build_model(cfg, device=...)`` runs
+(KV, NB, P, D), written in place — or, for KIVI-quantized stores, of
+``{"codes", "scale", "zero", "tail"}`` dicts that the step reads and does
+not write (``attention._attn_chunk_quant``). ``build_model(cfg, device=...)`` runs
 on ``cuda`` unless asked for ``cpu`` and raises when CUDA is asked for and
 absent.
 """
@@ -152,12 +154,25 @@ class Model:
                             for spec in self.specs]
         return params
 
-    def init_pages(self, num_blocks: int, block_size: int) -> List[Dict[str, torch.Tensor]]:
+    def init_pages(self, num_blocks: int, block_size: int,
+                   quantized: bool = False) -> List[Dict[str, Any]]:
         """Zeroed page stores, one {"k", "v"} pair per layer, kernel layout
-        (KV, NB, P, D) in the activation dtype, on the model's device."""
-        cfg = self.cfg
+        (KV, NB, P, D), on the model's device. fp pages are in the
+        activation dtype. ``quantized`` pages (KIVI) are per-name dicts:
+        ``codes`` (KV, NB, P, D) uint8 and f16 ``scale``/``zero`` planes,
+        (KV, NB, 1, D) for keys (per channel) and (KV, NB, P, 1) for values
+        (per token)."""
+        cfg, dev = self.cfg, self.device
         shape = (cfg.num_kv_heads, num_blocks, block_size, cfg.head_dim)
-        return [{name: torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if not quantized:
+            return [{name: torch.zeros(shape, dtype=self.dtype, device=dev)
+                     for name in ("k", "v")} for _ in self.specs]
+        planes = {"k": shape[:2] + (1, cfg.head_dim), "v": shape[:3] + (1,)}
+        return [{name: {"codes": torch.zeros(shape, dtype=torch.uint8, device=dev),
+                        "scale": torch.zeros(planes[name], dtype=torch.float16,
+                                             device=dev),
+                        "zero": torch.zeros(planes[name], dtype=torch.float16,
+                                            device=dev)}
                  for name in ("k", "v")} for _ in self.specs]
 
     # ---------------- shared helpers ----------------------------------------
@@ -177,8 +192,9 @@ class Model:
     @torch.no_grad()
     def decode_paged(self, params, tokens, pages, block_tables, lengths):
         """tokens: (B, 1); pages: list over layers of {"k", "v"} (KV, NB, P,
-        D); block_tables: (B, NP) shared by every layer; lengths: (B,) valid
-        tokens before this one. Returns (logits (B, 1, V), pages, writes)
+        D), or quantized dicts with a per-step ``tail``; block_tables:
+        (B, NP) shared by every layer; lengths: (B,) valid tokens before
+        this one. Returns (logits (B, 1, V), pages, writes)
         with one {"k", "v"} (B, KV, D) entry per layer: the new token's K/V
         for the host-authoritative store."""
         x = self.embed_tokens(params, tokens)

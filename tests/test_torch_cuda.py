@@ -1,5 +1,7 @@
-"""The port's CUDA paged-attention kernel vs its plain PyTorch version, on
-the card. Every test here is marked ``gpu`` and skips without CUDA.
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card:
+paged attention over fp pages, paged attention over KIVI pages, and the
+per-page pack and unpack. Every test here is marked ``gpu`` and skips
+without CUDA.
 
 This file imports neither JAX nor ``repro``, so it runs on a machine with
 only PyTorch and the CUDA toolkit. ``tests/conftest.py`` imports JAX, so
@@ -8,7 +10,8 @@ there it runs without the conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 
 Tolerances: f32 ``atol 1e-5`` (summation order only); bf16 ``atol 2e-2``
-(both compute in fp32 and round the output once).
+(both compute in fp32 and round the output once). The pack and unpack are
+byte-equal: every step of both is one IEEE-rounded f32 operation.
 """
 import numpy as np
 import pytest
@@ -106,3 +109,169 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         strided = torch.cat([q, q], dim=3)[..., ::2]  # q's shape, stride 2
         kmod.paged_attention(strided, k, v, tables, lengths, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# KIVI: the pack / unpack kernels and paged attention over quantized pages
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.kv_quant import kv_quant as kvmod  # noqa: E402
+from repro_torch.kernels.kv_quant import ref as kvref  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention_quant as qmod  # noqa: E402
+
+QCASES = CASES[:4] + [(2, 2, 2, 256, 4, 16, 3)]  # (B, KV, G, D, P, NB, NP)
+
+
+def _pack_pages(seed, NP, P, C, dev):
+    """Random f32 pages, page 0 constant (scale 0 -> 1), page 1 seven
+    repeated values."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(NP, P, C)).astype(np.float32) * 3
+    x[0] = -0.75
+    x[1] = ((np.arange(P)[:, None] + np.arange(C)[None, :]) % 7 + 0.5) / 7
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("axis", ["channel", "token"])
+def test_pack_kernel_byte_equal_to_plain(cuda, bits, axis):
+    x = _pack_pages(bits, 37, 16, 128, cuda)
+    before = kvmod.quantize_pages.launches
+    got = kvmod.quantize_pages(x, bits=bits, axis=axis)
+    want = kvref.quantize_pages_ref(x, bits=bits, axis=axis)
+    torch.cuda.synchronize()
+    assert kvmod.quantize_pages.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # and the CPU plain version computes the same bytes
+    for g, w in zip(got, kvref.quantize_pages_ref(x.cpu(), bits=bits, axis=axis)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", ["channel", "token"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_unpack_kernel_byte_equal_to_plain(cuda, axis, out_dtype):
+    codes, scale, zero = kvref.quantize_pages_ref(_pack_pages(5, 19, 8, 64, cuda),
+                                                  bits=8, axis=axis)
+    before = kvmod.dequantize_pages.launches
+    got = kvmod.dequantize_pages(codes, scale, zero, out_dtype=out_dtype)
+    want = kvref.dequantize_pages_ref(codes, scale, zero, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert kvmod.dequantize_pages.launches == before + 1
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def _quant_inputs(seed, B, KV, G, D, P, NB, NP, T, bits, dtype, dev,
+                  tail_start=None, lengths=None):
+    """q, KIVI pages packed by the plain pack (planes f16, as the engine
+    stores them), fp tails, per-row tables, tail_start and lengths."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, D)).astype(np.float32))
+    leaves = {}
+    for name, axis in (("k", "channel"), ("v", "token")):
+        fp = torch.from_numpy(rng.normal(size=(KV * NB, P, D)).astype(np.float32))
+        c, s, z = kvref.quantize_pages_ref(fp, bits=bits, axis=axis)
+        shape = lambda t: t.reshape((KV, NB) + t.shape[1:]).to(dev)  # noqa: E731
+        leaves[name] = (shape(c), shape(s.half()), shape(z.half()))
+    tails = [torch.from_numpy(rng.normal(size=(B, T, KV, D)).astype(np.float32))
+             .to(dev, dtype) for _ in range(2)]
+    tables = np.stack([rng.choice(NB, size=NP, replace=False) for _ in range(B)])
+    if tail_start is None:
+        tail_start = rng.integers(0, NP * P + 1, size=(B,))
+    if lengths is None:
+        lengths = np.asarray(tail_start) + rng.integers(0, T + 1, size=(B,))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)  # noqa: E731
+    return (q.to(dev, dtype), *leaves["k"], *leaves["v"], *tails, i32(tables),
+            i32(lengths), i32(tail_start))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QCASES)
+@pytest.mark.parametrize("T", [1, 4, 17])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quant_kernel_matches_plain_version(cuda, case, T, bits, dtype):
+    args = _quant_inputs(T + bits, *case, T, bits, dtype, cuda)
+    scale = case[3] ** -0.5
+    before = qmod.paged_attention_quant.launches
+    out = qmod.paged_attention_quant(*args, scale=scale, deq_dtype=dtype)
+    want = ref.paged_attention_quant_ref(*args, scale=scale, deq_dtype=dtype)
+    torch.cuda.synchronize()
+    assert qmod.paged_attention_quant.launches == before + 1
+    assert out.dtype == dtype and out.shape == args[0].shape
+    torch.testing.assert_close(out.float(), want.float(), atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+def test_quant_kernel_edge_rows_and_poisoned_slots(cuda):
+    """Rows: tail only (tail_start 0), pages only (lengths == tail_start),
+    nothing valid (zeros), a split mid-page. Then every slot the rows must
+    not read is poisoned — codes 255, value planes Inf, dead pages' key
+    planes Inf, tail slots +-Inf — and nothing changes."""
+    B, KV, G, D, P, NB, NP, T = 4, 2, 2, 64, 8, 20, 4, 5
+    ts, ln = [0, 16, 0, 13], [4, 16, 0, 17]
+    args = list(_quant_inputs(11, B, KV, G, D, P, NB, NP, T, 8, torch.float32, cuda,
+                              tail_start=ts, lengths=ln))
+    tables = torch.arange(B * NP, dtype=torch.int32, device=cuda).reshape(B, NP)
+    args[9] = tables  # disjoint rows: a dead page is dead for every row
+    clean = qmod.paged_attention_quant(*args, scale=0.2)
+    want = ref.paged_attention_quant_ref(*args, scale=0.2)
+    bad = [a.clone() for a in args]
+    kc, ks, kz, vc, vs, vz, kt, vt = bad[1:9]
+    for b in range(B):
+        for page in range(NP):
+            blk = int(tables[b, page])
+            dead = slice(max(0, ts[b] - page * P), P)
+            kc[:, blk, dead] = 255
+            vc[:, blk, dead] = 255
+            vs[:, blk, dead] = float("inf")
+            if page * P >= ts[b]:
+                ks[:, blk], kz[:, blk] = float("inf"), float("-inf")
+        kt[b, ln[b] - ts[b]:] = float("inf")
+        vt[b, ln[b] - ts[b]:] = float("-inf")
+    poisoned = qmod.paged_attention_quant(*bad, scale=0.2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(clean, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(poisoned, clean, atol=1e-6, rtol=0)
+    assert torch.equal(clean[2], torch.zeros_like(clean[2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quant_extend_fold_matches_chunked_oracle(cuda, dtype):
+    B, C, KV, G, D, P, NB, NP = 3, 8, 2, 4, 64, 16, 32, 4
+    starts = np.asarray([0, P - 1, 2 * P + 3])
+    args = _quant_inputs(4, B, KV, G, D, P, NB, NP, P + C, 8, dtype, cuda,
+                         tail_start=starts // P * P, lengths=starts)
+    qc = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(B, C, KV * G, D)).astype(np.float32)).to(cuda, dtype)
+    k = dict(zip(("codes", "scale", "zero"), args[1:4]))
+    v = dict(zip(("codes", "scale", "zero"), args[4:7]))
+    before = qmod.paged_attention_quant.launches
+    out = ops.paged_attend_extend_quant(qc, k, v, *args[7:10], args[10], args[11],
+                                        scale=0.125, deq_dtype=dtype)
+    want = ref.paged_attention_chunked_quant_ref(
+        qc.reshape(B, C, KV, G, D), *args[1:12], scale=0.125, deq_dtype=dtype)
+    torch.cuda.synchronize()
+    assert qmod.paged_attention_quant.launches == before + 1  # one launch, B*C rows
+    torch.testing.assert_close(out.float(), want.reshape(B, C, KV * G, D).float(),
+                               atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    args = list(_quant_inputs(3, 1, 1, 2, 32, 8, 4, 2, 2, 8, torch.float32, cuda))
+    with pytest.raises(TypeError, match="float16"):
+        qmod.paged_attention_quant(*args[:2], args[2].float(), *args[3:], scale=1.0)
+    with pytest.raises(TypeError, match="int32"):
+        qmod.paged_attention_quant(*args[:9], args[9].long(), *args[10:], scale=1.0)
+    with pytest.raises(ValueError, match="page size"):  # P = 3
+        qmod.paged_attention_quant(args[0], *(a[:, :, :3].contiguous()
+                                              for a in args[1:7]), *args[7:], scale=1.0)
+    x = torch.zeros(2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="bits"):
+        kvmod.quantize_pages(x, bits=3, axis="channel")
+    with pytest.raises(ValueError, match="float32"):
+        kvmod.quantize_pages(x.bfloat16(), bits=8, axis="channel")

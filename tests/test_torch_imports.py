@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 (and ``chip_smoke.py``) loads neither JAX nor the JAX package ``repro``.
-Checked in a fresh interpreter, where nothing else has imported them."""
+Checked in a fresh interpreter, where nothing else has imported them; the
+walk must reach the KIVI modules too."""
 import os
 import subprocess
 import sys
@@ -18,7 +19,12 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(mods), "modules;", "leaked:", bad)
 assert not bad, bad
-assert len(mods) >= 20, mods
+assert len(mods) >= 25, mods
+kivi = {"repro_torch.core.kv_quant", "repro_torch.kernels._build",
+        "repro_torch.kernels.kv_quant.kv_quant", "repro_torch.kernels.kv_quant.ops",
+        "repro_torch.kernels.kv_quant.ref",
+        "repro_torch.kernels.paged_attention.paged_attention_quant"}
+assert kivi <= set(mods), kivi - set(mods)
 """
 
 
