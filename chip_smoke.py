@@ -5,28 +5,33 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device  — CUDA present, card name and power limit, TF32 off;
-  2. build   — nvcc builds the three kernel libraries from csrc/, one nvcc
+  2. build   — nvcc builds the four kernel libraries from csrc/, one nvcc
                per source, all at once;
   3. kernel  — every CUDA kernel vs its plain PyTorch version on the card:
                paged attention over fp pages (shape cases, poisoned slots,
                the olmo-1b decode shape, the extend fold, a zero-length
                row), over KIVI pages (shape cases x bits x dtypes, poisoned
                slots, tail-only and pages-only rows, the extend fold, the
-               olmo-1b decode shape), and the pack / unpack (byte-equal);
+               olmo-1b decode shape), the pack / unpack (byte-equal), and
+               the LoRA bgmv (shape cases, ranks 4-64, olmo-1b's three
+               adapter sites; null-slot rows exactly 0);
   4. timing  — each kernel at the olmo-1b serving shape beside its bound,
-               its plain version and, where one exists, one PyTorch call
+               its plain version and, where one exists, the PyTorch calls
                computing the same function;
   5. model   — olmo-1b at its published width, decode_paged and ragged
                extend_paged over fp pages and over KIVI pages, kernel vs
-               plain attention logits;
+               plain attention logits; then with LoRA adapters (kernel vs
+               plain bgmv, the null-slot row equal to the LoRA-free step);
   6. serve   — the serving engine (launch/serve.py's build_engine) at full
                width: 8 requests, greedy, kernel launch counts checked;
-               then the same traffic with KIVI 8-bit pages.
+               then the same traffic with KIVI 8-bit pages, and with 4
+               LoRA adapters over a 2-slot store (faults and evictions).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -44,13 +49,16 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import (QuantConfig, Request, SamplingParams,  # noqa: E402
-                              SchedulerConfig)
+from repro_torch.core import (BlockManager, QuantConfig, Request,  # noqa: E402
+                              SamplingParams, SchedulerConfig)
+from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  # noqa: E402
 from repro_torch.core.telemetry import StepTracer  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.kv_quant import kv_quant as kvmod  # noqa: E402
 from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
     dequantize_pages_ref, quantize_pages_ref)
+from repro_torch.kernels.lora import bgmv as bgmod  # noqa: E402
+from repro_torch.kernels.lora.ref import bgmv_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as kmod  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention_quant as qmod  # noqa: E402
@@ -66,7 +74,8 @@ KERNEL = kmod.paged_attention
 QKERNEL = qmod.paged_attention_quant
 PACK = kvmod.quantize_pages
 UNPACK = kvmod.dequantize_pages
-SOURCES = [kmod.SOURCE, qmod.SOURCE, kvmod.SOURCE]
+BGMV = bgmod.bgmv
+SOURCES = [kmod.SOURCE, qmod.SOURCE, kvmod.SOURCE, bgmod.SOURCE]
 
 # data-sheet HBM bandwidth and non-tensor-core fp32 rate, by card name
 # (NVIDIA data sheets; the first matching substring wins)
@@ -86,6 +95,10 @@ ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # first run on the card measured 0.11 and 0.13. A wrong kernel (a dropped or
 # extra position) moves logits by O(1).
 MODEL_ATOL = 0.25
+# the same comparison in f32 (phase 5's LoRA twin): the kernel and the plain
+# bgmv differ by f32 summation order (~1e-6 relative); 16 layers may amplify
+# that a few hundred times, still far below the O(1) a wrong row or slot gives
+MODEL_ATOL_F32 = 1e-2
 # olmo-1b decode shape timed in phase 4
 OLMO = dict(B=8, KV=16, G=1, D=128, P=16, L=1024)
 # torch.cuda._sleep cycles that hold the stream while timed calls are
@@ -108,6 +121,11 @@ def plain_attention():
 def plain_quant_attention():
     """``plain_attention`` for the quantized kernel (phase 5 only)."""
     return mock.patch.object(qmod, "paged_attention_quant", paged_attention_quant_ref)
+
+
+def plain_bgmv():
+    """``plain_attention`` for the LoRA kernel (phase 5 only)."""
+    return mock.patch.object(bgmod, "bgmv", bgmv_ref)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -204,11 +222,13 @@ def check(name, got, want, atol) -> float:
     return err
 
 
-def device_profile(label, fn) -> None:
+def device_profile(label, fn, focus=None) -> None:
     """Where one call's time goes: its wall time (host clock around a
     synchronized call, median of 3, profiler off), then one call under
     torch.profiler for the kernels' time by name on the device clock. The
-    device's busy share is their sum over that wall time."""
+    device's busy share is their sum over that wall time. ``focus``: a
+    substring of kernel names whose launches and share of the busy time are
+    reported too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
@@ -221,11 +241,14 @@ def device_profile(label, fn) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name, launches = {}, 0
+    by_name, launches, focused = {}, 0, [0, 0.0]
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             launches += 1
+            if focus is not None and focus in e.name:
+                focused[0] += 1
+                focused[1] += e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if not busy:
         log(f"  {label}: wall {wall_us / 1e3:.3f} ms; device time not measured "
@@ -235,6 +258,9 @@ def device_profile(label, fn) -> None:
     log(f"  {label}: wall {wall_us / 1e3:.3f} ms, {launches} device kernels, "
         f"busy {busy / 1e3:.3f} ms = {busy / wall_us:.1%} of wall; top: "
         + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms" for n, t in top))
+    if focus is not None:
+        log(f"    {focus}: {focused[0]} launches, {focused[1] / 1e3:.3f} ms = "
+            f"{focused[1] / busy:.1%} of busy")
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +290,7 @@ def phase_build():
     kmod._load()
     _build.load(qmod.SOURCE, qmod.SIGNATURES)
     _build.load(kvmod.SOURCE, kvmod.SIGNATURES)
+    _build.load(bgmod.SOURCE, bgmod.SIGNATURES)
     log(f"[2 build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
     for path, report in built:
         log(f"  {os.path.relpath(path, ROOT)}")
@@ -511,6 +538,123 @@ def phase_timing_quant(card):
     return out
 
 
+# B, C, Din, R, Dout, T: tests/test_lora.py:70-84's case, ranks 4-64 at C = 1
+# and C = 64, then olmo-1b's three adapter site shapes at decode and prefill
+BGMV_CASES = (
+    [(5, 3, 16, 4, 24, 4)]
+    + [(6, C, 256, R, 320, 5) for R in (4, 8, 16, 64) for C in (1, 64)]
+    + [(B, C, Din, 8, Dout, 5) for B, C in ((8, 1), (4, 64))
+       for Din, Dout in ((2048, 2048), (2048, 16384), (8192, 2048))])
+# bgmv tolerance beyond ATOL. f32: the plain version's own rounding error,
+# measured against an f64 product on the card (its batched matmul sums the Din
+# products sequentially: at Din 2048-8192 and C=64 its error alone reaches
+# 1e-5 at O(1) outputs, while the kernel's tree sums stay near 1e-6). bf16:
+# both versions sum in f32 and round once; where the two sums straddle a
+# rounding boundary they differ by one bf16 step, 2^-7 relative.
+BGMV_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
+
+
+def bgmv_f64(x, a, b, idx):
+    """The same products in f64 on the card: the yardstick of f32 rounding."""
+    i = idx.long()
+    h = torch.einsum("bcd,bdr->bcr", x.double(), a[i].double())
+    return torch.einsum("bcr,bro->bco", h, b[i].double())
+
+
+def bgmv_inputs(seed, B, C, Din, R, Dout, T, dtype, idx=None):
+    """O(1) outputs (A and B scaled as make_adapter scales them), slot 0 the
+    null adapter, ids with slot 0 and a repeat unless given."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.normal(size=(B, C, Din)).astype(np.float32)).to(dev, dtype)
+    a = (rng.normal(size=(T, Din, R)) / np.sqrt(Din)).astype(np.float32)
+    b = (rng.normal(size=(T, R, Dout)) / np.sqrt(R)).astype(np.float32)
+    a[0] = 0
+    b[0] = 0
+    if idx is None:
+        idx = (np.arange(B) * 2 + 1) % T
+        idx[0] = 0
+        idx[-1] = idx[1]
+    return (x, torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+            torch.tensor(np.asarray(idx), dtype=torch.int32, device=dev))
+
+
+def check_bgmv(name, x, a, b, idx, got=None) -> float:
+    """``got`` (the kernel's output unless given) vs the plain version on
+    the same inputs: within ATOL plus BGMV_RTOL relative plus, in f32, the
+    plain version's own distance from f64 (and ``got`` within ATOL of f64);
+    every null-slot row exactly 0."""
+    got = BGMV(x, a, b, idx) if got is None else got
+    want = bgmv_ref(x, a, b, idx)
+    exact = bgmv_f64(x, a, b, idx)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    slack = BGMV_RTOL[x.dtype] * want.float().abs()
+    plain_err = got_err = 0.0
+    if x.dtype == torch.float32:
+        slack = (want.double() - exact).abs().float()
+        plain_err = slack.max().item()
+        got_err = (got.double() - exact).abs().max().item()
+    over = (diff - slack).max().item()
+    null = idx == 0
+    null_max = got[null].float().abs().max().item() if null.any() else 0.0
+    ok = math.isfinite(err) and over <= ATOL[x.dtype] and \
+        got_err <= ATOL[x.dtype] and null_max == 0.0
+    log(f"  {name}: max_abs_err={err:.3g} (atol {ATOL[x.dtype]:g} + "
+        + (f"the plain version's f32 error {plain_err:.3g}; vs f64 {got_err:.3g}"
+           if x.dtype == torch.float32 else f"rtol {BGMV_RTOL[x.dtype]:g}")
+        + f"), null-slot rows max |y| {null_max:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: disagrees with the plain bgmv")
+    return err
+
+
+def phase_kernel_lora():
+    log("[3 kernel vs plain version on the card: LoRA bgmv]")
+    for case in BGMV_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_bgmv(f"bgmv (B, C, Din, R, Dout, T) = {case} {str(dtype)[6:]}",
+                       *bgmv_inputs(9, *case, dtype))
+    # ids outside the table never read it: those rows come back NaN
+    x, a, b, _ = bgmv_inputs(10, 3, 2, 64, 4, 96, 3, torch.float32)
+    out = BGMV(x, a, b, torch.tensor([1, 3, 0], dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1]).all() and not torch.isnan(out[[0, 2]]).any()
+    log("  bgmv id outside the table: its row NaN, the others finite ok")
+
+
+def phase_timing_lora(card):
+    """bgmv at olmo-1b's w1 site (2048 -> 16384, rank 8) with 4 distinct
+    adapters plus the null slot: decode (B=8, C=1) and prefill (B=4, C=64)."""
+    out = {}
+    for label, B, C, idx in (("decode", 8, 1, [1, 2, 0, 3, 4, 1, 0, 2]),
+                             ("prefill", 4, 64, [1, 2, 0, 3])):
+        Din, R, Dout, T = 2048, 8, 16384, 5
+        x, a, b, ix = bgmv_inputs(11, B, C, Din, R, Dout, T, torch.bfloat16, idx=idx)
+        err = check_bgmv(f"bgmv timed {label} shape", x, a, b, ix)
+        ms = cuda_ms(lambda: BGMV(x, a, b, ix))
+        plain_ms = cuda_ms(lambda: bgmv_ref(x, a, b, ix))
+
+        def library():  # 2 gathers, 2 torch.bmm, casts in and out of f32
+            ag, bg = a.index_select(0, ix), b.index_select(0, ix)
+            return torch.bmm(torch.bmm(x.float(), ag), bg).to(x.dtype)
+        check_bgmv(f"bgmv {label}: gather + 2 x torch.bmm", x, a, b, ix, got=library())
+        library_ms = cuda_ms(library)
+        slots = len(set(idx))  # the distinct slots this run's ids read
+        nbytes = (slots * R * (Din + Dout) * 4 + x.numel() * 2 + B * C * Dout * 2
+                  + B * 4)
+        bound_ms, bound_by = bound(card, nbytes, 2 * B * C * R * (Din + Dout))
+        log(f"[4 timing] bgmv {label} B={B} C={C} Din={Din} R={R} Dout={Dout} bf16, "
+            f"{slots} distinct slots: kernel {ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, {bound_by}), plain "
+            f"{plain_ms * 1e3:.1f} us, library (2 index_select + 2 torch.bmm + 2 "
+            f"casts = 6 calls) {library_ms * 1e3:.1f} us; {bound_ms / ms:.1%} of bound")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    return out["decode"]
+
+
 def build_olmo():
     cfg = configs.get_config("olmo-1b")
     t0 = time.perf_counter()
@@ -607,6 +751,102 @@ def phase_model_quant(model, params):
     model_steps(model, params, pages, tails, QKERNEL, plain_quant_attention, "KIVI ")
 
 
+def lora_operand(cfg, ids, max_loaded=2):
+    """Full-width rank-8 tables on the card (a paged adapter store with
+    ``max_loaded`` adapters from make_adapter seeds 1, 2, ...) and the rows'
+    slots ``ids`` as one int32 tensor: the models' lora argument."""
+    lora = LoRAConfig(rank=8, alpha=16.0, max_loaded_adapters=max_loaded)
+    store = PagedAdapterStore(cfg, lora, BlockManager(1024, 16), 2 * 1024 * 1024,
+                              device="cuda")
+    names = [f"a{j}" for j in range(max_loaded)]
+    for j, name in enumerate(names):
+        store.registry.register(name, make_adapter(cfg, lora, seed=j + 1))
+    store.ensure(names)
+    assert [store.slot(n) for n in names] == list(range(1, max_loaded + 1))
+    return {"ids": torch.tensor(ids, dtype=torch.int32, device="cuda"),
+            "layers": store.tables}
+
+
+def phase_model_lora(model, params):
+    """Full published width over fp pages with LoRA slots [1, 2, 0, 1], in
+    bf16 (the serving dtype) and in an f32 twin of the same weights. bf16:
+    the null-slot row equals the LoRA-free step exactly, the adapter rows
+    are apart from it, and one LoRA decode step is profiled. f32: logits
+    with the bgmv kernel vs the plain bgmv within MODEL_ATOL_F32. In bf16
+    the two differ wherever their f32 sums straddle a bf16 rounding
+    boundary, and 16 layers of random rank-8 adapters carry those one-step
+    differences on to the logits; that drift is printed, not gated."""
+    cfg = model.cfg
+    P, NP, B, C = 16, 64, 4, 64
+    rng = np.random.default_rng(6)
+    tables = torch.tensor(rng.permutation(np.arange(1, B * NP + 1)).reshape(B, NP),
+                          dtype=torch.int64, device="cuda")
+    ids = [1, 2, 0, 1]
+    lora = lora_operand(cfg, ids)
+    null, tenants = ids.index(0), [i for i, s in enumerate(ids) if s]
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, 1)), device="cuda")
+    lengths = torch.tensor([100, 300, 517, 1000], dtype=torch.int32, device="cuda")
+    tokc = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, C)), device="cuda")
+    lengthsc = torch.tensor([0, 100, 513, 300], dtype=torch.int32, device="cuda")
+    chunk_lens = torch.tensor([64, 17, 1, 40], dtype=torch.int32, device="cuda")
+    steps = [("decode_paged", "decode_paged",
+              torch.ones(B, 1, dtype=torch.bool, device="cuda"), (tok, lengths)),
+             ("ragged extend_paged", "extend_paged",
+              torch.arange(C, device="cuda")[None, :] < chunk_lens[:, None],
+              (tokc, lengthsc, chunk_lens, 0))]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    pages = model.init_pages(B * NP + 1, P)
+    for pg in pages:
+        for x in pg.values():
+            x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+
+    def run(m, prm, pgs, name, args, **kw):
+        before = BGMV.launches
+        logits = getattr(m, name)(prm, args[0], [{n: x.clone() for n, x in pg.items()}
+                                                 for pg in pgs], tables, *args[1:], **kw)[0]
+        torch.cuda.synchronize()
+        return logits.float(), BGMV.launches - before
+
+    for label, name, rows, args in steps:
+        lk, n = run(model, params, pages, name, args, lora=lora)
+        base, _ = run(model, params, pages, name, args)
+        with plain_bgmv():
+            lp, _ = run(model, params, pages, name, args, lora=lora)
+        assert n == 6 * cfg.num_layers, n
+        assert torch.isfinite(lk[rows]).all()
+        same = (lk[null] - base[null])[rows[null]].abs().max().item()
+        apart = min((lk[i] - base[i])[rows[i]].abs().max().item() for i in tenants)
+        drift = (lk[rows] - lp[rows]).abs().max().item()
+        log(f"  LoRA {label} bf16: null-slot row vs lora=None max |diff| {same:g}; "
+            f"adapter rows vs lora=None max |diff| >= {apart:.3g}; kernel vs plain "
+            f"bgmv logits max |diff| {drift:.3g} (bf16 drift, not gated; logits max "
+            f"|x| {lk[rows].abs().max().item():.3g}); {n} bgmv launches "
+            f"(= 6 x {cfg.num_layers} layers)")
+        assert same == 0.0 and apart > MODEL_ATOL, (same, apart)
+    device_profile(f"LoRA decode_paged B={B}", lambda: model.decode_paged(
+        params, tok, pages, tables, lengths, lora=lora), focus="bgmv")
+    # the f32 twin: same weights, pages, adapters and inputs
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32",
+                                              param_dtype="float32"), device="cuda")
+    params32 = _to_f32(params)
+    pages32 = [{n: x.float() for n, x in pg.items()} for pg in pages]
+    for label, name, rows, args in steps:
+        lk, _ = run(model32, params32, pages32, name, args, lora=lora)
+        with plain_bgmv():
+            lp, _ = run(model32, params32, pages32, name, args, lora=lora)
+        check(f"LoRA {label} f32 logits, kernel vs plain bgmv", lk[rows], lp[rows],
+              MODEL_ATOL_F32)
+    del model32, params32, pages32
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_f32(v) for v in tree]
+    return tree.float()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for x in tree.values():
@@ -618,21 +858,23 @@ def _leaves(tree):
         yield tree
 
 
-def serve_engine(kv_quant=None):
+def serve_engine(kv_quant=None, lora=None):
     return build_engine(
         "olmo-1b", debug=False, device="cuda", max_model_len=1024,
-        num_blocks=640, block_size=16, kv_quant=kv_quant,
+        num_blocks=640, block_size=16, kv_quant=kv_quant, lora=lora,
         scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=256,
                                   prefill_chunk=64))
 
 
-def add_traffic(engine, rng, prefix):
-    """8 requests, prompts of 128-512 random tokens, 32 greedy tokens each."""
+def add_traffic(engine, rng, prefix, adapters=(None,)):
+    """8 requests, prompts of 128-512 random tokens, 32 greedy tokens each;
+    request i names adapter ``adapters[i % len(adapters)]``."""
     vocab = engine.model.cfg.vocab_size
     for i in range(8):
         n = int(rng.integers(128, 513))
         engine.add_request(Request(
             request_id=f"{prefix}{i}", prompt=[int(x) for x in rng.integers(2, vocab, n)],
+            adapter_id=adapters[i % len(adapters)],
             sampling=SamplingParams(temperature=0.0, max_new_tokens=32)))
 
 
@@ -656,13 +898,14 @@ def run_served(engine, counters):
     return metrics, dt, launches
 
 
-def traced_rerun(engine, rng):
+def traced_rerun(engine, rng, adapters=(None,)):
     """The same traffic again (fresh prompts), traced: host-clock spans per
-    engine layer (``tail_upload`` and ``writeback`` run inside ``dispatch``);
-    the untraced run gives the end-to-end numbers."""
+    engine layer (``tail_upload`` and ``writeback`` run inside ``dispatch``,
+    ``lora_fault`` before it); the untraced run gives the end-to-end
+    numbers."""
     tracer = StepTracer()
-    engine.trace = engine.paged_runner.trace = tracer
-    add_traffic(engine, rng, "t")
+    engine.set_tracer(tracer)
+    add_traffic(engine, rng, "t", adapters)
     steps0, t0 = engine.steps, time.perf_counter()
     traced = engine.run()[8:]
     dt_traced = time.perf_counter() - t0
@@ -679,7 +922,7 @@ def traced_rerun(engine, rng):
 
 
 COUNTERS = {"paged_attention": KERNEL, "paged_attention_quant": QKERNEL,
-            "quantize_pages": PACK, "dequantize_pages": UNPACK}
+            "quantize_pages": PACK, "dequantize_pages": UNPACK, "bgmv": BGMV}
 
 
 def phase_serve():
@@ -693,6 +936,7 @@ def phase_serve():
     assert launches == cfg.num_layers * engine.paged_steps, \
         (launches, engine.paged_steps)
     assert counts["paged_attention_quant"] == counts["quantize_pages"] == 0, counts
+    assert counts["bgmv"] == 0, counts
     ttft = statistics.median(m.ttft for m in metrics)
     prompt = sum(m.num_prompt for m in metrics)
     log(f"[6 serve] {cfg.name} full width: 8 requests, {prompt} prompt + {gen} "
@@ -701,7 +945,7 @@ def phase_serve():
         f"({engine.paged_steps} paged), {launches} kernel launches "
         f"(= {cfg.num_layers} x steps), host_copy_bytes 0")
     traced_rerun(engine, rng)
-    return counts
+    return counts, gen / dt, ttft
 
 
 def phase_serve_quant():
@@ -716,7 +960,7 @@ def phase_serve_quant():
     gen = sum(m.num_generated for m in metrics)
     assert counts["paged_attention_quant"] == cfg.num_layers * engine.paged_steps, \
         (counts, engine.paged_steps)
-    assert counts["paged_attention"] == 0, counts
+    assert counts["paged_attention"] == counts["bgmv"] == 0, counts
     assert counts["quantize_pages"] >= 1, counts
     ttft = statistics.median(m.ttft for m in metrics)
     ratio = store.kv_fp16_bytes_per_block() / store.kv_bytes_per_block()
@@ -736,11 +980,51 @@ def phase_serve_quant():
     return counts
 
 
+def phase_serve_lora(fp_rate, fp_ttft):
+    """The same 8-request traffic over fp pages with multi-tenant LoRA: rank
+    8 adapters a0..a3 registered, a store of 2 slots, requests cycling over
+    a0, a1, a2, a3 and no adapter, so adapters fault in and evict while
+    serving."""
+    lora = LoRAConfig(rank=8, alpha=16.0, max_loaded_adapters=2)
+    engine = serve_engine(lora=lora)
+    cfg, store = engine.model.cfg, engine.adapters
+    names = [f"a{j}" for j in range(4)]
+    for j, name in enumerate(names):
+        engine.register_adapter(name, make_adapter(cfg, lora, seed=j + 1))
+    rng = np.random.default_rng(7)  # the fp serve's prompts
+    add_traffic(engine, rng, "r", adapters=names + [None])
+    metrics, dt, counts = run_served(engine, COUNTERS)
+    gen = sum(m.num_generated for m in metrics)
+    steps = engine.paged_steps
+    snap = engine.metrics_snapshot()
+    assert counts["bgmv"] == 6 * cfg.num_layers * steps, (counts, steps)
+    assert counts["paged_attention"] == cfg.num_layers * steps, (counts, steps)
+    assert counts["paged_attention_quant"] == counts["quantize_pages"] == 0, counts
+    assert snap["lora.misses"] >= 4 and snap["lora.evictions"] >= 2, snap
+    assert store.pages_per_adapter == 11, store.pages_per_adapter
+    assert snap["lora.rented_pages"] == 11 * len(store.loaded), snap
+    ttft = statistics.median(m.ttft for m in metrics)
+    log(f"[6 serve] {cfg.name} full width, LoRA rank {lora.rank} x 4 adapters over "
+        f"{lora.max_loaded_adapters} slots: 8 requests, {gen} generated tokens in "
+        f"{dt:.2f} s = {gen / dt:.1f} generated tok/s (fp serve above: {fp_rate:.1f}), "
+        f"TTFT p50 {ttft * 1e3:.0f} ms (fp: {fp_ttft * 1e3:.0f}), {engine.steps} steps "
+        f"({steps} paged); launches: bgmv {counts['bgmv']} (= 6 x {cfg.num_layers} x "
+        f"steps), paged_attention {counts['paged_attention']} (= {cfg.num_layers} x "
+        f"steps); lora hits {snap['lora.hits']}, misses {snap['lora.misses']}, "
+        f"evictions {snap['lora.evictions']}, loads {snap['lora.loads']} "
+        f"({snap['lora.load_bytes'] / 1e6:.1f} MB), {snap['lora.rented_pages']} pages "
+        f"rented (= {store.pages_per_adapter} x {len(store.loaded)} resident); "
+        f"preemptions {snap['engine.preemptions']}, host_copy_bytes 0")
+    traced_rerun(engine, rng, adapters=names + [None])
+    return counts
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
     "quantize_pages": "src/repro/kernels/kv_quant/kv_quant.py:30",
     "dequantize_pages": "src/repro/kernels/kv_quant/kv_quant.py:60",
+    "bgmv": "src/repro/kernels/lora/lora.py:35",
 }
 
 
@@ -749,21 +1033,29 @@ def main() -> None:
     phase_build()
     phase_kernel()
     phase_kernel_quant()
-    timing = {"paged_attention": phase_timing(card), **phase_timing_quant(card)}
+    phase_kernel_lora()
+    timing = {"paged_attention": phase_timing(card), **phase_timing_quant(card),
+              "bgmv": phase_timing_lora(card)}
     model, params = build_olmo()
     phase_model(model, params)
     phase_model_quant(model, params)
+    phase_model_lora(model, params)
     del model, params
     torch.cuda.empty_cache()
-    fp_counts = phase_serve()
+    fp_counts, fp_rate, fp_ttft = phase_serve()
     torch.cuda.empty_cache()
     q_counts = phase_serve_quant()
+    torch.cuda.empty_cache()
+    lora_counts = phase_serve_lora(fp_rate, fp_ttft)
     # each kernel's launches on the path it serves: fp pages for
-    # paged_attention, KIVI pages for the rest (dequantize_pages is on no
-    # serving path: only tests call it in the reference)
-    launches = dict(q_counts, paged_attention=fp_counts["paged_attention"])
+    # paged_attention, KIVI pages for the quantized kernels (dequantize_pages
+    # is on no serving path: only tests call it in the reference), the LoRA
+    # serve for bgmv
+    launches = dict(q_counts, paged_attention=fp_counts["paged_attention"],
+                    bgmv=lora_counts["bgmv"])
     sources = {"paged_attention": kmod.SOURCE, "paged_attention_quant": qmod.SOURCE,
-               "quantize_pages": kvmod.SOURCE, "dequantize_pages": kvmod.SOURCE}
+               "quantize_pages": kvmod.SOURCE, "dequantize_pages": kvmod.SOURCE,
+               "bgmv": bgmod.SOURCE}
     kernels = [dict(name=k, route="cuda", source=os.path.relpath(sources[k], ROOT),
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=timing[k]["max_abs_err"], ms=timing[k]["ms"],

@@ -1,5 +1,6 @@
 """The port's serving engine: host-side policy (copied from ``repro.core``)
-over the paged runner and the CUDA paged-attention kernel."""
+over the paged runner, the CUDA paged-attention kernels and, for
+multi-tenant LoRA, the paged adapter store and the CUDA ``bgmv`` kernel."""
 from repro_torch.core.block_manager import BlockManager, OutOfBlocks  # noqa: F401
 from repro_torch.core.engine import EngineConfig, LLMEngine  # noqa: F401
 from repro_torch.core.executor import (  # noqa: F401
@@ -8,6 +9,8 @@ from repro_torch.core.executor import (  # noqa: F401
     PagedRunner,
 )
 from repro_torch.core.kv_quant import QuantConfig  # noqa: F401
+from repro_torch.core.lora import (LoRAConfig, make_adapter,  # noqa: F401
+                                   merge_adapter)
 from repro_torch.core.metrics import (  # noqa: F401
     VTCCounter,
     finalize_request,

@@ -15,8 +15,12 @@ backend exists: ``execution_backend`` "gathered" and "speculative" raise
 stores KIVI-quantized pages (uint8 codes + f16 scale/zero planes) that the
 quantized CUDA kernel reads; only the KIVI axes without a GEAR residual
 have a paged layout, and any other ``QuantConfig`` raises, since it needs
-the gathered backend. Sampling randomness
-comes from one ``torch.Generator`` seeded from ``EngineConfig.seed``.
+the gathered backend. ``EngineConfig.lora`` serves many LoRA adapters of
+the one base model in the same batch: each request names its
+``adapter_id``, the ``PagedAdapterStore`` faults adapters into device
+tables by renting KV-pool pages, and every step applies each row's deltas
+through the ``bgmv`` kernel. Sampling randomness comes from one
+``torch.Generator`` seeded from ``EngineConfig.seed``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from repro_torch.core.block_manager import BlockManager, OutOfBlocks
 from repro_torch.core.executor import PagedModelState, PagedRunner, marshal_batch
 from repro_torch.core.executor.base import ModelRunner
 from repro_torch.core.kv_quant import QuantConfig
+from repro_torch.core.lora import LoRAConfig, PagedAdapterStore
 from repro_torch.core.metrics import RequestMetrics, VTCCounter, finalize_request
 from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.request import Request, SeqState, SeqStatus
@@ -57,6 +62,7 @@ class EngineConfig:
     device: str = "cuda"  # where the model, the page mirror and the kernels run
     seed: int = 0
     kv_quant: Optional[QuantConfig] = None  # KIVI pages at rest
+    lora: Optional[LoRAConfig] = None  # multi-tenant LoRA serving
 
 
 class LLMEngine:
@@ -91,6 +97,25 @@ class LLMEngine:
         # sacrificial page: ragged-chunk padding writes land here — reserved
         # up front so it can never be a member of a real block table
         self.paged_runner.scratch_block = self.bm.allocate(1)[0]
+        # multi-tenant LoRA: the store rents KV pool pages, so resident
+        # adapters and cache trade off under one memory budget
+        self.adapters: Optional[PagedAdapterStore] = None
+        if self.cfg.lora is not None:
+            self.adapters = PagedAdapterStore(
+                model.cfg, self.cfg.lora, self.bm, self.store.kv_bytes_per_block(),
+                device=self.device)
+            # one step can never reference more adapters than the device
+            # table holds resident — or than the pool-page cap can rent at
+            # once (a step's working set is protected from eviction, so an
+            # over-cap plan would walk the pressure ladder destructively
+            # and still fail) — clamp the scheduler's grouping cap to both
+            cap = self.cfg.lora.max_loaded_adapters
+            if self.cfg.lora.pool_pages:
+                cap = min(cap, self.cfg.lora.pool_pages
+                          // self.adapters.pages_per_adapter)
+            per_batch = self.scheduler.cfg.max_adapters_per_batch or cap
+            self.scheduler.cfg = dataclasses.replace(
+                self.scheduler.cfg, max_adapters_per_batch=min(per_batch, cap))
         self.prefix_cache = PrefixCache(self.bm,
                                         host_capacity_blocks=self.cfg.host_cache_blocks) \
             if self.cfg.enable_prefix_cache else None
@@ -100,8 +125,9 @@ class LLMEngine:
         self.host_transfer_bytes = 0
         self.steps = 0
         self._step_inflight: Optional[set] = None
+        self._step_adapters: Optional[set] = None
         # observability: the registry always exists; ``trace`` is the shared
-        # no-op until a caller installs a StepTracer (on engine and runner)
+        # no-op until a caller installs a StepTracer (``set_tracer``)
         self.trace = NULL_TRACER
         self.metrics = MetricsRegistry()
         self._dispatch_counters = {
@@ -141,6 +167,21 @@ class LLMEngine:
         reg.gauge("runner.paged.mirror_upload_bytes", lambda: r.mirror_upload_bytes)
         reg.gauge("runner.paged.writeback_bytes", lambda: r.writeback_bytes)
         reg.gauge("runner.paged.tail_upload_bytes", lambda: r.tail_upload_bytes)
+        if self.adapters is not None:
+            a = self.adapters
+            reg.gauge("lora.hits", lambda: a.stats.hits)
+            reg.gauge("lora.misses", lambda: a.stats.misses)
+            reg.gauge("lora.evictions", lambda: a.stats.evictions)
+            reg.gauge("lora.loads", lambda: a.stats.loads)
+            reg.gauge("lora.load_bytes", lambda: a.stats.load_bytes)
+            reg.gauge("lora.rented_pages", lambda: a.rented_pages)
+
+    def set_tracer(self, tracer) -> None:
+        """Install a tracer on the engine and on every part that records
+        spans (the paged runner, the adapter store)."""
+        self.trace = self.paged_runner.trace = tracer
+        if self.adapters is not None:
+            self.adapters.trace = tracer
 
     def metrics_snapshot(self) -> Dict[str, float]:
         """Flat name -> value dict over every registered instrument."""
@@ -157,11 +198,25 @@ class LLMEngine:
         return self.paged_runner.steps
 
     # ------------------------------------------------------------------
+    def register_adapter(self, adapter_id: str, weights) -> None:
+        """Make a LoRA adapter servable (host-side registry; the paged store
+        faults it onto the device on first use). ``weights``: the stage tree
+        ``core.lora.make_adapter`` produces."""
+        if self.adapters is None:
+            raise ValueError("EngineConfig.lora is not configured")
+        self.adapters.registry.register(adapter_id, weights)
+
     def add_request(self, req: Request) -> SeqState:
-        if req.extras or req.adapter_id is not None:
+        if req.adapter_id is not None and self.adapters is None:
+            # refuse rather than silently serve the tenant base weights
+            raise ValueError(
+                f"request {req.request_id!r} carries "
+                f"adapter_id={req.adapter_id!r} but EngineConfig.lora is "
+                "not configured on this engine")
+        if req.extras:
             raise NotImplementedError(
-                f"request {req.request_id!r}: modality extras and LoRA "
-                "adapters are not ported yet (ROADMAP queue A.8, A.11)")
+                f"request {req.request_id!r}: modality extras are not ported "
+                "yet (ROADMAP queue A.11)")
         if req.arrival_time == 0.0:
             req.arrival_time = time.time()
         seq = SeqState(request=req)
@@ -177,7 +232,11 @@ class LLMEngine:
         req = seq.request
         if self.prefix_cache is not None and len(req.prompt) > self.cfg.block_size:
             t0 = self.trace.now()
-            dev_blocks, host_hashes, matched = self.prefix_cache.lookup(req.prompt)
+            # namespaced by adapter: a tenant's KV embeds its adapter's k/v
+            # deltas, so identical token prefixes under different adapters
+            # are NOT the same bytes and must never share blocks
+            dev_blocks, host_hashes, matched = self.prefix_cache.lookup(
+                req.prompt, namespace=req.adapter_id)
             matched = min(matched, len(req.prompt) - 1)  # recompute >=1 token for logits
             usable = matched // self.cfg.block_size * self.cfg.block_size
             keep = usable // self.cfg.block_size
@@ -218,11 +277,17 @@ class LLMEngine:
                     raise
 
     def _relieve_pressure(self, protected: set) -> bool:
-        """One rung of the memory-pressure ladder: evict prefix-cache blocks,
-        else preempt a sequence outside ``protected``. False = nothing left."""
+        """One rung of the shared memory-pressure ladder (KV allocation and
+        adapter fault-in walk the same ladder): evict prefix-cache blocks,
+        else evict an idle LoRA adapter (never one the current step
+        references), else preempt a sequence outside ``protected``.
+        False = nothing left."""
         if self.prefix_cache is not None and self.prefix_cache.evict(
                 4, demote_payload_fn=(self.store.block_payload
                                       if self.cfg.host_cache_blocks else None)):
+            return True
+        if self.adapters is not None and self.adapters.evict_one(
+                self._step_adapters or set()):
             return True
         victim = self._pick_victim(protected)
         if victim is None:
@@ -269,12 +334,14 @@ class LLMEngine:
                 # cannot fit this chunk even after evictions: self-preempt and
                 # let the scheduler retry once memory frees up
                 self._do_preempt(ch.seq)
+        ready, lora = self._ensure_lora(ready, inflight)
         if not ready:
             return
         tr = self.trace
         with tr.span("marshal"):
             batch = marshal_batch(ready, self.cfg.block_size,
                                   self.cfg.max_model_len)
+            batch.lora = lora
         self._dispatch_counters[runner.name].inc()
         if tr.enabled:
             with tr.span("dispatch", track="executor",
@@ -285,6 +352,35 @@ class LLMEngine:
         else:
             logits_np = runner.execute(batch)
             self._postprocess(ready, logits_np)
+
+    def _ensure_lora(self, chunks: List[ChunkWork], inflight: set):
+        """Fault the group's adapters into the paged store; returns the
+        (possibly reduced) chunk list plus the per-row slot ids and device
+        tables to attach to the marshalled batch. Loading rents pool pages,
+        so it walks the shared memory-pressure ladder; if even that cannot
+        rent the pages, adapter-bearing chunks self-preempt out of the
+        group (youngest first, the recovery of a failed KV allocation)."""
+        if self.adapters is None:
+            return chunks, None
+        while True:
+            want = {c.seq.request.adapter_id for c in chunks
+                    if c.seq.request.adapter_id is not None}
+            try:
+                self.adapters.ensure(want)
+                break
+            except OutOfBlocks:
+                if self._relieve_pressure(inflight):
+                    continue
+                shed = [c for c in chunks if c.seq.request.adapter_id is not None]
+                if not shed:
+                    raise
+                drop = max(shed, key=lambda c: c.seq.request.arrival_time)
+                self._do_preempt(drop.seq)
+                chunks = [c for c in chunks if c is not drop]
+                if not chunks:
+                    return [], None
+        return chunks, self.adapters.marshal(
+            [c.seq.request.adapter_id for c in chunks])
 
     def _dispatch_args(self, chunks: List[ChunkWork],
                        runner: ModelRunner) -> dict:
@@ -307,7 +403,8 @@ class LLMEngine:
                 prompt_computed = min(seq.num_computed, seq.prompt_len)
                 nfull = prompt_computed // bs
                 self.prefix_cache.insert(seq.request.prompt[: nfull * bs],
-                                         seq.block_table[:nfull])
+                                         seq.block_table[:nfull],
+                                         namespace=seq.request.adapter_id)
             prompt_overlap = max(0, min(end, seq.prompt_len) - ch.start)
             if end < seq.total_len:
                 # prefill chunk (or recompute of generated tokens after
@@ -352,7 +449,8 @@ class LLMEngine:
     def _finish(self, seq: SeqState, now: float) -> None:
         seq.finish_time = now
         if self.prefix_cache is not None:
-            self.prefix_cache.insert(seq.all_tokens, seq.block_table)
+            self.prefix_cache.insert(seq.all_tokens, seq.block_table,
+                                     namespace=seq.request.adapter_id)
         self.scheduler.finish(seq)
         self._free_seq_memory(seq)
         self.finished.append(finalize_request(seq))
@@ -376,12 +474,15 @@ class LLMEngine:
             self.trace.event("step", step=self.steps, num_tokens=plan.num_tokens,
                              decode=len(plan.decode), prefill=len(plan.prefill))
         self._step_inflight = {c.seq.request_id for c in plan.chunks}
+        self._step_adapters = {c.seq.request.adapter_id for c in plan.chunks
+                               if c.seq.request.adapter_id is not None}
         try:
             # the whole ragged plan — decodes AND prompt chunks — fuses into
             # ONE paged dispatch (decode_paged when all lengths are 1)
             self._run_group(plan.chunks, self.runner)
         finally:
             self._step_inflight = None
+            self._step_adapters = None
         return plan.num_tokens
 
     def run(self, max_steps: int = 10_000) -> List[RequestMetrics]:

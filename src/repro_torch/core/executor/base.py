@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.scheduler import ChunkWork
 
@@ -24,11 +25,28 @@ class ExecBatch:
     """Marshalled per-step batch shared by runners.
 
     tokens: (B, C) int32; cache_lens: (B,) tokens already cached per seq;
-    tables: (B, nmax) block ids."""
+    tables: (B, nmax) block ids. ``lora`` is attached by the ENGINE after
+    marshaling (it owns the adapter store): {"ids": (B,) adapter-table
+    slots, "layers": device adapter tables} — see core/lora/store.py."""
     chunks: List[ChunkWork]
     tokens: np.ndarray
     cache_lens: np.ndarray
     tables: np.ndarray
+    lora: Optional[dict] = None
+
+
+def lora_arg(batch_lora: Optional[dict], pad_rows: int = 0, *, device="cpu"):
+    """The model-facing lora operand of a marshalled batch's attachment:
+    padding rows (pow2 batch bucketing) get the NULL adapter slot 0 — their
+    logits are sliced off and their writes land in the scratch page — and
+    the ids go to ``device`` as one int32 tensor."""
+    if batch_lora is None:
+        return None
+    ids = batch_lora["ids"]
+    if pad_rows:
+        ids = np.concatenate([ids, np.zeros(pad_rows, ids.dtype)])
+    return {"ids": torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(device),
+            "layers": batch_lora["layers"]}
 
 
 def marshal_batch(chunks: List[ChunkWork], block_size: int,

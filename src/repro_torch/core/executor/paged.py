@@ -25,6 +25,11 @@ precision TAIL (``call_pages``, counted in ``tail_upload_bytes``), the
 quantized kernel attends packed pages + tail, and the writeback stages the
 step's K/V on the host, where a page packs (and dirties the mirror) only
 when its last slot fills.
+
+Multi-tenant LoRA: the engine attaches the step's adapter operand to the
+batch (``ExecBatch.lora``); both step kinds hand it to the model with the
+per-row table slots as one int32 tensor on the device (``lora_arg``),
+padding rows on the null slot 0.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.executor.base import ExecBatch, ModelRunner
+from repro_torch.core.executor.base import ExecBatch, ModelRunner, lora_arg
 from repro_torch.core.executor.state import PagedModelState, next_pow2
 from repro_torch.core.telemetry import NULL_TRACER
 
@@ -163,7 +168,8 @@ class PagedRunner(ModelRunner):
         logits, pages, writes = self.model.decode_paged(
             self.params, self._dev(batch.tokens),
             self.call_pages(batch.tables, lengths, 1),
-            self._dev(batch.tables), self._dev(lengths))
+            self._dev(batch.tables), self._dev(lengths),
+            lora=lora_arg(batch.lora, device=self.device))
         self._pages = self.strip_tails(pages)
         # O(token) writeback keeps the host store authoritative; the device
         # mirror already holds the same write (quantized stores instead
@@ -203,7 +209,8 @@ class PagedRunner(ModelRunner):
         logits, pages, writes = self.model.extend_paged(
             self.params, self._dev(tokens), self.call_pages(tables, lengths, C),
             self._dev(tables), self._dev(lengths), self._dev(chunk_lens),
-            self.scratch_block)
+            self.scratch_block,
+            lora=lora_arg(batch.lora, pad_rows=Bp - B, device=self.device))
         self._pages = self.strip_tails(pages)
         self.writeback_bytes += self.writeback_tokens(
             batch.tables, batch.cache_lens, C, writes, B,

@@ -6,6 +6,8 @@
         --requests 2                     # smoke width on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --kv-quant-bits 8   # KIVI-quantized pages
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 4 --num-adapters 2    # multi-tenant LoRA
 
 ``--debug`` (the default) serves the reduced smoke config, ``--no-debug``
 the published one. ``--device`` defaults to ``cuda``; there is no CPU
@@ -23,23 +25,26 @@ import numpy as np
 from repro_torch import configs
 from repro_torch.core import (EngineConfig, LLMEngine, QuantConfig, Request,
                               SamplingParams, SchedulerConfig)
+from repro_torch.core.lora import LoRAConfig, make_adapter
 from repro_torch.models import build_model
 
 
 def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
                  backend: str = "auto", policy: str = "fcfs", seed: int = 0,
                  kv_quant: Optional[QuantConfig] = None,
+                 lora: Optional[LoRAConfig] = None,
                  **engine_kw) -> LLMEngine:
     """Model (smoke or published config) + random weights + engine.
-    ``kv_quant`` stores KIVI-quantized pages; ``engine_kw`` overrides the
-    serving defaults below (EngineConfig fields, e.g. ``max_model_len`` or
-    a ``scheduler``)."""
+    ``kv_quant`` stores KIVI-quantized pages; ``lora`` turns on multi-tenant
+    LoRA (adapters are registered by the caller); ``engine_kw`` overrides
+    the serving defaults below (EngineConfig fields, e.g. ``max_model_len``
+    or a ``scheduler``)."""
     cfg = configs.smoke_config(arch) if debug else configs.get_config(arch)
     model = build_model(cfg, device=device)
     params = model.init(seed)
     kw = dict(block_size=16, num_blocks=512, max_model_len=256,
               execution_backend=backend, device=device, seed=seed,
-              kv_quant=kv_quant,
+              kv_quant=kv_quant, lora=lora,
               scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=128,
                                         prefill_chunk=32, policy=policy))
     kw.update(engine_kw)
@@ -60,15 +65,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="KIVI-quantize KV pages at rest at this many bits "
                          "(2, 4 or 8; keys per channel, values per token); "
                          "0 = fp pages")
+    ap.add_argument("--num-adapters", type=int, default=0,
+                    help="serve this many synthetic LoRA tenants (requests "
+                         "round-robin across them; 0 = multi-LoRA off)")
+    ap.add_argument("--lora-rank", type=int, default=8,
+                    help="LoRA adapter rank (with --num-adapters)")
+    ap.add_argument("--adapter-pool-pages", type=int, default=0,
+                    help="cap on KV-pool pages the adapter store may rent "
+                         "(0 = share the pool freely)")
     ap.add_argument("--debug", action=argparse.BooleanOptionalAction,
                     default=True, help="smoke config (--no-debug: published)")
     args = ap.parse_args(argv)
 
     kv_quant = QuantConfig(bits=args.kv_quant_bits) if args.kv_quant_bits else None
+    lora = LoRAConfig(rank=args.lora_rank, pool_pages=args.adapter_pool_pages) \
+        if args.num_adapters else None
     engine = build_engine(args.arch, debug=args.debug, device=args.device,
                           backend=args.backend, policy=args.policy,
-                          kv_quant=kv_quant)
+                          kv_quant=kv_quant, lora=lora)
     cfg = engine.model.cfg
+    for a in range(args.num_adapters):
+        engine.register_adapter(f"a{a}", make_adapter(cfg, lora, seed=a + 1))
     rng = np.random.default_rng(0)
     t0 = time.time()
     for i in range(args.requests):
@@ -77,6 +94,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             prompt=list(map(int, rng.integers(2, cfg.vocab_size,
                                               size=int(rng.integers(8, 64))))),
             user_id=f"u{i % 2}",
+            adapter_id=f"a{i % args.num_adapters}" if args.num_adapters else None,
             sampling=SamplingParams(temperature=0.7, top_k=50,
                                     max_new_tokens=16)))
     metrics = engine.run()
@@ -89,13 +107,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         quant = (f", kv_quant={kv_quant.bits}bit "
                  f"({st.kv_fp16_bytes_per_block() / st.kv_bytes_per_block():.2f}x "
                  "capacity vs fp16)")
+    mlora = ""
+    if engine.adapters is not None:
+        st = engine.adapters.stats
+        mlora = (f", lora={args.num_adapters} adapters r{lora.rank} "
+                 f"(hits={st.hits} misses={st.misses} evicts={st.evictions}, "
+                 f"{engine.adapters.rented_pages} pages rented)")
     print(f"{cfg.name} on {engine.device}: {len(metrics)} requests, {gen} tokens, "
           f"{gen/dt:.1f} tok/s, {engine.steps} steps "
           f"({engine.paged_steps} paged), "
           f"host_copy={snap['engine.host_copy_bytes']/1e6:.1f}MB, "
           f"kv_util_peak={snap['block_manager.peak_used']/snap['block_manager.num_blocks']:.2f}, "
           f"preempts={snap['engine.preemptions']}, "
-          f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{quant}")
+          f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{quant}{mlora}")
 
 
 if __name__ == "__main__":

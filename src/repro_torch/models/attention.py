@@ -9,8 +9,11 @@ Unlike JAX, the page writes happen IN PLACE on the given tensors
 The functions still return the pages so call sites read like the JAX ones.
 KIVI-quantized page stores (``quantized_pages``) take ``_attn_chunk_quant``:
 the pages stay read-only and the step's K/V joins a full-precision tail.
-Global attention only; LoRA and tensor parallelism come with their own
-slices.
+Every step function takes an optional multi-tenant LoRA operand: ``lora``,
+this layer's ``{site: {"a", "b"}}`` adapter tables, and ``lora_ids`` (B,),
+each row's table slot; the per-row deltas come from one ``bgmv`` call per
+projection. Global attention only; tensor parallelism comes with its own
+slice.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.lora.ops import bgmv
 from repro_torch.kernels.paged_attention import (paged_attend, paged_attend_extend,
                                                 paged_attend_extend_quant)
 from repro_torch.models.common import apply_rope, normal_init
@@ -60,14 +64,31 @@ def proj_out(p, x):
     return y
 
 
-def _qkv(p, cfg, x):
-    return proj_qkv(p["wq"], x), proj_qkv(p["wk"], x), proj_qkv(p["wv"], x)
+def _qkv(p, cfg, x, lora=None, lora_ids=None):
+    """q, k, v (B, C, heads, hd). With ``lora``, each row's adapter delta
+    is added after the bias (and before RoPE, which the callers apply)."""
+    q, k, v = proj_qkv(p["wq"], x), proj_qkv(p["wk"], x), proj_qkv(p["wv"], x)
+    if lora is not None:
+        B, C, _ = x.shape
+        q = q + bgmv(x, lora["wq"]["a"], lora["wq"]["b"], lora_ids).reshape(
+            B, C, cfg.num_heads, cfg.head_dim)
+        k = k + bgmv(x, lora["wk"]["a"], lora["wk"]["b"], lora_ids).reshape(
+            B, C, cfg.num_kv_heads, cfg.head_dim)
+        v = v + bgmv(x, lora["wv"]["a"], lora["wv"]["b"], lora_ids).reshape(
+            B, C, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
 
 
-def proj_out_lora(p_wo, x):
-    """The single-device, adapter-free case of the JAX ``proj_out_lora``
-    (``tp_axis=None``, no LoRA): plain ``proj_out``."""
-    return proj_out(p_wo, x)
+def proj_out_lora(p_wo, x, lora=None, lora_ids=None):
+    """``proj_out`` plus the per-row ``wo`` adapter delta, added after the
+    bias; the adapter's input is the pre-projection (B, C, H, hd) flattened
+    to H * hd. The single-device case of the JAX ``proj_out_lora``."""
+    out = proj_out(p_wo, x)
+    if lora is not None:
+        B, C, H, hd = x.shape
+        out = out + bgmv(x.reshape(B, C, H * hd), lora["wo"]["a"],
+                         lora["wo"]["b"], lora_ids)
+    return out
 
 
 def _uses_rope(cfg, spec) -> bool:
@@ -84,7 +105,8 @@ def quantized_pages(pages) -> bool:
     return isinstance(pages.get("k"), dict) and "codes" in pages["k"]
 
 
-def _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths):
+def _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths,
+                      lora=None, lora_ids=None):
     """C-token attention against KIVI-quantized page stores.
 
     ``pages[name]`` holds uint8 ``codes`` and f16 ``scale``/``zero`` planes
@@ -105,7 +127,7 @@ def _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths):
     Returns (out (B, C, d), pages unchanged, (k_new, v_new)) with
     k_new/v_new (B, C, KV, D) in the cache dtype."""
     B, C, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, lora, lora_ids)
     pos = lengths.long()[:, None] + torch.arange(C, device=x.device)
     if _uses_rope(cfg, spec):
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -124,10 +146,11 @@ def _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths):
     out = paged_attend_extend_quant(q, pages["k"], pages["v"], k_tail, v_tail,
                                     block_tables, lengths, tail_start,
                                     scale=_scale(cfg), deq_dtype=dt)
-    return proj_out_lora(p["wo"], out), pages, (k_new, v_new)
+    return proj_out_lora(p["wo"], out, lora, lora_ids), pages, (k_new, v_new)
 
 
-def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths):
+def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths,
+                      lora=None, lora_ids=None):
     """One-token decode directly against block-indexed page stores.
 
     x: (B, 1, d); pages: {"k", "v"}: (KV, NB, P, D); block_tables: (B, NP);
@@ -139,10 +162,10 @@ def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths):
     ``_attn_chunk_quant`` with C = 1."""
     if quantized_pages(pages):
         out, pages, (k_new, v_new) = _attn_chunk_quant(
-            p, cfg, spec, x, pages, block_tables, lengths)
+            p, cfg, spec, x, pages, block_tables, lengths, lora, lora_ids)
         return out, pages, (k_new[:, 0], v_new[:, 0])
     B = x.shape[0]
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, lora, lora_ids)
     pos = lengths.long()
     if _uses_rope(cfg, spec):
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
@@ -156,11 +179,12 @@ def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths):
     pages["v"][:, blk, off] = v_new.transpose(0, 1)
     out = paged_attend(q, pages["k"], pages["v"], block_tables, pos + 1,
                        scale=_scale(cfg))
-    return proj_out_lora(p["wo"], out), pages, (k_new, v_new)
+    return proj_out_lora(p["wo"], out, lora, lora_ids), pages, (k_new, v_new)
 
 
 def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
-                      chunk_lens=None, scratch_block=None):
+                      chunk_lens=None, scratch_block=None, lora=None,
+                      lora_ids=None):
     """Multi-token extend directly against block-indexed page stores.
 
     x: (B, C, d) — C new tokens per sequence at positions [lengths,
@@ -175,9 +199,10 @@ def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
     (B, C, KV, D). Quantized stores take ``_attn_chunk_quant`` (fp tail, no
     page writes, no scratch needed)."""
     if quantized_pages(pages):
-        return _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths)
+        return _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths,
+                                 lora, lora_ids)
     B, C, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, lora, lora_ids)
     pos = lengths.long()[:, None] + torch.arange(C, device=x.device)
     if _uses_rope(cfg, spec):
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -202,4 +227,4 @@ def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
     pages["v"][:, blk, off] = v_new.reshape((B * C,) + v_new.shape[2:]).transpose(0, 1)
     out = paged_attend_extend(q, pages["k"], pages["v"], block_tables, lengths,
                               scale=_scale(cfg))
-    return proj_out_lora(p["wo"], out), pages, (k_new, v_new)
+    return proj_out_lora(p["wo"], out, lora, lora_ids), pages, (k_new, v_new)

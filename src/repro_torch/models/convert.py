@@ -7,11 +7,12 @@ leaves of shape (R, ...)); the port keeps one dict per layer in
 ``cfg.layer_specs()`` order, so stage ``si``, repeat ``r``, pattern slot
 ``i`` becomes ``layers[offset(si) + r * len(pattern) + i]``. Weights keep
 their JAX layouts ((d, H, hd) projections, (in, out) dense), so no
-transposes. Imports neither ``jax`` nor ``repro``.
+transposes. ``convert_adapter`` unstacks a LoRA adapter's stage tree the
+same way. Imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -46,3 +47,19 @@ def convert_params(cfg: ModelConfig, jax_values: Dict[str, Any]) -> Dict[str, An
                 layers.append(_map(stage[f"l{i}"], lambda a: leaf(np.asarray(a)[r])))
     out["layers"] = layers
     return out
+
+
+def convert_adapter(cfg: ModelConfig, tree) -> List[Dict[str, Dict[str, np.ndarray]]]:
+    """A LoRA adapter in the JAX package's stage-tree layout (``tuple over
+    stages of {"l{i}": {site: {"a": (R, Din, r), "b": (R, r, Dout)}}}``, as
+    ``core/lora/registry.py::make_adapter`` makes it) -> a list over layers,
+    in ``cfg.layer_specs()`` order, of ``{site: {"a": (Din, r), "b": (r,
+    Dout)}}`` numpy arrays (views of the tree's)."""
+    layers = []
+    for si, (pattern, reps) in enumerate(cfg.stages):
+        stage = tree[si]
+        for r in range(reps):
+            for i in range(len(pattern)):
+                layers.append({name: {k: np.asarray(v)[r] for k, v in ab.items()}
+                               for name, ab in stage[f"l{i}"].items()})
+    return layers

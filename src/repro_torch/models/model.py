@@ -12,18 +12,22 @@ along a leading axis instead; ``models/convert.py`` unstacks them.
 Pages are a list over layers of ``{"k", "v"}`` tensors in kernel layout
 (KV, NB, P, D), written in place — or, for KIVI-quantized stores, of
 ``{"codes", "scale", "zero", "tail"}`` dicts that the step reads and does
-not write (``attention._attn_chunk_quant``). ``build_model(cfg, device=...)`` runs
+not write (``attention._attn_chunk_quant``). Both steps take an optional
+multi-tenant LoRA operand whose per-row deltas go through ``bgmv`` at the
+six adapter sites of a layer (wq, wk, wv, wo, w1, w2). ``build_model(cfg, device=...)`` runs
 on ``cuda`` unless asked for ``cpu`` and raises when CUDA is asked for and
 absent.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.kernels.lora.ops import bgmv
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, dense, glu_inner_act, is_glu,
                                        make_dense, make_norm, normal_init)
@@ -56,15 +60,23 @@ def make_mlp_params(gen, cfg, dtype, device):
                              scale=1.0 / math.sqrt(f))}
 
 
-def mlp_apply(p, cfg, x):
+def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
+    """The MLP; with ``lora``, each row's w1 delta joins ``dense(w1, x)``
+    before the GLU split and its w2 delta (input: the activated hidden
+    state, Din = d_ff) joins ``dense(w2, h)``."""
     h = dense(p["w1"], x)
+    if lora is not None and "w1" in lora:
+        h = h + bgmv(x, lora["w1"]["a"], lora["w1"]["b"], lora_ids)
     if is_glu(cfg.activation):
         # u is the FIRST half of w1's output, the gate g the second
         u, g = torch.chunk(h, 2, dim=-1)
         h = glu_inner_act(cfg.activation)(g) * u
     else:
         h = glu_inner_act(cfg.activation)(h)
-    return dense(p["w2"], h)
+    y = dense(p["w2"], h)
+    if lora is not None and "w2" in lora:
+        y = y + bgmv(h, lora["w2"]["a"], lora["w2"]["b"], lora_ids)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -82,27 +94,38 @@ def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
             "ff": make_mlp_params(gen, cfg, dtype, device)}
 
 
-def _ff_branch(p, spec, cfg, x):
+def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None):
     h = apply_norm(cfg.norm, p["norm2"], x)
-    return x + mlp_apply(p["ff"], cfg, h)
+    return x + mlp_apply(p["ff"], cfg, h, lora, lora_ids)
 
 
-def _layer_decode_paged(p, spec, cfg, x, pages, block_tables, lengths):
+def _layer_decode_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
+                        lora=None, lora_ids=None):
     """One-token decode with attention running directly on page stores."""
     h = apply_norm(cfg.norm, p["norm1"], x)
     y, pages, kv_new = attn.attn_decode_paged(p["mixer"], cfg, spec, h, pages,
-                                              block_tables, lengths)
-    return _ff_branch(p, spec, cfg, x + y), pages, kv_new
+                                              block_tables, lengths, lora, lora_ids)
+    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), pages, kv_new
 
 
 def _layer_extend_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
-                        chunk_lens=None, scratch_block=None):
+                        chunk_lens=None, scratch_block=None, lora=None,
+                        lora_ids=None):
     """C-token extend with attention running directly on page stores."""
     h = apply_norm(cfg.norm, p["norm1"], x)
     y, pages, kv_new = attn.attn_extend_paged(
         p["mixer"], cfg, spec, h, pages, block_tables, lengths,
-        chunk_lens=chunk_lens, scratch_block=scratch_block)
-    return _ff_branch(p, spec, cfg, x + y), pages, kv_new
+        chunk_lens=chunk_lens, scratch_block=scratch_block, lora=lora,
+        lora_ids=lora_ids)
+    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), pages, kv_new
+
+
+def _layer_lora(lora):
+    """(per-layer adapter tables, per-row slot ids) of a model-level LoRA
+    operand; (None-per-layer, None) without one."""
+    if lora is None:
+        return itertools.repeat(None), None
+    return lora["layers"], lora["ids"]
 
 
 def paged_decode_supported(cfg: ModelConfig) -> bool:
@@ -190,37 +213,46 @@ class Model:
 
     # ---------------- decode_paged (one token) --------------------------------
     @torch.no_grad()
-    def decode_paged(self, params, tokens, pages, block_tables, lengths):
+    def decode_paged(self, params, tokens, pages, block_tables, lengths,
+                     lora=None):
         """tokens: (B, 1); pages: list over layers of {"k", "v"} (KV, NB, P,
         D), or quantized dicts with a per-step ``tail``; block_tables:
         (B, NP) shared by every layer; lengths: (B,) valid tokens before
-        this one. Returns (logits (B, 1, V), pages, writes)
-        with one {"k", "v"} (B, KV, D) entry per layer: the new token's K/V
-        for the host-authoritative store."""
+        this one. ``lora``: the multi-tenant adapter operand ``{"ids": (B,)
+        int32 slots on the model's device, "layers": [per-layer {site:
+        {"a", "b"}} tables]}`` (``core/lora/store.py``), or None. Returns
+        (logits (B, 1, V), pages, writes) with one {"k", "v"} (B, KV, D)
+        entry per layer: the new token's K/V for the host-authoritative
+        store."""
         x = self.embed_tokens(params, tokens)
         writes = []
-        for p, spec, pg in zip(params["layers"], self.specs, pages):
+        tables, ids = _layer_lora(lora)
+        for p, spec, pg, lt in zip(params["layers"], self.specs, pages, tables):
             x, _, (k_new, v_new) = _layer_decode_paged(
-                p, spec, self.cfg, x, pg, block_tables, lengths)
+                p, spec, self.cfg, x, pg, block_tables, lengths, lora=lt,
+                lora_ids=ids)
             writes.append({"k": k_new, "v": v_new})
         return self.head(params, x), pages, writes
 
     # ---------------- extend_paged (C-token chunks) --------------------------
     @torch.no_grad()
     def extend_paged(self, params, tokens, pages, block_tables, lengths,
-                     chunk_lens=None, scratch_block: Optional[int] = None):
+                     chunk_lens=None, scratch_block: Optional[int] = None,
+                     lora=None):
         """tokens: (B, C) at positions [lengths, lengths + C); pages /
-        tables / lengths as in ``decode_paged``. Ragged batches pass
+        tables / lengths / lora as in ``decode_paged``. Ragged batches pass
         ``chunk_lens`` (B,) and a ``scratch_block`` for padded positions'
         writes; logits of padded positions are garbage the caller ignores.
         Returns (logits (B, C, V), pages, writes) with write leaves
         (B, C, KV, D)."""
         x = self.embed_tokens(params, tokens)
         writes = []
-        for p, spec, pg in zip(params["layers"], self.specs, pages):
+        tables, ids = _layer_lora(lora)
+        for p, spec, pg, lt in zip(params["layers"], self.specs, pages, tables):
             x, _, (k_new, v_new) = _layer_extend_paged(
                 p, spec, self.cfg, x, pg, block_tables, lengths,
-                chunk_lens=chunk_lens, scratch_block=scratch_block)
+                chunk_lens=chunk_lens, scratch_block=scratch_block, lora=lt,
+                lora_ids=ids)
             writes.append({"k": k_new, "v": v_new})
         return self.head(params, x), pages, writes
 

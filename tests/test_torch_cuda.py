@@ -1,7 +1,7 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card:
-paged attention over fp pages, paged attention over KIVI pages, and the
-per-page pack and unpack. Every test here is marked ``gpu`` and skips
-without CUDA.
+paged attention over fp pages, paged attention over KIVI pages, the
+per-page pack and unpack, and the batched grouped LoRA matmul (``bgmv``).
+Every test here is marked ``gpu`` and skips without CUDA.
 
 This file imports neither JAX nor ``repro``, so it runs on a machine with
 only PyTorch and the CUDA toolkit. ``tests/conftest.py`` imports JAX, so
@@ -10,8 +10,11 @@ there it runs without the conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 
 Tolerances: f32 ``atol 1e-5`` (summation order only); bf16 ``atol 2e-2``
-(both compute in fp32 and round the output once). The pack and unpack are
-byte-equal: every step of both is one IEEE-rounded f32 operation.
+(both compute in fp32 and round the output once; for ``bgmv``, whose
+outputs reach a few units, one bf16 step: ``rtol 2^-7``; for ``bgmv`` in
+f32, ``atol 1e-5`` beyond the plain version's own distance from f64). The
+pack and
+unpack are byte-equal: every step of both is one IEEE-rounded f32 operation.
 """
 import numpy as np
 import pytest
@@ -275,3 +278,88 @@ def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kvmod.quantize_pages(x, bits=3, axis="channel")
     with pytest.raises(ValueError, match="float32"):
         kvmod.quantize_pages(x.bfloat16(), bits=8, axis="channel")
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant LoRA: the batched grouped matmul (bgmv)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.lora import bgmv as bgmod  # noqa: E402
+from repro_torch.kernels.lora.ref import bgmv_ref  # noqa: E402
+
+BGMV_CASES = (
+    # B, C, Din, R, Dout, T — tests/test_lora.py's case, then ranks 4..64 at
+    # C = 1 and C = 64, then olmo-1b's three site shapes at decode and prefill
+    [(5, 3, 16, 4, 24, 4)]
+    + [(6, C, 256, R, 320, 5) for R in (4, 8, 16, 64) for C in (1, 64)]
+    + [(B, C, Din, 8, Dout, 5) for B, C in ((8, 1), (4, 64))
+       for Din, Dout in ((2048, 2048), (2048, 16384), (8192, 2048))])
+# f32: 1e-5 beyond the plain version's own rounding error, measured against
+# f64 on the card (its batched matmul sums the Din products sequentially: at
+# C=64 and Din >= 2048 its own error reaches 1e-5 at O(1) outputs); the
+# kernel itself within 1e-5 of f64. bf16: both sum in f32 and round once;
+# where the sums straddle a rounding boundary they differ by one bf16 step
+# (2^-7 relative).
+BGMV_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _bgmv_inputs(seed, B, C, Din, R, Dout, T, dtype, dev):
+    """O(1) outputs (A and B scaled as make_adapter scales them), slot 0 the
+    null adapter, ids with slot 0 and a repeat."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(B, C, Din)).astype(np.float32)).to(dev, dtype)
+    a = (rng.normal(size=(T, Din, R)) / np.sqrt(Din)).astype(np.float32)
+    b = (rng.normal(size=(T, R, Dout)) / np.sqrt(R)).astype(np.float32)
+    a[0] = 0
+    b[0] = 0
+    idx = (np.arange(B) * 2 + 1) % T
+    idx[0] = 0
+    idx[-1] = idx[1]
+    return (x, torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+            torch.tensor(idx, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BGMV_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bgmv_kernel_matches_plain_version(cuda, case, dtype):
+    x, a, b, idx = _bgmv_inputs(7, *case, dtype, cuda)
+    before = bgmod.bgmv.launches
+    got = bgmod.bgmv(x, a, b, idx)
+    want = bgmv_ref(x, a, b, idx)
+    torch.cuda.synchronize()
+    assert bgmod.bgmv.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        i = idx.long()
+        exact = torch.einsum("bcr,bro->bco", torch.einsum(
+            "bcd,bdr->bcr", x.double(), a[i].double()), b[i].double())
+        slack = (want.double() - exact).abs().float()
+        assert (got.double() - exact).abs().max().item() <= BGMV_ATOL[dtype]
+    else:
+        slack = 2 ** -7 * want.float().abs()
+    assert (diff - slack).max().item() <= BGMV_ATOL[dtype], diff.max().item()
+    null = idx == 0
+    assert torch.equal(got[null].float(), torch.zeros_like(got[null].float()))
+
+
+@pytest.mark.gpu
+def test_bgmv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, a, b, idx = _bgmv_inputs(8, 3, 2, 64, 4, 96, 3, torch.float32, cuda)
+    with pytest.raises(TypeError, match="int32"):
+        bgmod.bgmv(x, a, b, idx.long())
+    with pytest.raises(TypeError, match="float32"):
+        bgmod.bgmv(x, a.half(), b, idx)
+    with pytest.raises(ValueError, match="rank"):
+        wide = torch.zeros(3, 64, 65, device=cuda)
+        bgmod.bgmv(x, wide, torch.zeros(3, 65, 96, device=cuda), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        bgmod.bgmv(torch.cat([x, x], dim=2)[..., ::2], a, b, idx)
+    with pytest.raises(ValueError, match="match"):
+        bgmod.bgmv(x, a, b[:, :2].contiguous(), idx)
+    # an id outside the table never reads it: its row comes back NaN
+    bad = torch.tensor([1, 3, 0], dtype=torch.int32, device=cuda)
+    out = bgmod.bgmv(x, a, b, bad)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1]).all() and not torch.isnan(out[[0, 2]]).any()

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 (and ``chip_smoke.py``) loads neither JAX nor the JAX package ``repro``.
 Checked in a fresh interpreter, where nothing else has imported them; the
-walk must reach the KIVI modules too."""
+walk must reach the KIVI and LoRA modules too."""
 import os
 import subprocess
 import sys
@@ -25,6 +25,10 @@ kivi = {"repro_torch.core.kv_quant", "repro_torch.kernels._build",
         "repro_torch.kernels.kv_quant.ref",
         "repro_torch.kernels.paged_attention.paged_attention_quant"}
 assert kivi <= set(mods), kivi - set(mods)
+lora = {"repro_torch.core.lora.config", "repro_torch.core.lora.registry",
+        "repro_torch.core.lora.store", "repro_torch.kernels.lora.bgmv",
+        "repro_torch.kernels.lora.ops", "repro_torch.kernels.lora.ref"}
+assert lora <= set(mods), lora - set(mods)
 """
 
 
