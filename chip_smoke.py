@@ -5,27 +5,36 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device  — CUDA present, card name and power limit, TF32 off;
-  2. build   — nvcc builds the four kernel libraries from csrc/, one nvcc
+  2. build   — nvcc builds the five kernel libraries from csrc/, one nvcc
                per source, all at once;
   3. kernel  — every CUDA kernel vs its plain PyTorch version on the card:
                paged attention over fp pages (shape cases, poisoned slots,
                the olmo-1b decode shape, the extend fold, a zero-length
                row), over KIVI pages (shape cases x bits x dtypes, poisoned
                slots, tail-only and pages-only rows, the extend fold, the
-               olmo-1b decode shape), the pack / unpack (byte-equal), and
+               olmo-1b decode shape), the pack / unpack (byte-equal),
                the LoRA bgmv (shape cases, ranks 4-64, olmo-1b's three
-               adapter sites; null-slot rows exactly 0);
-  4. timing  — each kernel at the olmo-1b serving shape beside its bound,
-               its plain version and, where one exists, the PyTorch calls
-               computing the same function;
+               adapter sites; null-slot rows exactly 0), and the causal
+               flash prefill (shape cases x f32 / bf16 / f16,
+               starcoder2-3b's heads with and without a binding window, a
+               ragged S, causality, strided model-layout inputs);
+  4. timing  — each kernel at the olmo-1b serving shape (flash_prefill at
+               starcoder2-3b's: S=2048, and S=8192 under its 4096 window)
+               beside its bound, its plain version and, where one exists,
+               the PyTorch calls computing the same function;
   5. model   — olmo-1b at its published width, decode_paged and ragged
                extend_paged over fp pages and over KIVI pages, kernel vs
                plain attention logits; then with LoRA adapters (kernel vs
                plain bgmv, the null-slot row equal to the LoRA-free step);
+               starcoder2-3b at its published width, gathered extend steps
+               (a fresh batch, a mixed fresh/continuation batch), kernel vs
+               plain flash_prefill logits, profiled;
   6. serve   — the serving engine (launch/serve.py's build_engine) at full
                width: 8 requests, greedy, kernel launch counts checked;
                then the same traffic with KIVI 8-bit pages, and with 4
-               LoRA adapters over a 2-slot store (faults and evictions).
+               LoRA adapters over a 2-slot store (faults and evictions);
+               then starcoder2-3b on the gathered backend (flash_prefill
+               launches = 30 x the steps holding a fresh row).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -54,6 +63,8 @@ from repro_torch.core import (BlockManager, QuantConfig, Request,  # noqa: E402
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  # noqa: E402
 from repro_torch.core.telemetry import StepTracer  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fmod  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_prefill_ref  # noqa: E402
 from repro_torch.kernels.kv_quant import kv_quant as kvmod  # noqa: E402
 from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
     dequantize_pages_ref, quantize_pages_ref)
@@ -75,12 +86,14 @@ QKERNEL = qmod.paged_attention_quant
 PACK = kvmod.quantize_pages
 UNPACK = kvmod.dequantize_pages
 BGMV = bgmod.bgmv
-SOURCES = [kmod.SOURCE, qmod.SOURCE, kvmod.SOURCE, bgmod.SOURCE]
+FLASH = fmod.flash_prefill
+SOURCES = [kmod.SOURCE, qmod.SOURCE, kvmod.SOURCE, bgmod.SOURCE, fmod.SOURCE]
 
-# data-sheet HBM bandwidth and non-tensor-core fp32 rate, by card name
-# (NVIDIA data sheets; the first matching substring wins)
-CARDS = [("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12)]
+# data-sheet HBM bandwidth, non-tensor-core fp32 rate and dense bf16
+# tensor-core rate, by card name (NVIDIA data sheets; the first matching
+# substring wins)
+CARDS = [("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12)]
 CASES = [  # B, KV, G, D, P, NB, NP — tests/test_kernels_paged.py:20-26
     (1, 1, 8, 64, 16, 8, 4), (2, 2, 4, 64, 16, 16, 4),
     (3, 4, 1, 32, 8, 16, 8), (2, 2, 5, 128, 32, 8, 2)]
@@ -126,6 +139,11 @@ def plain_quant_attention():
 def plain_bgmv():
     """``plain_attention`` for the LoRA kernel (phase 5 only)."""
     return mock.patch.object(bgmod, "bgmv", bgmv_ref)
+
+
+def plain_flash():
+    """``plain_attention`` for the flash prefill kernel (phase 5 only)."""
+    return mock.patch.object(fmod, "flash_prefill", flash_prefill_ref)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -280,7 +298,8 @@ def phase_device():
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s); rates of {card[0]}: "
-        f"{card[1] / 1e12:g} TB/s HBM, {card[2] / 1e12:g} TFLOP/s fp32")
+        f"{card[1] / 1e12:g} TB/s HBM, {card[2] / 1e12:g} TFLOP/s fp32, "
+        f"{card[3] / 1e12:g} TFLOP/s bf16 tensor cores")
     return name, card
 
 
@@ -291,6 +310,7 @@ def phase_build():
     _build.load(qmod.SOURCE, qmod.SIGNATURES)
     _build.load(kvmod.SOURCE, kvmod.SIGNATURES)
     _build.load(bgmod.SOURCE, bgmod.SIGNATURES)
+    _build.load(fmod.SOURCE, fmod.SIGNATURES)
     log(f"[2 build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
     for path, report in built:
         log(f"  {os.path.relpath(path, ROOT)}")
@@ -655,6 +675,121 @@ def phase_timing_lora(card):
     return out["decode"]
 
 
+# B, H, KV, S, D, window: tests/test_kernels_flash.py:9-16's cases, then
+# starcoder2-3b's heads (H=24 over KV=2, D=128) with its 4096 window: S 512
+# and 2048 (the window never binds), 8192 (it binds), and an S that is no
+# multiple of the kernel's 64-row tile
+FLASH_CASES = [
+    (2, 4, 2, 128, 64, 0), (1, 8, 1, 256, 32, 0), (2, 6, 6, 64, 64, 0),
+    (1, 4, 2, 256, 64, 64), (1, 2, 2, 128, 128, 0),
+    (1, 24, 2, 512, 128, 4096), (1, 24, 2, 2048, 128, 4096),
+    (1, 24, 2, 8192, 128, 4096), (2, 24, 2, 300, 128, 4096)]
+# f32 (the CUDA-core kernel): summation order only; bf16 and f16 (the
+# tensor-core kernel): tests/test_kernels_flash.py's bf16 tolerance
+FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+STARCODER_WINDOW = 4096
+
+
+def flash_inputs(seed, B, H, KV, S, D, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to("cuda", dtype)
+            for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
+
+
+def phase_kernel_flash():
+    log("[3 kernel vs plain version on the card: flash_prefill]")
+    for case in FLASH_CASES:
+        B, H, KV, S, D, w = case
+        for dtype in FLASH_ATOL:
+            q, k, v = flash_inputs(1, B, H, KV, S, D, dtype)
+            check(f"flash_prefill (B, H, KV, S, D, window) = {case} {str(dtype)[6:]}",
+                  FLASH(q, k, v, scale=D ** -0.5, window=w),
+                  flash_prefill_ref(q, k, v, scale=D ** -0.5, window=w), FLASH_ATOL[dtype])
+            del q, k, v
+        torch.cuda.empty_cache()
+    # causality (tests/test_kernels_flash.py:33): perturbing keys and values
+    # past position 40 leaves rows 0..39 as they were
+    q, k, v = flash_inputs(2, 1, 2, 2, 64, 32, torch.float32)
+    out1 = FLASH(q, k, v, scale=0.2)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 40:] += 100.0
+    v2[:, :, 40:] -= 50.0
+    check("flash_prefill causality: rows < 40 unmoved", FLASH(q, k2, v2, scale=0.2)[:, :, :40],
+          out1[:, :, :40], 1e-5)
+    # the model's layouts read in place: (B, S, H, D) queries, (B, W, KV, D) windows
+    x = torch.randn(2, 300, 24, 128, device="cuda", dtype=torch.bfloat16)
+    win = torch.randn(2, 1024, 2, 128, device="cuda", dtype=torch.bfloat16)
+    kk, vv = win[:, :300].transpose(1, 2), win[:, 500:800].transpose(1, 2)
+    check("flash_prefill strided (B, S, H, D) / (B, W, KV, D) inputs",
+          FLASH(x.transpose(1, 2), kk, vv, scale=0.1, window=100),
+          flash_prefill_ref(x.transpose(1, 2).contiguous(), kk.contiguous(),
+                            vv.contiguous(), scale=0.1, window=100),
+          FLASH_ATOL[torch.bfloat16])
+    torch.cuda.synchronize()
+
+
+def live_pairs(S: int, window: int) -> int:
+    """(i, j) pairs a causal S-row attention with this window computes."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def phase_timing_flash(card):
+    """flash_prefill at starcoder2-3b's heads: B=1, H=24, KV=2, D=128, bf16,
+    causal at S=2048 (its 4096 window does not bind), then S=8192 where it
+    does. Bound: the larger of q, k, v read and o written once over HBM,
+    and 4 * H * D flops per live (i, j) pair at the bf16 tensor-core rate.
+    Library: one SDPA call (is_causal with enable_gqa; with the window, an
+    explicit boolean mask over K/V repeated to H heads outside the timing)."""
+    out = {}
+    for S in (2048, 8192):
+        B, H, KV, D, w = 1, 24, 2, 128, STARCODER_WINDOW
+        q, k, v = flash_inputs(5, B, H, KV, S, D, torch.bfloat16)
+        scale = D ** -0.5
+        got = FLASH(q, k, v, scale=scale, window=w)
+        err = check(f"flash_prefill timed shape S={S} vs plain", got,
+                    flash_prefill_ref(q, k, v, scale=scale, window=w),
+                    FLASH_ATOL[torch.bfloat16])
+        ms = cuda_ms(lambda: FLASH(q, k, v, scale=scale, window=w))
+        plain_ms = cuda_ms(lambda: flash_prefill_ref(q, k, v, scale=scale, window=w),
+                           reps=5 if S > 4096 else 20)
+        if w >= S:
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      scale=scale, enable_gqa=True)
+            lib_name = "SDPA(is_causal, enable_gqa)"
+        else:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+            kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
+                                                      scale=scale)
+            lib_name = "SDPA(boolean window mask)"
+        check(f"{lib_name} vs kernel S={S}", library(), got, FLASH_ATOL[torch.bfloat16])
+        library_ms = cuda_ms(library)
+        pairs = live_pairs(S, w)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * B * H * D * pairs
+        bytes_ms, ops_ms = nbytes / card[1] * 1e3, flops / card[3] * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"[4 timing] flash_prefill B={B} H={H} KV={KV} S={S} D={D} window={w} "
+            f"bf16: kernel {ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+            f"({flops / 1e9:.1f} GFLOP at {card[3] / 1e12:g} TFLOP/s bf16 = "
+            f"{ops_ms * 1e3:.1f} us; {nbytes / 1e6:.1f} MB = {bytes_ms * 1e3:.1f} us; "
+            f"{bound_by}), plain {plain_ms * 1e3:.1f} us, {lib_name} "
+            f"{library_ms * 1e3:.1f} us; {bound_ms / ms:.1%} of bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        out[S] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out[2048]
+
+
 def build_olmo():
     cfg = configs.get_config("olmo-1b")
     t0 = time.perf_counter()
@@ -839,6 +974,82 @@ def phase_model_lora(model, params):
     del model32, params32, pages32
 
 
+def phase_model_starcoder():
+    """starcoder2-3b at its published width (30 layers, d_model 3072, 24
+    query heads over 2 KV heads, window 4096), random bf16 weights from
+    seed 0: two gathered ``Model.extend`` steps over 1024-slot windows — a
+    fresh batch (B=2, C=512) and a mixed one (fresh rows of 512 and 300
+    tokens beside continuation rows of one token at 700 and 1000). Logits
+    with the flash_prefill kernel vs with its plain version: gated in an f32
+    twin of the same weights and windows (MODEL_ATOL_F32), printed in bf16;
+    each bf16 step profiled with flash_prefill's share of the busy time."""
+    cfg = configs.get_config("starcoder2-3b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    nparam = sum(x.numel() for x in _leaves(params))
+    log(f"[5 model] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, window "
+        f"{cfg.sliding_window}, {nparam / 1e9:.2f} B params bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    W, C = 1024, 512
+    rng = np.random.default_rng(9)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    steps = []
+    for label, cache_len, lens in (("fresh B=2 C=512", [0, 0], [512, 512]),
+                                   ("mixed B=4 C=512", [0, 700, 0, 1000], [512, 1, 300, 1])):
+        B = len(lens)
+        win = model.init_cache(B, W)
+        for layer in win:
+            for x in layer.values():
+                x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+        steps.append((label, win, torch.tensor(
+            rng.integers(0, cfg.vocab_size, size=(B, C)), device="cuda"),
+            torch.tensor(cache_len, dtype=torch.int32, device="cuda"),
+            torch.arange(C, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]))
+
+    def run(m, prm, win, tok, cl):
+        cache = [{n: x.clone() for n, x in layer.items()} for layer in win]
+        before = FLASH.launches
+        logits = m.extend(prm, tok, cache, cl)[0]
+        torch.cuda.synchronize()
+        return logits.float(), FLASH.launches - before
+
+    drift = {}
+    for label, win, tok, cl, real in steps:
+        lk, n = run(model, params, win, tok, cl)
+        assert n == cfg.num_layers, n
+        assert lk.shape == (len(cl), C, cfg.vocab_size) and torch.isfinite(lk[real]).all()
+        with plain_flash():
+            lp, _ = run(model, params, win, tok, cl)
+        drift[label] = ((lk[real] - lp[real]).abs().max().item(),
+                        lk[real].abs().max().item())
+        del lk, lp
+    for label, win, tok, cl, real in steps:
+        cache = [{n: x.clone() for n, x in layer.items()} for layer in win]
+        device_profile(f"{cfg.name} extend {label} bf16", lambda: model.extend(
+            params, tok, cache, cl), focus="flash_prefill")
+        del cache
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32",
+                                              param_dtype="float32"), device="cuda")
+    params32 = _to_f32(params)
+    del params
+    torch.cuda.empty_cache()
+    for label, win, tok, cl, real in steps:
+        win32 = [{n: x.float() for n, x in layer.items()} for layer in win]
+        lk, _ = run(model32, params32, win32, tok, cl)
+        with plain_flash():
+            lp, _ = run(model32, params32, win32, tok, cl)
+        check(f"{cfg.name} extend {label} f32 logits, kernel vs plain flash_prefill",
+              lk[real], lp[real], MODEL_ATOL_F32)
+        log(f"    bf16: kernel vs plain logits max |diff| {drift[label][0]:.3g} "
+            f"(bf16 drift, not gated; logits max |x| {drift[label][1]:.3g})")
+        del win32, lk, lp
+    del model32, params32, steps
+    torch.cuda.empty_cache()
+
+
 def _to_f32(tree):
     if isinstance(tree, dict):
         return {k: _to_f32(v) for k, v in tree.items()}
@@ -878,9 +1089,11 @@ def add_traffic(engine, rng, prefix, adapters=(None,)):
             sampling=SamplingParams(temperature=0.0, max_new_tokens=32)))
 
 
-def run_served(engine, counters):
+def run_served(engine, counters, paged=True):
     """Serve the queued traffic with every kernel count set to 0 just
-    before; returns (metrics, seconds, launches by kernel)."""
+    before; returns (metrics, seconds, launches by kernel). ``paged``: every
+    step ran on the paged backend, with no window staging; else every step
+    ran gathered."""
     for k in counters.values():
         k.launches = 0  # the main path's count starts here
     t0 = time.perf_counter()
@@ -893,8 +1106,12 @@ def run_served(engine, counters):
         [m.num_generated for m in metrics]
     assert all(0 <= tok < cfg.vocab_size for s in engine.seqs.values()
                for tok in s.generated)
-    assert engine.host_copy_bytes == 0, engine.host_copy_bytes
-    assert engine.paged_steps == engine.steps > 0
+    if paged:
+        assert engine.host_copy_bytes == 0, engine.host_copy_bytes
+        assert engine.paged_steps == engine.steps > 0
+    else:
+        assert engine.paged_steps == 0 and engine.runner.steps == engine.steps > 0
+        assert engine.host_copy_bytes > 0
     return metrics, dt, launches
 
 
@@ -922,7 +1139,8 @@ def traced_rerun(engine, rng, adapters=(None,)):
 
 
 COUNTERS = {"paged_attention": KERNEL, "paged_attention_quant": QKERNEL,
-            "quantize_pages": PACK, "dequantize_pages": UNPACK, "bgmv": BGMV}
+            "quantize_pages": PACK, "dequantize_pages": UNPACK, "bgmv": BGMV,
+            "flash_prefill": FLASH}
 
 
 def phase_serve():
@@ -936,7 +1154,7 @@ def phase_serve():
     assert launches == cfg.num_layers * engine.paged_steps, \
         (launches, engine.paged_steps)
     assert counts["paged_attention_quant"] == counts["quantize_pages"] == 0, counts
-    assert counts["bgmv"] == 0, counts
+    assert counts["bgmv"] == counts["flash_prefill"] == 0, counts
     ttft = statistics.median(m.ttft for m in metrics)
     prompt = sum(m.num_prompt for m in metrics)
     log(f"[6 serve] {cfg.name} full width: 8 requests, {prompt} prompt + {gen} "
@@ -960,7 +1178,8 @@ def phase_serve_quant():
     gen = sum(m.num_generated for m in metrics)
     assert counts["paged_attention_quant"] == cfg.num_layers * engine.paged_steps, \
         (counts, engine.paged_steps)
-    assert counts["paged_attention"] == counts["bgmv"] == 0, counts
+    assert counts["paged_attention"] == counts["bgmv"] == counts["flash_prefill"] == 0, \
+        counts
     assert counts["quantize_pages"] >= 1, counts
     ttft = statistics.median(m.ttft for m in metrics)
     ratio = store.kv_fp16_bytes_per_block() / store.kv_bytes_per_block()
@@ -1000,6 +1219,7 @@ def phase_serve_lora(fp_rate, fp_ttft):
     assert counts["bgmv"] == 6 * cfg.num_layers * steps, (counts, steps)
     assert counts["paged_attention"] == cfg.num_layers * steps, (counts, steps)
     assert counts["paged_attention_quant"] == counts["quantize_pages"] == 0, counts
+    assert counts["flash_prefill"] == 0, counts
     assert snap["lora.misses"] >= 4 and snap["lora.evictions"] >= 2, snap
     assert store.pages_per_adapter == 11, store.pages_per_adapter
     assert snap["lora.rented_pages"] == 11 * len(store.loaded), snap
@@ -1019,12 +1239,51 @@ def phase_serve_lora(fp_rate, fp_ttft):
     return counts
 
 
+def phase_serve_starcoder():
+    """starcoder2-3b at full width on the gathered backend (its only one):
+    8 requests queued at once, prompts of 128-512 random tokens, 32 greedy
+    output tokens each, block 16, max_model_len 1024, prefill_chunk 512 (a
+    prompt prefills as one fresh chunk unless the step's 1024-token budget
+    splits it), then a traced rerun."""
+    engine = build_engine(
+        "starcoder2-3b", debug=False, device="cuda", max_model_len=1024,
+        num_blocks=640, block_size=16,
+        scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=1024,
+                                  prefill_chunk=512))
+    cfg, runner, model = engine.model.cfg, engine.runner, engine.model
+    assert engine.paged_runner is None and runner.name == "gathered"
+    rng = np.random.default_rng(7)
+    add_traffic(engine, rng, "r")
+    model.route_rows = dict.fromkeys(model.route_rows, 0)
+    metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    gen = sum(m.num_generated for m in metrics)
+    assert counts["flash_prefill"] == cfg.num_layers * runner.prefill_steps > 0, \
+        (counts, runner.prefill_steps)
+    assert all(n == 0 for k, n in counts.items() if k != "flash_prefill"), counts
+    rows = dict(model.route_rows)
+    assert rows["flash_prefill"] >= 8, rows
+    ttft = statistics.median(m.ttft for m in metrics)
+    prompt = sum(m.num_prompt for m in metrics)
+    log(f"[6 serve] {cfg.name} full width, gathered backend: 8 requests, {prompt} "
+        f"prompt + {gen} generated tokens in {dt:.2f} s = {gen / dt:.1f} generated "
+        f"tok/s, TTFT p50 {ttft * 1e3:.0f} ms, {engine.steps} steps "
+        f"({runner.prefill_steps} with a fresh row), flash_prefill launches "
+        f"{counts['flash_prefill']} (= {cfg.num_layers} x {runner.prefill_steps}); "
+        f"rows by route: flash_prefill {rows['flash_prefill']}, flash_attention "
+        f"{rows['flash_attention']}; host_copy_bytes {engine.host_copy_bytes} "
+        f"({engine.host_copy_bytes / engine.steps / 1e6:.1f} MB per step); "
+        f"preemptions {engine.metrics_snapshot()['engine.preemptions']}")
+    traced_rerun(engine, rng)
+    return counts
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
     "quantize_pages": "src/repro/kernels/kv_quant/kv_quant.py:30",
     "dequantize_pages": "src/repro/kernels/kv_quant/kv_quant.py:60",
     "bgmv": "src/repro/kernels/lora/lora.py:35",
+    "flash_prefill": "src/repro/kernels/flash_attention/flash_attention.py:73",
 }
 
 
@@ -1034,8 +1293,9 @@ def main() -> None:
     phase_kernel()
     phase_kernel_quant()
     phase_kernel_lora()
+    phase_kernel_flash()
     timing = {"paged_attention": phase_timing(card), **phase_timing_quant(card),
-              "bgmv": phase_timing_lora(card)}
+              "bgmv": phase_timing_lora(card), "flash_prefill": phase_timing_flash(card)}
     model, params = build_olmo()
     phase_model(model, params)
     phase_model_quant(model, params)
@@ -1047,15 +1307,18 @@ def main() -> None:
     q_counts = phase_serve_quant()
     torch.cuda.empty_cache()
     lora_counts = phase_serve_lora(fp_rate, fp_ttft)
+    torch.cuda.empty_cache()
+    phase_model_starcoder()
+    sc_counts = phase_serve_starcoder()
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for the quantized kernels (dequantize_pages
     # is on no serving path: only tests call it in the reference), the LoRA
-    # serve for bgmv
+    # serve for bgmv, the gathered starcoder2-3b serve for flash_prefill
     launches = dict(q_counts, paged_attention=fp_counts["paged_attention"],
-                    bgmv=lora_counts["bgmv"])
+                    bgmv=lora_counts["bgmv"], flash_prefill=sc_counts["flash_prefill"])
     sources = {"paged_attention": kmod.SOURCE, "paged_attention_quant": qmod.SOURCE,
                "quantize_pages": kvmod.SOURCE, "dequantize_pages": kvmod.SOURCE,
-               "bgmv": bgmod.SOURCE}
+               "bgmv": bgmod.SOURCE, "flash_prefill": fmod.SOURCE}
     kernels = [dict(name=k, route="cuda", source=os.path.relpath(sources[k], ROOT),
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=timing[k]["max_abs_err"], ms=timing[k]["ms"],

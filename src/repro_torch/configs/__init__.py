@@ -1,7 +1,9 @@
 """Architecture config registry of the PyTorch port.
 
 A copy of ``repro.configs`` restricted to the architectures the port serves
-today: pure global-attention dense stacks that run on the paged path.
+today: dense attn+mlp stacks. olmo-1b, gemma-2b and qwen2.5-32b (global
+attention) run on the paged path; starcoder2-3b (sliding-window attention)
+runs on the gathered backend only.
 ``get_config("<arch-id>")`` returns the exact published config;
 ``smoke_config("<arch-id>")`` the reduced variant the CPU tests use (2
 layers, d_model <= 256, f32).
@@ -12,9 +14,10 @@ import dataclasses
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, dense_stages  # noqa: F401
 
-from repro_torch.configs import gemma_2b, olmo_1b, qwen2_5_32b  # noqa: E402
+from repro_torch.configs import gemma_2b, olmo_1b, qwen2_5_32b, starcoder2_3b  # noqa: E402
 
-REGISTRY = {m.CONFIG.name: m.CONFIG for m in (qwen2_5_32b, gemma_2b, olmo_1b)}
+REGISTRY = {m.CONFIG.name: m.CONFIG
+            for m in (qwen2_5_32b, gemma_2b, olmo_1b, starcoder2_3b)}
 
 ARCHS = tuple(sorted(REGISTRY))
 

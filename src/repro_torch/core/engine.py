@@ -1,25 +1,31 @@
 """LLMEngine: continuous-batching serving engine over paged KV storage.
 
-The port of ``repro.core.engine`` for the paged fp configuration. This
+The port of ``repro.core.engine`` for text-only dense decoders. This
 module is the *policy* layer — admission, scheduling, block allocation,
-copy-on-write, prefix caching, preemption, sampling, metrics; the
-``PagedRunner`` is the mechanism: every step (pure decode, prompt chunks,
-mixed SplitFuse steps) runs straight off block-indexed page stores through
+copy-on-write, prefix caching, preemption, sampling, metrics; a runner is
+the mechanism (``executor.make_runners``). On a pure global-attention
+stack the ``PagedRunner`` runs every step (pure decode, prompt chunks,
+mixed SplitFuse steps) straight off block-indexed page stores through
 ``model.decode_paged`` / ``model.extend_paged`` and the CUDA paged-
-attention kernel on the card.
+attention kernel on the card. Stacks without a paged family (sliding-
+window attention: starcoder2-3b), and any stack under
+``execution_backend="gathered"``, run on the ``GatheredRunner``: pages
+gathered into dense windows, ``model.extend``, the written slots scattered
+back, every prompt's first chunk through the CUDA ``flash_prefill``
+kernel.
 
 The engine runs on ``EngineConfig.device`` (``cuda`` by default; ``cpu``
-for the tests) and raises when CUDA is asked for and absent. Only the paged
-backend exists: ``execution_backend`` "gathered" and "speculative" raise
-``NotImplementedError`` naming their ROADMAP item. ``EngineConfig.kv_quant``
-stores KIVI-quantized pages (uint8 codes + f16 scale/zero planes) that the
-quantized CUDA kernel reads; only the KIVI axes without a GEAR residual
-have a paged layout, and any other ``QuantConfig`` raises, since it needs
-the gathered backend. ``EngineConfig.lora`` serves many LoRA adapters of
-the one base model in the same batch: each request names its
-``adapter_id``, the ``PagedAdapterStore`` faults adapters into device
-tables by renting KV-pool pages, and every step applies each row's deltas
-through the ``bgmv`` kernel. Sampling randomness comes from one
+for the tests) and raises when CUDA is asked for and absent.
+``execution_backend="speculative"`` raises ``NotImplementedError`` naming
+its ROADMAP item. ``EngineConfig.kv_quant`` stores KIVI-quantized pages
+(uint8 codes + f16 scale/zero planes) that the quantized CUDA kernel
+reads, on the paged backend only; any other ``QuantConfig``, and KIVI
+pages on the gathered backend, raise. ``EngineConfig.lora`` (global-
+attention stacks, either backend) serves many LoRA adapters of the one
+base model in the same batch: each request names its ``adapter_id``, the
+``PagedAdapterStore`` faults adapters into device tables by renting
+KV-pool pages, and every step applies each row's deltas through the
+``bgmv`` kernel. Sampling randomness comes from one
 ``torch.Generator`` seeded from ``EngineConfig.seed``.
 """
 from __future__ import annotations
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.block_manager import BlockManager, OutOfBlocks
-from repro_torch.core.executor import PagedModelState, PagedRunner, marshal_batch
+from repro_torch.core.executor import PagedModelState, make_runners, marshal_batch
 from repro_torch.core.executor.base import ModelRunner
 from repro_torch.core.kv_quant import QuantConfig
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore
@@ -45,9 +51,9 @@ from repro_torch.core.telemetry import NULL_TRACER, MetricsRegistry
 from repro_torch.models.model import resolve_device
 
 _NOT_PORTED = {
-    "gathered": "ROADMAP queue A.3 (GatheredRunner)",
     "speculative": "ROADMAP queue A.6 (speculative decoding)",
 }
+_QUANT_GATHERED = "ROADMAP queue A.3 (KIVI/GEAR stores on the gathered backend)"
 
 
 @dataclasses.dataclass
@@ -58,7 +64,7 @@ class EngineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     enable_prefix_cache: bool = True
     host_cache_blocks: int = 0  # AttentionStore host tier (0 = off)
-    execution_backend: str = "auto"  # auto | paged
+    execution_backend: str = "auto"  # auto | gathered | paged
     device: str = "cuda"  # where the model, the page mirror and the kernels run
     seed: int = 0
     kv_quant: Optional[QuantConfig] = None  # KIVI pages at rest
@@ -75,8 +81,6 @@ class LLMEngine:
             raise NotImplementedError(
                 f"execution_backend={backend!r} is not ported yet: "
                 f"{_NOT_PORTED[backend]}")
-        if backend not in ("auto", "paged"):
-            raise ValueError(f"unknown execution_backend: {backend!r}")
         if resolve_device(self.cfg.device).type != model.device.type:
             raise ValueError(f"EngineConfig.device={self.cfg.device!r} but the "
                              f"model lives on {model.device}")
@@ -85,22 +89,29 @@ class LLMEngine:
         self.scheduler = Scheduler(self.cfg.scheduler, self.vtc)
         self.bm = BlockManager(self.cfg.num_blocks, self.cfg.block_size)
         self.store = PagedModelState(model.cfg, self.cfg, device=self.device)
-        if self.cfg.kv_quant is not None and not self.store.quantized:
-            # the twin of make_runners' eligibility rule: quant configs the
-            # page layout cannot hold run only on the gathered backend
+        self.runner, self.paged_runner = make_runners(model, params, self.cfg,
+                                                      self.store)
+        if self.cfg.kv_quant is not None and (self.paged_runner is None
+                                              or not self.store.quantized):
+            # the reference stages quantized windows through the gathered
+            # backend for these; the port does not yet
             raise NotImplementedError(
-                f"kv_quant={self.cfg.kv_quant}: only the KIVI axes (keys per "
-                "channel, values per token) without a GEAR residual have a "
-                f"paged layout; the rest needs {_NOT_PORTED['gathered']}")
-        self.paged_runner = PagedRunner(model, params, self.cfg, self.store)
-        self.runner: ModelRunner = self.paged_runner
-        # sacrificial page: ragged-chunk padding writes land here — reserved
-        # up front so it can never be a member of a real block table
-        self.paged_runner.scratch_block = self.bm.allocate(1)[0]
+                f"kv_quant={self.cfg.kv_quant} on {model.cfg.name} with "
+                f"execution_backend={backend!r}: only the KIVI axes (keys per "
+                "channel, values per token) without a GEAR residual, on the "
+                f"paged backend, are ported; the rest is {_QUANT_GATHERED}")
+        if self.paged_runner is not None:
+            # sacrificial page: ragged-chunk padding writes land here —
+            # reserved up front so it can never be a member of a real table
+            self.paged_runner.scratch_block = self.bm.allocate(1)[0]
         # multi-tenant LoRA: the store rents KV pool pages, so resident
         # adapters and cache trade off under one memory budget
         self.adapters: Optional[PagedAdapterStore] = None
         if self.cfg.lora is not None:
+            if model.decode_paged is None:
+                raise ValueError(
+                    "EngineConfig.lora needs a pure global-attention stack "
+                    "(the LoRA sites assume the paged-capable layer layout)")
             self.adapters = PagedAdapterStore(
                 model.cfg, self.cfg.lora, self.bm, self.store.kv_bytes_per_block(),
                 device=self.device)
@@ -131,8 +142,8 @@ class LLMEngine:
         self.trace = NULL_TRACER
         self.metrics = MetricsRegistry()
         self._dispatch_counters = {
-            self.runner.name: self.metrics.counter(
-                f"engine.dispatch.{self.runner.name}")}
+            name: self.metrics.counter(f"engine.dispatch.{name}")
+            for name in ("gathered", "paged")}
         self._preempt_counter = self.metrics.counter("engine.preemptions")
         self._register_metrics()
 
@@ -162,11 +173,16 @@ class LLMEngine:
             reg.gauge("prefix_cache.evicted_blocks", lambda: p.evicted_blocks)
             reg.gauge("prefix_cache.demoted_blocks", lambda: p.demoted_blocks)
             reg.gauge("prefix_cache.hit_rate", lambda: p.hit_rate)
-        r = self.paged_runner
-        reg.gauge("runner.paged.steps", lambda: r.steps)
-        reg.gauge("runner.paged.mirror_upload_bytes", lambda: r.mirror_upload_bytes)
-        reg.gauge("runner.paged.writeback_bytes", lambda: r.writeback_bytes)
-        reg.gauge("runner.paged.tail_upload_bytes", lambda: r.tail_upload_bytes)
+        g = self.runner
+        reg.gauge("runner.gathered.steps", lambda: g.steps)
+        reg.gauge("runner.gathered.prefill_steps", lambda: g.prefill_steps)
+        if self.paged_runner is not None:
+            r = self.paged_runner
+            reg.gauge("runner.paged.steps", lambda: r.steps)
+            reg.gauge("runner.paged.mirror_upload_bytes",
+                      lambda: r.mirror_upload_bytes)
+            reg.gauge("runner.paged.writeback_bytes", lambda: r.writeback_bytes)
+            reg.gauge("runner.paged.tail_upload_bytes", lambda: r.tail_upload_bytes)
         if self.adapters is not None:
             a = self.adapters
             reg.gauge("lora.hits", lambda: a.stats.hits)
@@ -178,10 +194,11 @@ class LLMEngine:
 
     def set_tracer(self, tracer) -> None:
         """Install a tracer on the engine and on every part that records
-        spans (the paged runner, the adapter store)."""
-        self.trace = self.paged_runner.trace = tracer
-        if self.adapters is not None:
-            self.adapters.trace = tracer
+        spans (the runners, the adapter store)."""
+        self.trace = self.runner.trace = tracer
+        for part in (self.paged_runner, self.adapters):
+            if part is not None:
+                part.trace = tracer
 
     def metrics_snapshot(self) -> Dict[str, float]:
         """Flat name -> value dict over every registered instrument."""
@@ -195,7 +212,7 @@ class LLMEngine:
     @property
     def paged_steps(self) -> int:
         """Batches executed on the paged backend."""
-        return self.paged_runner.steps
+        return self.paged_runner.steps if self.paged_runner is not None else 0
 
     # ------------------------------------------------------------------
     def register_adapter(self, adapter_id: str, weights) -> None:
@@ -478,8 +495,9 @@ class LLMEngine:
                                if c.seq.request.adapter_id is not None}
         try:
             # the whole ragged plan — decodes AND prompt chunks — fuses into
-            # ONE paged dispatch (decode_paged when all lengths are 1)
-            self._run_group(plan.chunks, self.runner)
+            # ONE dispatch: paged when the backend exists (decode_paged when
+            # all lengths are 1, extend_paged otherwise), gathered otherwise
+            self._run_group(plan.chunks, self.paged_runner or self.runner)
         finally:
             self._step_inflight = None
             self._step_adapters = None

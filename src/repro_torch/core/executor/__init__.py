@@ -1,7 +1,34 @@
-"""Execution backends of the port's serving engine. Only the paged backend
-exists so far (``PagedRunner``); the gathered and speculative runners are
-queued in ROADMAP.md."""
+"""Execution backends of the port's serving engine.
+
+``make_runners`` wires them for a model/config pair, as the reference's
+``repro.core.executor.make_runners`` does:
+  * ``GatheredRunner`` always exists: the parity reference, and the only
+    backend for stacks without a paged family (sliding-window attention);
+  * ``PagedRunner`` exists when the stack is pure global attention (the
+    model has ``decode_paged``) and ``execution_backend`` is "auto" or
+    "paged"; the engine then runs every step on it.
+The speculative runner is queued in ROADMAP.md.
+"""
 from repro_torch.core.executor.base import (ExecBatch, ModelRunner,  # noqa: F401
                                             marshal_batch)
+from repro_torch.core.executor.gathered import GatheredRunner  # noqa: F401
 from repro_torch.core.executor.paged import PagedRunner  # noqa: F401
 from repro_torch.core.executor.state import PagedModelState  # noqa: F401
+
+
+def make_runners(model, params, engine_cfg, store):
+    """Returns (gathered, paged_or_None) per ``engine_cfg.execution_backend``:
+    "auto" | "gathered" | "paged". "paged" on a stack without a paged
+    family raises."""
+    backend = engine_cfg.execution_backend
+    if backend not in ("auto", "gathered", "paged"):
+        raise ValueError(f"unknown execution_backend: {backend!r}")
+    gathered = GatheredRunner(model, params, engine_cfg, store)
+    paged = None
+    if backend in ("auto", "paged") and model.decode_paged is not None:
+        paged = PagedRunner(model, params, engine_cfg, store)
+    if backend == "paged" and paged is None:
+        raise ValueError(
+            f"execution_backend={backend!r} but {model.cfg.name} has no paged "
+            "decode path (needs a pure global-attention stack)")
+    return gathered, paged

@@ -1,11 +1,11 @@
 """ModelRunner: the execution-backend interface of the serving engine.
 
-A copy of ``repro.core.executor.base`` for the port's text-only paged
-path. The engine owns *policy* — admission, scheduling, block allocation,
-CoW, prefix caching, sampling, metrics. A runner owns *mechanism*: given a
+A copy of ``repro.core.executor.base`` for the port's text-only paths.
+The engine owns *policy* — admission, scheduling, block allocation, CoW,
+prefix caching, sampling, metrics. A runner owns *mechanism*: given a
 batch of scheduled chunks whose blocks are already allocated, execute the
-model and return per-chunk logits. The port has one backend so far,
-``PagedRunner``; the gathered and speculative runners are queued in
+model and return per-chunk logits. The port has two backends,
+``PagedRunner`` and ``GatheredRunner``; the speculative runner is queued in
 ROADMAP.md.
 """
 from __future__ import annotations
@@ -35,7 +35,7 @@ class ExecBatch:
     lora: Optional[dict] = None
 
 
-def lora_arg(batch_lora: Optional[dict], pad_rows: int = 0, *, device="cpu"):
+def lora_arg(batch_lora: Optional[dict], pad_rows: int = 0, *, device):
     """The model-facing lora operand of a marshalled batch's attachment:
     padding rows (pow2 batch bucketing) get the NULL adapter slot 0 — their
     logits are sliced off and their writes land in the scratch page — and

@@ -11,9 +11,14 @@ each chunk's own K/V back here (O(tokens), ``write_token_group``), which
 keeps this store authoritative for copy-on-write, prefix-cache payloads and
 host-tier restores. Engine-side mutations (CoW copies, restores) bump
 ``version`` and record the block ids in ``dirty_blocks`` so the runner's
-device mirror re-syncs just those blocks. ``host_copy_bytes`` counts
-gather/scatter window staging, which only a gathered backend does: the
-paged path keeps it at 0.
+device mirror re-syncs just those blocks.
+
+The gathered backend (``GatheredRunner``) reads whole windows instead:
+``gather`` copies each row's pages into a dense (B, W, KV, D) window per
+layer and ``scatter`` writes back only the positions a step wrote.
+``host_copy_bytes`` counts that staging as the reference does (the window
+per gather, the written payload per scatter); the paged path keeps it at
+0.
 
 KIVI quantization at rest (``EngineConfig.kv_quant`` with the KIVI axes and
 no GEAR residual, ``quantized``): each leaf holds uint8 codes, with f16
@@ -57,6 +62,7 @@ class PagedModelState:
         self.dtype = DTYPES[model_cfg.dtype]
         shape = (model_cfg.num_kv_heads, engine_cfg.num_blocks,
                  engine_cfg.block_size, model_cfg.head_dim)
+        self.num_layers = model_cfg.num_layers
         self._leaves: List[Tuple[int, str, int]] = []
         self.stores: List[torch.Tensor] = []
         for layer in range(model_cfg.num_layers):
@@ -162,6 +168,57 @@ class PagedModelState:
             self._requant_group([(idx, fb, self.qstage[idx][:, fb]) for idx in idxs])
             self.block_quantized[filled] = True
             self._touch(filled)
+
+    # ------------------------------------------------------------------
+    # gathered backend: dense cache windows
+    # ------------------------------------------------------------------
+    def gather(self, tables: np.ndarray) -> List[Dict[str, torch.Tensor]]:
+        """tables: (B, nmax) block ids. Returns, per layer, {"k", "v"} host
+        windows (B, W, KV, D) with W = min(nmax * P, max_model_len): row b's
+        positions in its table's order. Table entries past a row's blocks
+        point at block 0 and bring in bytes that the model never reads as
+        valid keys."""
+        if self.quantized:
+            raise NotImplementedError(
+                "KIVI-quantized pages on the gathered backend are not ported "
+                "yet (ROADMAP queue A.3: KIVI/GEAR stores on the gathered backend)")
+        idx = torch.from_numpy(np.ascontiguousarray(tables, np.int64))
+        B, nb = idx.shape
+        W = min(nb * self.cfg.block_size, self.cfg.max_model_len)
+        out: List[Dict[str, torch.Tensor]] = [{} for _ in range(self.num_layers)]
+        for layer, name, li in self._leaves:
+            pages = self.stores[li][:, idx]  # (KV, B, nb, P, D)
+            KV, _, _, P, D = pages.shape
+            win = pages.permute(1, 2, 3, 0, 4).reshape(B, nb * P, KV, D)[:, :W]
+            self.host_copy_bytes += win.numel() * win.element_size()
+            out[layer][name] = win
+        return out
+
+    def scatter(self, new_cache: List[Dict[str, torch.Tensor]], tables: np.ndarray,
+                starts: List[int], lengths: List[int]) -> None:
+        """Write back the positions [starts[b], starts[b] + lengths[b]) of
+        every row of ``new_cache`` (per-layer {"k", "v"} (B, W, KV, D)
+        windows, on any device): one device-side selection of those slots
+        across all layers, one copy to the host, then the page writes.
+        Touched blocks are marked dirty."""
+        bs = self.cfg.block_size
+        rows = [(b, st, ln) for b, (st, ln) in enumerate(zip(starts, lengths)) if ln > 0]
+        if not rows:
+            self.version += 1
+            return
+        bi = np.concatenate([np.full(ln, b) for b, _, ln in rows])
+        pos = np.concatenate([np.arange(st, st + ln) for _, st, ln in rows])
+        blk = torch.from_numpy(tables[bi, pos // bs].astype(np.int64))
+        off = torch.from_numpy(pos % bs)
+        dev = new_cache[0]["k"].device
+        sel = (torch.from_numpy(bi).to(dev), torch.from_numpy(pos).to(dev))
+        payload = torch.stack([new_cache[layer][name][sel]
+                               for layer, name, _ in self._leaves]).cpu()
+        for (_, _, li), vals in zip(self._leaves, payload):
+            store = self.stores[li]
+            store[:, blk, off] = vals.transpose(0, 1).to(store.dtype)
+            self.host_copy_bytes += vals.numel() * store.element_size()
+        self._touch(np.unique(blk.numpy()))
 
     # ------------------------------------------------------------------
     def write_token_group(self, leaf_idxs: List[int], blocks: torch.Tensor,

@@ -8,10 +8,17 @@
         --requests 2 --kv-quant-bits 8   # KIVI-quantized pages
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 4 --num-adapters 2    # multi-tenant LoRA
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch starcoder2-3b --requests 2   # sliding window: gathered backend
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 2 --backend gathered  # olmo-1b on the gathered backend
 
 ``--debug`` (the default) serves the reduced smoke config, ``--no-debug``
 the published one. ``--device`` defaults to ``cuda``; there is no CPU
 fallback. Weights are random, drawn from a seeded ``torch.Generator``.
+The report gives the steps, the paged ones among them, ``host_copy`` (the
+gathered backend's window traffic, 0 on the paged path) and, where the
+gathered backend ran, the batch rows of each attention route.
 ``build_engine`` is the construction path ``chip_smoke.py`` drives too.
 """
 from __future__ import annotations
@@ -58,7 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--policy", default="fcfs", choices=["fcfs", "vtc", "qoe"])
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "gathered", "paged", "speculative"],
-                    help="execution backend (only auto/paged are ported)")
+                    help="execution backend (speculative is not ported)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model and kernels run on")
     ap.add_argument("--kv-quant-bits", type=int, default=0,
@@ -113,13 +120,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         mlora = (f", lora={args.num_adapters} adapters r{lora.rank} "
                  f"(hits={st.hits} misses={st.misses} evicts={st.evictions}, "
                  f"{engine.adapters.rented_pages} pages rented)")
+    routes = ""
+    if engine.runner.steps:
+        rr = engine.model.route_rows
+        routes = (f", rows flash_prefill={rr['flash_prefill']} "
+                  f"flash_attention={rr['flash_attention']}")
     print(f"{cfg.name} on {engine.device}: {len(metrics)} requests, {gen} tokens, "
           f"{gen/dt:.1f} tok/s, {engine.steps} steps "
           f"({engine.paged_steps} paged), "
           f"host_copy={snap['engine.host_copy_bytes']/1e6:.1f}MB, "
           f"kv_util_peak={snap['block_manager.peak_used']/snap['block_manager.num_blocks']:.2f}, "
           f"preempts={snap['engine.preemptions']}, "
-          f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{quant}{mlora}")
+          f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{routes}{quant}"
+          f"{mlora}")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""GQA/MQA/MHA attention on paged KV stores (the port's serving path).
+"""GQA/MQA/MHA attention on paged KV stores and on gathered cache windows.
 
 Twins of the paged family of ``repro.models.attention``: 3-D projections
 (``(d, H, hd)`` in, ``(H, hd, d)`` out), RoPE at absolute positions, and
@@ -12,19 +12,34 @@ the pages stay read-only and the step's K/V joins a full-precision tail.
 Every step function takes an optional multi-tenant LoRA operand: ``lora``,
 this layer's ``{site: {"a", "b"}}`` adapter tables, and ``lora_ids`` (B,),
 each row's table slot; the per-row deltas come from one ``bgmv`` call per
-projection. Global attention only; tensor parallelism comes with its own
-slice.
+projection.
+
+The gathered backend's chunk attention, ``attn_extend`` (the twin of
+``repro.models.model._attn_extend``), writes a chunk's K/V into a dense
+``(B, W, KV, D)`` cache window and splits the batch's rows by route
+(``extend_route``): a FRESH row (nothing cached, queries at 0..C-1) is
+exactly the causal prefill ``kernels/flash_attention`` computes, so it
+goes to ``ops.flash_prefill`` (the CUDA kernel on the card); a
+CONTINUATION row (decodes, later chunks, chunks after a prefix-cache hit)
+goes to ``flash_attention``, the plain twin of the reference's blockwise
+``lax`` attention, with per-row positions and ``kv_valid``. Global and
+sliding-window kinds; tensor parallelism comes with its own slice.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_prefill
 from repro_torch.kernels.lora.ops import bgmv
 from repro_torch.kernels.paged_attention import (paged_attend, paged_attend_extend,
                                                 paged_attend_extend_quant)
 from repro_torch.models.common import apply_rope, normal_init
+
+NEG_INF = -1e30
 
 
 def make_attention_params(gen, cfg, dtype, device):
@@ -228,3 +243,141 @@ def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
     out = paged_attend_extend(q, pages["k"], pages["v"], block_tables, lengths,
                               scale=_scale(cfg))
     return proj_out_lora(p["wo"], out, lora, lora_ids), pages, (k_new, v_new)
+
+
+# ---------------------------------------------------------------------------
+# gathered cache windows: masks, plain attention, chunk extend
+# ---------------------------------------------------------------------------
+
+def pair_mask(q_pos, k_pos, kind: str, *, window: int = 0, causal: bool = True):
+    """(..., Sq) and (..., Sk) absolute positions -> bool (..., Sq, Sk),
+    True = attend. Kinds ``global`` and ``window``; ``chunked`` (llama4)
+    belongs to no ported config and raises."""
+    if kind == "chunked":
+        raise NotImplementedError("chunked attention is not ported yet "
+                                  "(ROADMAP queue A.11)")
+    if kind not in ("global", "window"):
+        raise ValueError(f"unknown attention kind {kind!r}")
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    m = (k <= q) if causal else torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                                          dtype=torch.bool, device=q.device)
+    if kind == "window" and window:
+        m = m & (k > q - window)
+    return m
+
+
+def flash_attention(q, k, v, *, q_pos, k_pos, kind: str = "global",
+                    window: int = 0, scale: float, causal: bool = True,
+                    kv_valid: Optional[torch.Tensor] = None):
+    """q: (B, Sq, H, D); k/v: (B, Sk, KV, D); GQA via head grouping.
+    q_pos: (Sq,) or (B, Sq), k_pos: (Sk,) or (B, Sk) absolute positions;
+    kv_valid: (B, Sk) bool. Returns (B, Sq, H, Dv) in q's dtype; a row
+    with no valid key gives 0.
+
+    The plain twin of ``repro.models.attention.flash_attention``: the same
+    masks and f32 softmax, computed in one pass over all Sk keys instead of
+    the reference's blockwise online softmax (the same function; the sums
+    run in another order)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KV
+    q_pos = torch.broadcast_to(torch.atleast_2d(q_pos), (B, Sq))
+    k_pos = torch.broadcast_to(torch.atleast_2d(k_pos), (B, Sk))
+    valid = pair_mask(q_pos, k_pos, kind, window=window, causal=causal)  # (B,Sq,Sk)
+    if kv_valid is not None:
+        valid = valid & kv_valid[:, None, :]
+    valid = valid[:, None, None]  # (B, 1, 1, Sq, Sk)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(B, Sq, KV, G, D).float(),
+                     k.float()) * scale
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]  # (B, Sq, KV, G, 1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    o = torch.where(l > 0, o / torch.clamp_min(l, 1e-30), 0.0)
+    return o.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+@dataclasses.dataclass
+class ExtendRoute:
+    """How one gathered extend call splits its rows, computed once from the
+    rows' cache lengths and shared by every layer.
+
+    ``fresh`` / ``cont``: (n,) row indices with ``cache_len == 0`` /
+    ``> 0`` on the model's device. ``wb, wc, wp``: for every chunk slot
+    whose position falls inside the W-slot window, its row, its offset in
+    the chunk and its window position (slots past the window are dropped,
+    as JAX's scatter drops out-of-bounds updates)."""
+    fresh: torch.Tensor
+    cont: torch.Tensor
+    wb: torch.Tensor
+    wc: torch.Tensor
+    wp: torch.Tensor
+
+
+def extend_route(cache_len: torch.Tensor, C: int, W: int) -> ExtendRoute:
+    """The row split and window-write indices of one extend call (one host
+    read of ``cache_len``, one upload of the indices)."""
+    dev = cache_len.device
+    cl = cache_len.long().cpu()
+    pos = cl[:, None] + torch.arange(C)
+    wb, wc = torch.nonzero(pos < W, as_tuple=True)
+    idx = [torch.nonzero(cl == 0)[:, 0], torch.nonzero(cl > 0)[:, 0],
+           wb, wc, pos[wb, wc]]
+    return ExtendRoute(*(t.to(dev) for t in idx))
+
+
+def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
+                lora=None, lora_ids=None):
+    """Write a chunk's K/V at [cache_len, cache_len + C) of the cache window
+    and attend. x: (B, C, d); cache: {"k", "v"} (B, W, KV, D), written IN
+    PLACE; cache_len: (B,) tokens already in the window. Fresh rows go to
+    ``flash_prefill`` over their own first C positions (the window holds
+    nothing else for them; a ragged row's padded queries are garbage no
+    one reads, and causality keeps its real queries off the padding's
+    K/V); continuation rows go to ``flash_attention`` over the whole window
+    with ``kv_valid = position < cache_len + C``, as the reference attends.
+    Returns (out (B, C, d), cache)."""
+    B, C, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, lora, lora_ids)
+    pos = cache_len.long()[:, None] + torch.arange(C, device=x.device)
+    if _uses_rope(cfg, spec):
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    k_new = k.to(cache["k"].dtype)  # (B, C, KV, D)
+    v_new = v.to(cache["v"].dtype)
+    cache["k"][route.wb, route.wp] = k_new[route.wb, route.wc]
+    cache["v"][route.wb, route.wp] = v_new[route.wb, route.wc]
+    window = cfg.sliding_window if spec.attn_kind == "window" else 0
+    scale = _scale(cfg)
+    nf = len(route.fresh)
+
+    def fresh_rows(t):  # no copy when every row is fresh
+        return t if nf == B else t.index_select(0, route.fresh)
+
+    out = None
+    if nf:
+        # (B, C, heads, D) read through its strides as (B, heads, C, D)
+        out = flash_prefill(fresh_rows(q).transpose(1, 2),
+                            fresh_rows(k_new).transpose(1, 2),
+                            fresh_rows(v_new).transpose(1, 2),
+                            scale=scale, window=window).transpose(1, 2)
+    if nf < B:
+        ci = route.cont
+        W = cache["k"].shape[1]
+        kpos = torch.arange(W, device=x.device)
+        oc = flash_attention(
+            q.index_select(0, ci), cache["k"].index_select(0, ci),
+            cache["v"].index_select(0, ci), q_pos=pos.index_select(0, ci),
+            k_pos=kpos, kind=spec.attn_kind, window=cfg.sliding_window, scale=scale,
+            kv_valid=kpos[None, :] < (cache_len.long().index_select(0, ci)[:, None] + C))
+        if out is None:
+            out = oc
+        else:
+            full = q.new_empty(q.shape)
+            full.index_copy_(0, route.fresh, out)
+            full.index_copy_(0, ci, oc)
+            out = full
+    return proj_out_lora(p["wo"], out, lora, lora_ids), cache

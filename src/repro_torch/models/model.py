@@ -1,22 +1,27 @@
-"""Model factory of the PyTorch port: dense global-attention decoders on the
-paged serving path.
+"""Model factory of the PyTorch port: dense attention decoders on the paged
+and gathered serving paths.
 
-The twin of the paged family of ``repro.models.model.build_model``:
-``embed_tokens``, ``head``, ``decode_paged`` (one token) and
-``extend_paged`` (chunked prefill / ragged mixed batches), over plain
-parameter dicts. Parameters: ``{"embed": (V, d), "final_norm": {...},
-["lm_head": {"w": (d, V)}], "layers": [layer, ...]}`` with one dict per
-layer in ``cfg.layer_specs()`` order — the JAX package stacks repeats
+The twin of the attn+mlp part of ``repro.models.model.build_model``:
+``embed_tokens``, ``head``, ``init_cache`` / ``extend`` (a chunk appended to
+a gathered ``(B, W, KV, D)`` cache window: prefill, chunked prefill, mixed
+batches, decode as chunks of one), and, where ``paged_decode_supported``
+holds (every layer global attention), ``decode_paged`` (one token) and
+``extend_paged`` (chunked prefill / ragged mixed batches); on other stacks
+(sliding-window attention: starcoder2-3b) those two are None, as in the
+reference. Parameters are plain dicts: ``{"embed": (V, d), "final_norm":
+{...}, ["lm_head": {"w": (d, V)}], "layers": [layer, ...]}`` with one dict
+per layer in ``cfg.layer_specs()`` order — the JAX package stacks repeats
 along a leading axis instead; ``models/convert.py`` unstacks them.
 
 Pages are a list over layers of ``{"k", "v"}`` tensors in kernel layout
 (KV, NB, P, D), written in place — or, for KIVI-quantized stores, of
 ``{"codes", "scale", "zero", "tail"}`` dicts that the step reads and does
-not write (``attention._attn_chunk_quant``). Both steps take an optional
-multi-tenant LoRA operand whose per-row deltas go through ``bgmv`` at the
-six adapter sites of a layer (wq, wk, wv, wo, w1, w2). ``build_model(cfg, device=...)`` runs
-on ``cuda`` unless asked for ``cpu`` and raises when CUDA is asked for and
-absent.
+not write (``attention._attn_chunk_quant``). A gathered cache is a list
+over layers of ``{"k", "v"}`` windows, also written in place. Every step
+takes an optional multi-tenant LoRA operand whose per-row deltas go through
+``bgmv`` at the six adapter sites of a layer (wq, wk, wv, wo, w1, w2).
+``build_model(cfg, device=...)`` runs on ``cuda`` unless asked for ``cpu``
+and raises when CUDA is asked for and absent.
 """
 from __future__ import annotations
 
@@ -84,10 +89,6 @@ def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
 # ---------------------------------------------------------------------------
 
 def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
-    if spec.mixer != "attn" or spec.ff != "mlp":
-        raise NotImplementedError(
-            f"layer {spec}: the port covers attn+mlp layers only "
-            "(ROADMAP queue A.11: other model families)")
     return {"norm1": make_norm(cfg.norm, cfg.d_model, dtype, device),
             "mixer": attn.make_attention_params(gen, cfg, dtype, device),
             "norm2": make_norm(cfg.norm, cfg.d_model, dtype, device),
@@ -120,6 +121,16 @@ def _layer_extend_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
     return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), pages, kv_new
 
 
+def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
+                  lora_ids=None):
+    """C-token extend over a gathered cache window (the twin of the
+    reference's ``_layer_extend`` for attn+mlp layers)."""
+    h = apply_norm(cfg.norm, p["norm1"], x)
+    y, cache = attn.attn_extend(p["mixer"], cfg, spec, h, cache, cache_len, route,
+                                lora, lora_ids)
+    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), cache
+
+
 def _layer_lora(lora):
     """(per-layer adapter tables, per-row slot ids) of a model-level LoRA
     operand; (None-per-layer, None) without one."""
@@ -141,22 +152,37 @@ def paged_decode_supported(cfg: ModelConfig) -> bool:
 # model
 # ---------------------------------------------------------------------------
 
+def ported_stack(cfg: ModelConfig) -> bool:
+    """Whether the port builds this stack: attn+mlp layers of the global and
+    sliding-window kinds, no learned positions, no encoder."""
+    return (cfg.family != "audio" and not cfg.learned_positions
+            and all(s.mixer == "attn" and s.ff == "mlp"
+                    and s.attn_kind in ("global", "window")
+                    for p, _ in cfg.stages for s in p))
+
+
 class Model:
-    """Functions over a parameter dict for one config on one device."""
+    """Functions over a parameter dict for one config on one device.
+
+    ``route_rows`` counts the batch rows ``extend`` sent down each route
+    (``flash_prefill``: fresh rows; ``flash_attention``: continuation
+    rows), once per call, not per layer."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if not paged_decode_supported(cfg):
+        if not ported_stack(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves pure global-attention dense "
-                "stacks only (ROADMAP queue A.11: other model families)")
-        if cfg.learned_positions or cfg.family == "audio":
-            raise NotImplementedError(f"{cfg.name}: learned positions / "
-                                      "enc-dec are not ported yet")
+                f"{cfg.name}: the port serves dense attn+mlp stacks of global "
+                "and sliding-window attention only (ROADMAP queue A.11: other "
+                "model families)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         self.pdtype = DTYPES[cfg.param_dtype]
         self.specs = cfg.layer_specs()
+        self.route_rows = {"flash_prefill": 0, "flash_attention": 0}
+        if not paged_decode_supported(cfg):
+            # no paged family for this stack: the gathered backend serves it
+            self.decode_paged = self.extend_paged = None
 
     # ---------------- init ---------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
@@ -198,6 +224,15 @@ class Model:
                                             device=dev)}
                  for name in ("k", "v")} for _ in self.specs]
 
+    def init_cache(self, batch: int, max_seq: int) -> List[Dict[str, torch.Tensor]]:
+        """Zeroed gathered cache windows, one {"k", "v"} pair of (batch,
+        max_seq, KV, D) tensors per layer, in the activation dtype on the
+        model's device."""
+        cfg = self.cfg
+        shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        return [{name: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                 for name in ("k", "v")} for _ in self.specs]
+
     # ---------------- shared helpers ----------------------------------------
     def embed_tokens(self, params, tokens):
         e = params["embed"][tokens.long()].to(self.dtype)
@@ -210,6 +245,25 @@ class Model:
         w = params["embed"].t() if self.cfg.tie_embeddings \
             else params["lm_head"]["w"]
         return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+
+    # ---------------- extend (gathered cache windows) -------------------------
+    @torch.no_grad()
+    def extend(self, params, tokens, cache, cache_len, lora=None):
+        """tokens: (B, C) at positions [cache_len, cache_len + C); cache: a
+        list over layers of {"k", "v"} (B, W, KV, D) windows, written in
+        place; cache_len: (B,) tokens already cached per row. ``lora`` as in
+        ``decode_paged``. Logits of a ragged row's padded positions are
+        garbage the caller ignores. Returns (logits (B, C, V), cache)."""
+        C = tokens.shape[1]
+        route = attn.extend_route(cache_len, C, cache[0]["k"].shape[1])
+        self.route_rows["flash_prefill"] += len(route.fresh)
+        self.route_rows["flash_attention"] += len(route.cont)
+        x = self.embed_tokens(params, tokens)
+        tables, ids = _layer_lora(lora)
+        for p, spec, c, lt in zip(params["layers"], self.specs, cache, tables):
+            x, _ = _layer_extend(p, spec, self.cfg, x, c, cache_len, route, lora=lt,
+                                 lora_ids=ids)
+        return self.head(params, x), cache
 
     # ---------------- decode_paged (one token) --------------------------------
     @torch.no_grad()

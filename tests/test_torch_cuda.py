@@ -1,6 +1,8 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card:
 paged attention over fp pages, paged attention over KIVI pages, the
-per-page pack and unpack, and the batched grouped LoRA matmul (``bgmv``).
+per-page pack and unpack, the batched grouped LoRA matmul (``bgmv``), and
+the causal flash prefill (``flash_prefill``) with the gathered extend's row
+split.
 Every test here is marked ``gpu`` and skips without CUDA.
 
 This file imports neither JAX nor ``repro``, so it runs on a machine with
@@ -12,7 +14,9 @@ there it runs without the conftest:
 Tolerances: f32 ``atol 1e-5`` (summation order only); bf16 ``atol 2e-2``
 (both compute in fp32 and round the output once; for ``bgmv``, whose
 outputs reach a few units, one bf16 step: ``rtol 2^-7``; for ``bgmv`` in
-f32, ``atol 1e-5`` beyond the plain version's own distance from f64). The
+f32, ``atol 1e-5`` beyond the plain version's own distance from f64;
+``flash_prefill`` bf16 and f16 ``3e-2``, as ``tests/test_kernels_flash.py``
+gives bf16). The
 pack and
 unpack are byte-equal: every step of both is one IEEE-rounded f32 operation.
 """
@@ -363,3 +367,135 @@ def test_bgmv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     out = bgmod.bgmv(x, a, b, bad)
     torch.cuda.synchronize()
     assert torch.isnan(out[1]).all() and not torch.isnan(out[[0, 2]]).any()
+
+
+# ---------------------------------------------------------------------------
+# causal flash prefill and the gathered extend's row split
+# ---------------------------------------------------------------------------
+
+from unittest import mock  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fmod  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_prefill_ref  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+
+FLASH_CASES = [
+    # B, H, KV, S, D, window — tests/test_kernels_flash.py's cases, then
+    # starcoder2-3b's heads: the window never binds (S 512, 2048), binds
+    # (S 8192), and an S that is no multiple of the 64-row tile
+    (2, 4, 2, 128, 64, 0), (1, 8, 1, 256, 32, 0), (2, 6, 6, 64, 64, 0),
+    (1, 4, 2, 256, 64, 64), (1, 2, 2, 128, 128, 0),
+    (1, 24, 2, 512, 128, 4096), (1, 24, 2, 2048, 128, 4096),
+    (1, 24, 2, 8192, 128, 4096), (2, 24, 2, 300, 128, 4096),
+]
+# f32 (the CUDA-core kernel): summation order only; bf16 / f16 (the
+# tensor-core kernel): tests/test_kernels_flash.py's bf16 tolerance
+FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+
+
+def _flash_inputs(seed, B, H, KV, S, D, dtype, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+            for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", sorted(FLASH_ATOL, key=str))
+def test_flash_prefill_kernel_matches_plain_version(cuda, case, dtype):
+    B, H, KV, S, D, window = case
+    q, k, v = _flash_inputs(3, B, H, KV, S, D, dtype, cuda)
+    before = fmod.flash_prefill.launches
+    got = fmod.flash_prefill(q, k, v, scale=D ** -0.5, window=window)
+    want = flash_prefill_ref(q, k, v, scale=D ** -0.5, window=window)
+    torch.cuda.synchronize()
+    assert fmod.flash_prefill.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_ATOL[dtype]
+
+
+@pytest.mark.gpu
+def test_flash_prefill_causality_and_strided_inputs(cuda):
+    B, H, S, D = 1, 2, 64, 32
+    q, k, v = _flash_inputs(4, B, H, H, S, D, torch.float32, cuda)
+    out1 = fmod.flash_prefill(q, k, v, scale=0.2)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 40:] += 100.0
+    v2[:, :, 40:] -= 50.0
+    out2 = fmod.flash_prefill(q, k2, v2, scale=0.2)
+    torch.cuda.synchronize()
+    assert (out1[:, :, :40] - out2[:, :, :40]).abs().max().item() <= 1e-5
+    # (B, S, heads, D) activations and a (B, W, KV, D) window read in place
+    x = torch.randn(2, 200, 24, 128, device=cuda, dtype=torch.bfloat16)
+    win = torch.randn(2, 512, 2, 128, device=cuda, dtype=torch.bfloat16)
+    kk, vv = win[:, :200].transpose(1, 2), (win[:, 100:300] * 2).transpose(1, 2)
+    got = fmod.flash_prefill(x.transpose(1, 2), kk, vv, scale=0.1, window=50)
+    want = flash_prefill_ref(x.transpose(1, 2).contiguous(), kk.contiguous(),
+                             vv.contiguous(), scale=0.1, window=50)
+    assert got.transpose(1, 2).is_contiguous()
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_ATOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_flash_prefill_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_inputs(5, 1, 4, 2, 64, 64, torch.float32, cuda)
+    with pytest.raises(TypeError, match="dtypes"):
+        fmod.flash_prefill(q, k.half(), v, scale=0.1)
+    with pytest.raises(TypeError, match="dtypes"):
+        fmod.flash_prefill(q.double(), k.double(), v.double(), scale=0.1)
+    with pytest.raises(ValueError, match="H % KV"):
+        fmod.flash_prefill(q[:, :3], k, v, scale=0.1)
+    with pytest.raises(ValueError, match="match"):
+        fmod.flash_prefill(q, k[:, :, :32], v[:, :, :32], scale=0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        fmod.flash_prefill(q[..., :48], k[..., :48], v[..., :48], scale=0.1)
+    with pytest.raises(ValueError, match="contiguous along D"):
+        fmod.flash_prefill(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3),
+                           scale=0.1)
+    with pytest.raises(ValueError, match="16-byte"):
+        wide = torch.zeros(1, 4, 64, 65, device=cuda)
+        fmod.flash_prefill(wide[..., 1:], k, v, scale=0.1)
+    with pytest.raises(ValueError, match="window"):
+        fmod.flash_prefill(q, k, v, scale=0.1, window=-1)
+    with pytest.raises(ValueError, match="several devices"):
+        fmod.flash_prefill(q, k.cpu(), v, scale=0.1)
+
+
+@pytest.mark.gpu
+def test_gathered_extend_row_split_on_card(cuda):
+    """starcoder2-3b at smoke width (f32) on the card: fresh rows run the
+    kernel once per layer, continuation rows the plain attention; logits
+    equal those with the plain version in place of the kernel."""
+    model = build_model(configs.smoke_config("starcoder2-3b"), device="cuda")
+    params = model.init(0)
+    cfg = model.cfg
+    B, C, W = 4, 24, 64
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, C), generator=g, device="cuda")
+    win = model.init_cache(B, W)
+    for layer in win:
+        for x in layer.values():
+            x.normal_(generator=g)
+    cache_len = torch.tensor([0, 9, 0, 30], dtype=torch.int32, device="cuda")
+    kernel = fmod.flash_prefill  # its count, also while the plain version stands in
+
+    def run():
+        cache = [{n: x.clone() for n, x in layer.items()} for layer in win]
+        before = (kernel.launches, dict(model.route_rows))
+        logits = model.extend(params, tokens, cache, cache_len)[0]
+        torch.cuda.synchronize()
+        return logits, kernel.launches - before[0], {
+            k: model.route_rows[k] - before[1][k] for k in before[1]}
+
+    logits, launches, rows = run()
+    assert launches == cfg.num_layers
+    assert rows == {"flash_prefill": 2, "flash_attention": 2}
+    with mock.patch.object(fmod, "flash_prefill", flash_prefill_ref):
+        plain, _, _ = run()
+    assert torch.isfinite(logits).all()
+    assert (logits - plain).abs().max().item() <= 1e-4
+    # a batch of continuation rows never launches it
+    cache_len = torch.tensor([3, 9, 1, 30], dtype=torch.int32, device="cuda")
+    _, launches, rows = run()
+    assert launches == 0 and rows["flash_prefill"] == 0

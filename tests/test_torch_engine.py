@@ -106,9 +106,11 @@ def test_preemption_recompute_matches_jax():
 
 
 def test_unported_backends_raise():
-    for backend in ("gathered", "speculative"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _torch_engine(execution_backend=backend)
+    # the gathered backend is ported (tests/test_torch_gathered.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _torch_engine(execution_backend="speculative")
+    with pytest.raises(ValueError, match="unknown execution_backend"):
+        _torch_engine(execution_backend="bogus")
 
 
 def test_serve_entry_point_on_cpu(capsys):

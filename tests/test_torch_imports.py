@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 (and ``chip_smoke.py``) loads neither JAX nor the JAX package ``repro``.
 Checked in a fresh interpreter, where nothing else has imported them; the
-walk must reach the KIVI and LoRA modules too."""
+walk must reach the KIVI, LoRA and gathered-backend modules too."""
 import os
 import subprocess
 import sys
@@ -29,6 +29,11 @@ lora = {"repro_torch.core.lora.config", "repro_torch.core.lora.registry",
         "repro_torch.core.lora.store", "repro_torch.kernels.lora.bgmv",
         "repro_torch.kernels.lora.ops", "repro_torch.kernels.lora.ref"}
 assert lora <= set(mods), lora - set(mods)
+gathered = {"repro_torch.configs.starcoder2_3b", "repro_torch.core.executor.gathered",
+            "repro_torch.kernels.flash_attention.flash_attention",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref"}
+assert gathered <= set(mods), gathered - set(mods)
 """
 
 
