@@ -16,12 +16,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                the LoRA bgmv (shape cases, ranks 4-64, olmo-1b's three
                adapter sites; null-slot rows exactly 0), and the causal
                flash prefill (shape cases x f32 / bf16 / f16,
-               starcoder2-3b's heads with and without a binding window, a
-               ragged S, causality, strided model-layout inputs);
+               starcoder2-3b's heads with and without a binding window,
+               ragged S, group sizes 1-12, causality, strided
+               model-layout inputs);
   4. timing  — each kernel at the olmo-1b serving shape (flash_prefill at
-               starcoder2-3b's: S=2048, and S=8192 under its 4096 window)
-               beside its bound, its plain version and, where one exists,
-               the PyTorch calls computing the same function;
+               starcoder2-3b's: S=2048, S=8192 under its 4096 window, and
+               the serve's fresh B=2, S=512 chunk) beside its bound, its
+               plain version and, where one exists, the PyTorch calls
+               computing the same function;
   5. model   — olmo-1b at its published width, decode_paged and ragged
                extend_paged over fp pages and over KIVI pages, kernel vs
                plain attention logits; then with LoRA adapters (kernel vs
@@ -317,6 +319,19 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
+    # the wgmma flash_prefill kernel's own report: ptxas prints an entry's
+    # spill line and then its register line after the entry's name
+    lines = dict(built)[_build.library_path(fmod.SOURCE)].splitlines()
+    smem = _build.load(fmod.SOURCE, fmod.SIGNATURES).flash_prefill_smem_bytes
+    for n, line in enumerate(lines):
+        if "flash_prefill_wgmma_kernel" in line and "Compiling entry" in line:
+            rest = lines[n + 1:]
+            spill = next(x for x in rest if "spill" in x).strip()
+            regs = next(x for x in rest if "registers" in x).split(":")[-1].strip()
+            D = 128 if "Li128E" in line else 64
+            log(f"  flash_prefill_wgmma_kernel<{'bf16' if 'bfloat16' in line else 'f16'}, "
+                f"D={D}>: {regs}; {spill}; dynamic shared memory "
+                f"{smem(fmod.ROUTES['wgmma'], D)} bytes")
 
 
 def phase_kernel():
@@ -678,14 +693,18 @@ def phase_timing_lora(card):
 # B, H, KV, S, D, window: tests/test_kernels_flash.py:9-16's cases, then
 # starcoder2-3b's heads (H=24 over KV=2, D=128) with its 4096 window: S 512
 # and 2048 (the window never binds), 8192 (it binds), and an S that is no
-# multiple of the kernel's 64-row tile
+# multiple of the kernels' row tiles; then the wgmma kernel's edges: one
+# row, a tile plus one, groups of 8 and 12, a window binding at D=64
 FLASH_CASES = [
     (2, 4, 2, 128, 64, 0), (1, 8, 1, 256, 32, 0), (2, 6, 6, 64, 64, 0),
     (1, 4, 2, 256, 64, 64), (1, 2, 2, 128, 128, 0),
     (1, 24, 2, 512, 128, 4096), (1, 24, 2, 2048, 128, 4096),
-    (1, 24, 2, 8192, 128, 4096), (2, 24, 2, 300, 128, 4096)]
+    (1, 24, 2, 8192, 128, 4096), (2, 24, 2, 300, 128, 4096),
+    (1, 2, 2, 1, 128, 0), (2, 16, 2, 129, 64, 0), (1, 12, 1, 2053, 128, 1000),
+    (1, 8, 1, 500, 64, 100)]
 # f32 (the CUDA-core kernel): summation order only; bf16 and f16 (the
-# tensor-core kernel): tests/test_kernels_flash.py's bf16 tolerance
+# wgmma kernel: bf16 P split into head and remainder, f16 P rounded once):
+# tests/test_kernels_flash.py's bf16 tolerance
 FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
 STARCODER_WINDOW = 4096
 
@@ -736,19 +755,20 @@ def live_pairs(S: int, window: int) -> int:
 
 
 def phase_timing_flash(card):
-    """flash_prefill at starcoder2-3b's heads: B=1, H=24, KV=2, D=128, bf16,
-    causal at S=2048 (its 4096 window does not bind), then S=8192 where it
-    does. Bound: the larger of q, k, v read and o written once over HBM,
-    and 4 * H * D flops per live (i, j) pair at the bf16 tensor-core rate.
-    Library: one SDPA call (is_causal with enable_gqa; with the window, an
-    explicit boolean mask over K/V repeated to H heads outside the timing)."""
+    """flash_prefill at starcoder2-3b's heads (H=24, KV=2, D=128, bf16): B=1
+    causal at S=2048 (its 4096 window does not bind), B=1 at S=8192 where it
+    does, and the serve's fresh extend chunk, B=2 at S=512. Bound: the
+    larger of q, k, v read and o written once over HBM, and 4 * H * D flops
+    per live (i, j) pair at the bf16 tensor-core rate. Library: one SDPA
+    call (is_causal with enable_gqa; with the window, an explicit boolean
+    mask over K/V repeated to H heads outside the timing)."""
     out = {}
-    for S in (2048, 8192):
-        B, H, KV, D, w = 1, 24, 2, 128, STARCODER_WINDOW
+    H, KV, D, w = 24, 2, 128, STARCODER_WINDOW
+    for B, S in ((1, 2048), (1, 8192), (2, 512)):
         q, k, v = flash_inputs(5, B, H, KV, S, D, torch.bfloat16)
         scale = D ** -0.5
         got = FLASH(q, k, v, scale=scale, window=w)
-        err = check(f"flash_prefill timed shape S={S} vs plain", got,
+        err = check(f"flash_prefill timed shape B={B} S={S} vs plain", got,
                     flash_prefill_ref(q, k, v, scale=scale, window=w),
                     FLASH_ATOL[torch.bfloat16])
         ms = cuda_ms(lambda: FLASH(q, k, v, scale=scale, window=w))
@@ -768,7 +788,8 @@ def phase_timing_flash(card):
                 return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
                                                       scale=scale)
             lib_name = "SDPA(boolean window mask)"
-        check(f"{lib_name} vs kernel S={S}", library(), got, FLASH_ATOL[torch.bfloat16])
+        check(f"{lib_name} vs kernel B={B} S={S}", library(), got,
+              FLASH_ATOL[torch.bfloat16])
         library_ms = cuda_ms(library)
         pairs = live_pairs(S, w)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -777,17 +798,17 @@ def phase_timing_flash(card):
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         log(f"[4 timing] flash_prefill B={B} H={H} KV={KV} S={S} D={D} window={w} "
-            f"bf16: kernel {ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
-            f"({flops / 1e9:.1f} GFLOP at {card[3] / 1e12:g} TFLOP/s bf16 = "
-            f"{ops_ms * 1e3:.1f} us; {nbytes / 1e6:.1f} MB = {bytes_ms * 1e3:.1f} us; "
-            f"{bound_by}), plain {plain_ms * 1e3:.1f} us, {lib_name} "
-            f"{library_ms * 1e3:.1f} us; {bound_ms / ms:.1%} of bound, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
-        out[S] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+            f"bf16 ({fmod.kernel_route(q.dtype, D)}): kernel {ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.1f} us ({flops / 1e9:.2f} GFLOP at {card[3] / 1e12:g} "
+            f"TFLOP/s bf16 = {ops_ms * 1e3:.1f} us; {nbytes / 1e6:.1f} MB = "
+            f"{bytes_ms * 1e3:.1f} us; {bound_by}), plain {plain_ms * 1e3:.1f} us, "
+            f"{lib_name} {library_ms * 1e3:.1f} us; kernel / SDPA {ms / library_ms:.2f}; "
+            f"{bound_ms / ms:.1%} of bound, {flops / ms / 1e9:.1f} TFLOP/s")
+        out[B, S] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
         del q, k, v, got
         torch.cuda.empty_cache()
-    return out[2048]
+    return out[1, 2048]
 
 
 def build_olmo():

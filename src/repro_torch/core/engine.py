@@ -494,10 +494,23 @@ class LLMEngine:
         self._step_adapters = {c.seq.request.adapter_id for c in plan.chunks
                                if c.seq.request.adapter_id is not None}
         try:
-            # the whole ragged plan — decodes AND prompt chunks — fuses into
-            # ONE dispatch: paged when the backend exists (decode_paged when
-            # all lengths are 1, extend_paged otherwise), gathered otherwise
-            self._run_group(plan.chunks, self.paged_runner or self.runner)
+            runner = self.paged_runner or self.runner
+            if self.scheduler.cfg.exact_chunks:
+                # exact-chunk scheduling: one dispatch per chunk length, in
+                # ascending order, on the same backend. The reference groups
+                # chunks with modality extras separately first; the port
+                # refuses extras, so only its non-extras half applies
+                by_len: Dict[int, List[ChunkWork]] = {}
+                for c in plan.chunks:
+                    by_len.setdefault(c.length, []).append(c)
+                for _, group in sorted(by_len.items()):
+                    self._run_group(group, runner)
+            else:
+                # the whole ragged plan — decodes AND prompt chunks — fuses
+                # into ONE dispatch: paged when the backend exists
+                # (decode_paged when all lengths are 1, extend_paged
+                # otherwise), gathered otherwise
+                self._run_group(plan.chunks, runner)
         finally:
             self._step_inflight = None
             self._step_adapters = None

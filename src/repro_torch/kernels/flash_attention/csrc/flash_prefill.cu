@@ -9,43 +9,49 @@
 // Each of the four is given by its base pointer and its strides over
 // (B, heads, S) in elements; D is contiguous. So the model's (B, S, H, D)
 // activations and a (B, W, KV, D) cache window are read in place, without
-// the transpose copies the TPU layout would need.
+// the transpose copies the TPU layout would need. Any S: the TPU's S % block
+// rule is a VMEM tiling rule, not part of the function.
 //
-// Design (simple and right first). Both paths: one CTA per (64 query rows,
-// head, batch row); the TPU grid's sequential key axis becomes a loop inside
-// the CTA over 64-key tiles, and only over the tiles that hold a live (i, j)
-// pair: tiles above the diagonal and tiles wholly before the window are never
-// loaded, the TPU kernel's `pl.when(live)`; any S: the last query tile and
-// the last key tile are masked, rows past S are zero in shared memory and
-// never read from device memory (the TPU's S % block rule is a VMEM tiling
-// rule, not part of the function).
-//   * bf16 / f16 inputs, D <= 128 (`flash_prefill_mma_kernel`): 4 warps on
-//     the tensor cores, mma.sync m16n8k16 with fp32 accumulation; each warp
-//     owns 16 query rows, keeps its scores and the online softmax in
-//     registers and feeds the probabilities back as the A operand of P.V,
-//     split into a 16-bit head and remainder so p keeps ~16 bits (the TPU
-//     kernel multiplies p in fp32);
-//   * fp32 inputs, or D = 256 (`flash_prefill_kernel`): 256 threads on the
-//     CUDA cores, the q, K and V tiles staged as fp32; thread (tx, ty) of a
-//     16 x 16 grid owns query rows ty + 16a (a < 4), computes their scores
-//     against keys tx + 16c (c < 4) over float4 reads, reduces each row's
-//     max and sum over the 16 threads sharing ty, and passes the
+// Bound on this card: operations. 4 * B * H * D flops per live (i, j) pair,
+// ~4 * B * H * D * S^2 / 2 causal, against B * (H + 2 KV) * S * D elements
+// read and B * H * S * D written once: 989 TFLOP/s on the bf16 / f16 tensor
+// cores (25.8 GFLOP = 26 us at B=1, H=24, D=128, S=2048, where the 27 MB take
+// 8 us at 3.35 TB/s), 67 TFLOP/s in fp32 on the CUDA cores.
+//
+// Two kernels, chosen by dtype and D alone (the wrapper's kernel_route):
+//   * bf16 / f16 with D in {64, 128} (`flash_prefill_wgmma_kernel`): what
+//     the tensor cores need on Hopper. wgmma for both products (the only way
+//     to their full rate); TMA loads of K and V into a 2-slot shared-memory
+//     ring, the next tile in flight under the current tile's math; 128 query
+//     rows per CTA over two warpgroups, 128-key tiles, the mask evaluated on
+//     edge tiles only; tiles above the diagonal or wholly before the window
+//     are never loaded (the TPU kernel's `pl.when(live)`), and the row tiles
+//     launch heaviest first. f16 P is rounded once for the P.V product, as
+//     FlashAttention and SDPA do, and keeps 11 bits of mantissa; bf16 P
+//     (8 bits rounded once: one case erred by 0.031 against the 3e-2 gate)
+//     is split into a head and a remainder, two P.V products, ~16 bits. The
+//     TPU kernel multiplies p in fp32.
+//   * fp32 inputs, D = 256, or 16-bit D = 32 (`flash_prefill_kernel`): 256
+//     threads on the CUDA cores, the q, K and V tiles staged as fp32; thread
+//     (tx, ty) of a 16 x 16 grid owns query rows ty + 16a (a < 4), computes
+//     their scores against keys tx + 16c (c < 4) over float4 reads, reduces
+//     each row's max and sum over the 16 threads sharing ty, and passes the
 //     probabilities through shared memory to the P.V product, where it owns
 //     the same rows' outputs in float4 column groups tx + 16g. fp32 stays off
 //     the tensor cores: TF32 would keep 10 bits of each input.
 //
-// Bound on this card: operations. A (S, S) causal score matrix per head:
-// ~4 * B * H * D * S^2 / 2 flops against B * (H + 2 KV) * S * D elements
-// read once; 989 TFLOP/s on the bf16 tensor cores, 67 TFLOP/s in fp32 on the
-// CUDA cores.
-//
-// Left for later PRs: wgmma, TMA loads of K and V double-buffered behind the
-// math, a CTA per (row tile, KV head) sharing K/V reads across the G query
-// heads.
+// Left for later PRs: a producer warp with setmaxnreg and ping-pong
+// scheduling of the two warpgroups (issuing tile j + 1's Q.K^T right behind
+// tile j's P.V without it measured slower), persistent CTAs, D = 256 on the
+// tensor cores.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -274,255 +280,489 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// 16-bit inputs, D <= 128: the same function on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulation). A CTA of 4 warps owns the same 64
-// query rows, 16 per warp; K and V tiles are staged in shared memory as they
-// are (16-bit, rows padded by 8 elements so the fragment reads of a warp hit
-// 32 distinct banks). Each warp keeps its q rows as A fragments and its
-// 16 x 64 scores in the accumulator fragments, runs the online softmax there
-// (a row spans the 4 threads of a quad), and feeds the probabilities back as
-// the A operand of P.V. P is split into a 16-bit head and a 16-bit remainder,
-// two products instead of one, so the product keeps ~16 bits of each p where
-// a single rounding keeps 8: the TPU kernel multiplies p in fp32.
-constexpr int kMmaThreads = 128;
-constexpr int kMmaPad = 8;  // 16-bit elements of padding per staged row
+// 16-bit inputs, D in {64, 128}: the same function on Hopper's tensor cores.
+// A CTA of two warpgroups owns 128 query rows of one (batch row, head), 64
+// per warpgroup. Thread 0 loads Q once and every 128-key K/V tile by TMA into
+// 128-byte-swizzled shared memory: Q (128 x D), and a 2-slot ring of K and V
+// tiles (128 x D each); the load of tile j + 1 is issued before the
+// warpgroups start on tile j, into the slot both released after tile j - 1
+// ("empty" mbarriers), and lands on a "full" mbarrier by transaction count.
+// Rows past S and the ragged last tile are zero-filled by TMA. Each
+// warpgroup computes S = Q.K^T with wgmma m64n128k16 (Q and K from shared
+// memory, both K-major), runs the online softmax in the accumulator
+// registers (a row spans the 4 threads of a quad; the mask is evaluated only
+// on tiles that cross the diagonal, the window's edge or S), converts P in
+// place to the 16-bit A-fragment layout (bf16 as head and remainder) and
+// accumulates P.V with wgmma m64nDk16, A from registers, V from shared
+// memory as the MN-major B operand.
+constexpr int kWgThreads = 256;  // two warpgroups
+constexpr int kTQ = 128;         // query rows per CTA
+constexpr int kTK = 128;         // keys per tile
+constexpr int kPanel = 64;       // 16-bit columns of one 128-byte swizzle panel
+constexpr int kRowBytes = 128;   // bytes of one panel row
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&x);
-  }
-  static __device__ __forceinline__ float2 unpack(uint32_t x) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    const __half2 x = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&x);
-  }
-  static __device__ __forceinline__ float2 unpack(uint32_t x) {
-    return __half22float2(*reinterpret_cast<const __half2*>(&x));
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-// Copy 64 rows of D 16-bit elements (rows at or past n_valid zero) into dst,
-// row stride D + kMmaPad.
+// Shared memory, from a 1024-byte-aligned base: Q, then K slots 0 and 1,
+// then V slots 0 and 1, each as D / 64 panels of (rows, 64) elements, then
+// the mbarriers q_full, full[2], empty[2].
 template <int D>
-__device__ __forceinline__ void stage_rows_16(uint16_t* dst, const uint16_t* __restrict__ src,
-                                              long long row_stride, int n_valid) {
-  constexpr int kVpr = D / 8;  // 16-byte vectors per row
-  for (int c = threadIdx.x; c < 64 * kVpr; c += kMmaThreads) {
-    const int r = c / kVpr;
-    const int e0 = (c - r * kVpr) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid) x = *reinterpret_cast<const uint4*>(src + r * row_stride + e0);
-    *reinterpret_cast<uint4*>(dst + r * (D + kMmaPad) + e0) = x;
+struct WgSmem {
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kQPanel = kTQ * kRowBytes;
+  static constexpr int kKPanel = kTK * kRowBytes;
+  static constexpr int kQBytes = kPanels * kQPanel;
+  static constexpr int kTileBytes = kPanels * kKPanel;  // one K or V tile
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + 2 * kTileBytes;
+  static constexpr int kBar = kV + 2 * kTileBytes;
+  static constexpr int kBytes = kBar + 5 * 8 + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Block until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-size_t mma_smem_bytes(int D) { return (size_t)(kBQ + 2 * kBK) * (D + kMmaPad) * 2; }
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_prefill_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int KV, int S, Strides st, float scale, int window) {
-  constexpr int kLd = D + kMmaPad;
-  constexpr int kKs = D / 16;  // 16-wide steps of q . k
-  constexpr int kDt = D / 8;   // 8-wide column tiles of the output
-  extern __shared__ __align__(16) uint16_t smem16[];
-  uint16_t* q_s = smem16;            // (kBQ, kLd)
-  uint16_t* k_s = q_s + kBQ * kLd;   // (kBK, kLd)
-  uint16_t* v_s = k_s + kBK * kLd;   // (kBK, kLd)
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int group = lane / 4;  // fragment row (and row + 8)
-  const int tig = lane % 4;    // fragment column pair
-
-  stage_rows_16<D>(q_s, reinterpret_cast<const uint16_t*>(q + b * st.qb + h * st.qh +
-                                                          q0 * st.qs),
-                   st.qs, min(kBQ, S - q0));
-  __syncthreads();
-  // this warp's 16 rows of q as A fragments: rows r and r + 8, columns
-  // 16 ks + 2 tig (+1) and + 8
-  const int r = warp * 16 + group;
-  uint32_t qa[kKs][4];
-#pragma unroll
-  for (int ks = 0; ks < kKs; ++ks) {
-    const uint16_t* base = q_s + ks * 16 + tig * 2;
-    qa[ks][0] = *reinterpret_cast<const uint32_t*>(base + r * kLd);
-    qa[ks][1] = *reinterpret_cast<const uint32_t*>(base + (r + 8) * kLd);
-    qa[ks][2] = *reinterpret_cast<const uint32_t*>(base + r * kLd + 8);
-    qa[ks][3] = *reinterpret_cast<const uint32_t*>(base + (r + 8) * kLd + 8);
-  }
-  const int qi[2] = {q0 + r, q0 + r + 8};  // this thread's two query rows
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[kDt][4];
-#pragma unroll
-  for (int dt = 0; dt < kDt; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const int last = min(S - 1, q0 + kBQ - 1);
-  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const uint16_t* kp = reinterpret_cast<const uint16_t*>(k + b * st.kb + kvh * st.kh);
-  const uint16_t* vp = reinterpret_cast<const uint16_t*>(v + b * st.vb + kvh * st.vh);
-  for (int k0 = first / kBK * kBK; k0 <= last; k0 += kBK) {
-    const int n = min(kBK, S - k0);
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows_16<D>(k_s, kp + k0 * st.ks, st.ks, n);
-    stage_rows_16<D>(v_s, vp + k0 * st.vs, st.vs, n);
-    __syncthreads();
-
-    // s[nt][e]: row qi[e / 2], key k0 + 8 nt + 2 tig + e % 2
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const uint16_t* kr = k_s + (nt * 8 + group) * kLd + tig * 2;
-#pragma unroll
-      for (int ks = 0; ks < kKs; ++ks)
-        Mma<T>::mma(s[nt], qa[ks], *reinterpret_cast<const uint32_t*>(kr + ks * 16),
-                    *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8));
-    }
-
-    // online softmax per row, over the quad that holds it
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = live(qi[e / 2], k0 + nt * 8 + tig * 2 + e % 2, S, window);
-        s[nt][e] = ok ? s[nt][e] * scale : kNegInf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
-      }
-    float m_new[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      m_new[rr] = fmaxf(m[rr], mx[rr]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = live(qi[e / 2], k0 + nt * 8 + tig * 2 + e % 2, S, window);
-        s[nt][e] = ok ? expf(s[nt][e] - m_new[e / 2]) : 0.f;
-        sum[e / 2] += s[nt][e];
-      }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
-      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
-      const float alpha = expf(m[rr] - m_new[rr]);
-      l[rr] = l[rr] * alpha + sum[rr];
-      m[rr] = m_new[rr];
-#pragma unroll
-      for (int dt = 0; dt < kDt; ++dt) {
-        acc[dt][2 * rr] *= alpha;
-        acc[dt][2 * rr + 1] *= alpha;
-      }
-    }
-
-    // acc += P.V over 16-key steps: the score fragments of key tiles 2kk and
-    // 2kk + 1 are the A fragment of step kk; V's B fragment holds keys
-    // 2 tig (+1) and + 8 of column 8 dt + group
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t ph[4], pl[4];
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const float* src = s[2 * kk + f / 2] + 2 * (f % 2);
-        ph[f] = Mma<T>::pack(src[0], src[1]);
-        const float2 back = Mma<T>::unpack(ph[f]);
-        pl[f] = Mma<T>::pack(src[0] - back.x, src[1] - back.y);
-      }
-      const uint16_t* vr = v_s + (kk * 16 + tig * 2) * kLd + group;
-#pragma unroll
-      for (int dt = 0; dt < kDt; ++dt) {
-        const uint16_t* vc = vr + dt * 8;
-        const uint32_t b0 = (uint32_t)vc[0] | ((uint32_t)vc[kLd] << 16);
-        const uint32_t b1 = (uint32_t)vc[8 * kLd] | ((uint32_t)vc[9 * kLd] << 16);
-        Mma<T>::mma(acc[dt], ph, b0, b1);
-        Mma<T>::mma(acc[dt], pl, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    if (qi[rr] >= S) continue;
-    const float denom = fmaxf(l[rr], 1e-30f);
-    T* orow = o + b * st.ob + h * st.oh + qi[rr] * st.os + tig * 2;
-#pragma unroll
-    for (int dt = 0; dt < kDt; ++dt) {
-      orow[dt * 8] = from_float<T>(acc[dt][2 * rr] / denom);
-      orow[dt * 8 + 1] = from_float<T>(acc[dt][2 * rr + 1] / denom);
-    }
-  }
+// TMA: the (64, rows) box at element coordinates (c0, c1, c2, c3) of `map`
+// into shared memory at `dst`, completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-             int S, const Strides& st, float scale, int window, cudaStream_t stream) {
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  cudaError_t err;
-  if constexpr (sizeof(T) == 2 && D <= 128) {  // the tensor cores
-    const size_t smem = mma_smem_bytes(D);
-    err = cudaFuncSetAttribute(flash_prefill_mma_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_prefill_mma_kernel<T, D><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), H, KV, S, st, scale, window);
-  } else {  // fp32 inputs, or D = 256: the CUDA cores
-    const size_t smem = smem_bytes(D);
-    err = cudaFuncSetAttribute(flash_prefill_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), H, KV, S, st, scale, window);
+// wgmma descriptor of a 128-byte-swizzled operand at shared address `addr`:
+// `lbo` and `sbo` in bytes (K-major: sbo = 8 rows; MN-major: lbo = the next
+// 64 columns' panel, sbo = 8 rows of K).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+#define WG_R32                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_R64                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+// d (64 x 128, fp32) (+)= A (64 x 16, shared) . B (16 x 128, shared), both
+// K-major; scale_d = 0 overwrites d
+#define WG_SS_N128(TY)                                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " WG_R64 \
+               ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                   \
+               : WG_D64                                                            \
+               : "l"(a), "l"(b), "r"(scale_d))
+// d (64 x N, fp32) += A (64 x 16, registers) . B (16 x N, shared, MN-major)
+#define WG_RS_N128(TY)                                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " WG_R64 \
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                     \
+               : WG_D64                                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+#define WG_RS_N64(TY)                                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WG_R32  \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                     \
+               : WG_D32                                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    WG_SS_N128("bf16");
+  else
+    WG_SS_N128("f16");
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 128) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      WG_RS_N128("bf16");
+    else
+      WG_RS_N128("f16");
+  } else {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      WG_RS_N64("bf16");
+    else
+      WG_RS_N64("f16");
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-           int S, int D, const Strides& st, float scale, int window, cudaStream_t stream) {
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  } else {
+    const __half2 x = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  }
+}
+
+// Thread 0's load of K/V tile `k0` of (batch row b, KV head kvh) into ring
+// slot `slot`: D / 64 panels of K and of V, completing on full[slot].
+template <int D>
+__device__ __forceinline__ void load_kv_tile(uint32_t base, int slot, int k0, int kvh, int b,
+                                             const CUtensorMap* tk, const CUtensorMap* tv) {
+  using L = WgSmem<D>;
+  const uint32_t full = base + L::kBar + 8 + 8 * slot;
+  mbar_expect_tx(full, 2 * L::kTileBytes);
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p) {
+    tma_load(base + L::kK + slot * L::kTileBytes + p * L::kKPanel, tk, full, p * kPanel, k0,
+             kvh, b);
+    tma_load(base + L::kV + slot * L::kTileBytes + p * L::kKPanel, tv, full, p * kPanel, k0,
+             kvh, b);
+  }
+}
+
+// the remainder p - float(pack2(p)) of a packed pair, packed in turn
+template <typename T>
+__device__ __forceinline__ uint32_t pack2_rest(uint32_t head, float lo, float hi) {
+  float2 back;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    back = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&head));
+  else
+    back = __half22float2(*reinterpret_cast<const __half2*>(&head));
+  return pack2<T>(lo - back.x, hi - back.y);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_prefill_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int H, int KV, int S,
+    long long ob, long long oh, long long os, float scale_log2, int window) {
+  using L = WgSmem<D>;
+  constexpr int kAcc = D / 2;  // output floats per thread: m64nDk16
+  // bf16 P keeps 8 bits: split it into a head and a remainder, two P.V
+  // products, as a single rounding measured 0.031 against the plain version
+  // (over the 3e-2 gate); f16 P keeps 11 bits and is rounded once
+  constexpr bool kSplitP = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8;    // + 8 * slot (load_kv_tile)
+  const uint32_t bar_empty = bar_q + 24;  // + 8 * slot
+
+  // blocks launch in x-fastest order and the row tile is z, reversed: every
+  // (head, batch row) of the heaviest row tile goes first, the light ones fill
+  // in behind, so the causal tail does not run last
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x % 128 / 32;
+  const int lane = threadIdx.x % 32;
+
+  // live key tiles: from the one holding q0 - window + 1 (0 without a window)
+  // to the one holding the CTA's last row
+  const int last = min(S - 1, q0 + kTQ - 1);
+  const int first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t0 = first / kTK;
+  const int n_tiles = last / kTK - t0 + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kWgThreads / 32);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, L::kQBytes);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p)
+      tma_load(base + p * L::kQPanel, &tq, bar_q, p * kPanel, q0, h, b);
+    load_kv_tile<D>(base, 0, t0 * kTK, kvh, b, &tk, &tv);
+  }
+
+  // this thread's rows: row0 and row0 + 8; columns 8 c + 2 (lane % 4) (+1)
+  const int row_lo = q0 + wg * 64;
+  const int row0 = row_lo + warp * 16 + lane / 4;
+  const uint32_t q_base = base + wg * 64 * kRowBytes;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kAcc];
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) acc[e] = 0.f;
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int slot = j & 1;
+    if (threadIdx.x == 0 && j + 1 < n_tiles) {
+      // slot (j + 1) % 2 last held tile j - 1: both warpgroups must be done
+      if (j >= 1) mbar_wait(bar_empty + 8 * (slot ^ 1), ((j - 1) >> 1) & 1);
+      load_kv_tile<D>(base, slot ^ 1, (t0 + j + 1) * kTK, kvh, b, &tk, &tv);
+    }
+    __syncwarp();
+    mbar_wait(bar_full + 8 * slot, (j >> 1) & 1);
+    const int k0 = (t0 + j) * kTK;
+    const uint32_t k_base = base + L::kK + slot * L::kTileBytes;
+    const uint32_t v_base = base + L::kV + slot * L::kTileBytes;
+
+    // s = q . k^T over D in 16-wide steps (32 bytes within a panel)
+    float s[64];
+    wg_fence();
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+      for (int kk = 0; kk < kPanel / 16; ++kk)
+        wgmma_ss<T>(s, wg_desc(q_base + p * L::kQPanel + kk * 32, 16, 8 * kRowBytes),
+                    wg_desc(k_base + p * L::kKPanel + kk * 32, 16, 8 * kRowBytes),
+                    p + kk > 0);
+    wg_commit_wait();
+    wg_fence_regs(s);
+
+    // online softmax in the log2 domain; s[e] holds row row0 + 8 ((e / 2) % 2),
+    // key k0 + 8 (e / 4) + 2 (lane % 4) + e % 2. Only a tile that crosses the
+    // diagonal, the window's edge or S evaluates the mask.
+    const bool masked = k0 + kTK - 1 > row_lo || k0 + kTK > S ||
+                        (window > 0 && k0 <= row_lo + 63 - window);
+    float mx[2] = {m[0], m[1]};
+    if (masked) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int i = row0 + 8 * ((e >> 1) & 1);
+        const int jj = k0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        s[e] = live(i, jj, S, window) ? s[e] * scale_log2 : kNegInf;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        s[e] *= scale_log2;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];  // this thread's share of the row sum; reduced at the end
+    }
+    if (masked) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int i = row0 + 8 * ((e >> 1) & 1);
+        const int jj = k0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        s[e] = live(i, jj, S, window) ? exp2f(s[e] - m[(e >> 1) & 1]) : 0.f;
+        l[(e >> 1) & 1] += s[e];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        s[e] = exp2f(s[e] - m[(e >> 1) & 1]);
+        l[(e >> 1) & 1] += s[e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) acc[e] *= alpha[(e >> 1) & 1];
+
+    // P as the A fragments of 8 16-key steps (step kk holds the score
+    // columns of key groups 2 kk and 2 kk + 1): rounded to T, and for bf16
+    // the remainder as a second set
+    uint32_t pa[8][4], pr[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float lo = s[8 * kk + 2 * f], hi = s[8 * kk + 2 * f + 1];
+        pa[kk][f] = pack2<T>(lo, hi);
+        if constexpr (kSplitP) pr[kk][f] = pack2_rest<T>(pa[kk][f], lo, hi);
+      }
+
+    // acc += P . V: V's keys 16 kk..16 kk + 15 start 16 rows further down
+    wg_fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t vd = wg_desc(v_base + kk * 16 * kRowBytes, L::kKPanel, 8 * kRowBytes);
+      wgmma_rs<T, D>(acc, pa[kk], vd);
+      if constexpr (kSplitP) wgmma_rs<T, D>(acc, pr[kk], vd);
+    }
+    wg_commit_wait();
+    wg_fence_regs(acc);
+    if (lane == 0) mbar_arrive(bar_empty + 8 * slot);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  T* orow = o + b * ob + h * oh + 2 * (lane & 3);
+#pragma unroll
+  for (int e = 0; e < kAcc; e += 2) {
+    const int i = row0 + 8 * ((e >> 1) & 1);
+    if (i < S)
+      *reinterpret_cast<uint32_t*>(orow + i * os + 8 * (e >> 2)) =
+          pack2<T>(acc[e] * l[(e >> 1) & 1], acc[e + 1] * l[(e >> 1) & 1]);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime, so that
+// the library links against the CUDA runtime alone
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+constexpr int kNoEncodeEntryPoint = -100000;  // returned when libcuda lacks it
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (D, S, heads, B) view of a (B, heads, S, D) tensor given by its element
+// strides, loaded in (64, rows) boxes with 128-byte swizzle; reads past S
+// (or any edge) fill zeros. Returns 0 or -CUresult.
+template <typename T>
+int encode(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
+           long long s_head, long long s_row, long long s_batch, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kNoEncodeEntryPoint;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_row * sizeof(T), (cuuint64_t)s_head * sizeof(T),
+                                 (cuuint64_t)s_batch * sizeof(T)};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map,
+      std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+template <typename T, int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
+                 int S, const Strides& st, float scale, int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = encode<T>(&tq, q, D, S, H, B, st.qh, st.qs, st.qb, kTQ);
+  if (err == 0) err = encode<T>(&tk, k, D, S, KV, B, st.kh, st.ks, st.kb, kTK);
+  if (err == 0) err = encode<T>(&tv, v, D, S, KV, B, st.vh, st.vs, st.vb, kTK);
+  if (err != 0) return err;
+  const size_t smem = WgSmem<D>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_prefill_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (S + kTQ - 1) / kTQ);
+  flash_prefill_wgmma_kernel<T, D><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), H, KV, S, st.ob, st.oh, st.os, scale * kLog2e, window);
+  return (int)cudaGetLastError();
+}
+
+// route 1: the wgmma kernel (16-bit, D 64 or 128); route 0: the CUDA-core
+// kernel (fp32, D = 256, 16-bit D = 32). The wrapper's kernel_route chooses;
+// any other pairing is refused.
+template <typename T, int D>
+int launch_d(int route, const void* q, const void* k, const void* v, void* o, int B, int H,
+             int KV, int S, const Strides& st, float scale, int window, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2 && (D == 64 || D == 128)) {
+    if (route != 1) return (int)cudaErrorInvalidValue;
+    return launch_wgmma<T, D>(q, k, v, o, B, H, KV, S, st, scale, window, stream);
+  } else {
+    if (route != 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(D);
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+    flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), H, KV, S, st, scale, window);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename T>
+int launch(int route, const void* q, const void* k, const void* v, void* o, int B, int H,
+           int KV, int S, int D, const Strides& st, float scale, int window,
+           cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_d<T, 32>(q, k, v, o, B, H, KV, S, st, scale, window, stream);
+      return launch_d<T, 32>(route, q, k, v, o, B, H, KV, S, st, scale, window, stream);
     case 64:
-      return launch_d<T, 64>(q, k, v, o, B, H, KV, S, st, scale, window, stream);
+      return launch_d<T, 64>(route, q, k, v, o, B, H, KV, S, st, scale, window, stream);
     case 128:
-      return launch_d<T, 128>(q, k, v, o, B, H, KV, S, st, scale, window, stream);
+      return launch_d<T, 128>(route, q, k, v, o, B, H, KV, S, st, scale, window, stream);
     case 256:
-      return launch_d<T, 256>(q, k, v, o, B, H, KV, S, st, scale, window, stream);
+      return launch_d<T, 256>(route, q, k, v, o, B, H, KV, S, st, scale, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -532,30 +772,43 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides: 12 element strides,
-// (batch, head, position) of q, k, v and o in that order, read on the host.
-// Returns the CUDA error of the launch (0 = cudaSuccess); the kernel runs
-// asynchronously on `stream`.
-int flash_prefill_launch(int dtype, const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int KV, int S, int D, const long long* strides,
-                         float scale, int window, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. route: 0 = CUDA cores,
+// 1 = wgmma (16-bit, D 64 or 128). strides: 12 element strides, (batch, head,
+// position) of q, k, v and o in that order, read on the host. Returns 0, a
+// CUDA error of the launch (> 0) or -CUresult of a failed tensor-map encode;
+// the kernel runs asynchronously on `stream`.
+int flash_prefill_launch(int dtype, int route, const void* q, const void* k, const void* v,
+                         void* o, int B, int H, int KV, int S, int D,
+                         const long long* strides, float scale, int window, void* stream) {
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, o, B, H, KV, S, D, st, scale, window, s);
+      return launch<float>(route, q, k, v, o, B, H, KV, S, D, st, scale, window, s);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, o, B, H, KV, S, D, st, scale, window, s);
+      return launch<__nv_bfloat16>(route, q, k, v, o, B, H, KV, S, D, st, scale, window, s);
     case 2:
-      return launch<__half>(q, k, v, o, B, H, KV, S, D, st, scale, window, s);
+      return launch<__half>(route, q, k, v, o, B, H, KV, S, D, st, scale, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// Dynamic shared memory of a route's CTA at head_dim D, in bytes.
+int flash_prefill_smem_bytes(int route, int D) {
+  if (route == 1) return D == 64 ? WgSmem<64>::kBytes : WgSmem<128>::kBytes;
+  return (int)smem_bytes(D);
+}
+
 const char* flash_prefill_error_string(int err) {
+  static thread_local char msg[96];
+  if (err == kNoEncodeEntryPoint) return "libcuda has no cuTensorMapEncodeTiled";
+  if (err < 0) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d", -err);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

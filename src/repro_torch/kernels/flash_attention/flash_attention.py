@@ -9,7 +9,9 @@ to ``(B, H, S, D)`` is read in place) and takes any sequence length.
 ``flash_prefill`` dispatches on the device its tensors live on: CPU tensors
 take the plain PyTorch version (``ref.flash_prefill_ref``), CUDA tensors
 launch the kernel, anything else raises; a CUDA call never falls back.
-``flash_prefill.launches`` counts kernel launches.
+Which of the source's two kernels a CUDA call launches depends on dtype and
+head_dim alone (``kernel_route``). ``flash_prefill.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -24,15 +26,28 @@ from repro_torch.kernels.flash_attention.ref import flash_prefill_ref
 SOURCE = Path(__file__).resolve().with_name("csrc") / "flash_prefill.cu"
 SIGNATURES = {
     "flash_prefill_launch": (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
     "flash_prefill_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "flash_prefill_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_int),
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128, 256)
-MAX_GRID_YZ = 65535  # heads and batch rows: the grid's y and z extents
+MAX_GRID_YZ = 65535  # the grid's y and z extents: heads, batch rows, row tiles
+# the source's kernels, by the route code its C entry point takes
+ROUTES = {"cuda_core": 0, "wgmma": 1}
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call launches: ``"wgmma"`` (TMA-fed tensor-core
+    kernel) for bf16 / f16 at head_dim 64 or 128, else ``"cuda_core"``
+    (fp32, where TF32 would break the f32 tolerance; head_dim 256, too wide
+    for the wgmma kernel's shared memory; 16-bit head_dim 32)."""
+    if dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128):
+        return "wgmma"
+    return "cuda_core"
 
 
 def _check(q, k, v, window) -> None:
@@ -50,8 +65,9 @@ def _check(q, k, v, window) -> None:
                         "need one of float32/bfloat16/float16 for all three")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_prefill: head_dim {D} not in {_HEAD_DIMS}")
-    if H > MAX_GRID_YZ or B > MAX_GRID_YZ:
-        raise ValueError(f"flash_prefill: B={B}, H={H}; at most {MAX_GRID_YZ} each")
+    if H > MAX_GRID_YZ or B > MAX_GRID_YZ or S > MAX_GRID_YZ * 128:
+        raise ValueError(f"flash_prefill: B={B}, H={H}, S={S}; at most {MAX_GRID_YZ} "
+                         f"each, S at most {MAX_GRID_YZ * 128}")
     if int(window) < 0:
         raise ValueError(f"flash_prefill: window {window} must be >= 0")
     isz = q.element_size()
@@ -84,9 +100,10 @@ def flash_prefill(q, k, v, *, scale: float, window: int = 0):
     lib = _build.load(SOURCE, SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_prefill_launch(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, H, k.shape[1], S, D, ctypes.addressof(strides),
-            float(scale), int(window), torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODES[q.dtype], ROUTES[kernel_route(q.dtype, D)], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, k.shape[1], S, D,
+            ctypes.addressof(strides), float(scale), int(window),
+            torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib.flash_prefill_error_string, "flash_prefill", err)
     flash_prefill.launches += 1
     return out

@@ -388,9 +388,16 @@ FLASH_CASES = [
     (1, 4, 2, 256, 64, 64), (1, 2, 2, 128, 128, 0),
     (1, 24, 2, 512, 128, 4096), (1, 24, 2, 2048, 128, 4096),
     (1, 24, 2, 8192, 128, 4096), (2, 24, 2, 300, 128, 4096),
+    # the wgmma kernel's edges (128-row and 128-key tiles): ragged S from
+    # one row to past a tile, groups of 1, 8 and 12, D 64 and 128, windows
+    # that bind and that do not
+    (1, 2, 2, 1, 64, 0), (1, 2, 2, 63, 128, 0), (1, 8, 1, 127, 64, 0),
+    (1, 12, 1, 129, 128, 0), (2, 2, 2, 500, 64, 100), (1, 12, 1, 2053, 128, 4096),
+    (1, 16, 2, 2053, 64, 1000),
 ]
-# f32 (the CUDA-core kernel): summation order only; bf16 / f16 (the
-# tensor-core kernel): tests/test_kernels_flash.py's bf16 tolerance
+# f32 (the CUDA-core kernel): summation order only; bf16 / f16 (the wgmma
+# kernel: bf16 P split into head and remainder, f16 P rounded once):
+# tests/test_kernels_flash.py's bf16 tolerance
 FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
 
 
@@ -435,6 +442,25 @@ def test_flash_prefill_causality_and_strided_inputs(cuda):
                              vv.contiguous(), scale=0.1, window=50)
     assert got.transpose(1, 2).is_contiguous()
     assert (got.float() - want.float()).abs().max().item() <= FLASH_ATOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_flash_prefill_wgmma_reads_model_layouts_in_place(cuda, dtype, D):
+    """(B, S, H, D) activations and (B, W, KV, D) windows, through the
+    wgmma kernel's tensor maps: strides, offset bases, S below W."""
+    assert fmod.kernel_route(dtype, D) == "wgmma"
+    g = torch.Generator(device=cuda).manual_seed(D)
+    x = torch.randn(2, 261, 24, D, device=cuda, dtype=dtype, generator=g)
+    win = torch.randn(2, 700, 2, D, device=cuda, dtype=dtype, generator=g)
+    kk, vv = win[:, 8:269].transpose(1, 2), win[:, 400:661].transpose(1, 2)
+    got = fmod.flash_prefill(x.transpose(1, 2), kk, vv, scale=D ** -0.5, window=70)
+    want = flash_prefill_ref(x.transpose(1, 2).contiguous(), kk.contiguous(),
+                             vv.contiguous(), scale=D ** -0.5, window=70)
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_ATOL[dtype]
 
 
 @pytest.mark.gpu

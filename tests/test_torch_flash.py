@@ -138,3 +138,23 @@ def test_flash_attention_row_without_keys_is_zero():
 def test_pair_mask_refuses_chunked():
     with pytest.raises(NotImplementedError, match="A.11"):
         tattn.pair_mask(torch.arange(4), torch.arange(4), "chunked")
+
+
+def test_kernel_route_by_dtype_and_head_dim():
+    """The wrapper's choice between the source's two CUDA kernels: 16-bit
+    inputs at head_dim 64 / 128 take the wgmma kernel, the rest (f32, where
+    TF32 would break the 1e-5 gate; head_dim 32 and 256) the CUDA cores.
+    Pure: decided from dtype and head_dim alone, so it is checked here; on
+    the card, a CPU tensor still takes the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention as fmod
+
+    for dtype in (torch.bfloat16, torch.float16):
+        assert [fmod.kernel_route(dtype, D) for D in (32, 64, 128, 256)] == \
+            ["cuda_core", "wgmma", "wgmma", "cuda_core"]
+    assert {fmod.kernel_route(torch.float32, D) for D in (32, 64, 128, 256)} == {"cuda_core"}
+    assert fmod.ROUTES == {"cuda_core": 0, "wgmma": 1}
+    q = torch.zeros(1, 2, 4, 64, dtype=torch.bfloat16)
+    before = fmod.flash_prefill.launches
+    assert torch.equal(fmod.flash_prefill(q, q, q, scale=1.0),
+                       flash_prefill_ref(q, q, q, scale=1.0))
+    assert fmod.flash_prefill.launches == before
