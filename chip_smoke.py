@@ -6,27 +6,39 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device  — CUDA present, card name and power limit, TF32 off;
   2. build   — nvcc builds the five kernel libraries from csrc/, one nvcc
-               per source, all at once;
+               per source, all at once; ptxas registers and spills of the
+               paged attention mma kernels, the split-K merge and the wgmma
+               flash prefill;
   3. kernel  — every CUDA kernel vs its plain PyTorch version on the card:
-               paged attention over fp pages (shape cases, poisoned slots,
-               the olmo-1b decode shape, the extend fold, a zero-length
-               row), over KIVI pages (shape cases x bits x dtypes, poisoned
-               slots, tail-only and pages-only rows, the extend fold, the
-               olmo-1b decode shape), the pack / unpack (byte-equal),
+               paged attention over fp pages (fp32 and bf16 shape cases,
+               poisoned slots, the olmo-1b decode shape, chunked extend by
+               the fold (fp32) and natively (bf16), a zero-length row; the
+               bf16 / f16 mma kernel at forced splits 1, 2, 7 and the
+               planned split over the shape cases, G 5 and 8 at D 256,
+               native extend with ragged chunks and rows past the table,
+               the olmo-1b extend layer, +-inf / 1e6 in dead slots for
+               decode and extend, zero-length rows), over KIVI pages
+               (shape cases x bits x dtypes, poisoned slots, tail-only and
+               pages-only rows, the extend fold, the olmo-1b decode
+               shape), the pack / unpack (byte-equal),
                the LoRA bgmv (shape cases, ranks 4-64, olmo-1b's three
                adapter sites; null-slot rows exactly 0), and the causal
                flash prefill (shape cases x f32 / bf16 / f16,
                starcoder2-3b's heads with and without a binding window,
                ragged S, group sizes 1-12, causality, strided
                model-layout inputs);
-  4. timing  — each kernel at the olmo-1b serving shape (flash_prefill at
-               starcoder2-3b's: S=2048, S=8192 under its 4096 window, and
-               the serve's fresh B=2, S=512 chunk) beside its bound, its
-               plain version and, where one exists, the PyTorch calls
-               computing the same function;
+  4. timing  — each kernel at the olmo-1b serving shape beside its bound,
+               its plain version and, where one exists, the PyTorch calls
+               computing the same function: paged_attention also at
+               qwen2.5-32b's and gemma-2b's decode heads and the olmo-1b
+               ragged extend layer, with a sweep of forced split counts;
+               flash_prefill at starcoder2-3b's S=2048, S=8192 under its
+               4096 window, and the serve's fresh B=2, S=512 chunk;
   5. model   — olmo-1b at its published width, decode_paged and ragged
                extend_paged over fp pages and over KIVI pages, kernel vs
-               plain attention logits; then with LoRA adapters (kernel vs
+               plain attention logits, each step profiled (the paged mma
+               kernel's and the merge's share of busy time); then with LoRA
+               adapters (kernel vs
                plain bgmv, the null-slot row equal to the LoRA-free step);
                starcoder2-3b at its published width, gathered extend steps
                (a fresh batch, a mixed fresh/continuation batch), kernel vs
@@ -46,6 +58,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +129,11 @@ MODEL_ATOL = 0.25
 MODEL_ATOL_F32 = 1e-2
 # olmo-1b decode shape timed in phase 4
 OLMO = dict(B=8, KV=16, G=1, D=128, P=16, L=1024)
+# the olmo-1b ragged extend step (phase 5): chunk starts and real chunk lengths
+OLMO_EXTEND_LENGTHS, OLMO_CHUNK_LENS = [0, 100, 513, 300], [64, 17, 1, 40]
+# the paged attention kernels' names in a profile: the mma kernel and the
+# split-K merge
+PAGED_FOCUS = ("paged_attention_mma_kernel", "paged_attention_merge_kernel")
 # torch.cuda._sleep cycles that hold the stream while timed calls are
 # queued: ~0.2 s at the H100's clock
 HOLD_CYCLES = 400_000_000
@@ -128,8 +146,10 @@ def log(msg: str) -> None:
 def plain_attention():
     """Route the ops' kernel call to the plain version (CUDA tensors too),
     for the phase-5 yardstick only; the port itself has no such switch."""
-    def plain(q, k, v, tables, lengths, *, scale):
-        return paged_attention_ref(q, k, v, tables, lengths, scale=scale)
+    def plain(q, k, v, tables, lengths, *, scale, rows_per_seq=None, splits=None):
+        if rows_per_seq is None:
+            return paged_attention_ref(q, k, v, tables, lengths, scale=scale)
+        return paged_attention_chunked_ref(q, k, v, tables, lengths, scale=scale)
     return mock.patch.object(kmod, "paged_attention", plain)
 
 
@@ -242,13 +262,13 @@ def check(name, got, want, atol) -> float:
     return err
 
 
-def device_profile(label, fn, focus=None) -> None:
+def device_profile(label, fn, focus=()) -> None:
     """Where one call's time goes: its wall time (host clock around a
     synchronized call, median of 3, profiler off), then one call under
     torch.profiler for the kernels' time by name on the device clock. The
-    device's busy share is their sum over that wall time. ``focus``: a
-    substring of kernel names whose launches and share of the busy time are
-    reported too."""
+    device's busy share is their sum over that wall time. ``focus``:
+    substrings of kernel names whose launches and share of the busy time are
+    reported too, one line each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
@@ -261,14 +281,17 @@ def device_profile(label, fn, focus=None) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name, launches, focused = {}, 0, [0, 0.0]
+    if isinstance(focus, str):
+        focus = (focus,)
+    by_name, launches, focused = {}, 0, {f: [0, 0.0] for f in focus}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             launches += 1
-            if focus is not None and focus in e.name:
-                focused[0] += 1
-                focused[1] += e.time_range.elapsed_us()
+            for f in focus:
+                if f in e.name:
+                    focused[f][0] += 1
+                    focused[f][1] += e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if not busy:
         log(f"  {label}: wall {wall_us / 1e3:.3f} ms; device time not measured "
@@ -278,9 +301,8 @@ def device_profile(label, fn, focus=None) -> None:
     log(f"  {label}: wall {wall_us / 1e3:.3f} ms, {launches} device kernels, "
         f"busy {busy / 1e3:.3f} ms = {busy / wall_us:.1%} of wall; top: "
         + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms" for n, t in top))
-    if focus is not None:
-        log(f"    {focus}: {focused[0]} launches, {focused[1] / 1e3:.3f} ms = "
-            f"{focused[1] / busy:.1%} of busy")
+    for f, (n, us) in focused.items():
+        log(f"    {f}: {n} launches, {us / 1e3:.3f} ms = {us / busy:.1%} of busy")
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +341,28 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
-    # the wgmma flash_prefill kernel's own report: ptxas prints an entry's
-    # spill line and then its register line after the entry's name
+    # the paged attention mma kernel's instances and the split-K merge:
+    # ptxas prints an entry's spill line and then its register line after
+    # the entry's name
+    lines = dict(built)[_build.library_path(kmod.SOURCE)].splitlines()
+    for n, line in enumerate(lines):
+        if "Compiling entry" not in line:
+            continue
+        mma = re.search(r"paged_attention_mma_kernelI\d+(\w+?)Li(\d+)E", line)
+        merge = re.search(r"paged_attention_merge_kernelI\d+(\w+?)E", line)
+        if mma is None and merge is None:
+            continue
+        rest = lines[n + 1:]
+        spill = next(x for x in rest if "spill" in x).strip()
+        regs = next(x for x in rest if "registers" in x).split(":")[-1].strip()
+        if mma is not None:
+            ty, D = mma.groups()
+            log(f"  paged_attention_mma_kernel<{'bf16' if 'bfloat16' in ty else 'f16'}, "
+                f"D={D}>: {regs}; {spill}")
+        else:
+            log(f"  paged_attention_merge_kernel<"
+                f"{'bf16' if 'bfloat16' in merge.group(1) else 'f16'}>: {regs}; {spill}")
+    # the wgmma flash_prefill kernel's own report
     lines = dict(built)[_build.library_path(fmod.SOURCE)].splitlines()
     smem = _build.load(fmod.SOURCE, fmod.SIGNATURES).flash_prefill_smem_bytes
     for n, line in enumerate(lines):
@@ -366,19 +408,109 @@ def phase_kernel():
           KERNEL(q, k, v, t, ln, scale=c["D"] ** -0.5),
           paged_attention_ref(q, k, v, t, ln, scale=c["D"] ** -0.5),
           ATOL[torch.bfloat16])
-    # the extend fold (prefill) vs the chunked oracle
+    # chunked extend vs the chunked oracle (fp32: the batch-axis fold; bf16:
+    # the native chunked path)
     for dtype in (torch.float32, torch.bfloat16):
         B, C, KV, G, D, P, NB, NP = 3, 8, 2, 4, 64, 16, 32, 4
         q, k, v, t, _ = inputs(4, B, KV, G, D, P, NB, NP, dtype)
         qc = torch.randn(B, C, KV * G, D, generator=torch.Generator(
             device="cuda").manual_seed(4), device="cuda").to(dtype)
         ln = torch.tensor([0, P - 1, 2 * P], dtype=torch.int32, device="cuda")
-        check(f"extend fold C={C} {str(dtype)[6:]}",
+        check(f"extend C={C} {str(dtype)[6:]} "
+              f"({'fold' if kmod.kernel_route(dtype, D) == 'cuda_core' else 'native'})",
               ops.paged_attend_extend(qc, k, v, t, ln, scale=0.125),
               paged_attention_chunked_ref(qc.reshape(B, C, KV, G, D), k, v, t, ln,
                                           scale=0.125).reshape(B, C, KV * G, D),
               ATOL[dtype])
+    phase_kernel_mma()
     torch.cuda.synchronize()
+
+
+# B, KV, G, D, P, NB, NP: CASES, the largest head_dim, then qwen2.5-32b's and
+# gemma-2b's groups (5 and 8) at D = 256
+MMA_CASES = CASES + [(2, 2, 2, 256, 8, 8, 3), (3, 1, 5, 256, 16, 12, 4),
+                     (2, 1, 8, 256, 16, 8, 4)]
+MMA_SPLITS = (1, 2, 7, None)  # forced, and None = the wrapper's plan
+# B, C, KV, G, D, P, NB, NP, lengths: ragged chunks with GQA, rows running
+# past the table (lengths + C > NP * P), a row tile of 64 and more
+EXTEND_CASES = [
+    (3, 8, 2, 4, 64, 16, 32, 4, [0, 15, 32]),
+    (2, 5, 2, 5, 128, 8, 16, 4, [29, 3]),
+    (2, 24, 1, 8, 256, 16, 8, 3, [40, 0]),
+    (2, 70, 2, 1, 32, 32, 8, 3, [10, 50]),
+]
+
+
+def extend_inputs(seed, B, C, KV, G, D, P, NB, NP, lengths, dtype):
+    q, k, v, t, _ = inputs(seed, B, KV, G, D, P, NB, NP, dtype)
+    rng = np.random.default_rng(seed + 1)
+    qc = torch.from_numpy(rng.normal(size=(B, C, KV, G, D)).astype(np.float32)).to(
+        "cuda", dtype)
+    return qc, k, v, t, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def phase_kernel_mma():
+    """The bf16 / f16 tensor-core kernel: decode at forced and planned splits,
+    native chunked extend, poisoned dead slots, rows with nothing valid."""
+    for case in MMA_CASES:
+        D = case[3]
+        for dtype in (torch.bfloat16, torch.float16):
+            q, k, v, t, ln = inputs(11, *case, dtype)
+            want = paged_attention_ref(q, k, v, t, ln, scale=D ** -0.5)
+            for sp in MMA_SPLITS:
+                check(f"mma case {case} {str(dtype)[6:]} splits={sp or 'planned'}",
+                      KERNEL(q, k, v, t, ln, scale=D ** -0.5, splits=sp), want,
+                      ATOL[torch.bfloat16])
+    for case in EXTEND_CASES:
+        *shape, lens = case
+        B, C, KV, G, D, P, NB, NP = shape
+        for dtype in (torch.bfloat16, torch.float16):
+            qc, k, v, t, ln = extend_inputs(12, *shape, lens, dtype)
+            want = paged_attention_chunked_ref(qc, k, v, t, ln, scale=D ** -0.5)
+            for sp in MMA_SPLITS:
+                check(f"native extend {tuple(shape)} lengths {lens} {str(dtype)[6:]} "
+                      f"splits={sp or 'planned'}",
+                      KERNEL(qc, k, v, t, ln, scale=D ** -0.5, rows_per_seq=C, splits=sp),
+                      want, ATOL[torch.bfloat16])
+    # the olmo-1b ragged extend layer through the model-layout op
+    B, C, KV, G, D, P, NP = 4, 64, 16, 1, 128, 16, 64
+    qc, k, v, t, ln = extend_inputs(13, B, C, KV, G, D, P, B * NP, NP,
+                                    OLMO_EXTEND_LENGTHS, torch.bfloat16)
+    check(f"native extend olmo-1b layer B={B} C={C} bf16",
+          ops.paged_attend_extend(qc.reshape(B, C, KV * G, D), k, v, t, ln,
+                                  scale=D ** -0.5),
+          paged_attention_chunked_ref(qc, k, v, t, ln, scale=D ** -0.5).reshape(
+              B, C, KV * G, D), ATOL[torch.bfloat16])
+    # dead slots of the last partial page (and whole pages past it) hold
+    # +-inf and +-1e6: decode rows see 13 positions, extend rows at most
+    # 13 + C; a row of length 0 writes 0
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, _, _ = inputs(14, 2, 2, 4, 64, 8, 8, 4, dtype)
+        t = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32, device="cuda")
+        qc = torch.randn(2, 3, 2, 4, 64, generator=torch.Generator(
+            device="cuda").manual_seed(14), device="cuda").to(dtype)
+        for label, qq, ln, rows, dead_from in (
+                ("decode", q, [13, 0], None, 13), ("extend", qc, [10, 7], 3, 13)):
+            ln = torch.tensor(ln, dtype=torch.int32, device="cuda")
+            k2, v2 = k.clone(), v.clone()
+            for b in range(2):
+                blk = t[b].long()
+                for pos in range(dead_from if b == 0 else ln[b].item() + (rows or 0), 32):
+                    val = float("inf") if pos % 2 else 1e6
+                    k2[:, blk[pos // 8], pos % 8] = val
+                    v2[:, blk[pos // 8], pos % 8] = -val
+            want = (paged_attention_ref if rows is None else paged_attention_chunked_ref)(
+                qq, k, v, t, ln, scale=0.2)
+            for sp in MMA_SPLITS:
+                kw = dict(scale=0.2, rows_per_seq=rows, splits=sp)
+                clean = KERNEL(qq, k, v, t, ln, **kw)
+                check(f"{label} {str(dtype)[6:]} splits={sp or 'planned'} vs plain",
+                      clean, want, ATOL[torch.bfloat16])
+                check(f"{label} {str(dtype)[6:]} splits={sp or 'planned'} poisoned slots",
+                      KERNEL(qq, k2, v2, t, ln, **kw), clean, 0.0)
+                if rows is None:
+                    check(f"decode {str(dtype)[6:]} splits={sp or 'planned'} zero-length row",
+                          clean[1], torch.zeros_like(clean[1]), 0.0)
 
 
 QCASES = CASES + [(2, 2, 2, 256, 4, 16, 3)]  # the largest head_dim, P = 4
@@ -459,46 +591,122 @@ def phase_kernel_quant():
     torch.cuda.synchronize()
 
 
+# decode shapes timed in phase 4 beside OLMO: qwen2.5-32b's heads (GQA) and
+# gemma-2b's (MQA)
+DECODE_SHAPES = [("olmo-1b", OLMO),
+                 ("qwen2.5-32b heads", dict(B=8, KV=8, G=5, D=128, P=16, L=1024)),
+                 ("gemma-2b heads", dict(B=8, KV=1, G=8, D=256, P=16, L=1024))]
+
+
+def split_sweep(call) -> str:
+    """Device time of ``call(splits)`` at forced split counts, beside the
+    plan: what the plan chose against its neighbours."""
+    return ", ".join(f"{sp}: {cuda_ms(lambda: call(sp)) * 1e3:.1f} us"
+                     for sp in (1, 2, 4, 8, 16))
+
+
 def phase_timing(card):
+    """paged_attention at its four shapes, all bf16, every row L = 1024:
+    olmo-1b, qwen2.5-32b's heads and gemma-2b's heads in decode, and the
+    olmo-1b ragged extend layer (B=4, C=64, chunk starts 0/100/513/300 in a
+    1024-slot table). Bound: the K/V positions the rows see (whole decode
+    rows; per sequence up to lengths + C in extend), q in and out once,
+    tables and lengths, over HBM; 4 * D flops per visible (row, position)
+    pair at the bf16 tensor-core rate. Library: one SDPA call over K/V
+    gathered outside the timing (enable_gqa; extend with a boolean mask)."""
+    out = {}
+    for label, c in DECODE_SHAPES:
+        B, KV, G, D, P, L = c["B"], c["KV"], c["G"], c["D"], c["P"], c["L"]
+        NP = L // P
+        q, k, v, t, ln = inputs(5, B, KV, G, D, P, B * NP, NP, torch.bfloat16,
+                                lengths=[L] * B)
+        scale = D ** -0.5
+        got = KERNEL(q, k, v, t, ln, scale=scale)
+        err = check(f"{label} timed shape vs plain", got,
+                    paged_attention_ref(q, k, v, t, ln, scale=scale), ATOL[torch.bfloat16])
+        ms = cuda_ms(lambda: KERNEL(q, k, v, t, ln, scale=scale))
+        plain_ms = cuda_ms(lambda: paged_attention_ref(q, k, v, t, ln, scale=scale))
+        kg = k[:, t.long()].transpose(0, 1).reshape(B, KV, L, D)
+        vg = v[:, t.long()].transpose(0, 1).reshape(B, KV, L, D)
+        qs = q.reshape(B, KV * G, 1, D)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, kg, vg, scale=scale,
+                                                  enable_gqa=True)
+        check(f"{label} SDPA vs kernel", library(), got.reshape(B, KV * G, 1, D),
+              ATOL[torch.bfloat16])
+        library_ms = cuda_ms(library)
+        isz = q.element_size()
+        kv_bytes = B * KV * L * D * 2 * isz
+        nbytes = kv_bytes + 2 * q.numel() * isz + t.numel() * 4 + ln.numel() * 4
+        bound_ms, bound_by = bound(card, nbytes, 4 * B * KV * G * L * D, tensor_cores=True)
+        splits = kmod.planned_splits(q, t, k)
+        sweep = split_sweep(lambda sp: KERNEL(q, k, v, t, ln, scale=scale, splits=sp))
+        log(f"[4 timing] paged_attention {label} B={B} KV={KV} G={G} D={D} P={P} L={L} "
+            f"bf16 ({kmod.kernel_route(q.dtype, D)}, {splits} splits): kernel "
+            f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
+            f"{bound_by}), plain {plain_ms * 1e3:.1f} us, SDPA(enable_gqa) "
+            f"{library_ms * 1e3:.1f} us; kernel / SDPA {ms / library_ms:.2f}; "
+            f"{bound_ms / ms:.1%} of bound; forced splits {sweep}")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        del q, k, v, kg, vg
+    # the olmo-1b ragged extend layer: one native chunked launch (+ merge)
     c = OLMO
-    B, KV, G, D, P, L = c["B"], c["KV"], c["G"], c["D"], c["P"], c["L"]
-    NP = L // P
-    q, k, v, t, ln = inputs(5, B, KV, G, D, P, B * NP, NP, torch.bfloat16,
-                            lengths=[L] * B)
+    B, C, KV, G, D, P, NP = 4, 64, c["KV"], c["G"], c["D"], c["P"], c["L"] // c["P"]
+    qc, k, v, t, ln = extend_inputs(5, B, C, KV, G, D, P, B * NP, NP,
+                                    OLMO_EXTEND_LENGTHS, torch.bfloat16)
     scale = D ** -0.5
-    out = KERNEL(q, k, v, t, ln, scale=scale)
-    err = check("timed shape vs plain", out,
-                paged_attention_ref(q, k, v, t, ln, scale=scale), ATOL[torch.bfloat16])
-    ms = cuda_ms(lambda: KERNEL(q, k, v, t, ln, scale=scale))
-    plain_ms = cuda_ms(lambda: paged_attention_ref(q, k, v, t, ln, scale=scale))
-    # library yardstick: SDPA over the same K/V gathered to (B, H, L, D)
-    kg = k[:, t.long()].transpose(0, 1).reshape(B, KV, L, D)
-    vg = v[:, t.long()].transpose(0, 1).reshape(B, KV, L, D)
-    qs = q.reshape(B, KV * G, 1, D)
-    check("SDPA vs kernel", F.scaled_dot_product_attention(qs, kg, vg, scale=scale),
-          out.reshape(B, KV * G, 1, D), ATOL[torch.bfloat16])
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, scale=scale))
-    isz = q.element_size()
-    kv_bytes = B * KV * math.ceil(L / P) * P * D * 2 * isz
-    nbytes = kv_bytes + 2 * q.numel() * isz + t.numel() * 4 + ln.numel() * 4
-    flops = 4 * B * KV * G * L * D  # q.k and p.v, fp32 on the CUDA cores
-    bytes_ms, ops_ms = nbytes / card[1] * 1e3, flops / card[2] * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"[4 timing] paged_attention B={B} KV={KV} G={G} D={D} P={P} L={L} bf16: "
-        f"kernel {ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
-        f"({kv_bytes / 1e6:.1f} MB K/V / {card[1] / 1e12:g} TB/s; ops {ops_ms * 1e3:.2f} us), "
-        f"plain {plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us; "
-        f"{bound_ms / ms:.1%} of bound")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                max_abs_err=err)
+    qm = qc.reshape(B, C, KV * G, D)
+    got = ops.paged_attend_extend(qm, k, v, t, ln, scale=scale)
+    err = check("olmo-1b extend layer timed shape vs plain", got,
+                paged_attention_chunked_ref(qc, k, v, t, ln, scale=scale).reshape(qm.shape),
+                ATOL[torch.bfloat16])
+    ms = cuda_ms(lambda: ops.paged_attend_extend(qm, k, v, t, ln, scale=scale))
+    fold_ms = cuda_ms(lambda: ops.paged_attend_extend_folded(qm, k, v, t, ln, scale=scale))
+    plain_ms = cuda_ms(lambda: paged_attention_chunked_ref(qc, k, v, t, ln, scale=scale))
+    S = NP * P
+    kg = k[:, t.long()].transpose(0, 1).reshape(B, KV, S, D)
+    vg = v[:, t.long()].transpose(0, 1).reshape(B, KV, S, D)
+    qs = qm.transpose(1, 2)  # (B, H, C, D)
+    row_len = (ln.long()[:, None] + torch.arange(C, device="cuda")[None, :] + 1).clamp(
+        max=S)  # (B, C)
+    mask = (torch.arange(S, device="cuda")[None, None, :] < row_len[:, :, None])[:, None]
+
+    def library():
+        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask, scale=scale,
+                                              enable_gqa=True)
+    check("olmo-1b extend layer SDPA vs kernel", library().transpose(1, 2), got,
+          ATOL[torch.bfloat16])
+    library_ms = cuda_ms(library)
+    isz = qc.element_size()
+    seen = int(row_len[:, -1].sum())  # positions each sequence's rows read
+    nbytes = (seen * KV * D * 2 * isz + 2 * qc.numel() * isz
+              + t.numel() * 4 + ln.numel() * 4)
+    flops = 4 * KV * G * D * int(row_len.sum())
+    bound_ms, bound_by = bound(card, nbytes, flops, tensor_cores=True)
+    splits = kmod.planned_splits(qc, t, k, rows_per_seq=C)
+    sweep = split_sweep(lambda sp: KERNEL(qc, k, v, t, ln, scale=scale, rows_per_seq=C,
+                                          splits=sp))
+    log(f"[4 timing] paged_attention olmo-1b extend layer B={B} C={C} KV={KV} G={G} "
+        f"D={D} P={P} lengths {OLMO_EXTEND_LENGTHS} bf16 (native, {splits} splits): "
+        f"kernel {ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
+        f"{bound_by}), the batch-axis fold through the decode path {fold_ms * 1e3:.1f} "
+        f"us, plain "
+        f"{plain_ms * 1e3:.1f} us, SDPA(boolean mask, enable_gqa) {library_ms * 1e3:.1f} "
+        f"us; kernel / SDPA {ms / library_ms:.2f}; {bound_ms / ms:.1%} of bound; "
+        f"forced splits {sweep}")
+    out["olmo-1b extend"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    return out["olmo-1b"]
 
 
-def bound(card, nbytes, flops):
-    """The least time in ms for ``nbytes`` of HBM traffic and ``flops`` fp32
-    operations on the CUDA cores, and which of the two sets it."""
-    bytes_ms, ops_ms = nbytes / card[1] * 1e3, flops / card[2] * 1e3
+def bound(card, nbytes, flops, tensor_cores=False):
+    """The least time in ms for ``nbytes`` of HBM traffic and ``flops``
+    operations (fp32 on the CUDA cores, or bf16 / f16 on the tensor cores),
+    and which of the two sets it."""
+    rate = card[3] if tensor_cores else card[2]
+    bytes_ms, ops_ms = nbytes / card[1] * 1e3, flops / rate * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -823,10 +1031,11 @@ def build_olmo():
     return model, params
 
 
-def model_steps(model, params, pages, tails, counter, patch, label):
+def model_steps(model, params, pages, tails, counter, patch, label, focus=()):
     """One decode and one ragged extend step at full width, kernel vs plain
     attention on the same inputs and the same page pools (``tails``: per
-    step kind, per layer, the quantized path's fp tails)."""
+    step kind, per layer, the quantized path's fp tails); each step then
+    profiled, with the share of the kernels named in ``focus``."""
     cfg = model.cfg
     P, NP, B = 16, 64, 4
     rng = np.random.default_rng(6)
@@ -857,8 +1066,8 @@ def model_steps(model, params, pages, tails, counter, patch, label):
     check(f"{label}decode_paged logits, kernel vs plain", lk, lp, MODEL_ATOL)
     C = 64
     tokc = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, C)), device="cuda")
-    lengthsc = torch.tensor([0, 100, 513, 300], dtype=torch.int32, device="cuda")
-    chunk_lens = torch.tensor([64, 17, 1, 40], dtype=torch.int32, device="cuda")
+    lengthsc = torch.tensor(OLMO_EXTEND_LENGTHS, dtype=torch.int32, device="cuda")
+    chunk_lens = torch.tensor(OLMO_CHUNK_LENS, dtype=torch.int32, device="cuda")
     lk, n = run(model.extend_paged, "extend", tokc, lengthsc, chunk_lens, 0)
     assert n == cfg.num_layers, n
     with patch():
@@ -871,9 +1080,9 @@ def model_steps(model, params, pages, tails, counter, patch, label):
     # the same slots on every call)
     dec, ext = fresh("decode", copy=False), fresh("extend", copy=False)
     device_profile(f"{label}decode_paged B={B}", lambda: model.decode_paged(
-        params, tok, dec, tables, lengths))
+        params, tok, dec, tables, lengths), focus=focus)
     device_profile(f"{label}extend_paged B={B} C={C}", lambda: model.extend_paged(
-        params, tokc, ext, tables, lengthsc, chunk_lens, 0))
+        params, tokc, ext, tables, lengthsc, chunk_lens, 0), focus=focus)
 
 
 def phase_model(model, params):
@@ -884,7 +1093,7 @@ def phase_model(model, params):
     for pg in pages:
         for x in pg.values():
             x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
-    model_steps(model, params, pages, None, KERNEL, plain_attention, "")
+    model_steps(model, params, pages, None, KERNEL, plain_attention, "", focus=PAGED_FOCUS)
 
 
 def phase_model_quant(model, params):
@@ -943,8 +1152,8 @@ def phase_model_lora(model, params):
     tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, 1)), device="cuda")
     lengths = torch.tensor([100, 300, 517, 1000], dtype=torch.int32, device="cuda")
     tokc = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, C)), device="cuda")
-    lengthsc = torch.tensor([0, 100, 513, 300], dtype=torch.int32, device="cuda")
-    chunk_lens = torch.tensor([64, 17, 1, 40], dtype=torch.int32, device="cuda")
+    lengthsc = torch.tensor(OLMO_EXTEND_LENGTHS, dtype=torch.int32, device="cuda")
+    chunk_lens = torch.tensor(OLMO_CHUNK_LENS, dtype=torch.int32, device="cuda")
     steps = [("decode_paged", "decode_paged",
               torch.ones(B, 1, dtype=torch.bool, device="cuda"), (tok, lengths)),
              ("ragged extend_paged", "extend_paged",
@@ -980,7 +1189,7 @@ def phase_model_lora(model, params):
             f"(= 6 x {cfg.num_layers} layers)")
         assert same == 0.0 and apart > MODEL_ATOL, (same, apart)
     device_profile(f"LoRA decode_paged B={B}", lambda: model.decode_paged(
-        params, tok, pages, tables, lengths, lora=lora), focus="bgmv")
+        params, tok, pages, tables, lengths, lora=lora), focus=("bgmv",) + PAGED_FOCUS)
     # the f32 twin: same weights, pages, adapters and inputs
     model32 = build_model(dataclasses.replace(cfg, dtype="float32",
                                               param_dtype="float32"), device="cuda")

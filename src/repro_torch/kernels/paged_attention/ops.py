@@ -23,8 +23,11 @@ import torch
 
 from repro_torch.kernels.paged_attention import paged_attention as _kernel
 from repro_torch.kernels.paged_attention import paged_attention_quant as _qkernel
-from repro_torch.kernels.paged_attention.ref import (
-    paged_attention_chunked_quant_ref, paged_attention_chunked_ref)
+from repro_torch.kernels.paged_attention.ref import paged_attention_chunked_quant_ref
+
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -32,9 +35,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     """Kernel layout: q (B, KV, G, D) -> (B, KV, G, D). CUDA tensors launch
     the kernel; CPU tensors run ``paged_attention_ref``."""
     return _kernel.paged_attention(
-        q.contiguous(), k_pages, v_pages,
-        block_tables.to(torch.int32).contiguous(),
-        lengths.to(torch.int32).contiguous(), scale=scale)
+        q.contiguous(), k_pages, v_pages, _i32(block_tables), _i32(lengths),
+        scale=scale)
 
 
 def paged_attend(q, k_pages, v_pages, block_tables, lengths, *, scale: float):
@@ -53,10 +55,12 @@ def paged_attend(q, k_pages, v_pages, block_tables, lengths, *, scale: float):
 def paged_attend_extend_folded(q, k_pages, v_pages, block_tables, lengths, *,
                                scale: float):
     """Chunked extend through the single-token op: the C query positions
-    FOLD INTO THE BATCH AXIS. Row b*C + j attends over sequence b's table
-    with validity ``lengths[b] + j + 1`` (page-resident prefix plus
-    in-chunk causality), so one kernel launch covers all B*C rows. This is
-    the CUDA path of ``paged_attend_extend``; on CPU tensors it runs the
+    FOLD INTO THE BATCH AXIS, the reference's strategy. Row b*C + j attends
+    over sequence b's table with validity ``lengths[b] + j + 1``
+    (page-resident prefix plus in-chunk causality), so one kernel launch
+    covers all B*C rows, but every row re-reads its sequence's pages. This
+    is the CUDA path of ``paged_attend_extend`` for fp32 only (the
+    ``cuda_core`` route takes decode rows only); on CPU tensors it runs the
     plain decode oracle per folded row, which the tests hold against the
     chunked oracle."""
     B, C, H, D = q.shape
@@ -75,30 +79,28 @@ def paged_attend_extend(q, k_pages, v_pages, block_tables, lengths, *,
     (B, C, H, D). Query j of sequence b sits at absolute position
     ``lengths[b] + j``; the chunk's K/V must already be in the pages.
 
-    CUDA: the batch-axis fold into the decode kernel
-    (``paged_attend_extend_folded``). CPU: the direct chunked oracle, which
-    gathers each sequence's pages once rather than C times. Padding rows of
-    ragged chunks compute well-defined garbage the caller slices off."""
+    CUDA bf16 / f16: one launch of the kernel's native chunked path
+    (``rows_per_seq=C``), which reads each page once per (sequence, KV
+    head, row tile). CUDA fp32: the batch-axis fold
+    (``paged_attend_extend_folded``), by ``kernel_route``. CPU: the direct
+    chunked oracle, which gathers each sequence's pages once. Padding rows
+    of ragged chunks compute well-defined garbage the caller slices off."""
     B, C, H, D = q.shape
-    if q.device.type == "cuda":
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"paged_attend_extend: no path for device {q.device}")
+    if q.device.type == "cuda" and _kernel.kernel_route(q.dtype, D) == "cuda_core":
         return paged_attend_extend_folded(q, k_pages, v_pages, block_tables,
                                           lengths, scale=scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"paged_attend_extend: no path for device {q.device}")
     KV = k_pages.shape[0]
-    out = paged_attention_chunked_ref(
-        q.reshape(B, C, KV, H // KV, D), k_pages, v_pages,
-        block_tables.to(torch.int32), lengths.to(torch.int32), scale=scale)
+    out = _kernel.paged_attention(
+        q.reshape(B, C, KV, H // KV, D).contiguous(), k_pages, v_pages,
+        _i32(block_tables), _i32(lengths), scale=scale, rows_per_seq=C)
     return out.reshape(B, C, H, D)
 
 
 # ---------------------------------------------------------------------------
 # quantized pages (KIVI at rest)
 # ---------------------------------------------------------------------------
-
-def _i32(t):
-    return t.to(torch.int32).contiguous()
-
 
 def paged_decode_attention_quant(q, k_pages, v_pages, k_tail, v_tail,
                                  block_tables, lengths, tail_start, *,

@@ -1,7 +1,9 @@
 """Plain PyTorch oracles for paged decode attention, fp and KIVI pages.
 
 Twins of ``repro.kernels.paged_attention.ref``: ``paged_attention_ref`` and
-``paged_attention_chunked_ref`` over fp pages, and
+``paged_attention_chunked_ref`` over fp pages (beside them
+``paged_attention_split_ref``, the split-K partials and merge of the CUDA
+kernel), and
 ``paged_attention_quant_ref`` / ``paged_attention_chunked_quant_ref`` over
 uint8 codes with scale/zero planes plus a full-precision tail
 (``dequantize_page_leaves``). All share the same masking: invalid positions
@@ -74,6 +76,54 @@ def paged_attention_chunked_ref(q, k_pages, v_pages, block_tables, lengths,
     p = _softmax(s, valid)
     return torch.einsum("bckgs,bksd->bckgd", p, v).to(q.dtype)
 
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                              scale, splits, rows_per_seq=None, key_tile=64):
+    """Split-K (flash-decoding) twin of the CUDA kernel's partials and merge,
+    the oracle of its algebra. The table's NP * P positions go in tiles of
+    ``key_tile``; split s takes tiles [s * per, (s + 1) * per), per =
+    ceil(tiles / splits). Each split keeps, per query row, the max ``m`` of
+    its visible scores (NEG_INF if it sees none), ``l`` = sum of exp(s - m)
+    and ``acc`` = sum of exp(s - m) * v; the merge returns
+    sum e^(m_i - M) acc_i / max(sum e^(m_i - M) l_i, 1e-30), so a row no
+    split sees returns 0. Slots past every row's last position are zeroed,
+    as the kernel never loads them.
+
+    Decode (``rows_per_seq`` None): q (B, KV, G, D), row sees positions
+    < lengths[b]. Extend: q (B, C, KV, G, D), row (b, c) sees positions
+    < lengths[b] + c + 1. Returns q's shape and dtype."""
+    decode = rows_per_seq is None
+    q5 = q[:, None] if decode else q  # (B, C, KV, G, D)
+    C = q5.shape[1]
+    NP, P = block_tables.shape[1], k_pages.shape[2]
+    S = NP * P
+    k = _gather(k_pages, block_tables).float()
+    v = _gather(v_pages, block_tables).float()
+    pos = torch.arange(S, device=q.device)
+    row_len = lengths.long()[:, None] + (0 if decode else torch.arange(
+        C, device=q.device)[None, :] + 1)  # (B, C)
+    valid = pos[None, None, :] < row_len[:, :, None]  # (B, C, S)
+    v = torch.where(valid.any(dim=1)[:, None, :, None], v, torch.zeros_like(v))
+    s = torch.einsum("bckgd,bksd->bckgs", q5.float(), k) * scale
+    tiles = -(-S // key_tile)
+    per = max(1, -(-tiles // splits))
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        lo, hi = i * per * key_tile, min(S, (i + 1) * per * key_tile)
+        ok = (valid & (pos >= lo) & (pos < hi))[:, :, None, None, :]
+        si = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m = si.amax(dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp(si - m), torch.zeros_like(si))
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bckgs,bksd->bckgd", p, v))
+    m_all = torch.stack(ms)  # (splits, B, C, KV, G, 1)
+    w = torch.exp(m_all - m_all.amax(dim=0))
+    num = (w * torch.stack(accs)).sum(dim=0)
+    den = (w * torch.stack(ls)).sum(dim=0)
+    out = (num / torch.clamp(den, min=1e-30)).to(q.dtype)
+    return out[:, 0] if decode else out
 
 # ---------------------------------------------------------------------------
 # quantized pages (KIVI at rest): uint8 codes + scale/zero planes for packed

@@ -1,5 +1,7 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card:
-paged attention over fp pages, paged attention over KIVI pages, the
+paged attention over fp pages (fp32 on the CUDA cores; bf16 / f16 on the
+tensor cores at forced and planned split counts, decode and native chunked
+extend), paged attention over KIVI pages, the
 per-page pack and unpack, the batched grouped LoRA matmul (``bgmv``), and
 the causal flash prefill (``flash_prefill``) with the gathered extend's row
 split.
@@ -116,6 +118,131 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         strided = torch.cat([q, q], dim=3)[..., ::2]  # q's shape, stride 2
         kmod.paged_attention(strided, k, v, tables, lengths, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 / f16 tensor-core kernel: split-K, native chunked extend
+# ---------------------------------------------------------------------------
+
+MMA_CASES = CASES + [(3, 1, 5, 256, 16, 12, 4), (2, 1, 8, 256, 16, 8, 4)]
+HALF = [torch.bfloat16, torch.float16]
+SPLITS = [1, 2, 7, None]  # forced, and None = the wrapper's plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_CASES)
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("splits", SPLITS)
+def test_mma_kernel_matches_plain_version(cuda, case, dtype, splits):
+    q, k, v, tables, lengths = _inputs(11, *case, dtype, cuda)
+    scale = case[3] ** -0.5
+    assert kmod.kernel_route(dtype, case[3]) == "mma"
+    before = kmod.paged_attention.launches
+    out = kmod.paged_attention(q, k, v, tables, lengths, scale=scale, splits=splits)
+    want = ref.paged_attention_ref(q, k, v, tables, lengths, scale=scale)
+    torch.cuda.synchronize()
+    assert kmod.paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), atol=ATOL[torch.bfloat16], rtol=0)
+
+
+EXTEND_CASES = [
+    # B, C, KV, G, D, P, NB, NP, chunk starts: ragged chunks with GQA; rows
+    # running past the table (start + C > NP * P); more than one 16-row tile
+    (3, 8, 2, 4, 64, 16, 32, 4, [0, 15, 32]),
+    (2, 5, 2, 5, 128, 8, 16, 4, [29, 3]),
+    (2, 24, 1, 8, 256, 16, 8, 3, [40, 0]),
+    (2, 70, 2, 1, 32, 32, 8, 3, [10, 50]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EXTEND_CASES)
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("splits", SPLITS)
+def test_native_extend_matches_chunked_oracle(cuda, case, dtype, splits):
+    B, C, KV, G, D, P, NB, NP, starts = case
+    _, k, v, tables, _ = _inputs(12, B, KV, G, D, P, NB, NP, dtype, cuda)
+    q = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(B, C, KV, G, D)).astype(np.float32)).to(cuda, dtype)
+    lengths = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    before = kmod.paged_attention.launches
+    out = kmod.paged_attention(q, k, v, tables, lengths, scale=D ** -0.5, rows_per_seq=C,
+                               splits=splits)
+    want = ref.paged_attention_chunked_ref(q, k, v, tables, lengths, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert kmod.paged_attention.launches == before + 1  # one launch, B * C rows
+    torch.testing.assert_close(out.float(), want.float(), atol=ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("splits", SPLITS)
+def test_mma_poisoned_dead_slots_and_zero_rows(cuda, dtype, splits):
+    """Dead slots of the last partial page and the pages past it hold +-inf
+    and +-1e6: decode rows see 13 positions (and a row of length 0 writes
+    0), extend rows at most 13 (chunk starts 10 and 7, C = 3)."""
+    q, k, v, _, _ = _inputs(14, 2, 2, 4, 64, 8, 8, 4, dtype, cuda)
+    tables = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32, device=cuda)
+    qc = torch.from_numpy(np.random.default_rng(15).normal(
+        size=(2, 3, 2, 4, 64)).astype(np.float32)).to(cuda, dtype)
+    for qq, lens, rows, dead in ((q, [13, 0], None, [13, 0]), (qc, [10, 7], 3, [13, 10])):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        k2, v2 = k.clone(), v.clone()
+        for b in range(2):
+            for pos in range(dead[b], 32):
+                blk = int(tables[b, pos // 8])
+                val = float("inf") if pos % 2 else 1e6
+                k2[:, blk, pos % 8], v2[:, blk, pos % 8] = val, -val
+        kw = dict(scale=0.2, rows_per_seq=rows, splits=splits)
+        clean = kmod.paged_attention(qq, k, v, tables, lengths, **kw)
+        poisoned = kmod.paged_attention(qq, k2, v2, tables, lengths, **kw)
+        plain = (ref.paged_attention_ref if rows is None else ref.paged_attention_chunked_ref)(
+            qq, k, v, tables, lengths, scale=0.2)
+        torch.cuda.synchronize()
+        assert torch.equal(poisoned, clean)
+        torch.testing.assert_close(clean.float(), plain.float(), atol=ATOL[torch.bfloat16],
+                                   rtol=0)
+        if rows is None:
+            assert torch.equal(clean[1], torch.zeros_like(clean[1]))
+
+
+@pytest.mark.gpu
+def test_extend_routes_by_dtype(cuda):
+    """bf16 extend is one launch of the native chunked path; fp32 extend
+    folds into the batch axis, and its results equal the fold's to the
+    digit (the CUDA-core kernel is unchanged)."""
+    B, C, KV, G, D, P, NB, NP = 2, 6, 2, 2, 64, 16, 8, 3
+    for dtype in (torch.bfloat16, torch.float32):
+        _, k, v, tables, _ = _inputs(16, B, KV, G, D, P, NB, NP, dtype, cuda)
+        q = torch.from_numpy(np.random.default_rng(17).normal(
+            size=(B, C, KV * G, D)).astype(np.float32)).to(cuda, dtype)
+        lengths = torch.tensor([5, 20], dtype=torch.int32, device=cuda)
+        before = kmod.paged_attention.launches
+        out = ops.paged_attend_extend(q, k, v, tables, lengths, scale=0.125)
+        assert kmod.paged_attention.launches == before + 1
+        if dtype == torch.float32:
+            fold = ops.paged_attend_extend_folded(q, k, v, tables, lengths, scale=0.125)
+            torch.cuda.synchronize()
+            assert torch.equal(out, fold)
+
+
+@pytest.mark.gpu
+def test_wrapper_refuses_bad_chunked_calls(cuda):
+    q, k, v, tables, lengths = _inputs(18, 2, 2, 2, 64, 8, 8, 2, torch.bfloat16, cuda)
+    q5 = q[:, None].expand(2, 3, 2, 2, 64).contiguous()
+    with pytest.raises(ValueError, match="rows_per_seq=4"):
+        kmod.paged_attention(q5, k, v, tables, lengths, scale=1.0, rows_per_seq=4)
+    with pytest.raises(ValueError, match=r"\(B, C, KV, G, D\)"):
+        kmod.paged_attention(q, k, v, tables, lengths, scale=1.0, rows_per_seq=3)
+    with pytest.raises(ValueError, match="splits=0"):
+        kmod.paged_attention(q, k, v, tables, lengths, scale=1.0, splits=0)
+    f32 = [t.float() for t in (q5, k, v)]
+    with pytest.raises(ValueError, match="batch-axis fold"):
+        kmod.paged_attention(*f32, tables, lengths, scale=1.0, rows_per_seq=3)
+    with pytest.raises(ValueError, match="batch-axis fold"):
+        kmod.paged_attention(q.float(), k.float(), v.float(), tables, lengths, scale=1.0,
+                             splits=2)
 
 
 # ---------------------------------------------------------------------------
