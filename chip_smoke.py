@@ -7,8 +7,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   1. device  — CUDA present, card name and power limit, TF32 off;
   2. build   — nvcc builds the five kernel libraries from csrc/, one nvcc
                per source, all at once; ptxas registers and spills of the
-               paged attention mma kernels, the split-K merge and the wgmma
-               flash prefill;
+               paged attention mma kernels (fp and KIVI pages), their split-K
+               merges and the wgmma flash prefill; the KIVI mma kernel's
+               dynamic shared memory;
   3. kernel  — every CUDA kernel vs its plain PyTorch version on the card:
                paged attention over fp pages (fp32 and bf16 shape cases,
                poisoned slots, the olmo-1b decode shape, chunked extend by
@@ -19,8 +20,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                the olmo-1b extend layer, +-inf / 1e6 in dead slots for
                decode and extend, zero-length rows), over KIVI pages
                (shape cases x bits x dtypes, poisoned slots, tail-only and
-               pages-only rows, the extend fold, the olmo-1b decode
-               shape), the pack / unpack (byte-equal),
+               pages-only rows, extend, the olmo-1b decode shape; the bf16 /
+               f16 mma route at forced splits 1, 2, 7 and the planned split,
+               native chunked extend with ragged chunk starts against the
+               chunked oracle, poisoned dead slots bit-equal to the clean
+               run, a row with nothing valid), the pack / unpack
+               (byte-equal),
                the LoRA bgmv (shape cases, ranks 4-64, olmo-1b's three
                adapter sites; null-slot rows exactly 0), and the causal
                flash prefill (shape cases x f32 / bf16 / f16,
@@ -32,12 +37,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                computing the same function: paged_attention also at
                qwen2.5-32b's and gemma-2b's decode heads and the olmo-1b
                ragged extend layer, with a sweep of forced split counts;
+               paged_attention_quant at the same four shapes over 8-bit
+               pages (the KIVI extend layer's tail_start = starts // 16 *
+               16), beside the CUDA-core kernel that served them before
+               and a sweep of forced split counts;
                flash_prefill at starcoder2-3b's S=2048, S=8192 under its
                4096 window, and the serve's fresh B=2, S=512 chunk;
   5. model   — olmo-1b at its published width, decode_paged and ragged
                extend_paged over fp pages and over KIVI pages, kernel vs
                plain attention logits, each step profiled (the paged mma
-               kernel's and the merge's share of busy time); then with LoRA
+               kernels' and the merges' share of busy time); then with LoRA
                adapters (kernel vs
                plain bgmv, the null-slot row equal to the LoRA-free step);
                starcoder2-3b at its published width, gathered extend steps
@@ -45,8 +54,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                plain flash_prefill logits, profiled;
   6. serve   — the serving engine (launch/serve.py's build_engine) at full
                width: 8 requests, greedy, kernel launch counts checked;
-               then the same traffic with KIVI 8-bit pages, and with 4
-               LoRA adapters over a 2-slot store (faults and evictions);
+               then the same traffic with KIVI 8-bit pages (the quantized
+               kernel's launches split into decode and extend steps), and
+               with 4 LoRA adapters over a 2-slot store (faults and
+               evictions);
                then starcoder2-3b on the gathered backend (flash_prefill
                launches = 30 x the steps holding a fresh row).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
@@ -134,6 +145,10 @@ OLMO_EXTEND_LENGTHS, OLMO_CHUNK_LENS = [0, 100, 513, 300], [64, 17, 1, 40]
 # the paged attention kernels' names in a profile: the mma kernel and the
 # split-K merge
 PAGED_FOCUS = ("paged_attention_mma_kernel", "paged_attention_merge_kernel")
+# the same for the quantized kernels: the mma kernel, its merge, and the
+# CUDA-core kernel (fp32 or a deq_dtype other than q's)
+QUANT_FOCUS = ("paged_attention_quant_mma_kernel", "paged_attention_quant_merge_kernel",
+               "paged_attention_quant_kernel")
 # torch.cuda._sleep cycles that hold the stream while timed calls are
 # queued: ~0.2 s at the H100's clock
 HOLD_CYCLES = 400_000_000
@@ -327,6 +342,24 @@ def phase_device():
     return name, card
 
 
+def ptxas_entries(report, name):
+    """(instance, registers, spill line) of each instance of the kernel
+    template ``name`` (over T, and over D where it has one) in a ``ptxas
+    -v`` report: ptxas prints an entry's spill line and then its register
+    line after the entry's name."""
+    lines = report.splitlines()
+    for n, line in enumerate(lines):
+        hit = re.search(name + r"I\d+(\w+?)(?:Li(\d+)E)?E", line)
+        if "Compiling entry" not in line or hit is None:
+            continue
+        rest = lines[n + 1:]
+        spill = next(x for x in rest if "spill" in x).strip()
+        regs = next(x for x in rest if "registers" in x).split(":")[-1].strip()
+        ty, D = hit.groups()
+        yield (f"{name}<{'bf16' if 'bfloat16' in ty else 'f16'}"
+               f"{'' if D is None else f', D={D}'}>", regs, spill)
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = _build.build_many(SOURCES)  # one nvcc per source, all at once
@@ -341,27 +374,19 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
-    # the paged attention mma kernel's instances and the split-K merge:
-    # ptxas prints an entry's spill line and then its register line after
-    # the entry's name
-    lines = dict(built)[_build.library_path(kmod.SOURCE)].splitlines()
-    for n, line in enumerate(lines):
-        if "Compiling entry" not in line:
-            continue
-        mma = re.search(r"paged_attention_mma_kernelI\d+(\w+?)Li(\d+)E", line)
-        merge = re.search(r"paged_attention_merge_kernelI\d+(\w+?)E", line)
-        if mma is None and merge is None:
-            continue
-        rest = lines[n + 1:]
-        spill = next(x for x in rest if "spill" in x).strip()
-        regs = next(x for x in rest if "registers" in x).split(":")[-1].strip()
-        if mma is not None:
-            ty, D = mma.groups()
-            log(f"  paged_attention_mma_kernel<{'bf16' if 'bfloat16' in ty else 'f16'}, "
-                f"D={D}>: {regs}; {spill}")
-        else:
-            log(f"  paged_attention_merge_kernel<"
-                f"{'bf16' if 'bfloat16' in merge.group(1) else 'f16'}>: {regs}; {spill}")
+    # the paged attention mma kernels' instances and their split-K merges
+    reports = dict(built)
+    for source, names in ((kmod.SOURCE, ("paged_attention_mma_kernel",
+                                         "paged_attention_merge_kernel")),
+                          (qmod.SOURCE, ("paged_attention_quant_mma_kernel",
+                                         "paged_attention_quant_merge_kernel"))):
+        for name in names:
+            for instance, regs, spill in ptxas_entries(
+                    reports[_build.library_path(source)], name):
+                log(f"  {instance}: {regs}; {spill}")
+    log("  paged_attention_quant_mma_kernel dynamic shared memory: " + ", ".join(
+        f"D={D} {qmod._load().paged_attention_quant_smem_bytes(qmod.ROUTES['mma'], 1, D)}"
+        f" bytes" for D in (32, 64, 128, 256)))
     # the wgmma flash_prefill kernel's own report
     lines = dict(built)[_build.library_path(fmod.SOURCE)].splitlines()
     smem = _build.load(fmod.SOURCE, fmod.SIGNATURES).flash_prefill_smem_bytes
@@ -536,20 +561,9 @@ def phase_kernel_quant():
     args = quant_inputs(2, B, KV, G, D, P, NB, NP, T, 8, torch.float32,
                         tail_start=ts, lengths=ln, tables=tables)
     clean = QKERNEL(*args, scale=0.2)
-    bad = [a.clone() for a in args]
-    kc, ks, kz, vc, vs, vz, kt, vt = bad[1:9]
-    for b in range(B):
-        for page in range(NP):
-            blk = int(tables[b, page])
-            dead = slice(max(0, ts[b] - page * P), P)
-            kc[:, blk, dead] = vc[:, blk, dead] = 255
-            vs[:, blk, dead] = float("inf")
-            if page * P >= ts[b]:
-                ks[:, blk], kz[:, blk] = float("inf"), float("-inf")
-        kt[b, ln[b] - ts[b]:], vt[b, ln[b] - ts[b]:] = float("inf"), float("-inf")
     check("quant edge rows vs plain", clean, paged_attention_quant_ref(*args, scale=0.2),
           1e-5)
-    check("quant poisoned slots", QKERNEL(*bad, scale=0.2), clean, 1e-6)
+    check("quant poisoned slots", QKERNEL(*quant_poisoned(args, 1), scale=0.2), clean, 1e-6)
     check("quant row with nothing valid", clean[2], torch.zeros_like(clean[2]), 0.0)
     # the extend fold (prefill) vs the chunked quantized oracle
     for dtype in (torch.float32, torch.bfloat16):
@@ -561,7 +575,9 @@ def phase_kernel_quant():
             device="cuda").manual_seed(4), device="cuda").to(dtype)
         pk = dict(zip(("codes", "scale", "zero"), args[1:4]))
         pv = dict(zip(("codes", "scale", "zero"), args[4:7]))
-        check(f"quant extend fold C={C} {str(dtype)[6:]}",
+        route = qmod.kernel_route(dtype, dtype, D)
+        check(f"quant extend C={C} {str(dtype)[6:]} "
+              f"({'fold' if route == 'cuda_core' else 'native'})",
               ops.paged_attend_extend_quant(qc, pk, pv, *args[7:12], scale=0.125,
                                             deq_dtype=dtype),
               paged_attention_chunked_quant_ref(
@@ -576,6 +592,7 @@ def phase_kernel_quant():
           QKERNEL(*args, scale=c["D"] ** -0.5, deq_dtype=torch.bfloat16),
           paged_attention_quant_ref(*args, scale=c["D"] ** -0.5, deq_dtype=torch.bfloat16),
           ATOL[torch.bfloat16])
+    phase_kernel_quant_mma()
     # pack and unpack: byte-equal to the plain versions
     for bits in (2, 4, 8):
         for axis in ("channel", "token"):
@@ -589,6 +606,112 @@ def phase_kernel_quant():
                         [UNPACK(*packed, out_dtype=dtype)],
                         [dequantize_pages_ref(*packed, out_dtype=dtype)])
     torch.cuda.synchronize()
+
+
+# B, C, KV, G, D, P, NB, NP, chunk starts, tail_start (None: starts // P *
+# P, as the engine keeps it), T (None: P + C): ragged starts with GQA,
+# several 16-row tiles, tails of several 32-slot tiles, P = 4 and 32, whole
+# pages in the tail
+QEXTEND_CASES = [
+    (3, 8, 2, 4, 64, 16, 32, 4, [0, 15, 40], None, None),
+    (2, 5, 2, 5, 128, 8, 16, 4, [29, 3], None, None),
+    (2, 24, 1, 8, 256, 16, 8, 3, [40, 0], None, None),
+    (2, 70, 2, 1, 32, 32, 8, 3, [10, 50], None, None),
+    (4, 64, 2, 1, 128, 4, 64, 16, [0, 13, 47, 60], None, None),
+    (2, 6, 2, 2, 64, 8, 16, 4, [20, 9], [8, 0], 20),
+]
+
+
+def quant_extend_inputs(seed, B, C, KV, G, D, P, NB, NP, starts, ts, T, dtype,
+                        tables=None):
+    """The kernel's arguments for a chunk of C queries per sequence: q
+    (B * C, KV, G, D), per-row lengths starts[b] + c + 1, tail_start
+    starts // P * P unless given, T = P + C unless given; and the starts."""
+    starts = np.asarray(starts)
+    ts = starts // P * P if ts is None else np.asarray(ts)
+    row_len = (starts[:, None] + np.arange(C)[None, :] + 1).reshape(-1)
+    args = list(quant_inputs(seed, B, KV, G, D, P, NB, NP, P + C if T is None else T, 8,
+                             dtype, tail_start=ts, lengths=row_len, tables=tables))
+    args[0] = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(B * C, KV, G, D)).astype(np.float32)).to("cuda", dtype)
+    return args, torch.tensor(starts, dtype=torch.int32, device="cuda")
+
+
+def quant_poisoned(args, C):
+    """A copy of a disjoint-table argument tuple with every slot no row may
+    read poisoned: page slots at or past tail_start (codes 255, value planes
+    Inf), the key planes of pages wholly past it (+-Inf), tail slots past
+    every row's end (+-Inf)."""
+    bad = [a.clone() for a in args]
+    kc, ks, kz, vc, vs, vz, kt, vt, tables, lengths, tail_start = bad[1:12]
+    P = kc.shape[2]
+    for b in range(tables.shape[0]):
+        ts = int(tail_start[b])
+        for page in range(tables.shape[1]):
+            blk = int(tables[b, page])
+            dead = slice(max(0, ts - page * P), P)
+            kc[:, blk, dead] = vc[:, blk, dead] = 255
+            vs[:, blk, dead] = float("inf")
+            if page * P >= ts:
+                ks[:, blk], kz[:, blk] = float("inf"), float("-inf")
+        end = max(0, int(lengths[b * C:(b + 1) * C].max()) - ts)
+        kt[b, end:], vt[b, end:] = float("inf"), float("-inf")
+    return bad
+
+
+def phase_kernel_quant_mma():
+    """The bf16 / f16 tensor-core route over KIVI pages: decode at forced
+    and planned splits, native chunked extend against the chunked oracle,
+    poisoned dead slots (bit-equal to the clean run) and a row with nothing
+    valid (exactly 0)."""
+    for case in QCASES:
+        D = case[3]
+        for bits in (4, 8):
+            for dtype in (torch.bfloat16, torch.float16):
+                args = quant_inputs(21, *case, 17, bits, dtype)
+                kw = dict(scale=D ** -0.5, deq_dtype=dtype)
+                want = paged_attention_quant_ref(*args, **kw)
+                for sp in MMA_SPLITS:
+                    check(f"quant mma case {case} T=17 {bits}-bit {str(dtype)[6:]} "
+                          f"splits={sp or 'planned'}", QKERNEL(*args, splits=sp, **kw),
+                          want, ATOL[torch.bfloat16])
+    for case in QEXTEND_CASES:
+        B, C, KV, G, D = case[:5]
+        for dtype in (torch.bfloat16, torch.float16):
+            args, starts = quant_extend_inputs(22, *case, dtype)
+            kw = dict(scale=D ** -0.5, deq_dtype=dtype)
+            want = paged_attention_chunked_quant_ref(
+                args[0].reshape(B, C, KV, G, D), *args[1:10], starts, args[11], **kw)
+            for sp in MMA_SPLITS:
+                check(f"quant native extend {tuple(case[:8])} starts {case[8]} "
+                      f"{str(dtype)[6:]} splits={sp or 'planned'}",
+                      QKERNEL(*args, rows_per_seq=C, splits=sp, **kw),
+                      want.reshape(args[0].shape), ATOL[torch.bfloat16])
+    # tail only, pages only, nothing valid, tail_start 13 mid-page (P = 8);
+    # decode and a C = 3 chunk
+    B, KV, G, D, P, NB, NP = 4, 2, 2, 64, 8, 20, 4
+    tables = np.arange(B * NP).reshape(B, NP)  # disjoint rows
+    for dtype in (torch.bfloat16, torch.float16):
+        for C, ts, starts, T in ((1, [0, 16, 0, 13], [4, 16, 0, 17], 5),
+                                 (3, [0, 16, 8, 8], [2, 16, 9, 13], 8)):
+            if C == 1:
+                args = quant_inputs(23, B, KV, G, D, P, NB, NP, T, 8, dtype,
+                                    tail_start=ts, lengths=starts, tables=tables)
+            else:
+                args, _ = quant_extend_inputs(23, B, C, KV, G, D, P, NB, NP, starts, ts,
+                                              T, dtype, tables=tables)
+            bad = quant_poisoned(args, C)
+            want = paged_attention_quant_ref(*args, scale=0.2, deq_dtype=dtype,
+                                             rows_per_seq=C)
+            for sp in MMA_SPLITS:
+                kw = dict(scale=0.2, deq_dtype=dtype, rows_per_seq=C, splits=sp)
+                clean = QKERNEL(*args, **kw)
+                label = f"quant mma C={C} {str(dtype)[6:]} splits={sp or 'planned'}"
+                check(f"{label} edge rows vs plain", clean, want, ATOL[torch.bfloat16])
+                check(f"{label} poisoned slots", QKERNEL(*bad, **kw), clean, 0.0)
+                if C == 1:
+                    check(f"{label} row with nothing valid", clean[2],
+                          torch.zeros_like(clean[2]), 0.0)
 
 
 # decode shapes timed in phase 4 beside OLMO: qwen2.5-32b's heads (GQA) and
@@ -710,39 +833,85 @@ def bound(card, nbytes, flops, tensor_cores=False):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def quant_bound(card, args, C):
+    """The bound of one quantized call: each sequence's valid page slots'
+    K and V codes, the K planes of its live pages and the V planes of its
+    slots, the tail slots its longest row sees, q in and out, its table
+    entries, lengths and tail_start, over HBM; 4 * D flops per visible
+    (row, position) pair at the tensor-core rate and 2 per dequantized K or
+    V element at the fp32 rate. Returns (ms, "bytes" or "operations", MB)."""
+    q, tables, lengths, tail_start = args[0], args[9], args[10], args[11]
+    KV, G, D = q.shape[1:]
+    P, T = args[1].shape[2], args[7].shape[1]
+    isz = q.element_size()
+    n_page = tail_start.long().clamp(0, tables.shape[1] * P).cpu()
+    seen = (lengths.long().cpu().reshape(-1, C) - n_page[:, None]).clamp(0, T)
+    pages = -(-n_page // P)
+    nbytes = int(KV * (n_page * D * 2 + pages * D * 2 * 2 + n_page * 2 * 2
+                       + seen.amax(dim=1) * D * 2 * isz).sum()
+                 + 2 * q.numel() * isz + (pages.sum() + lengths.numel()
+                                          + tail_start.numel()) * 4)
+    visible = int((n_page[:, None] + seen).sum())
+    mma_ms = 4 * KV * G * D * visible / card[3] * 1e3
+    deq_ms = 2 * 2 * KV * D * int(n_page.sum()) / card[2] * 1e3
+    bytes_ms = nbytes / card[1] * 1e3
+    return (max(bytes_ms, mma_ms + deq_ms),
+            "bytes" if bytes_ms >= mma_ms + deq_ms else "operations", nbytes / 1e6)
+
+
 def phase_timing_quant(card):
-    """paged_attention_quant at the olmo-1b decode shape of a serve step
-    (every row 1024 tokens, 1008 of them in packed pages, a 17-slot tail),
-    and the pack / unpack at the pack shapes of the serve."""
-    c = OLMO
-    B, KV, G, D, P, L = c["B"], c["KV"], c["G"], c["D"], c["P"], c["L"]
-    NP, T, ts = L // P, P + 1, L - P
-    args = quant_inputs(5, B, KV, G, D, P, B * NP, NP, T, 8, torch.bfloat16,
-                        tail_start=[ts] * B, lengths=[L] * B)
-    kw = dict(scale=D ** -0.5, deq_dtype=torch.bfloat16)
-    err = check("quant timed shape vs plain", QKERNEL(*args, **kw),
-                paged_attention_quant_ref(*args, **kw), ATOL[torch.bfloat16])
-    ms = cuda_ms(lambda: QKERNEL(*args, **kw))
-    plain_ms = cuda_ms(lambda: paged_attention_quant_ref(*args, **kw))
-    isz = args[0].element_size()
-    rows = B * KV
-    nbytes = (rows * ts * D * 2  # K and V codes of the valid page slots
-              + rows * math.ceil(ts / P) * D * 2 * 2  # K scale + zero (f16) per page
-              + rows * ts * 2 * 2  # V scale + zero (f16) per slot
-              + rows * (L - ts) * D * 2 * isz  # valid tail slots, K and V
-              + 2 * args[0].numel() * isz  # q in, out
-              + B * (math.ceil(ts / P) + 2) * 4)  # table entries, lengths, tail_start
-    flops = 4 * rows * G * L * D + 4 * rows * ts * D  # q.k, p.v; dequant K, V
-    bound_ms, bound_by = bound(card, nbytes, flops)
-    log(f"[4 timing] paged_attention_quant B={B} KV={KV} G={G} D={D} P={P} L={L} "
-        f"tail_start={ts} T={T} 8-bit bf16: kernel {ms * 1e3:.1f} us, bound "
-        f"{bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB / {card[1] / 1e12:g} TB/s, "
-        f"{bound_by}), plain {plain_ms * 1e3:.1f} us, library: none (no single "
-        f"PyTorch call attends over uint8 codes with scale/zero planes and an fp "
-        f"tail); {bound_ms / ms:.1%} of bound")
-    out = {"paged_attention_quant": dict(
-        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-        bound_by=bound_by, max_abs_err=err)}
+    """paged_attention_quant, 8-bit pages, all bf16 (the mma route), at
+    olmo-1b's, qwen2.5-32b's and gemma-2b's decode heads (every row 1024
+    tokens, 1008 of them in packed pages, a 17-slot tail) and the olmo-1b
+    KIVI ragged extend layer (B=4, C=64, chunk starts 0/100/513/300,
+    tail_start = starts // 16 * 16, an 80-slot tail); beside each, the
+    CUDA-core kernel that served these shapes before (the parent's kernel;
+    extend through it is the batch-axis fold), the plain version and a
+    sweep of forced split counts. Then the pack / unpack at the pack shapes
+    of the serve."""
+    out = {}
+    shapes = [(label, dict(c, C=1, starts=[c["L"] - 1] * c["B"], ts=[c["L"] - c["P"]] * c["B"]))
+              for label, c in DECODE_SHAPES]
+    shapes.append(("olmo-1b KIVI extend layer",
+                   dict(OLMO, B=4, C=64, starts=OLMO_EXTEND_LENGTHS,
+                        ts=[n // OLMO["P"] * OLMO["P"] for n in OLMO_EXTEND_LENGTHS])))
+    for label, c in shapes:
+        B, C, KV, G, D, P, L = c["B"], c["C"], c["KV"], c["G"], c["D"], c["P"], c["L"]
+        NP = L // P
+        args, starts = quant_extend_inputs(5, B, C, KV, G, D, P, B * NP, NP, c["starts"],
+                                           c["ts"], P + C, torch.bfloat16)
+        kw = dict(scale=D ** -0.5, deq_dtype=torch.bfloat16, rows_per_seq=C)
+        if C == 1:
+            plain = lambda: paged_attention_quant_ref(*args, **kw)  # noqa: E731
+        else:
+            def plain():
+                return paged_attention_chunked_quant_ref(
+                    args[0].reshape(B, C, KV, G, D), *args[1:10], starts, args[11],
+                    scale=kw["scale"], deq_dtype=torch.bfloat16).reshape(args[0].shape)
+        err = check(f"quant {label} timed shape vs plain", QKERNEL(*args, **kw), plain(),
+                    ATOL[torch.bfloat16])
+        check(f"quant {label} CUDA-core kernel (before) vs plain",
+              qmod._launch("cuda_core", *args, splits=None, **kw), plain(),
+              ATOL[torch.bfloat16])
+        ms = cuda_ms(lambda: QKERNEL(*args, **kw))
+        before_ms = cuda_ms(lambda: qmod._launch("cuda_core", *args, splits=None, **kw))
+        plain_ms = cuda_ms(plain, reps=20 if C == 1 else 5)  # extend: ~10 ms to queue
+        bound_ms, bound_by, mb = quant_bound(card, args, C)
+        splits = qmod.planned_splits(args[0], args[9], args[1], args[7], C)
+        sweep = split_sweep(lambda sp: QKERNEL(*args, splits=sp, **kw))
+        log(f"[4 timing] paged_attention_quant {label} B={B} C={C} KV={KV} G={G} D={D} "
+            f"P={P} L={L} tail_start {c['ts'] if C > 1 else c['ts'][0]} T={P + C} 8-bit "
+            f"bf16 ({qmod.kernel_route(torch.bfloat16, torch.bfloat16, D)}, {splits} "
+            f"splits): kernel {ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+            f"({mb:.1f} MB, {bound_by}), before (the CUDA-core kernel"
+            f"{', the fold' if C > 1 else ''}) {before_ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, library: none (no single PyTorch call attends "
+            f"over uint8 codes with scale/zero planes and an fp tail); before / kernel "
+            f"{before_ms / ms:.2f}; {bound_ms / ms:.1%} of bound; forced splits {sweep}")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=err)
+    out = {"paged_attention_quant": out["olmo-1b"]}
+    P, D = OLMO["P"], OLMO["D"]
     # the pack: one call per grouping axis per step, every layer's filled
     # pages at once (16 layers x 16 KV heads per filled block). A decode step
     # that fills one block packs 256 (16, 128) pages; a prefill step of 4 x 64
@@ -1113,7 +1282,8 @@ def phase_model_quant(model, params):
     tails = {kind: [{n: torch.randn(B, P + C, KV, D, generator=g, device="cuda")
                      .to(model.dtype) for n in ("k", "v")} for _ in pages]
              for kind, C in (("decode", 1), ("extend", 64))}
-    model_steps(model, params, pages, tails, QKERNEL, plain_quant_attention, "KIVI ")
+    model_steps(model, params, pages, tails, QKERNEL, plain_quant_attention, "KIVI ",
+                focus=QUANT_FOCUS)
 
 
 def lora_operand(cfg, ids, max_loaded=2):
@@ -1404,10 +1574,17 @@ def phase_serve_quant():
     assert store.quantized
     rng = np.random.default_rng(7)  # the fp serve's prompts, then its rerun's
     add_traffic(engine, rng, "r")
-    metrics, dt, counts = run_served(engine, COUNTERS)
+    by_kind = {"decode": 0, "extend": 0}
+    op = ops.paged_decode_attention_quant
+
+    def recorded(*args, rows_per_seq=1, **kw):  # the kernel's calls, by step kind
+        by_kind["extend" if rows_per_seq > 1 else "decode"] += 1
+        return op(*args, rows_per_seq=rows_per_seq, **kw)
+    with mock.patch.object(ops, "paged_decode_attention_quant", recorded):
+        metrics, dt, counts = run_served(engine, COUNTERS)
     gen = sum(m.num_generated for m in metrics)
-    assert counts["paged_attention_quant"] == cfg.num_layers * engine.paged_steps, \
-        (counts, engine.paged_steps)
+    assert counts["paged_attention_quant"] == cfg.num_layers * engine.paged_steps \
+        == sum(by_kind.values()), (counts, engine.paged_steps, by_kind)
     assert counts["paged_attention"] == counts["bgmv"] == counts["flash_prefill"] == 0, \
         counts
     assert counts["quantize_pages"] >= 1, counts
@@ -1417,8 +1594,10 @@ def phase_serve_quant():
         f"generated tokens in {dt:.2f} s = {gen / dt:.1f} generated tok/s, TTFT p50 "
         f"{ttft * 1e3:.0f} ms, {engine.steps} steps ({engine.paged_steps} paged); "
         f"launches: paged_attention_quant {counts['paged_attention_quant']} "
-        f"(= {cfg.num_layers} x steps), quantize_pages {counts['quantize_pages']}, "
-        f"paged_attention {counts['paged_attention']}, dequantize_pages "
+        f"(= {cfg.num_layers} x steps: {by_kind['decode']} in decode steps, "
+        f"{by_kind['extend']} in steps with a chunk of C > 1), quantize_pages "
+        f"{counts['quantize_pages']}, paged_attention {counts['paged_attention']}, "
+        f"dequantize_pages "
         f"{counts['dequantize_pages']}; tail_upload_bytes {runner.tail_upload_bytes}, "
         f"mirror_upload_bytes {runner.mirror_upload_bytes}, pack_transfer_bytes "
         f"{store.pack_transfer_bytes}, writeback_bytes {runner.writeback_bytes}, "

@@ -9,7 +9,8 @@ Twins of ``repro.kernels.paged_attention.ops``, with the same layouts:
   * ``paged_attend_extend`` — chunked extend: q (B, C, H, D);
   * ``paged_decode_attention_quant`` / ``paged_attend_quant`` /
     ``paged_attend_extend_quant`` — the same three over KIVI pages:
-    ``{"codes", "scale", "zero"}`` dicts plus a full-precision tail.
+    ``{"codes", "scale", "zero"}`` dicts plus a full-precision tail; bf16 /
+    f16 extend runs the kernel's native chunked path there too.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors run the
 hand-written kernels (``paged_attention.paged_attention``,
@@ -144,11 +145,16 @@ def paged_attend_extend_quant(q, k_pages, v_pages, k_tail, v_tail,
     Quantized page slots serve positions ``< tail_start[b]``; everything from
     ``tail_start`` up — the still-filling page AND this chunk's own K/V,
     already at their tail slots — comes from the fp tail (B, T, KV, D).
-    CUDA: the C query positions fold into the kernel's batch axis, row
-    b*C + j with length ``lengths[b] + j + 1`` (in-chunk causality), taking
-    sequence b's table, ``tail_start`` and tail (``rows_per_seq=C``, so
-    they are not repeated in memory). CPU: the direct chunked oracle, which
-    dequantizes each sequence's pages once rather than C times."""
+    CUDA: one kernel launch per call with ``rows_per_seq=C``: row b*C + j
+    has length ``lengths[b] + j + 1`` (in-chunk causality) and takes
+    sequence b's table, ``tail_start`` and tail, which are not repeated in
+    memory. On the mma route (bf16 / f16 q dequantizing into its own dtype,
+    ``paged_attention_quant.kernel_route``) that is the native chunked
+    path: each page is read and dequantized once per (sequence, KV head,
+    16-row tile of the C x G rows). On the CUDA-core route it is the
+    batch-axis fold: a CTA per row, each re-reading its sequence's pages.
+    CPU: the direct chunked oracle, which dequantizes each sequence's pages
+    once rather than C times."""
     B, C, H, D = q.shape
     KV = k_pages["codes"].shape[0]
     G = H // KV

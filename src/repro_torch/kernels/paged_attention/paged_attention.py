@@ -73,7 +73,12 @@ def plan_splits(ctas: int, keys: int, sm_count: int, ctas_per_sm: int = 2) -> in
     count with the fewest tile times, the smallest on a tie. Every split
     then has at least one key tile of the table: never more splits than key
     tiles, and at least one."""
-    tiles = -(-keys // KEY_TILE)
+    return plan_tile_splits(ctas, -(-keys // KEY_TILE), sm_count, ctas_per_sm)
+
+
+def plan_tile_splits(ctas: int, tiles: int, sm_count: int, ctas_per_sm: int = 2) -> int:
+    """``plan_splits`` over a count of key tiles: the rule both paged
+    kernels share (the quantized one counts page and tail tiles)."""
     if ctas <= 0 or tiles <= 0:
         return 1
     slots = max(1, sm_count * ctas_per_sm)

@@ -6,9 +6,11 @@ Twins of ``repro.kernels.paged_attention.ref``: ``paged_attention_ref`` and
 kernel), and
 ``paged_attention_quant_ref`` / ``paged_attention_chunked_quant_ref`` over
 uint8 codes with scale/zero planes plus a full-precision tail
-(``dequantize_page_leaves``). All share the same masking: invalid positions
-score ``NEG_INF`` and get probability exactly 0, and the normalizer is
-clamped at ``1e-30`` so a row with no valid position returns zeros.
+(``dequantize_page_leaves``; beside them ``paged_attention_quant_split_ref``,
+the split-K partials and merge of the quantized CUDA kernel). All share
+the same masking: invalid positions score ``NEG_INF`` and get probability
+exactly 0, and the normalizer is clamped at ``1e-30`` so a row with no
+valid position returns zeros.
 
 Semantics: one query token per sequence attends over a paged KV cache.
 ``lengths[b]`` counts valid tokens; page contents beyond it are garbage and
@@ -220,3 +222,60 @@ def paged_attention_chunked_quant_ref(q, k_codes, k_scale, k_zero, v_codes,
     p = _softmax(s, valid[:, :, None, None, :])
     return torch.einsum("bckgs,bksd->bckgd", p,
                         _dead_to_zero(v, valid.any(dim=1))).to(q.dtype)
+
+
+def paged_attention_quant_split_ref(q, k_codes, k_scale, k_zero, v_codes, v_scale,
+                                    v_zero, k_tail, v_tail, block_tables, lengths,
+                                    tail_start, *, scale, splits,
+                                    deq_dtype=torch.float32, rows_per_seq=1,
+                                    page_tile=64, tail_tile=32):
+    """Split-K twin of the quantized mma kernel's partials and merge, the
+    oracle of its algebra (``paged_attention_split_ref`` over KIVI pages).
+    Arguments and result as ``paged_attention_quant_ref``: q (R, KV, G, D)
+    with R = B * rows_per_seq, lengths (R,), row r of sequence
+    r // rows_per_seq.
+
+    A sequence's positions form one stream of tiles: its valid page slots
+    ``[0, tail_start)`` in tiles of ``page_tile``, then its tail slots in
+    tiles of ``tail_tile`` (no tile holds both). With ``per`` =
+    ceil(most tiles / splits), the most tiles being ceil(NP * P / page_tile)
+    + ceil(T / tail_tile) (the host plans from shapes, not lengths), split s
+    takes the stream's tiles [s * per, (s + 1) * per). Each split keeps per
+    row the max ``m`` of its visible scores (NEG_INF if none), ``l`` and
+    ``acc``; the merge is ``paged_attention_split_ref``'s. Positions no row
+    of the sequence sees are zeroed in V, as the kernel never loads them."""
+    R, KV, G, D = q.shape
+    B, NP = block_tables.shape
+    C = rows_per_seq
+    P, T = k_codes.shape[2], k_tail.shape[1]
+    S = NP * P
+    k, v = _quant_kv(k_codes, k_scale, k_zero, v_codes, v_scale, v_zero, k_tail,
+                     v_tail, block_tables, deq_dtype)  # (B, KV, S + T, D)
+    dev = q.device
+    ts = tail_start.long()
+    n_page = ts.clamp(0, S)  # (B,) valid page slots, for every row
+    n_tail = (lengths.long().reshape(B, C) - ts[:, None]).clamp(0, T)  # (B, C)
+    pos, slot = torch.arange(S, device=dev), torch.arange(T, device=dev)
+    valid = torch.cat([(pos[None, :] < n_page[:, None])[:, None, :].expand(B, C, S),
+                       slot[None, None, :] < n_tail[:, :, None]], dim=-1)  # (B, C, S + T)
+    n_pt = -(-n_page // page_tile)  # (B,) page tiles; tail tiles follow
+    tile = torch.cat([(pos // page_tile)[None, :].expand(B, S),
+                      n_pt[:, None] + (slot // tail_tile)[None, :]], dim=1)  # (B, S + T)
+    per = max(1, -(-(-(-S // page_tile) + -(-T // tail_tile)) // splits))
+    split_of = tile // per
+    v = _dead_to_zero(v, valid.any(dim=1))
+    s = torch.einsum("bckgd,bksd->bckgs", q.reshape(B, C, KV, G, D).float(), k) * scale
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        ok = (valid & (split_of == i)[:, None, :])[:, :, None, None, :]
+        si = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m = si.amax(dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp(si - m), torch.zeros_like(si))
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bckgs,bksd->bckgd", p, v))
+    m_all = torch.stack(ms)  # (splits, B, C, KV, G, 1)
+    w = torch.exp(m_all - m_all.amax(dim=0))
+    num = (w * torch.stack(accs)).sum(dim=0)
+    den = (w * torch.stack(ls)).sum(dim=0)
+    return (num / torch.clamp(den, min=1e-30)).to(q.dtype).reshape(R, KV, G, D)

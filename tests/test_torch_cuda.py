@@ -395,6 +395,160 @@ def test_quant_extend_fold_matches_chunked_oracle(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", QCASES)
+@pytest.mark.parametrize("T", [1, 4, 17])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_quant_mma_matches_plain_version(cuda, case, T, bits, dtype, splits):
+    """bf16 / f16 q with pages dequantized into q's dtype: the mma kernel at
+    the planned and forced split counts vs the plain version."""
+    args = _quant_inputs(T + bits + 20, *case, T, bits, dtype, cuda)
+    scale = case[3] ** -0.5
+    assert qmod.kernel_route(dtype, dtype, case[3]) == "mma"
+    before = qmod.paged_attention_quant.launches
+    out = qmod.paged_attention_quant(*args, scale=scale, deq_dtype=dtype, splits=splits)
+    want = ref.paged_attention_quant_ref(*args, scale=scale, deq_dtype=dtype)
+    torch.cuda.synchronize()
+    assert qmod.paged_attention_quant.launches == before + 1
+    assert out.dtype == dtype and out.shape == args[0].shape
+    torch.testing.assert_close(out.float(), want.float(), atol=ATOL[torch.bfloat16], rtol=0)
+
+
+QEXTEND_CASES = [
+    # B, C, KV, G, D, P, NB, NP, chunk starts, tail_start (None: starts // P
+    # * P, as the engine keeps it), T (None: P + C): ragged starts with GQA,
+    # several 16-row tiles, tails of several 32-slot tiles, P = 4 and 32
+    (3, 8, 2, 4, 64, 16, 32, 4, [0, 15, 40], None, None),
+    (2, 5, 2, 5, 128, 8, 16, 4, [29, 3], None, None),
+    (2, 24, 1, 8, 256, 16, 8, 3, [40, 0], None, None),
+    (2, 70, 2, 1, 32, 32, 8, 3, [10, 50], None, None),
+    (4, 64, 2, 1, 128, 4, 64, 16, [0, 13, 47, 60], None, None),
+    (2, 6, 2, 2, 64, 8, 16, 4, [20, 9], [8, 0], 20),  # whole pages in the tail
+]
+
+
+def _quant_extend_inputs(seed, case, dtype, dev):
+    """(q (B*C, KV, G, D), the kernel's argument tuple with per-row lengths
+    starts[b] + c + 1, chunk starts)."""
+    B, C, KV, G, D, P, NB, NP, starts, ts, T = case
+    starts = np.asarray(starts)
+    ts = starts // P * P if ts is None else np.asarray(ts)
+    T = P + C if T is None else T
+    row_len = (starts[:, None] + np.arange(C)[None, :] + 1).reshape(-1)
+    args = list(_quant_inputs(seed, B, KV, G, D, P, NB, NP, T, 8, dtype, dev,
+                              tail_start=ts, lengths=row_len))
+    args[0] = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(B * C, KV, G, D)).astype(np.float32)).to(dev, dtype)
+    return args, torch.tensor(starts, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QEXTEND_CASES)
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_quant_native_extend_matches_chunked_oracle(cuda, case, dtype, splits):
+    B, C, KV, G, D = case[:5]
+    args, starts = _quant_extend_inputs(30, case, dtype, cuda)
+    before = qmod.paged_attention_quant.launches
+    out = qmod.paged_attention_quant(*args, scale=D ** -0.5, deq_dtype=dtype,
+                                     rows_per_seq=C, splits=splits)
+    want = ref.paged_attention_chunked_quant_ref(
+        args[0].reshape(B, C, KV, G, D), *args[1:10], starts, args[11],
+        scale=D ** -0.5, deq_dtype=dtype)
+    torch.cuda.synchronize()
+    assert qmod.paged_attention_quant.launches == before + 1  # one launch, B * C rows
+    torch.testing.assert_close(out.float(), want.reshape(out.shape).float(),
+                               atol=ATOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_quant_mma_poisoned_dead_slots_and_zero_rows(cuda, dtype, splits):
+    """The mma route under test_quant_kernel_edge_rows_and_poisoned_slots's
+    poison (codes 255, value planes Inf, dead pages' key planes Inf, tail
+    slots +-Inf past every row's end; tail_start 13 mid-page with P = 8),
+    decode and extend (C = 3): poisoned == clean to the bit, both within
+    tolerance of the plain version, the row with nothing valid exactly 0."""
+    B, KV, G, D, P, NB, NP = 4, 2, 2, 64, 8, 20, 4
+    tables = torch.arange(B * NP, dtype=torch.int32, device=cuda).reshape(B, NP)
+    for C, ts, lens, T in ((1, [0, 16, 0, 13], [4, 16, 0, 17], 5),
+                           (3, [0, 16, 8, 8], [2, 16, 9, 13], 8)):
+        row_len = (np.asarray(lens)[:, None] + np.arange(C)[None, :]
+                   + (C > 1)).reshape(-1)
+        args = list(_quant_inputs(40 + C, B, KV, G, D, P, NB, NP, T, 8, dtype, cuda,
+                                  tail_start=ts, lengths=row_len))
+        args[0] = torch.from_numpy(np.random.default_rng(41).normal(
+            size=(B * C, KV, G, D)).astype(np.float32)).to(cuda, dtype)
+        args[9] = tables  # disjoint rows: a dead page is dead for every row
+        bad = [a.clone() for a in args]
+        kc, ks, kz, vc, vs, vz, kt, vt = bad[1:9]
+        for b in range(B):
+            for page in range(NP):
+                blk = int(tables[b, page])
+                dead = slice(max(0, ts[b] - page * P), P)
+                kc[:, blk, dead] = vc[:, blk, dead] = 255
+                vs[:, blk, dead] = float("inf")
+                if page * P >= ts[b]:
+                    ks[:, blk], kz[:, blk] = float("inf"), float("-inf")
+            end = max(0, int(row_len[b * C:(b + 1) * C].max()) - ts[b])
+            kt[b, end:], vt[b, end:] = float("inf"), float("-inf")
+        kw = dict(scale=0.2, deq_dtype=dtype, rows_per_seq=C, splits=splits)
+        clean = qmod.paged_attention_quant(*args, **kw)
+        poisoned = qmod.paged_attention_quant(*bad, **kw)
+        plain = ref.paged_attention_quant_ref(*args, scale=0.2, deq_dtype=dtype,
+                                              rows_per_seq=C)
+        torch.cuda.synchronize()
+        assert torch.equal(poisoned, clean)
+        torch.testing.assert_close(clean.float(), plain.float(), atol=ATOL[torch.bfloat16],
+                                   rtol=0)
+        if C == 1:
+            assert torch.equal(clean[2], torch.zeros_like(clean[2]))
+
+
+@pytest.mark.gpu
+def test_quant_extend_routes_by_dtype(cuda):
+    """bf16 KIVI extend is one launch of the mma kernel's native chunked
+    path; fp32 extend is one launch of the CUDA-core kernel, still the
+    batch-axis fold: its result equals, to the bit, the fold written out
+    (every row its own sequence, the tails and tables repeated C times)."""
+    B, C, KV, G, D, P, NB, NP = 2, 6, 2, 2, 64, 16, 8, 3
+    for dtype in (torch.bfloat16, torch.float32):
+        args, starts = _quant_extend_inputs(50, (B, C, KV, G, D, P, NB, NP, [5, 20],
+                                                 None, None), dtype, cuda)
+        k = dict(zip(("codes", "scale", "zero"), args[1:4]))
+        v = dict(zip(("codes", "scale", "zero"), args[4:7]))
+        qm = args[0].reshape(B, C, KV * G, D)
+        assert qmod.kernel_route(dtype, dtype, D) == (
+            "mma" if dtype == torch.bfloat16 else "cuda_core")
+        before = qmod.paged_attention_quant.launches
+        out = ops.paged_attend_extend_quant(qm, k, v, args[7], args[8], args[9], starts,
+                                            args[11], scale=0.125, deq_dtype=dtype)
+        assert qmod.paged_attention_quant.launches == before + 1
+        if dtype == torch.float32:
+            rep = [torch.repeat_interleave(t, C, dim=0).contiguous()
+                   for t in (args[7], args[8], args[9], args[11])]
+            fold = qmod.paged_attention_quant(*args[:7], *rep[:3], args[10], rep[3],
+                                              scale=0.125)
+            torch.cuda.synchronize()
+            assert torch.equal(out, fold.reshape(out.shape))
+
+
+@pytest.mark.gpu
+def test_quant_wrapper_refuses_splits_on_the_cuda_core_route(cuda):
+    args = _quant_inputs(3, 1, 1, 2, 32, 8, 4, 2, 2, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="takes no splits"):
+        qmod.paged_attention_quant(*args, scale=1.0, splits=2)
+    half = [args[0].bfloat16(), *args[1:7], args[7].bfloat16(), args[8].bfloat16(),
+            *args[9:]]
+    with pytest.raises(ValueError, match="takes no splits"):  # deq f32 != q's bf16
+        qmod.paged_attention_quant(*half, scale=1.0, splits=3)
+    with pytest.raises(ValueError, match="splits=0"):
+        qmod.paged_attention_quant(*half, scale=1.0, deq_dtype=torch.bfloat16, splits=0)
+
+
+@pytest.mark.gpu
 def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     args = list(_quant_inputs(3, 1, 1, 2, 32, 8, 4, 2, 2, 8, torch.float32, cuda))
     with pytest.raises(TypeError, match="float16"):
