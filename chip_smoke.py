@@ -26,8 +26,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                chunked oracle, poisoned dead slots bit-equal to the clean
                run, a row with nothing valid), the pack / unpack
                (byte-equal),
-               the LoRA bgmv (shape cases, ranks 4-64, olmo-1b's three
-               adapter sites; null-slot rows exactly 0), and the causal
+               the LoRA bgmv (shape cases, ranks 4-64, ragged Din / Dout,
+               olmo-1b's three adapter sites; null-slot rows exactly 0;
+               the fused q/k/v launch at olmo-1b's, qwen2.5-32b's and
+               gemma-2b's widths, C = 1, 3, 17, 64, with and without bases:
+               the epilogue bit-equal to PyTorch's base + the kernel's
+               delta, null-slot rows bit-equal to base + 0), and the causal
                flash prefill (shape cases x f32 / bf16 / f16,
                starcoder2-3b's heads with and without a binding window,
                ragged S, group sizes 1-12, causality, strided
@@ -40,7 +44,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                paged_attention_quant at the same four shapes over 8-bit
                pages (the KIVI extend layer's tail_start = starts // 16 *
                16), beside the CUDA-core kernel that served them before
-               and a sweep of forced split counts;
+               and a sweep of forced split counts; bgmv at olmo-1b's w1
+               site and its fused q/k/v launch (bases read and written),
+               decode and prefill;
                flash_prefill at starcoder2-3b's S=2048, S=8192 under its
                4096 window, and the serve's fresh B=2, S=512 chunk;
   5. model   — olmo-1b at its published width, decode_paged and ragged
@@ -57,7 +63,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                then the same traffic with KIVI 8-bit pages (the quantized
                kernel's launches split into decode and extend steps), and
                with 4 LoRA adapters over a 2-slot store (faults and
-               evictions);
+               evictions; bgmv launches = 4 x 16 x steps);
                then starcoder2-3b on the gathered backend (flash_prefill
                launches = 30 x the steps holding a fresh row).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
@@ -95,7 +101,7 @@ from repro_torch.kernels.kv_quant import kv_quant as kvmod  # noqa: E402
 from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
     dequantize_pages_ref, quantize_pages_ref)
 from repro_torch.kernels.lora import bgmv as bgmod  # noqa: E402
-from repro_torch.kernels.lora.ref import bgmv_ref  # noqa: E402
+from repro_torch.kernels.lora.ref import bgmv_add_ref, bgmv_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as kmod  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention_quant as qmod  # noqa: E402
@@ -112,6 +118,7 @@ QKERNEL = qmod.paged_attention_quant
 PACK = kvmod.quantize_pages
 UNPACK = kvmod.dequantize_pages
 BGMV = bgmod.bgmv
+BGMV_ADD = bgmod.bgmv_add  # holds bgmv's launch count: launches, not sites
 FLASH = fmod.flash_prefill
 SOURCES = [kmod.SOURCE, qmod.SOURCE, kvmod.SOURCE, bgmod.SOURCE, fmod.SOURCE]
 
@@ -174,8 +181,8 @@ def plain_quant_attention():
 
 
 def plain_bgmv():
-    """``plain_attention`` for the LoRA kernel (phase 5 only)."""
-    return mock.patch.object(bgmod, "bgmv", bgmv_ref)
+    """``plain_attention`` for the LoRA kernel, both entries (phase 5 only)."""
+    return mock.patch.multiple(bgmod, bgmv=bgmv_ref, bgmv_add=bgmv_add_ref)
 
 
 def plain_flash():
@@ -360,6 +367,36 @@ def ptxas_entries(report, name):
                f"{'' if D is None else f', D={D}'}>", regs, spill)
 
 
+def bgmv_ptxas(report) -> None:
+    """bgmv's instances (dtype x rank x rows of C) in one line: registers,
+    stack and spills; any spill or stack frame fails the run. An empty
+    report (the library was already built) prints nothing."""
+    entries = []
+    lines = report.splitlines()
+    for n, line in enumerate(lines):
+        if "Compiling entry" not in line or "bgmv_kernel" not in line:
+            continue
+        rest = lines[n + 1:]
+        frame = next(x for x in rest if "spill" in x)
+        regs = int(re.search(r"Used (\d+) registers", next(
+            x for x in rest if "registers" in x)).group(1))
+        nums = [int(v) for v in re.findall(r"(\d+) bytes", frame)]
+        mangled = re.search(r"bgmv_kernel\w*", line).group(0)
+        entries.append((mangled, regs, sum(nums)))
+    if not entries:
+        return
+    worst = max(entries, key=lambda e: e[1])
+    rank8 = [(re.search(r"Li8ELi(\d+)E", e[0]).group(1), e[1]) for e in entries
+             if "bfloat16Li8E" in e[0]]
+    log(f"  bgmv_kernel: {len(entries)} instances, registers "
+        f"{min(e[1] for e in entries)}-{worst[1]} (most: {worst[0]}), "
+        f"stack + spills {sum(e[2] for e in entries)} bytes in all; bf16 rank 8 "
+        "registers by rows of C: " + ", ".join(f"{r}: {n}" for r, n in rank8))
+    bad = [e for e in entries if e[2]]
+    if bad:
+        raise AssertionError(f"bgmv_kernel instances with stack or spills: {bad}")
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = _build.build_many(SOURCES)  # one nvcc per source, all at once
@@ -369,11 +406,15 @@ def phase_build():
     _build.load(bgmod.SOURCE, bgmod.SIGNATURES)
     _build.load(fmod.SOURCE, fmod.SIGNATURES)
     log(f"[2 build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
+    bgmv_lib = _build.library_path(bgmod.SOURCE)
     for path, report in built:
         log(f"  {os.path.relpath(path, ROOT)}")
+        if path == bgmv_lib:  # its instances are summed up below
+            continue
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
+    bgmv_ptxas(dict(built)[bgmv_lib])
     # the paged attention mma kernels' instances and their split-K merges
     reports = dict(built)
     for source, names in ((kmod.SOURCE, ("paged_attention_mma_kernel",
@@ -956,7 +997,19 @@ BGMV_CASES = (
     [(5, 3, 16, 4, 24, 4)]
     + [(6, C, 256, R, 320, 5) for R in (4, 8, 16, 64) for C in (1, 64)]
     + [(B, C, Din, 8, Dout, 5) for B, C in ((8, 1), (4, 64))
-       for Din, Dout in ((2048, 2048), (2048, 16384), (8192, 2048))])
+       for Din, Dout in ((2048, 2048), (2048, 16384), (8192, 2048))]
+    # ranks between the kernel's instances (R not a multiple of 4 reads A
+    # element by element) and a Din / Dout that is not a multiple of the
+    # 16-byte vectors (scalar loads and stores)
+    + [(6, C, 256, R, 320, 5) for R in (5, 12, 33) for C in (1, 17)]
+    + [(3, 5, 1030, 8, 1002, 4), (4, 1, 2049, 16, 2050, 3)])
+# the fused q/k/v launch: Din and the three sites' Dout at each model's
+# published widths (MHA; GQA 40 / 8 heads; MQA, head_dim 256), and the
+# (C, B) it is checked at
+QKV_SITES = {"olmo-1b": (2048, (2048, 2048, 2048)),
+             "qwen2.5-32b": (5120, (5120, 1024, 1024)),
+             "gemma-2b": (2048, (2048, 256, 256))}
+FUSED_ROWS = ((1, 8), (3, 8), (17, 4), (64, 4))
 # bgmv tolerance beyond ATOL. f32: the plain version's own rounding error,
 # measured against an f64 product on the card (its batched matmul sums the Din
 # products sequentially: at Din 2048-8192 and C=64 its error alone reaches
@@ -991,11 +1044,11 @@ def bgmv_inputs(seed, B, C, Din, R, Dout, T, dtype, idx=None):
             torch.tensor(np.asarray(idx), dtype=torch.int32, device=dev))
 
 
-def check_bgmv(name, x, a, b, idx, got=None) -> float:
+def check_bgmv(name, x, a, b, idx, got=None, quiet=False) -> float:
     """``got`` (the kernel's output unless given) vs the plain version on
     the same inputs: within ATOL plus BGMV_RTOL relative plus, in f32, the
     plain version's own distance from f64 (and ``got`` within ATOL of f64);
-    every null-slot row exactly 0."""
+    every null-slot row exactly 0. ``quiet``: log only a failure."""
     got = BGMV(x, a, b, idx) if got is None else got
     want = bgmv_ref(x, a, b, idx)
     exact = bgmv_f64(x, a, b, idx)
@@ -1013,12 +1066,61 @@ def check_bgmv(name, x, a, b, idx, got=None) -> float:
     null_max = got[null].float().abs().max().item() if null.any() else 0.0
     ok = math.isfinite(err) and over <= ATOL[x.dtype] and \
         got_err <= ATOL[x.dtype] and null_max == 0.0
-    log(f"  {name}: max_abs_err={err:.3g} (atol {ATOL[x.dtype]:g} + "
-        + (f"the plain version's f32 error {plain_err:.3g}; vs f64 {got_err:.3g}"
-           if x.dtype == torch.float32 else f"rtol {BGMV_RTOL[x.dtype]:g}")
-        + f"), null-slot rows max |y| {null_max:g} {'ok' if ok else 'FAIL'}")
+    if not quiet or not ok:
+        log(f"  {name}: max_abs_err={err:.3g} (atol {ATOL[x.dtype]:g} + "
+            + (f"the plain version's f32 error {plain_err:.3g}; vs f64 {got_err:.3g}"
+               if x.dtype == torch.float32 else f"rtol {BGMV_RTOL[x.dtype]:g}")
+            + f"), null-slot rows max |y| {null_max:g} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: disagrees with the plain bgmv")
+    return err
+
+
+def fused_inputs(seed, B, C, Din, R, douts, T, dtype, idx=None, bases=True):
+    """``bgmv_inputs`` for several sites sharing x: per site (a, b, base),
+    base random in x's dtype (None where ``bases`` is false)."""
+    x, a, b, ix = bgmv_inputs(seed, B, C, Din, R, douts[0], T, dtype, idx=idx)
+    rng = np.random.default_rng(seed + 1)
+    tables = [(a, b)]
+    for dout in douts[1:]:
+        a2 = (rng.normal(size=(T, Din, R)) / np.sqrt(Din)).astype(np.float32)
+        b2 = (rng.normal(size=(T, R, dout)) / np.sqrt(R)).astype(np.float32)
+        a2[0] = 0
+        b2[0] = 0
+        tables.append((torch.from_numpy(a2).cuda(), torch.from_numpy(b2).cuda()))
+    sites = [(sa, sb, torch.from_numpy(rng.normal(size=(B, C, sb.shape[2])).astype(
+        np.float32)).to("cuda", dtype) if bases else None) for sa, sb in tables]
+    return x, ix, sites
+
+
+def check_fused(name, x, idx, sites, got, bases0) -> float:
+    """One fused launch's outputs ``got`` (bases written in place; their
+    values before in ``bases0``). A site without a base: ``check_bgmv`` of
+    its delta. With one: within ATOL + BGMV_RTOL of base + the plain delta
+    (f32: plus the plain delta's own distance from f64); bit-equal to
+    PyTorch's base + the delta of the same launch without bases (the same
+    plan, so the same sums); null-slot rows bit-equal to base + 0."""
+    err, null = 0.0, idx == 0
+    deltas = BGMV_ADD(x, idx, [(a, b, None) for a, b, _ in sites])
+    for i, ((a, b, _), g, b0, delta) in enumerate(zip(sites, got, bases0, deltas)):
+        if b0 is None:
+            err = max(err, check_bgmv(f"{name} site {i}", x, a, b, idx, got=g, quiet=True))
+            continue
+        plain = bgmv_ref(x, a, b, idx)
+        want = b0 + plain
+        own = b0 + delta
+        torch.cuda.synchronize()
+        diff = (g.float() - want.float()).abs()
+        slack = BGMV_RTOL[x.dtype] * want.float().abs()
+        if x.dtype == torch.float32:
+            slack = slack + (plain.double() - bgmv_f64(x, a, b, idx)).abs().float()
+        e, over = diff.max().item(), (diff - slack).max().item()
+        bit, nul = torch.equal(g, own), torch.equal(g[null], b0[null] + 0)
+        if not (math.isfinite(e) and over <= ATOL[x.dtype] and bit and nul):
+            raise AssertionError(f"{name} site {i}: max_abs_err {e:.3g} (over the "
+                                 f"slack by {over:.3g}), bit-equal to base + kernel "
+                                 f"delta: {bit}, null rows equal to base: {nul}")
+        err = max(err, e)
     return err
 
 
@@ -1034,15 +1136,42 @@ def phase_kernel_lora():
     torch.cuda.synchronize()
     assert torch.isnan(out[1]).all() and not torch.isnan(out[[0, 2]]).any()
     log("  bgmv id outside the table: its row NaN, the others finite ok")
+    # the fused q/k/v launch, with and without bases
+    for model, (Din, douts) in QKV_SITES.items():
+        for C, B in FUSED_ROWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                errs = []
+                for bases in (True, False):
+                    x, idx, sites = fused_inputs(13, B, C, Din, 8, douts, 5, dtype,
+                                                 bases=bases)
+                    bases0 = [None if base is None else base.clone()
+                              for _, _, base in sites]
+                    before = BGMV_ADD.launches
+                    got = BGMV_ADD(x, idx, sites)
+                    assert BGMV_ADD.launches == before + 1
+                    errs.append(check_fused(f"fused q/k/v {model} C={C}", x, idx,
+                                            sites, got, bases0))
+                log(f"  fused q/k/v {model} (Din {Din} -> {douts}) B={B} C={C} "
+                    f"{str(dtype)[6:]}, one launch: with bases max_abs_err={errs[0]:.3g}, "
+                    "bit-equal to base + the same launch's delta, null-slot rows = base + 0; "
+                    f"without bases {errs[1]:.3g}, null-slot rows exactly 0 ok")
 
 
 def phase_timing_lora(card):
-    """bgmv at olmo-1b's w1 site (2048 -> 16384, rank 8) with 4 distinct
-    adapters plus the null slot: decode (B=8, C=1) and prefill (B=4, C=64)."""
+    """bgmv at olmo-1b's w1 site (2048 -> 16384, rank 8) and its fused q/k/v
+    launch (3 x 2048 -> 2048, bases read and written in place), with 4
+    distinct adapters plus the null slot: decode (B=8, C=1) and prefill
+    (B=4, C=64). Beside each: the plain version and the PyTorch calls for
+    the same function. Bound: each distinct slot's factors, x, y (and the
+    bases) once."""
+    one = torch.zeros(1, device="cuda")
+    log(f"[4 timing] cuda_ms of a one-element add_ (what a launch costs this clock): "
+        f"{cuda_ms(lambda: one.add_(1)) * 1e3:.1f} us")
     out = {}
+    R, T = 8, 5
     for label, B, C, idx in (("decode", 8, 1, [1, 2, 0, 3, 4, 1, 0, 2]),
                              ("prefill", 4, 64, [1, 2, 0, 3])):
-        Din, R, Dout, T = 2048, 8, 16384, 5
+        Din, Dout = 2048, 16384
         x, a, b, ix = bgmv_inputs(11, B, C, Din, R, Dout, T, torch.bfloat16, idx=idx)
         err = check_bgmv(f"bgmv timed {label} shape", x, a, b, ix)
         ms = cuda_ms(lambda: BGMV(x, a, b, ix))
@@ -1057,13 +1186,46 @@ def phase_timing_lora(card):
         nbytes = (slots * R * (Din + Dout) * 4 + x.numel() * 2 + B * C * Dout * 2
                   + B * 4)
         bound_ms, bound_by = bound(card, nbytes, 2 * B * C * R * (Din + Dout))
-        log(f"[4 timing] bgmv {label} B={B} C={C} Din={Din} R={R} Dout={Dout} bf16, "
-            f"{slots} distinct slots: kernel {ms * 1e3:.1f} us, bound "
-            f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, {bound_by}), plain "
-            f"{plain_ms * 1e3:.1f} us, library (2 index_select + 2 torch.bmm + 2 "
-            f"casts = 6 calls) {library_ms * 1e3:.1f} us; {bound_ms / ms:.1%} of bound")
+        p = bgmod.plan(B, C, Din, R, (Dout,), torch.cuda.get_device_properties(0)
+                       .multi_processor_count, 2)
+        log(f"[4 timing] bgmv w1 {label} B={B} C={C} Din={Din} R={R} Dout={Dout} bf16, "
+            f"{slots} distinct slots (plan: {p.rows} rows x {p.spans[0]} columns a CTA, "
+            f"clusters of {p.cluster}, {B * p.row_tiles * sum(p.ctas)} CTAs): kernel "
+            f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, "
+            f"{bound_by}), plain {plain_ms * 1e3:.1f} us, library "
+            f"(2 index_select + 2 torch.bmm + 2 casts = 6 calls) {library_ms * 1e3:.1f} "
+            f"us; {bound_ms / ms:.1%} of bound")
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    for label, B, C, idx in (("decode", 8, 1, [1, 2, 0, 3, 4, 1, 0, 2]),
+                             ("prefill", 4, 64, [1, 2, 0, 3])):
+        Din, douts = QKV_SITES["olmo-1b"]
+        x, ix, sites = fused_inputs(12, B, C, Din, R, douts, T, torch.bfloat16, idx=idx)
+        err = check_fused(f"fused q/k/v timed {label} shape", x, ix, sites,
+                          BGMV_ADD(x, ix, [(a, b, base.clone()) for a, b, base in sites]),
+                          [base for _, _, base in sites])
+        # the bases take the delta again on every timed call: only the time counts
+        ms = cuda_ms(lambda: BGMV_ADD(x, ix, sites))
+        plain_ms = cuda_ms(lambda: bgmv_add_ref(x, ix, sites))
+
+        def library():  # per site the 6-call yardstick and an add: 21 calls
+            return [base + torch.bmm(torch.bmm(x.float(), a.index_select(0, ix)),
+                                     b.index_select(0, ix)).to(x.dtype)
+                    for a, b, base in sites]
+        library_ms = cuda_ms(library)
+        slots = len(set(idx))
+        out_bytes = sum(B * C * d * 2 for d in douts)
+        nbytes = (slots * sum(R * (Din + d) * 4 for d in douts) + x.numel() * 2
+                  + 2 * out_bytes + B * 4)
+        bound_ms, bound_by = bound(card, nbytes, sum(2 * B * C * R * (Din + d) + B * C * d
+                                                     for d in douts))
+        log(f"[4 timing] bgmv fused q/k/v olmo-1b {label} B={B} C={C} Din={Din} R={R} "
+            f"Dout 3 x {douts[0]} bf16, bases read and written, {slots} distinct slots: "
+            f"kernel {ms * 1e3:.1f} us in one launch, bound {bound_ms * 1e3:.2f} us "
+            f"({nbytes / 1e6:.2f} MB, {bound_by}), plain {plain_ms * 1e3:.1f} us, "
+            f"library (3 x (6 calls + an add)) "
+            f"{library_ms * 1e3:.1f} us; {bound_ms / ms:.1%} of bound; "
+            f"max_abs_err {err:.3g}")
     return out["decode"]
 
 
@@ -1336,18 +1498,18 @@ def phase_model_lora(model, params):
             x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
 
     def run(m, prm, pgs, name, args, **kw):
-        before = BGMV.launches
+        before = BGMV_ADD.launches
         logits = getattr(m, name)(prm, args[0], [{n: x.clone() for n, x in pg.items()}
                                                  for pg in pgs], tables, *args[1:], **kw)[0]
         torch.cuda.synchronize()
-        return logits.float(), BGMV.launches - before
+        return logits.float(), BGMV_ADD.launches - before
 
     for label, name, rows, args in steps:
         lk, n = run(model, params, pages, name, args, lora=lora)
         base, _ = run(model, params, pages, name, args)
         with plain_bgmv():
             lp, _ = run(model, params, pages, name, args, lora=lora)
-        assert n == 6 * cfg.num_layers, n
+        assert n == 4 * cfg.num_layers, n  # q/k/v in one launch, wo, w1, w2
         assert torch.isfinite(lk[rows]).all()
         same = (lk[null] - base[null])[rows[null]].abs().max().item()
         apart = min((lk[i] - base[i])[rows[i]].abs().max().item() for i in tenants)
@@ -1356,7 +1518,7 @@ def phase_model_lora(model, params):
             f"adapter rows vs lora=None max |diff| >= {apart:.3g}; kernel vs plain "
             f"bgmv logits max |diff| {drift:.3g} (bf16 drift, not gated; logits max "
             f"|x| {lk[rows].abs().max().item():.3g}); {n} bgmv launches "
-            f"(= 6 x {cfg.num_layers} layers)")
+            f"(= 4 x {cfg.num_layers} layers)")
         assert same == 0.0 and apart > MODEL_ATOL, (same, apart)
     device_profile(f"LoRA decode_paged B={B}", lambda: model.decode_paged(
         params, tok, pages, tables, lengths, lora=lora), focus=("bgmv",) + PAGED_FOCUS)
@@ -1539,7 +1701,7 @@ def traced_rerun(engine, rng, adapters=(None,)):
 
 
 COUNTERS = {"paged_attention": KERNEL, "paged_attention_quant": QKERNEL,
-            "quantize_pages": PACK, "dequantize_pages": UNPACK, "bgmv": BGMV,
+            "quantize_pages": PACK, "dequantize_pages": UNPACK, "bgmv": BGMV_ADD,
             "flash_prefill": FLASH}
 
 
@@ -1625,7 +1787,8 @@ def phase_serve_lora(fp_rate, fp_ttft):
     gen = sum(m.num_generated for m in metrics)
     steps = engine.paged_steps
     snap = engine.metrics_snapshot()
-    assert counts["bgmv"] == 6 * cfg.num_layers * steps, (counts, steps)
+    # q/k/v share one launch, then wo, w1 and w2: 4 a layer
+    assert counts["bgmv"] == 4 * cfg.num_layers * steps, (counts, steps)
     assert counts["paged_attention"] == cfg.num_layers * steps, (counts, steps)
     assert counts["paged_attention_quant"] == counts["quantize_pages"] == 0, counts
     assert counts["flash_prefill"] == 0, counts
@@ -1637,7 +1800,7 @@ def phase_serve_lora(fp_rate, fp_ttft):
         f"{lora.max_loaded_adapters} slots: 8 requests, {gen} generated tokens in "
         f"{dt:.2f} s = {gen / dt:.1f} generated tok/s (fp serve above: {fp_rate:.1f}), "
         f"TTFT p50 {ttft * 1e3:.0f} ms (fp: {fp_ttft * 1e3:.0f}), {engine.steps} steps "
-        f"({steps} paged); launches: bgmv {counts['bgmv']} (= 6 x {cfg.num_layers} x "
+        f"({steps} paged); launches: bgmv {counts['bgmv']} (= 4 x {cfg.num_layers} x "
         f"steps), paged_attention {counts['paged_attention']} (= {cfg.num_layers} x "
         f"steps); lora hits {snap['lora.hits']}, misses {snap['lora.misses']}, "
         f"evictions {snap['lora.evictions']}, loads {snap['lora.loads']} "

@@ -11,8 +11,9 @@ KIVI-quantized page stores (``quantized_pages``) take ``_attn_chunk_quant``:
 the pages stay read-only and the step's K/V joins a full-precision tail.
 Every step function takes an optional multi-tenant LoRA operand: ``lora``,
 this layer's ``{site: {"a", "b"}}`` adapter tables, and ``lora_ids`` (B,),
-each row's table slot; the per-row deltas come from one ``bgmv`` call per
-projection.
+each row's table slot; the per-row deltas are added in place to the
+projections' outputs by ``bgmv_add``: one launch for wq, wk and wv, one
+for wo.
 
 The gathered backend's chunk attention, ``attn_extend`` (the twin of
 ``repro.models.model._attn_extend``), writes a chunk's K/V into a dense
@@ -34,7 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_prefill
-from repro_torch.kernels.lora.ops import bgmv
+from repro_torch.kernels.lora.ops import bgmv_add
 from repro_torch.kernels.paged_attention import (paged_attend, paged_attend_extend,
                                                 paged_attend_extend_quant)
 from repro_torch.models.common import apply_rope, normal_init
@@ -64,7 +65,8 @@ def make_attention_params(gen, cfg, dtype, device):
 
 
 def proj_qkv(p, x):
-    """x: (B, S, d) -> (B, S, heads, hd)."""
+    """x: (B, S, d) -> (B, S, heads, hd), contiguous (the LoRA epilogue
+    writes into it as (B, S, heads * hd))."""
     y = torch.einsum("bsd,dhk->bshk", x, p["w"])
     if "b" in p:
         y = y + p["b"]
@@ -81,28 +83,28 @@ def proj_out(p, x):
 
 def _qkv(p, cfg, x, lora=None, lora_ids=None):
     """q, k, v (B, C, heads, hd). With ``lora``, each row's adapter delta
-    is added after the bias (and before RoPE, which the callers apply)."""
+    is added after the bias (and before RoPE, which the callers apply): the
+    three sites in one ``bgmv_add`` launch, into the projections in place
+    (viewed as (B, C, heads * hd), which raises if they are not contiguous)."""
     q, k, v = proj_qkv(p["wq"], x), proj_qkv(p["wk"], x), proj_qkv(p["wv"], x)
     if lora is not None:
         B, C, _ = x.shape
-        q = q + bgmv(x, lora["wq"]["a"], lora["wq"]["b"], lora_ids).reshape(
-            B, C, cfg.num_heads, cfg.head_dim)
-        k = k + bgmv(x, lora["wk"]["a"], lora["wk"]["b"], lora_ids).reshape(
-            B, C, cfg.num_kv_heads, cfg.head_dim)
-        v = v + bgmv(x, lora["wv"]["a"], lora["wv"]["b"], lora_ids).reshape(
-            B, C, cfg.num_kv_heads, cfg.head_dim)
+        outs = bgmv_add(x, lora_ids, [(lora[n]["a"], lora[n]["b"], t.view(B, C, -1))
+                                      for n, t in (("wq", q), ("wk", k), ("wv", v))])
+        q, k, v = (o.view(t.shape) for o, t in zip(outs, (q, k, v)))
     return q, k, v
 
 
 def proj_out_lora(p_wo, x, lora=None, lora_ids=None):
     """``proj_out`` plus the per-row ``wo`` adapter delta, added after the
-    bias; the adapter's input is the pre-projection (B, C, H, hd) flattened
-    to H * hd. The single-device case of the JAX ``proj_out_lora``."""
+    bias (in place, by ``bgmv_add``); the adapter's input is the
+    pre-projection (B, C, H, hd) flattened to H * hd. The single-device case
+    of the JAX ``proj_out_lora``."""
     out = proj_out(p_wo, x)
     if lora is not None:
         B, C, H, hd = x.shape
-        out = out + bgmv(x.reshape(B, C, H * hd), lora["wo"]["a"],
-                         lora["wo"]["b"], lora_ids)
+        out, = bgmv_add(x.reshape(B, C, H * hd), lora_ids,
+                        [(lora["wo"]["a"], lora["wo"]["b"], out)])
     return out
 
 

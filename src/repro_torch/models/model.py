@@ -19,7 +19,9 @@ Pages are a list over layers of ``{"k", "v"}`` tensors in kernel layout
 not write (``attention._attn_chunk_quant``). A gathered cache is a list
 over layers of ``{"k", "v"}`` windows, also written in place. Every step
 takes an optional multi-tenant LoRA operand whose per-row deltas go through
-``bgmv`` at the six adapter sites of a layer (wq, wk, wv, wo, w1, w2).
+``bgmv_add`` at the six adapter sites of a layer (wq, wk, wv, wo, w1, w2),
+added in place to the projections' outputs in four launches: wq/wk/wv
+together, wo, w1, w2.
 ``build_model(cfg, device=...)`` runs on ``cuda`` unless asked for ``cpu``
 and raises when CUDA is asked for and absent.
 """
@@ -32,7 +34,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.kernels.lora.ops import bgmv
+from repro_torch.kernels.lora.ops import bgmv_add
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, dense, glu_inner_act, is_glu,
                                        make_dense, make_norm, normal_init)
@@ -68,10 +70,11 @@ def make_mlp_params(gen, cfg, dtype, device):
 def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
     """The MLP; with ``lora``, each row's w1 delta joins ``dense(w1, x)``
     before the GLU split and its w2 delta (input: the activated hidden
-    state, Din = d_ff) joins ``dense(w2, h)``."""
+    state, Din = d_ff) joins ``dense(w2, h)``, each added in place by one
+    ``bgmv_add`` launch."""
     h = dense(p["w1"], x)
     if lora is not None and "w1" in lora:
-        h = h + bgmv(x, lora["w1"]["a"], lora["w1"]["b"], lora_ids)
+        h, = bgmv_add(x, lora_ids, [(lora["w1"]["a"], lora["w1"]["b"], h)])
     if is_glu(cfg.activation):
         # u is the FIRST half of w1's output, the gate g the second
         u, g = torch.chunk(h, 2, dim=-1)
@@ -80,7 +83,7 @@ def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
         h = glu_inner_act(cfg.activation)(h)
     y = dense(p["w2"], h)
     if lora is not None and "w2" in lora:
-        y = y + bgmv(h, lora["w2"]["a"], lora["w2"]["b"], lora_ids)
+        y, = bgmv_add(h, lora_ids, [(lora["w2"]["a"], lora["w2"]["b"], y)])
     return y
 
 

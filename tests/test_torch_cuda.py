@@ -2,9 +2,10 @@
 paged attention over fp pages (fp32 on the CUDA cores; bf16 / f16 on the
 tensor cores at forced and planned split counts, decode and native chunked
 extend), paged attention over KIVI pages, the
-per-page pack and unpack, the batched grouped LoRA matmul (``bgmv``), and
-the causal flash prefill (``flash_prefill``) with the gathered extend's row
-split.
+per-page pack and unpack, the batched grouped LoRA matmul (``bgmv``: one
+site, and up to three sites in one launch with each delta added to its base
+in place), and the causal flash prefill (``flash_prefill``) with the
+gathered extend's row split.
 Every test here is marked ``gpu`` and skips without CUDA.
 
 This file imports neither JAX nor ``repro``, so it runs on a machine with
@@ -570,7 +571,7 @@ def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.lora import bgmv as bgmod  # noqa: E402
-from repro_torch.kernels.lora.ref import bgmv_ref  # noqa: E402
+from repro_torch.kernels.lora.ref import bgmv_add_ref, bgmv_ref  # noqa: E402
 
 BGMV_CASES = (
     # B, C, Din, R, Dout, T — tests/test_lora.py's case, then ranks 4..64 at
@@ -609,11 +610,11 @@ def _bgmv_inputs(seed, B, C, Din, R, Dout, T, dtype, dev):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_bgmv_kernel_matches_plain_version(cuda, case, dtype):
     x, a, b, idx = _bgmv_inputs(7, *case, dtype, cuda)
-    before = bgmod.bgmv.launches
+    before = bgmod.bgmv_add.launches
     got = bgmod.bgmv(x, a, b, idx)
     want = bgmv_ref(x, a, b, idx)
     torch.cuda.synchronize()
-    assert bgmod.bgmv.launches == before + 1
+    assert bgmod.bgmv_add.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape
     diff = (got.float() - want.float()).abs()
     if dtype == torch.float32:
@@ -648,6 +649,151 @@ def test_bgmv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     out = bgmod.bgmv(x, a, b, bad)
     torch.cuda.synchronize()
     assert torch.isnan(out[1]).all() and not torch.isnan(out[[0, 2]]).any()
+
+
+FUSED_CASES = [
+    # B, C, Din, R, douts: olmo-1b's q/k/v (MHA), qwen2.5-32b's and
+    # gemma-2b's (GQA / MQA widths) at decode and in chunks, a ragged Din
+    # and Dout (scalar loads), an odd rank, rank 64
+    (8, 1, 2048, 8, (2048, 2048, 2048)), (4, 17, 2048, 8, (2048, 2048, 2048)),
+    (8, 1, 5120, 8, (5120, 1024, 1024)), (2, 64, 5120, 8, (5120, 1024, 1024)),
+    (8, 3, 2048, 8, (2048, 256, 256)), (3, 5, 1030, 5, (1002, 6, 257)),
+    (4, 9, 512, 64, (640, 128)), (5, 3, 16, 4, (24,)),
+]
+
+
+def _fused_inputs(seed, B, C, Din, R, douts, dtype, dev, bases=True, T=5):
+    x, a, b, idx = _bgmv_inputs(seed, B, C, Din, R, douts[0], T, dtype, dev)
+    rng = np.random.default_rng(seed + 1)
+    sites = [(a, b)]
+    for dout in douts[1:]:
+        a2 = (rng.normal(size=(T, Din, R)) / np.sqrt(Din)).astype(np.float32)
+        b2 = (rng.normal(size=(T, R, dout)) / np.sqrt(R)).astype(np.float32)
+        a2[0] = 0
+        b2[0] = 0
+        sites.append((torch.from_numpy(a2).to(dev), torch.from_numpy(b2).to(dev)))
+    out = []
+    for sa, sb in sites:
+        base = torch.from_numpy(rng.normal(size=(B, C, sb.shape[2])).astype(np.float32))
+        out.append((sa, sb, base.to(dev, dtype) if bases else None))
+    return x, idx, out
+
+
+def _within_plain(got, want, x, idx, a, b):
+    """``got`` vs the plain version as test_bgmv_kernel_matches_plain_version
+    holds a delta: f32 within 1e-5 beyond the plain version's distance from
+    f64, 16-bit types within one step (2^-7 relative) plus 2e-2."""
+    diff = (got.float() - want.float()).abs()
+    if x.dtype == torch.float32:
+        i = idx.long()
+        exact = torch.einsum("bcr,bro->bco", torch.einsum(
+            "bcd,bdr->bcr", x.double(), a[i].double()), b[i].double())
+        slack = (bgmv_ref(x, a, b, idx).double() - exact).abs().float()
+    else:
+        slack = 2 ** -7 * want.float().abs()
+    return (diff - slack).max().item() <= BGMV_ATOL.get(x.dtype, 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FUSED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("bases", [True, False], ids=["base", "nobase"])
+def test_bgmv_fused_kernel_matches_plain_version(cuda, case, dtype, bases):
+    x, idx, sites = _fused_inputs(11, *case, dtype, cuda, bases=bases)
+    want = bgmv_add_ref(x, idx, [(a, b, None if base is None else base.clone())
+                                 for a, b, base in sites])
+    before = bgmod.bgmv_add.launches
+    got = bgmod.bgmv_add(x, idx, sites)
+    torch.cuda.synchronize()
+    assert bgmod.bgmv_add.launches == before + 1  # one launch for all sites
+    null = idx == 0
+    for g, w, (a, b, base) in zip(got, want, sites):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _within_plain(g, w, x, idx, a, b)
+        if bases:
+            assert g is base  # written in place
+        else:
+            assert not g[null].any()  # slot 0: an exact zero
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FUSED_CASES[:4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32], ids=str)
+def test_bgmv_fused_epilogue_bit_equal_to_pytorch_add(cuda, case, dtype):
+    """The epilogue is PyTorch's own ``base + delta``: bit-equal where the
+    deltas are the same launch's without bases (the same plan, so the same
+    sums), null-slot rows bit-equal to ``base + 0``."""
+    x, idx, sites = _fused_inputs(12, *case, dtype, cuda)
+    bases = [base.clone() for _, _, base in sites]
+    deltas = bgmod.bgmv_add(x, idx, [(a, b, None) for a, b, _ in sites])
+    got = bgmod.bgmv_add(x, idx, sites)
+    torch.cuda.synchronize()
+    null = idx == 0
+    for g, base, d in zip(got, bases, deltas):
+        assert torch.equal(g, base + d)
+        assert torch.equal(g[null], base[null] + 0)
+
+
+@pytest.mark.gpu
+def test_bgmv_fused_bad_id_rows_nan(cuda):
+    x, idx, sites = _fused_inputs(13, 3, 2, 64, 4, (96, 32), torch.float32, cuda, T=3)
+    bad = torch.tensor([1, 3, 0], dtype=torch.int32, device=cuda)
+    got = bgmod.bgmv_add(x, bad, sites)
+    torch.cuda.synchronize()
+    for g in got:
+        assert torch.isnan(g[1]).all() and not torch.isnan(g[[0, 2]]).any()
+
+
+@pytest.mark.gpu
+def test_bgmv_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, idx, sites = _fused_inputs(14, 3, 2, 64, 4, (96, 32), torch.bfloat16, cuda)
+    (a, b, base), (a2, b2, base2) = sites
+    with pytest.raises(TypeError, match="base is"):
+        bgmod.bgmv_add(x, idx, [(a, b, base.float())])
+    with pytest.raises(TypeError, match="float32"):
+        bgmod.bgmv_add(x, idx, [(a.half(), b, base)])
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(3, 2, 192, dtype=x.dtype, device=cuda)
+        bgmod.bgmv_add(x, idx, [(a, b, wide[..., ::2])])
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(3 * 2 * 96 + 1, dtype=x.dtype, device=cuda)
+        bgmod.bgmv_add(x, idx, [(a, b, flat[1:].view(3, 2, 96))])
+    with pytest.raises(ValueError, match="sites"):
+        bgmod.bgmv_add(x, idx, [(a, b, None)] * 4)
+    with pytest.raises(ValueError, match="rank"):
+        wide_a = torch.zeros(5, 64, 65, device=cuda)
+        bgmod.bgmv_add(x, idx, [(wide_a, torch.zeros(5, 65, 96, device=cuda), None)])
+    with pytest.raises(ValueError, match="rank"):  # one rank per launch
+        bgmod.bgmv_add(x, idx, [(a, b, None), (a2[..., :2].contiguous(),
+                                               b2[:, :2].contiguous(), None)])
+    with pytest.raises(ValueError, match="storage"):
+        bgmod.bgmv_add(x, idx, [(a, b, base), (a, b, base)])
+
+
+@pytest.mark.gpu
+def test_olmo_smoke_lora_decode_launches_four_kernels_a_layer(cuda):
+    from repro_torch.core.block_manager import BlockManager
+    from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter
+
+    cfg = configs.smoke_config("olmo-1b")
+    m = build_model(cfg, device="cuda")
+    params = m.init(0)
+    P, NP, B = 8, 4, 3
+    pages = m.init_pages(B * NP + 1, P)
+    lc = LoRAConfig(rank=8, alpha=16.0, max_loaded_adapters=2)
+    store = PagedAdapterStore(cfg, lc, BlockManager(64, 8), 1 << 20, device="cuda")
+    store.registry.register("a0", make_adapter(cfg, lc, seed=1))
+    store.ensure(["a0"])
+    lora = {"ids": torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda),
+            "layers": store.tables}
+    tables = torch.arange(1, B * NP + 1, device=cuda).reshape(B, NP)
+    tok = torch.tensor([[3], [4], [5]], device=cuda)
+    lengths = torch.tensor([0, 9, 20], dtype=torch.int32, device=cuda)
+    before = bgmod.bgmv_add.launches
+    logits, _, _ = m.decode_paged(params, tok, pages, tables, lengths, lora=lora)
+    torch.cuda.synchronize()
+    assert bgmod.bgmv_add.launches - before == 4 * cfg.num_layers
+    assert torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------
