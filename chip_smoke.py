@@ -8,7 +8,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   2. build   — nvcc builds the five kernel libraries from csrc/, one nvcc
                per source, all at once; ptxas registers and spills of the
                paged attention mma kernels (fp and KIVI pages), their split-K
-               merges and the wgmma flash prefill; the KIVI mma kernel's
+               merges and the wgmma flash prefill, and of every KIVI pack and
+               unpack instance (a spill fails the run); the KIVI mma kernel's
                dynamic shared memory;
   3. kernel  — every CUDA kernel vs its plain PyTorch version on the card:
                paged attention over fp pages (fp32 and bf16 shape cases,
@@ -25,7 +26,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                native chunked extend with ragged chunk starts against the
                chunked oracle, poisoned dead slots bit-equal to the clean
                run, a row with nothing valid), the pack / unpack
-               (byte-equal),
+               (byte-equal: f32 / bf16 / f16 pages x C 32-256 and 48 x
+               axis, f32 and f16 planes, P 4-32, NP 1-4097, .5 ties and
+               extreme ranges that reach the division; every unpack
+               instance),
                the LoRA bgmv (shape cases, ranks 4-64, ragged Din / Dout,
                olmo-1b's three adapter sites; null-slot rows exactly 0;
                the fused q/k/v launch at olmo-1b's, qwen2.5-32b's and
@@ -44,7 +48,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                paged_attention_quant at the same four shapes over 8-bit
                pages (the KIVI extend layer's tail_start = starts // 16 *
                16), beside the CUDA-core kernel that served them before
-               and a sweep of forced split counts; bgmv at olmo-1b's w1
+               and a sweep of forced split counts; the KIVI pack at the
+               serve's pack shapes (f32 pages, and the serve's bf16 pages
+               with f16 planes) and the unpack into bf16 and f32 (beside
+               torch.addcmul), from HBM, by CUDA events and by the
+               profiler's device clock; bgmv at olmo-1b's w1
                site and its fused q/k/v launch (bases read and written),
                decode and prefill;
                flash_prefill at starcoder2-3b's S=2048, S=8192 under its
@@ -61,7 +69,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   6. serve   — the serving engine (launch/serve.py's build_engine) at full
                width: 8 requests, greedy, kernel launch counts checked;
                then the same traffic with KIVI 8-bit pages (the quantized
-               kernel's launches split into decode and extend steps), and
+               kernel's launches split into decode and extend steps, the
+               pack's round trip bytes held to their formula, the traced
+               rerun's writeback span), and
                with 4 LoRA adapters over a 2-slot store (faults and
                evictions; bgmv launches = 4 x 16 x steps);
                then starcoder2-3b on the gathered backend (flash_prefill
@@ -93,6 +103,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import (BlockManager, QuantConfig, Request,  # noqa: E402
                               SamplingParams, SchedulerConfig)
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  # noqa: E402
+from repro_torch.core.executor import state as state_mod  # noqa: E402
 from repro_torch.core.telemetry import StepTracer  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fmod  # noqa: E402
@@ -159,6 +170,8 @@ QUANT_FOCUS = ("paged_attention_quant_mma_kernel", "paged_attention_quant_merge_
 # torch.cuda._sleep cycles that hold the stream while timed calls are
 # queued: ~0.2 s at the H100's clock
 HOLD_CYCLES = 400_000_000
+# the H100's L2 cache: timed inputs rotate over copies that exceed it
+L2_BYTES = 50e6
 
 
 def log(msg: str) -> None:
@@ -264,8 +277,28 @@ def pack_pages(seed, NP, P, C):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(NP, P, C)).astype(np.float32) * 3
     x[0] = -0.75
-    x[1] = ((np.arange(P)[:, None] + np.arange(C)[None, :]) % 7 + 0.5) / 7
+    x[1:2] = ((np.arange(P)[:, None] + np.arange(C)[None, :]) % 7 + 0.5) / 7
     return torch.from_numpy(x).cuda()
+
+
+def edge_pages(bits, axis, P, C, dtype):
+    """Four pages in ``dtype``: every group of page 0 spans [0, qmax] with
+    every other value on an exact .5 tie (bf16 holds the ties up to 127.5);
+    page 1 spans +-1e38 (+-6e4 in f16), page 2 +-1e-39 (subnormal; 0 in f16),
+    so the pack's reciprocal estimate gives way to the division; page 3 is
+    random."""
+    rng = np.random.default_rng(bits)
+    qmax = 2 ** bits - 1
+    t, c = np.meshgrid(np.arange(P), np.arange(C), indexing="ij")
+    ties = ((t + c) % qmax + 0.5).astype(np.float32)
+    if axis == "channel":
+        ties[0], ties[1] = 0, qmax
+    else:
+        ties[:, 0], ties[:, 1] = 0, qmax
+    big = 6e4 if dtype == torch.float16 else 1e38
+    x = np.stack([ties, rng.uniform(-big, big, (P, C)), rng.uniform(-1e-39, 1e-39, (P, C)),
+                  rng.normal(size=(P, C))]).astype(np.float32)
+    return torch.from_numpy(x).cuda().to(dtype)
 
 
 def check_equal(name, got, want) -> None:
@@ -397,6 +430,35 @@ def bgmv_ptxas(report) -> None:
         raise AssertionError(f"bgmv_kernel instances with stack or spills: {bad}")
 
 
+def kv_quant_ptxas(report) -> None:
+    """Every kv_quant kernel instance (pack: a warp per page over input type
+    x C x axis, generic over input type; unpack: vector over output type x axis,
+    scalar over output type), one line each: registers, stack and spills;
+    a spill fails the run. An empty report (the library was already built)
+    prints nothing."""
+    lines = report.splitlines()
+    spilled = []
+    for n, line in enumerate(lines):
+        hit = re.search(r"(?:de)?quantize_pages_\w*?kernel", line)
+        if "Compiling entry" not in line or hit is None:
+            continue
+        rest = lines[n + 1:]
+        frame = next(x for x in rest if "spill" in x).strip()
+        regs = re.search(r"Used (\d+) registers", next(
+            x for x in rest if "registers" in x)).group(1)
+        args = line[hit.end():]
+        ty = "bf16" if "bfloat16" in args else "f16" if "__half" in args else "f32"
+        C = re.search(r"Li(\d+)E", args)
+        per_channel = re.search(r"Lb([01])E", args)
+        label = ", ".join([ty] + ([f"C={C.group(1)}"] if C else []) + (
+            [("channel" if per_channel.group(1) == "1" else "token")] if per_channel else []))
+        log(f"  {hit.group(0)}<{label}>: {regs} registers; {frame}")
+        if any(int(v) for v in re.findall(r"(\d+) bytes spill", frame)):
+            spilled.append(f"{hit.group(0)}<{label}>")
+    if spilled:
+        raise AssertionError(f"kv_quant instances that spill: {spilled}")
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = _build.build_many(SOURCES)  # one nvcc per source, all at once
@@ -407,14 +469,16 @@ def phase_build():
     _build.load(fmod.SOURCE, fmod.SIGNATURES)
     log(f"[2 build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
     bgmv_lib = _build.library_path(bgmod.SOURCE)
+    kv_lib = _build.library_path(kvmod.SOURCE)
     for path, report in built:
         log(f"  {os.path.relpath(path, ROOT)}")
-        if path == bgmv_lib:  # its instances are summed up below
+        if path in (bgmv_lib, kv_lib):  # their instances are reported below
             continue
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
     bgmv_ptxas(dict(built)[bgmv_lib])
+    kv_quant_ptxas(dict(built)[kv_lib])
     # the paged attention mma kernels' instances and their split-K merges
     reports = dict(built)
     for source, names in ((kmod.SOURCE, ("paged_attention_mma_kernel",
@@ -634,18 +698,72 @@ def phase_kernel_quant():
           paged_attention_quant_ref(*args, scale=c["D"] ** -0.5, deq_dtype=torch.bfloat16),
           ATOL[torch.bfloat16])
     phase_kernel_quant_mma()
-    # pack and unpack: byte-equal to the plain versions
-    for bits in (2, 4, 8):
+    torch.cuda.synchronize()
+
+
+def plain_pack(x, bits, axis, plane_dtype=torch.float32):
+    """The plain pack of ``x.float()``, planes cast to ``plane_dtype``: what
+    the kernel must write byte for byte."""
+    codes, scale, zero = quantize_pages_ref(x.float(), bits=bits, axis=axis)
+    return codes, scale.to(plane_dtype), zero.to(plane_dtype)
+
+
+def phase_kernel_kv_quant():
+    """The pack and unpack, byte-equal to the plain versions: every warp
+    kernel instance (input f32 / bf16 / f16 x C 32-256 x axis, past one wave
+    of pages) and the generic route (C 48, and every C up to one wave), f32
+    and f16 planes, bits 2 / 4 / 8, P 4-32, NP 1-4097; every unpack instance
+    (out f32 / bf16 / f16 x axis, the vector route at C 128 and 48, the
+    scalar one at C 40 and at P 6)."""
+    log("[3 kernel vs plain version on the card: KIVI pack and unpack]")
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for C in (32, 64, 128, 256, 48):
+            for axis in ("channel", "token"):
+                for j, (P, NP, bits) in enumerate(((16, 131, 8), (4, 3, 2), (32, 1057, 4),
+                                                   (16, 1061, 8))):
+                    x = pack_pages(n, NP, P, C).to(dtype)
+                    plane = (torch.float32, torch.float16)[(n + j) % 2]
+                    got = PACK(x, bits=bits, axis=axis, plane_dtype=plane)
+                    want = plain_pack(x, bits, axis, plane)
+                    if not all(g.dtype == w.dtype and torch.equal(g, w)
+                               for g, w in zip(got, want)):
+                        raise AssertionError(f"pack {str(dtype)[6:]} C={C} {axis} P={P} "
+                                             f"NP={NP} {bits}-bit {plane}: bytes differ")
+                    n += 1
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for C in (32, 128, 256, 48):
+            for axis in ("channel", "token"):
+                for bits, extra in ((2, 0), (4, 0), (8, 0), (2, 1057), (4, 1057), (8, 1057)):
+                    # alone (the generic route) and ahead of a wave's worth
+                    # of pages (the warp kernel)
+                    x = edge_pages(bits, axis, 16, C, dtype)
+                    if extra:
+                        x = torch.cat([x, pack_pages(n, extra, 16, C).to(dtype)])
+                    got = PACK(x, bits=bits, axis=axis)
+                    if not all(g.dtype == w.dtype and torch.equal(g, w)
+                               for g, w in zip(got, plain_pack(x, bits, axis))):
+                        raise AssertionError(f"pack of ties / extreme ranges {str(dtype)[6:]} "
+                                             f"C={C} {axis} {bits}-bit +{extra} pages: "
+                                             "bytes differ")
+                    n += 1
+    log(f"  pack: {n} launches (input f32/bf16/f16 x C 32/64/128/256/48 x axis x 4 "
+        "shapes, f32 and f16 planes; .5 ties and extreme ranges x bits, alone and ahead "
+        "of 1057 pages): byte-equal")
+    for P, NP, C in ((16, 4097, 128), (16, 1, 256)):
+        x = pack_pages(7, NP, P, C).to(torch.bfloat16)
         for axis in ("channel", "token"):
-            x = pack_pages(bits, 37, 16, 128)
-            check_equal(f"pack {bits}-bit {axis}", PACK(x, bits=bits, axis=axis),
-                        quantize_pages_ref(x, bits=bits, axis=axis))
-    for axis in ("channel", "token"):
-        packed = quantize_pages_ref(pack_pages(5, 19, 8, 64), bits=8, axis=axis)
-        for dtype in (torch.float32, torch.bfloat16):
-            check_equal(f"unpack {axis} -> {str(dtype)[6:]}",
-                        [UNPACK(*packed, out_dtype=dtype)],
-                        [dequantize_pages_ref(*packed, out_dtype=dtype)])
+            check_equal(f"pack bf16 ({NP}, {P}, {C}) {axis} f16 planes",
+                        PACK(x, bits=8, axis=axis, plane_dtype=torch.float16),
+                        plain_pack(x, 8, axis, torch.float16))
+    for C, P in ((128, 8), (48, 8), (40, 8), (128, 6)):
+        for axis in ("channel", "token"):
+            packed = quantize_pages_ref(pack_pages(C, 19, P, C), bits=8, axis=axis)
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                check_equal(f"unpack C={C} P={P} ({kvmod.unpack_plan(19, P, C, 4, 132).route}) "
+                            f"{axis} -> {str(dtype)[6:]}",
+                            [UNPACK(*packed, out_dtype=dtype)],
+                            [dequantize_pages_ref(*packed, out_dtype=dtype)])
     torch.cuda.synchronize()
 
 
@@ -908,8 +1026,7 @@ def phase_timing_quant(card):
     tail_start = starts // 16 * 16, an 80-slot tail); beside each, the
     CUDA-core kernel that served these shapes before (the parent's kernel;
     extend through it is the batch-axis fold), the plain version and a
-    sweep of forced split counts. Then the pack / unpack at the pack shapes
-    of the serve."""
+    sweep of forced split counts."""
     out = {}
     shapes = [(label, dict(c, C=1, starts=[c["L"] - 1] * c["B"], ts=[c["L"] - c["P"]] * c["B"]))
               for label, c in DECODE_SHAPES]
@@ -951,43 +1068,182 @@ def phase_timing_quant(card):
             f"{before_ms / ms:.2f}; {bound_ms / ms:.1%} of bound; forced splits {sweep}")
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                           bound_by=bound_by, max_abs_err=err)
-    out = {"paged_attention_quant": out["olmo-1b"]}
+    return {"paged_attention_quant": out["olmo-1b"]}
+
+
+def device_us(fn, pattern, reps: int = 20) -> float:
+    """Device microseconds of one ``fn`` call on the profiler's clock: the
+    summed time of the kernels whose names match ``pattern`` over ``reps``
+    calls, divided by ``reps``. Unlike ``cuda_ms`` it leaves out the gaps
+    between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(6):  # a profile now and then misses device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and re.search(pattern, e.name)]
+        if len(hits) == reps:
+            return sum(hits) / reps
+    raise RuntimeError(f"the profiler recorded {len(hits)} of {reps} kernels matching "
+                       f"{pattern!r}")
+
+
+def rotating(fn, inputs):
+    """``fn`` over ``inputs`` in turn, one per call, each call's result kept
+    until its input's next turn, so the caching allocator hands every call
+    other output memory: with enough copies the data a call reads and the
+    memory it writes have left the L2 since their last use (from HBM, as a
+    pack finds a freshly uploaded page group)."""
+    turn, kept = [0], [None] * len(inputs)
+
+    def call():
+        turn[0] += 1
+        i = turn[0] % len(inputs)
+        kept[i] = fn(*inputs[i])
+        return kept[i]
+    return call
+
+
+def hbm_copies(tensors, out_bytes=0):
+    """Copies of ``tensors`` so that one pass over them, with ``out_bytes``
+    written per call, moves three times the L2 (50 MB on the H100)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + out_bytes
+    n = max(2, math.ceil(3 * L2_BYTES / nbytes))
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+# the pack / unpack kernels' names on the profiler's clock (any version)
+PACK_NAMES, UNPACK_NAMES = r"\bquantize_pages", r"dequantize_pages"
+
+
+def time_pack(card, NP, axis, dtype=torch.float32, plane_dtype=torch.float32):
+    """One pack shape, P = 16 and C = 128 (olmo-1b's pages), 8 bits, from HBM:
+    ``PACK`` by ``cuda_ms`` and by the profiler's device clock, its bound
+    and the plain version's time. f32 planes are asked for by leaving
+    ``plane_dtype`` out (so any version's wrapper takes the call)."""
     P, D = OLMO["P"], OLMO["D"]
-    # the pack: one call per grouping axis per step, every layer's filled
-    # pages at once (16 layers x 16 KV heads per filled block). A decode step
-    # that fills one block packs 256 (16, 128) pages; a prefill step of 4 x 64
-    # tokens fills 16 blocks: 4096 pages
-    shapes = [(256, "channel"), (4096, "token"), (4096, "channel")]
-    for n, axis in shapes:
-        x = pack_pages(n, n, P, D)
-        check_equal(f"pack timed shape ({n}, {P}, {D}) {axis}", PACK(x, bits=8, axis=axis),
-                    quantize_pages_ref(x, bits=8, axis=axis))
-        ms = cuda_ms(lambda: PACK(x, bits=8, axis=axis))
-        plain_ms = cuda_ms(lambda: quantize_pages_ref(x, bits=8, axis=axis))
-        groups = n * (D if axis == "channel" else P)
-        nbytes = x.numel() * 4 + x.numel() + 2 * groups * 4
-        bound_ms, bound_by = bound(card, nbytes, 6 * x.numel())
-        log(f"[4 timing] quantize_pages ({n}, {P}, {D}) f32 -> 8-bit, {axis}: kernel "
-            f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
-            f"{bound_by}), plain {plain_ms * 1e3:.1f} us, library: none (no PyTorch "
-            f"call computes min/max-grouped asymmetric codes); "
-            f"{bound_ms / ms:.1%} of bound")
-        out["quantize_pages"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                                     bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
-    codes, sc, zr = quantize_pages_ref(x, bits=8, axis="channel")
-    kw = dict(out_dtype=torch.bfloat16)
-    got, want = UNPACK(codes, sc, zr, **kw), dequantize_pages_ref(codes, sc, zr, **kw)
-    check_equal("unpack timed shape", [got], [want])
-    ms = cuda_ms(lambda: UNPACK(codes, sc, zr, **kw))
-    plain_ms = cuda_ms(lambda: dequantize_pages_ref(codes, sc, zr, **kw))
-    nbytes = codes.numel() * (1 + 2) + 2 * sc.numel() * 4
-    bound_ms, bound_by = bound(card, nbytes, 2 * codes.numel())
-    log(f"[4 timing] dequantize_pages ({n}, {P}, {D}) 8-bit -> bf16, channel: kernel "
-        f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
-        f"{bound_by}), plain {plain_ms * 1e3:.1f} us, library: none; "
-        f"{bound_ms / ms:.1%} of bound")
-    out["dequantize_pages"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+    x = pack_pages(NP, NP, P, D).to(dtype)
+    kw = dict(bits=8, axis=axis)
+    if plane_dtype != torch.float32:
+        kw["plane_dtype"] = plane_dtype
+    check_equal(f"pack timed shape ({NP}, {P}, {D}) {str(dtype)[6:]} {axis} "
+                f"{str(plane_dtype)[6:]} planes", PACK(x, **kw), plain_pack(x, 8, axis, plane_dtype))
+    groups = NP * (D if axis == "channel" else P)
+    plane_bytes = 2 * groups * torch.finfo(plane_dtype).bits // 8
+    copies = hbm_copies([x], x.numel() + plane_bytes)
+    fn = rotating(lambda t: PACK(t, **kw), copies)
+    out = dict(ms=cuda_ms(fn), device_ms=device_us(fn, PACK_NAMES) / 1e3, max_abs_err=0.0,
+               copies=len(copies), x=x, kw=kw)
+    nbytes = x.numel() * (x.element_size() + 1) + plane_bytes
+    out["bound_ms"], out["bound_by"] = bound(card, nbytes, 6 * x.numel())
+    out["mb"] = nbytes / 1e6
+    out["plain_ms"] = cuda_ms(rotating(lambda t: plain_pack(t, 8, axis, plane_dtype),
+                                       copies))
+    out["library_ms"] = None
+    return out
+
+
+def time_unpack(card, out_dtype, library=False):
+    """``UNPACK`` of (4096, 16, 128) 8-bit codes grouped per channel, from
+    HBM, like ``time_pack``; ``library``: also ``torch.addcmul(zero, codes,
+    scale)``, the one PyTorch call computing its f32 form."""
+    P, D = OLMO["P"], OLMO["D"]
+    codes, sc, zr = quantize_pages_ref(pack_pages(4096, 4096, P, D), bits=8, axis="channel")
+    kw = dict(out_dtype=out_dtype)
+    want = dequantize_pages_ref(codes, sc, zr, **kw)
+    check_equal(f"unpack timed shape -> {str(out_dtype)[6:]}", [UNPACK(codes, sc, zr, **kw)],
+                [want])
+    isz = torch.finfo(out_dtype).bits // 8
+    copies = hbm_copies([codes, sc, zr], codes.numel() * isz)
+    fn = rotating(lambda c, s_, z: UNPACK(c, s_, z, **kw), copies)
+    out = dict(ms=cuda_ms(fn), device_ms=device_us(fn, UNPACK_NAMES) / 1e3, max_abs_err=0.0,
+               copies=len(copies), x=(codes, sc, zr), kw=kw)
+    nbytes = codes.numel() * (1 + isz) + 2 * sc.numel() * 4
+    out["bound_ms"], out["bound_by"] = bound(card, nbytes, 2 * codes.numel())
+    out["mb"] = nbytes / 1e6
+    out["plain_ms"] = cuda_ms(rotating(lambda c, s_, z: dequantize_pages_ref(c, s_, z, **kw),
+                                       copies))
+    out["library_ms"] = None
+    if library:
+        lib_err = (torch.addcmul(zr, codes, sc) - want).abs().max().item()
+        out["library_ms"] = cuda_ms(rotating(torch.addcmul, [(z, c, s_) for c, s_, z in copies]))
+        out["library_err"] = lib_err
+    return out
+
+
+def log_kv_timing(name, label, t) -> None:
+    lib = "" if t["library_ms"] is None else (
+        f", torch.addcmul {t['library_ms'] * 1e3:.1f} us (max |diff| "
+        f"{t['library_err']:.3g}: it may fuse into one rounding)")
+    log(f"[4 timing] {name} {label}, from HBM ({t['copies']} copies of the inputs and "
+        f"outputs): kernel {t['ms'] * 1e3:.1f} us (device clock {t['device_ms'] * 1e3:.2f} "
+        f"us), bound {t['bound_ms'] * 1e3:.1f} us ({t['mb']:.1f} MB, {t['bound_by']}), "
+        f"plain {t['plain_ms'] * 1e3:.1f} us{lib}; {t['bound_ms'] / t['ms']:.1%} of bound "
+        f"({t['bound_ms'] / t['device_ms']:.1%} by the device clock)")
+
+
+def warm_row(name, label, t, kernel, plain):
+    """The ``kernels`` line's row for ``name``, defined as before the
+    from-HBM timing: one input timed over and over (warm in the L2), the
+    bound of ``t`` (the same shape)."""
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    log(f"[4 timing] {name} {label}, one input over and over (the kernels line's row): "
+        f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+        f"{t['bound_ms'] * 1e3:.1f} us; {t['bound_ms'] / ms:.1%} of bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], max_abs_err=0.0)
+
+
+# the pack shapes of the KIVI serve: one call per grouping axis per step,
+# every layer's filled pages at once (16 layers x 16 KV heads per filled
+# block). A decode step that fills one block packs 256 (16, 128) pages per
+# axis; a prefill step of 4 x 64 tokens fills 16 blocks: 4096 pages. The
+# serve packs bf16 staging pages into f16 planes; f32 with f32 planes is the
+# JAX kernel's own call (and the only input the parent's kernel took)
+PACK_SHAPES = [
+    (256, "channel", torch.float32, torch.float32),
+    (256, "token", torch.float32, torch.float32),
+    (4096, "token", torch.float32, torch.float32),
+    (4096, "channel", torch.float32, torch.float32),
+    (256, "channel", torch.bfloat16, torch.float16),
+    (256, "token", torch.bfloat16, torch.float16),
+    (4096, "token", torch.bfloat16, torch.float16),
+    (4096, "channel", torch.bfloat16, torch.float16),
+]
+
+
+def phase_timing_kv_quant(card):
+    """The pack at ``PACK_SHAPES`` and the unpack of (4096, 16, 128) codes
+    into bf16 and f32 (beside ``torch.addcmul``), each from HBM. The
+    ``kernels`` line keeps the rows it had before: the f32 per-channel pack
+    of 4096 pages and the bf16 unpack, warm in the L2 (``warm_row``)."""
+    out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for NP, axis, dtype, plane in PACK_SHAPES:
+        t = time_pack(card, NP, axis, dtype, plane)
+        plan = kvmod.pack_plan(NP, 16, 128, torch.finfo(dtype).bits // 8, axis, sms)
+        label = f"({NP}, 16, 128) {str(dtype)[6:]} -> 8-bit, {axis}, {str(plane)[6:]} planes"
+        log_kv_timing("quantize_pages", f"{label} ({plan})", t)
+        if (NP, axis, dtype) == (4096, "channel", torch.float32):
+            x, kw = t["x"], t["kw"]
+            out["quantize_pages"] = warm_row("quantize_pages", label, t,
+                                             lambda: PACK(x, **kw),
+                                             lambda: plain_pack(x, 8, axis, plane))
+    for dtype in (torch.bfloat16, torch.float32):
+        t = time_unpack(card, dtype, library=dtype == torch.float32)
+        label = f"(4096, 16, 128) 8-bit -> {str(dtype)[6:]}, channel"
+        log_kv_timing("dequantize_pages", label, t)
+        if dtype == torch.bfloat16:
+            (c, s_, z), kw = t["x"], t["kw"]
+            out["dequantize_pages"] = warm_row(
+                "dequantize_pages", label, t, lambda: UNPACK(c, s_, z, **kw),
+                lambda: dequantize_pages_ref(c, s_, z, **kw))
     return out
 
 
@@ -1698,6 +1954,7 @@ def traced_rerun(engine, rng, adapters=(None,)):
         f"{dt_traced:.2f} s over {engine.steps - steps0} steps; host-clock spans: "
         + ", ".join(f"{k} {n_}x {us / 1e3:.0f} ms"
                     for k, (n_, us) in sorted(spans.items(), key=lambda kv: -kv[1][1])))
+    return spans
 
 
 COUNTERS = {"paged_attention": KERNEL, "paged_attention_quant": QKERNEL,
@@ -1742,14 +1999,29 @@ def phase_serve_quant():
     def recorded(*args, rows_per_seq=1, **kw):  # the kernel's calls, by step kind
         by_kind["extend" if rows_per_seq > 1 else "decode"] += 1
         return op(*args, rows_per_seq=rows_per_seq, **kw)
-    with mock.patch.object(ops, "paged_decode_attention_quant", recorded):
+    packs = []  # (elements, staging bytes per element, pages, axis) per pack call
+    pack_op = state_mod.quantize_kv_pages
+
+    def recorded_pack(x, *, axis, **kw):
+        packs.append((x.numel(), x.element_size(), x.shape[0], axis, x.dtype))
+        return pack_op(x, axis=axis, **kw)
+    with mock.patch.object(ops, "paged_decode_attention_quant", recorded), \
+            mock.patch.object(state_mod, "quantize_kv_pages", recorded_pack):
         metrics, dt, counts = run_served(engine, COUNTERS)
     gen = sum(m.num_generated for m in metrics)
     assert counts["paged_attention_quant"] == cfg.num_layers * engine.paged_steps \
         == sum(by_kind.values()), (counts, engine.paged_steps, by_kind)
     assert counts["paged_attention"] == counts["bgmv"] == counts["flash_prefill"] == 0, \
         counts
-    assert counts["quantize_pages"] >= 1, counts
+    assert counts["quantize_pages"] == len(packs) >= 1, (counts, len(packs))
+    # the pack's round trip: staging pages up in their own dtype (bf16), codes
+    # and f16 planes back; before, the pages went up as f32
+    P, D = store.cfg.block_size, cfg.head_dim
+    assert {p[4] for p in packs} == {store.dtype}, {p[4] for p in packs}
+    planes = sum(2 * n * (D if axis == "channel" else P) * 2 for _, _, n, axis, _ in packs)
+    want = sum(e * (isz + 1) for e, isz, _, _, _ in packs) + planes
+    as_f32 = sum(e * (4 + 1) for e, _, _, _, _ in packs) + planes
+    assert store.pack_transfer_bytes == want, (store.pack_transfer_bytes, want)
     ttft = statistics.median(m.ttft for m in metrics)
     ratio = store.kv_fp16_bytes_per_block() / store.kv_bytes_per_block()
     log(f"[6 serve] {cfg.name} full width, kv_quant {qc.bits}-bit: 8 requests, {gen} "
@@ -1762,11 +2034,16 @@ def phase_serve_quant():
         f"dequantize_pages "
         f"{counts['dequantize_pages']}; tail_upload_bytes {runner.tail_upload_bytes}, "
         f"mirror_upload_bytes {runner.mirror_upload_bytes}, pack_transfer_bytes "
-        f"{store.pack_transfer_bytes}, writeback_bytes {runner.writeback_bytes}, "
+        f"{store.pack_transfer_bytes} (= the formula for {str(store.dtype)[6:]} pages up, "
+        f"codes and f16 planes down, over {sum(p[2] for p in packs)} pages; "
+        f"{as_f32} with f32 pages up), writeback_bytes {runner.writeback_bytes}, "
         f"host_copy_bytes 0; {store.kv_bytes_per_block()} "
         f"B per block vs {store.kv_fp16_bytes_per_block()} B as fp16 pages = "
         f"{ratio:.3f}x capacity")
-    traced_rerun(engine, rng)
+    spans = traced_rerun(engine, rng)
+    n_wb, wb_us = spans.get("writeback", (0, 0.0))
+    log(f"  KIVI traced rerun: writeback span {n_wb}x {wb_us / 1e3:.1f} ms (the page "
+        "writes to host staging and the packs' round trips)")
     return counts
 
 
@@ -1864,10 +2141,12 @@ def main() -> None:
     phase_build()
     phase_kernel()
     phase_kernel_quant()
+    phase_kernel_kv_quant()
     phase_kernel_lora()
     phase_kernel_flash()
     timing = {"paged_attention": phase_timing(card), **phase_timing_quant(card),
-              "bgmv": phase_timing_lora(card), "flash_prefill": phase_timing_flash(card)}
+              **phase_timing_kv_quant(card), "bgmv": phase_timing_lora(card),
+              "flash_prefill": phase_timing_flash(card)}
     model, params = build_olmo()
     phase_model(model, params)
     phase_model_quant(model, params)

@@ -70,8 +70,8 @@ class PagedModelState:
                 self._leaves.append((layer, name, len(self.stores)))
                 self.stores.append(torch.zeros(shape, dtype=self.dtype))
         self.host_copy_bytes = 0
-        # quantized stores: the pack's round trip — f32 pages to the pack's
-        # device, codes and f16 planes back
+        # quantized stores: the pack's round trip — staging pages in their
+        # own dtype to the pack's device, codes and f16 planes back
         self.pack_transfer_bytes = 0
         self.version = 0
         self.dirty_blocks: Set[int] = set()
@@ -118,22 +118,21 @@ class PagedModelState:
         the engine's device. ``items``: (leaf idx, blocks (n,), fp pages
         (KV, n, P, D)). Leaves sharing a grouping axis and page shape
         CONCATENATE into one pack call: on a decode step, one call for every
-        layer's K pages and one for every V. The f32 pages go to the device,
-        codes and planes come back, the planes as f16."""
+        layer's K pages and one for every V. The pages go to the device in
+        the staging dtype (the pack upcasts them in registers), codes and the
+        f16 planes the pack writes come back: the same bytes as packing the
+        f32 pages and casting the planes."""
         by_key: Dict[Tuple, List] = {}
         for idx, blocks, pages in items:
             KV, n, P, D = pages.shape
             by_key.setdefault((self.qaxis[idx], P, D), []).append((idx, blocks, pages))
         for (axis, P, D), group in by_key.items():
             # (KV, n, P, D) -> (n, KV, P, D) -> one (P, D) page per (block, head)
-            mats = [pages.float().transpose(0, 1).reshape(-1, P, D)
-                    for _, _, pages in group]
+            mats = [pages.transpose(0, 1).reshape(-1, P, D) for _, _, pages in group]
             x = torch.cat(mats) if len(mats) > 1 else mats[0]
-            codes, scale, zero = quantize_kv_pages(x.to(self.device), bits=self.quant.bits,
-                                                   axis=axis)
-            codes = codes.cpu()
-            scale = scale.to(torch.float16).cpu()
-            zero = zero.to(torch.float16).cpu()
+            codes, scale, zero = (t.cpu() for t in quantize_kv_pages(
+                x.to(self.device), bits=self.quant.bits, axis=axis,
+                plane_dtype=torch.float16))
             self.pack_transfer_bytes += sum(t.numel() * t.element_size()
                                             for t in (x, codes, scale, zero))
             at = 0

@@ -284,6 +284,97 @@ def test_pack_kernel_byte_equal_to_plain(cuda, bits, axis):
         assert torch.equal(g.cpu(), w)
 
 
+def _edge_pages(bits, axis, P, C, dtype, dev):
+    """Four pages: groups spanning [0, qmax] with every other value on an
+    exact .5 tie; +-1e38 (+-6e4 in f16) and +-1e-39 (subnormal), where the
+    pack's reciprocal estimate gives way to the division; random."""
+    rng = np.random.default_rng(bits)
+    qmax = 2 ** bits - 1
+    t, c = np.meshgrid(np.arange(P), np.arange(C), indexing="ij")
+    ties = ((t + c) % qmax + 0.5).astype(np.float32)
+    if axis == "channel":
+        ties[0], ties[1] = 0, qmax
+    else:
+        ties[:, 0], ties[:, 1] = 0, qmax
+    big = 6e4 if dtype == torch.float16 else 1e38
+    x = np.stack([ties, rng.uniform(-big, big, (P, C)), rng.uniform(-1e-39, 1e-39, (P, C)),
+                  rng.normal(size=(P, C))]).astype(np.float32)
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+def _plain_pack(x, bits, axis, plane_dtype):
+    codes, scale, zero = kvref.quantize_pages_ref(x.float(), bits=bits, axis=axis)
+    return codes, scale.to(plane_dtype), zero.to(plane_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("axis", ["channel", "token"])
+def test_pack_kernel_shapes_byte_equal_to_plain(cuda, dtype, bits, axis):
+    """Every P x C x NP of the planned launches (the warp kernel's instances
+    at C 32-256 by bulk copy and by direct loads, past one wave of pages,
+    with spare warps past the last page; the generic kernel at C 48 and up
+    to one wave), f32 and f16 planes in turn; the first pages of each call
+    hold .5 ties and extreme ranges."""
+    n = 0
+    for P in (4, 8, 16, 32):
+        for C in (32, 48, 64, 128, 256):
+            for NP in (1, 3, 131, 256, 1057, 4097):
+                rng = np.random.default_rng(n)
+                x = torch.from_numpy(rng.normal(size=(NP, P, C)).astype(np.float32) * 3)
+                x = x.to(cuda, dtype)
+                x[:4] = _edge_pages(bits, axis, P, C, dtype, cuda)[:NP]
+                plane = (torch.float32, torch.float16)[n % 2]
+                got = kvmod.quantize_pages(x, bits=bits, axis=axis, plane_dtype=plane)
+                want = _plain_pack(x, bits, axis, plane)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w), (P, C, NP, plane)
+                n += 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("axis", ["channel", "token"])
+def test_unpack_kernel_shapes_byte_equal_to_plain(cuda, out_dtype, axis):
+    """The vector kernel (C a multiple of 16, 48 among them) and the scalar
+    one (C 24, 40; P 6) over page counts that leave the grid ragged."""
+    for C in (16, 32, 48, 64, 128, 256, 24, 40):
+        for P in (4, 6, 16):
+            for NP in (1, 3, 131, 1030):
+                codes, scale, zero = kvref.quantize_pages_ref(
+                    _pack_pages(C + NP, NP + 1, P, C, cuda)[1:], bits=8, axis=axis)
+                got = kvmod.dequantize_pages(codes, scale, zero, out_dtype=out_dtype)
+                want = kvref.dequantize_pages_ref(codes, scale, zero, out_dtype=out_dtype)
+                assert got.dtype == out_dtype and torch.equal(got, want), (C, P, NP)
+
+
+@pytest.mark.gpu
+def test_kv_quant_wrappers_refuse_unaligned_views(cuda):
+    """A view whose data does not start on 16 bytes: the warp kernel's bulk
+    copies and vector loads (past one wave of pages) and the unpack's vector
+    loads would fault; the generic pack (a few pages) reads it element by
+    element."""
+    NP, P, C = 3, 16, 128
+    for n in (NP, kvmod.ONE_WAVE_CTAS * kvmod._sm_count(0) + 1):
+        x = _pack_pages(n, n * P * C + 1, 1, 1, cuda).view(-1)[1:].view(n, P, C)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        for axis in ("channel", "token"):
+            if kvmod.pack_plan(n, P, C, 4, axis, kvmod._sm_count(0)).route == "generic":
+                got = kvmod.quantize_pages(x, bits=8, axis=axis)
+                for g, w in zip(got, kvref.quantize_pages_ref(x, bits=8, axis=axis)):
+                    assert torch.equal(g, w)
+                continue
+            with pytest.raises(ValueError, match="16-byte"):
+                kvmod.quantize_pages(x, bits=8, axis=axis)
+    codes, scale, zero = kvref.quantize_pages_ref(_pack_pages(2, NP, P, C, cuda), bits=8,
+                                                  axis="channel")
+    shifted = torch.zeros(codes.numel() + 1, dtype=torch.uint8, device=cuda)[1:]
+    shifted = shifted.view(NP, P, C).copy_(codes)
+    with pytest.raises(ValueError, match="16-byte"):
+        kvmod.dequantize_pages(shifted, scale, zero)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("axis", ["channel", "token"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -562,8 +653,14 @@ def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="bits"):
         kvmod.quantize_pages(x, bits=3, axis="channel")
-    with pytest.raises(ValueError, match="float32"):
-        kvmod.quantize_pages(x.bfloat16(), bits=8, axis="channel")
+    # the pack reads bf16 pages as they are (the codes of their f32 upcast)
+    # and refuses any dtype it has no instance for
+    xb = _pack_pages(6, 5, 8, 32, cuda).bfloat16()
+    for g, w in zip(kvmod.quantize_pages(xb, bits=8, axis="channel"),
+                    kvmod.quantize_pages(xb.float(), bits=8, axis="channel")):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        kvmod.quantize_pages(x.double(), bits=8, axis="channel")
 
 
 # ---------------------------------------------------------------------------
