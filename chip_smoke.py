@@ -39,7 +39,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                flash prefill (shape cases x f32 / bf16 / f16,
                starcoder2-3b's heads with and without a binding window,
                ragged S, group sizes 1-12, causality, strided
-               model-layout inputs);
+               model-layout inputs); the speculative verify's chunks (C = 2,
+               4, 5) through the model-layout ops at olmo-1b's, qwen2.5-32b's
+               and gemma-2b's decode heads, over fp pages (native chunked
+               path) and over 8-bit KIVI pages with T = P + C tails;
   4. timing  — each kernel at the olmo-1b serving shape beside its bound,
                its plain version and, where one exists, the PyTorch calls
                computing the same function: paged_attention also at
@@ -60,7 +63,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   5. model   — olmo-1b at its published width, decode_paged and ragged
                extend_paged over fp pages and over KIVI pages, kernel vs
                plain attention logits, each step profiled (the paged mma
-               kernels' and the merges' share of busy time); then with LoRA
+               kernels' and the merges' share of busy time), and one
+               verify_paged over C = 5 against 5 decode_paged steps, both
+               on the kernel, over fp and KIVI pages; then with LoRA
                adapters (kernel vs
                plain bgmv, the null-slot row equal to the LoRA-free step);
                starcoder2-3b at its published width, gathered extend steps
@@ -74,6 +79,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                rerun's writeback span), and
                with 4 LoRA adapters over a 2-slot store (faults and
                evictions; bgmv launches = 4 x 16 x steps);
+               then speculative decoding at k = 4 on the same traffic:
+               self-speculation over fp pages (traced rerun: draft_catchup,
+               spec_propose, spec_verify spans), a hostile draft (olmo-1b
+               at another seed) that trips auto-disable, self-speculation
+               over KIVI 8-bit pages and with 4 LoRA adapters over 2 slots,
+               each kernel's launches held to a formula over the dispatch
+               counts, speculative steps and draft catch-up calls;
                then starcoder2-3b on the gathered backend (flash_prefill
                launches = 30 x the steps holding a fresh row).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
@@ -100,8 +112,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import (BlockManager, QuantConfig, Request,  # noqa: E402
-                              SamplingParams, SchedulerConfig)
+from repro_torch.core import (BlockManager, EngineConfig, LLMEngine,  # noqa: E402
+                              QuantConfig, Request, SamplingParams, SchedulerConfig,
+                              SpeculativeConfig)
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  # noqa: E402
 from repro_torch.core.executor import state as state_mod  # noqa: E402
 from repro_torch.core.telemetry import StepTracer  # noqa: E402
@@ -160,6 +173,24 @@ MODEL_ATOL_F32 = 1e-2
 OLMO = dict(B=8, KV=16, G=1, D=128, P=16, L=1024)
 # the olmo-1b ragged extend step (phase 5): chunk starts and real chunk lengths
 OLMO_EXTEND_LENGTHS, OLMO_CHUNK_LENS = [0, 100, 513, 300], [64, 17, 1, 40]
+# speculative decoding (phases 3, 5, 6): k draft tokens, verify chunks of C =
+# k + 1 (2, 4, 5 for k = 1, 3, 4) at the decode heads of olmo-1b (G = 1),
+# qwen2.5-32b (G = 5) and gemma-2b (G = 8, D = 256): name, KV, G, D; chunk
+# starts of the four rows, none of whose C = 5 chunks crosses a 16-slot page
+# (phase 5's decode steps keep one KIVI tail layout across their steps)
+SPEC_K = 4
+VERIFY_C = (2, 4, 5)
+VERIFY_HEADS = [("olmo-1b", 16, 1, 128), ("qwen2.5-32b", 8, 5, 128),
+                ("gemma-2b", 1, 8, 256)]
+VERIFY_STARTS = [100, 290, 517, 1000]
+# phase 3's chunk starts: rows 0 and 1 cross a page at C = 5, row 3 ends on
+# the table's last slot (64 pages of 16)
+VERIFY_KERNEL_STARTS = [15, 300, 517, 1019]
+# the draft's catch-up: one sequence (B = 1) at a time, power-of-two chunks
+# up to 32 over prompts of 128-512 tokens, at olmo-1b's heads. Starts per
+# C: 0 (nothing before it), 480 (page-aligned, 30 pages before it) and
+# 319 - C // 2 (crosses the page at 320 for every C > 1)
+CATCHUP_C = (1, 2, 4, 8, 16, 32)
 # the paged attention kernels' names in a profile: the mma kernel and the
 # split-K merge
 PAGED_FOCUS = ("paged_attention_mma_kernel", "paged_attention_merge_kernel")
@@ -873,6 +904,54 @@ def phase_kernel_quant_mma():
                           torch.zeros_like(clean[2]), 0.0)
 
 
+def phase_kernel_verify():
+    """The speculative verify's chunks (C = 2, 4, 5) through the model-layout
+    ops ``verify_paged`` reaches, bf16 at three models' decode heads: over
+    fp pages (the paged kernel's native chunked path) against the chunked
+    oracle, and over 8-bit KIVI pages with the engine's tails (T = P + C
+    slots from tail_start = starts // P * P: 18, 20, 21, none a multiple of
+    the kernel's 32-slot tail tile) against the quantized chunked oracle.
+    Then the draft's catch-up chunks (B = 1, C up to 32, fp pages only: the
+    draft's store is never quantized) at olmo-1b's heads, each at the
+    wrapper's own planned splits."""
+    log("[3 kernel vs plain version on the card: speculative verify chunks]")
+    P, NP = 16, 64
+    _, KV, G, D = VERIFY_HEADS[0]
+    H, kw = KV * G, dict(scale=D ** -0.5)
+    for C in CATCHUP_C:
+        for start in (0, 480, 319 - C // 2):
+            qc, k, v, t, ln = extend_inputs(30, 1, C, KV, G, D, P, NP, NP, [start],
+                                            torch.bfloat16)
+            got = ops.paged_attend_extend(qc.reshape(1, C, H, D), k, v, t, ln, **kw)
+            check(f"draft catch-up olmo-1b heads B=1 C={C} start {start} bf16, native "
+                  f"({kmod.planned_splits(qc, t, k, rows_per_seq=C)} splits)",
+                  got, paged_attention_chunked_ref(qc, k, v, t, ln, **kw).reshape(
+                      1, C, H, D), ATOL[torch.bfloat16])
+    B = 4
+    for name, KV, G, D in VERIFY_HEADS:
+        H, kw = KV * G, dict(scale=D ** -0.5)
+        for C in VERIFY_C:
+            qc, k, v, t, ln = extend_inputs(31, B, C, KV, G, D, P, B * NP, NP,
+                                            VERIFY_KERNEL_STARTS, torch.bfloat16)
+            check(f"verify {name} heads (KV={KV}, G={G}, D={D}) C={C} bf16, native",
+                  ops.paged_attend_extend(qc.reshape(B, C, H, D), k, v, t, ln, **kw),
+                  paged_attention_chunked_ref(qc, k, v, t, ln, **kw).reshape(B, C, H, D),
+                  ATOL[torch.bfloat16])
+            args, starts = quant_extend_inputs(32, B, C, KV, G, D, P, B * NP, NP,
+                                               VERIFY_KERNEL_STARTS, None, None,
+                                               torch.bfloat16)
+            qkw = dict(kw, deq_dtype=torch.bfloat16)
+            pages = [dict(zip(("codes", "scale", "zero"), args[i: i + 3])) for i in (1, 4)]
+            check(f"KIVI verify {name} heads C={C} 8-bit bf16, tails T={P + C}",
+                  ops.paged_attend_extend_quant(args[0].reshape(B, C, H, D), *pages,
+                                                args[7], args[8], args[9], starts,
+                                                args[11], **qkw),
+                  paged_attention_chunked_quant_ref(
+                      args[0].reshape(B, C, KV, G, D), *args[1:10], starts, args[11],
+                      **qkw).reshape(B, C, H, D), ATOL[torch.bfloat16])
+    torch.cuda.synchronize()
+
+
 # decode shapes timed in phase 4 beside OLMO: qwen2.5-32b's heads (GQA) and
 # gemma-2b's (MQA)
 DECODE_SHAPES = [("olmo-1b", OLMO),
@@ -1252,7 +1331,9 @@ def phase_timing_kv_quant(card):
 BGMV_CASES = (
     [(5, 3, 16, 4, 24, 4)]
     + [(6, C, 256, R, 320, 5) for R in (4, 8, 16, 64) for C in (1, 64)]
-    + [(B, C, Din, 8, Dout, 5) for B, C in ((8, 1), (4, 64))
+    # decode, a ragged prefill, the speculative verify (C = k + 1) and the
+    # draft's B = 1 catch-up chunk at olmo-1b's widths
+    + [(B, C, Din, 8, Dout, 5) for B, C in ((8, 1), (4, 64), (8, 5), (1, 32))
        for Din, Dout in ((2048, 2048), (2048, 16384), (8192, 2048))]
     # ranks between the kernel's instances (R not a multiple of 4 reads A
     # element by element) and a Din / Dout that is not a multiple of the
@@ -1261,11 +1342,12 @@ BGMV_CASES = (
     + [(3, 5, 1030, 8, 1002, 4), (4, 1, 2049, 16, 2050, 3)])
 # the fused q/k/v launch: Din and the three sites' Dout at each model's
 # published widths (MHA; GQA 40 / 8 heads; MQA, head_dim 256), and the
-# (C, B) it is checked at
+# (C, B) it is checked at: decode, the speculative verify (5, 8), the draft's
+# catch-up chunk (32, 1), ragged prefill rows
 QKV_SITES = {"olmo-1b": (2048, (2048, 2048, 2048)),
              "qwen2.5-32b": (5120, (5120, 1024, 1024)),
              "gemma-2b": (2048, (2048, 256, 256))}
-FUSED_ROWS = ((1, 8), (3, 8), (17, 4), (64, 4))
+FUSED_ROWS = ((1, 8), (3, 8), (5, 8), (17, 4), (32, 1), (64, 4))
 # bgmv tolerance beyond ATOL. f32: the plain version's own rounding error,
 # measured against an f64 product on the card (its batched matmul sums the Din
 # products sequentially: at Din 2048-8192 and C=64 its error alone reaches
@@ -1284,7 +1366,7 @@ def bgmv_f64(x, a, b, idx):
 
 def bgmv_inputs(seed, B, C, Din, R, Dout, T, dtype, idx=None):
     """O(1) outputs (A and B scaled as make_adapter scales them), slot 0 the
-    null adapter, ids with slot 0 and a repeat unless given."""
+    null adapter, ids with slot 0 and a repeat unless given (B = 1: slot 1)."""
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     x = torch.from_numpy(rng.normal(size=(B, C, Din)).astype(np.float32)).to(dev, dtype)
@@ -1292,10 +1374,11 @@ def bgmv_inputs(seed, B, C, Din, R, Dout, T, dtype, idx=None):
     b = (rng.normal(size=(T, R, Dout)) / np.sqrt(R)).astype(np.float32)
     a[0] = 0
     b[0] = 0
-    if idx is None:
+    if idx is None:  # B = 1: the draft's catch-up row, one tenant
         idx = (np.arange(B) * 2 + 1) % T
-        idx[0] = 0
-        idx[-1] = idx[1]
+        if B > 1:
+            idx[0] = 0
+            idx[-1] = idx[1]
     return (x, torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
             torch.tensor(np.asarray(idx), dtype=torch.int32, device=dev))
 
@@ -1621,8 +1704,10 @@ def build_olmo():
 def model_steps(model, params, pages, tails, counter, patch, label, focus=()):
     """One decode and one ragged extend step at full width, kernel vs plain
     attention on the same inputs and the same page pools (``tails``: per
-    step kind, per layer, the quantized path's fp tails); each step then
-    profiled, with the share of the kernels named in ``focus``."""
+    step kind, per layer, the quantized path's fp tails), and one
+    speculative verify against sequential decode steps, all on the kernel;
+    the decode and extend steps then profiled, with the share of the
+    kernels named in ``focus``."""
     cfg = model.cfg
     P, NP, B = 16, 64, 4
     rng = np.random.default_rng(6)
@@ -1663,6 +1748,23 @@ def model_steps(model, params, pages, tails, counter, patch, label, focus=()):
     assert torch.isfinite(lk[real]).all()
     check(f"{label}ragged extend_paged logits, kernel vs plain", lk[real], lp[real],
           MODEL_ATOL)
+    # the speculative verify: one verify_paged over C = k + 1 (the kernel's
+    # native chunked path) against C decode_paged steps on the kernel, which
+    # write their K/V into one copy of the pages (or of the KIVI tail) in turn
+    Cv = SPEC_K + 1
+    tokv = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, Cv)), device="cuda")
+    lengthsv = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device="cuda")
+    lv, n = run(model.verify_paged, "verify", tokv, lengthsv)
+    assert n == cfg.num_layers, n
+    seq = fresh("verify")
+    before = counter.launches
+    ls = [model.decode_paged(params, tokv[:, j: j + 1], seq, tables, lengthsv + j)[0][:, 0]
+          for j in range(Cv)]
+    torch.cuda.synchronize()
+    assert counter.launches - before == Cv * cfg.num_layers
+    assert lv.shape == (B, Cv, cfg.vocab_size) and torch.isfinite(lv).all()
+    check(f"{label}verify_paged C={Cv} vs {Cv} decode_paged steps, both on the kernel",
+          lv, torch.stack(ls, 1), MODEL_ATOL)
     # where a full-width step's time goes (the kernel path; writes land in
     # the same slots on every call)
     dec, ext = fresh("decode", copy=False), fresh("extend", copy=False)
@@ -1699,7 +1801,7 @@ def phase_model_quant(model, params):
                 pg[name][key].copy_(t.reshape(pg[name][key].shape))
     tails = {kind: [{n: torch.randn(B, P + C, KV, D, generator=g, device="cuda")
                      .to(model.dtype) for n in ("k", "v")} for _ in pages]
-             for kind, C in (("decode", 1), ("extend", 64))}
+             for kind, C in (("decode", 1), ("extend", 64), ("verify", SPEC_K + 1))}
     model_steps(model, params, pages, tails, QKERNEL, plain_quant_attention, "KIVI ",
                 focus=QUANT_FOCUS)
 
@@ -1789,6 +1891,58 @@ def phase_model_lora(model, params):
             lp, _ = run(model32, params32, pages32, name, args, lora=lora)
         check(f"LoRA {label} f32 logits, kernel vs plain bgmv", lk[rows], lp[rows],
               MODEL_ATOL_F32)
+    # the speculative verify with adapters: one verify_paged over C = k + 1
+    # against C decode_paged steps, all on the kernels; gated in f32, the
+    # bf16 drift printed (bgmv's sums in bf16 differ between C = 1 and C = 5
+    # row tiles, as kernel and plain bgmv do above)
+    Cv = SPEC_K + 1
+    tokv = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, Cv)), device="cuda")
+    lengthsv = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device="cuda")
+    for dt, m, prm, pgs in (("bf16", model, params, pages),
+                            ("f32", model32, params32, pages32)):
+        lv = m.verify_paged(prm, tokv, [{n: x.clone() for n, x in pg.items()}
+                                        for pg in pgs], tables, lengthsv, lora=lora)[0]
+        seq = [{n: x.clone() for n, x in pg.items()} for pg in pgs]
+        ls = torch.stack([m.decode_paged(prm, tokv[:, j: j + 1], seq, tables,
+                                         lengthsv + j, lora=lora)[0][:, 0]
+                          for j in range(Cv)], 1)
+        torch.cuda.synchronize()
+        label = f"LoRA verify_paged C={Cv} vs {Cv} decode_paged steps {dt}, on the kernels"
+        if dt == "f32":
+            check(label, lv, ls, MODEL_ATOL_F32)
+        else:
+            log(f"  {label}: max |diff| {(lv.float() - ls.float()).abs().max().item():.3g} "
+                f"(bf16 drift, not gated); argmax equal on "
+                f"{(lv.argmax(-1) == ls.argmax(-1)).float().mean().item():.1%} of "
+                f"{B * Cv} positions")
+    # the draft's LoRA catch-up: one sequence (B = 1, slot 1), a C = 32 chunk
+    # from position 256 through verify_paged, kernel bgmv against plain bgmv
+    # on the same positions; gated in f32, the bf16 drift printed
+    Cc = CATCHUP_C[-1]
+    tokc1 = torch.tensor(rng.integers(0, cfg.vocab_size, size=(1, Cc)), device="cuda")
+    start1 = torch.tensor([256], dtype=torch.int32, device="cuda")
+    lora1 = {"ids": lora["ids"][:1], "layers": lora["layers"]}
+    for dt, m, prm, pgs in (("bf16", model, params, pages),
+                            ("f32", model32, params32, pages32)):
+        def catchup():
+            return m.verify_paged(prm, tokc1, [{n: x.clone() for n, x in pg.items()}
+                                               for pg in pgs], tables[:1], start1,
+                                  lora=lora1)[0].float()
+        before = BGMV_ADD.launches
+        lk = catchup()
+        n = BGMV_ADD.launches - before
+        with plain_bgmv():
+            lp = catchup()
+        torch.cuda.synchronize()
+        assert n == 4 * cfg.num_layers, n
+        label = (f"LoRA catch-up verify_paged B=1 C={Cc} from 256 {dt}, kernel vs "
+                 f"plain bgmv")
+        if dt == "f32":
+            check(label, lk, lp, MODEL_ATOL_F32)
+        else:
+            log(f"  {label}: max |diff| {(lk - lp).abs().max().item():.3g} (bf16 drift, "
+                f"not gated); argmax equal on {(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.1%} "
+                f"of {Cc} positions; {n} bgmv launches")
     del model32, params32, pages32
 
 
@@ -1887,12 +2041,12 @@ def _leaves(tree):
         yield tree
 
 
-def serve_engine(kv_quant=None, lora=None):
+def serve_engine(kv_quant=None, lora=None, **kw):
     return build_engine(
         "olmo-1b", debug=False, device="cuda", max_model_len=1024,
         num_blocks=640, block_size=16, kv_quant=kv_quant, lora=lora,
         scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=256,
-                                  prefill_chunk=64))
+                                  prefill_chunk=64), **kw)
 
 
 def add_traffic(engine, rng, prefix, adapters=(None,)):
@@ -1926,7 +2080,12 @@ def run_served(engine, counters, paged=True):
                for tok in s.generated)
     if paged:
         assert engine.host_copy_bytes == 0, engine.host_copy_bytes
-        assert engine.paged_steps == engine.steps > 0
+        if engine.spec_runner is None:
+            assert engine.paged_steps == engine.steps > 0
+        else:  # each step dispatched a speculative group, a paged one or both
+            snap = engine.metrics_snapshot()
+            assert snap["engine.dispatch.paged"] + snap["engine.dispatch.speculative"] \
+                >= engine.steps > 0, snap
     else:
         assert engine.paged_steps == 0 and engine.runner.steps == engine.steps > 0
         assert engine.host_copy_bytes > 0
@@ -1981,8 +2140,9 @@ def phase_serve():
         f"TTFT p50 {ttft * 1e3:.0f} ms, {engine.steps} steps "
         f"({engine.paged_steps} paged), {launches} kernel launches "
         f"(= {cfg.num_layers} x steps), host_copy_bytes 0")
+    streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
     traced_rerun(engine, rng)
-    return counts, gen / dt, ttft
+    return counts, gen / dt, ttft, streams
 
 
 def phase_serve_quant():
@@ -2040,11 +2200,12 @@ def phase_serve_quant():
         f"host_copy_bytes 0; {store.kv_bytes_per_block()} "
         f"B per block vs {store.kv_fp16_bytes_per_block()} B as fp16 pages = "
         f"{ratio:.3f}x capacity")
+    streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
     spans = traced_rerun(engine, rng)
     n_wb, wb_us = spans.get("writeback", (0, 0.0))
     log(f"  KIVI traced rerun: writeback span {n_wb}x {wb_us / 1e3:.1f} ms (the page "
         "writes to host staging and the packs' round trips)")
-    return counts
+    return counts, streams
 
 
 def phase_serve_lora(fp_rate, fp_ttft):
@@ -2084,8 +2245,124 @@ def phase_serve_lora(fp_rate, fp_ttft):
         f"({snap['lora.load_bytes'] / 1e6:.1f} MB), {snap['lora.rented_pages']} pages "
         f"rented (= {store.pages_per_adapter} x {len(store.loaded)} resident); "
         f"preemptions {snap['engine.preemptions']}, host_copy_bytes 0")
+    streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
     traced_rerun(engine, rng, adapters=names + [None])
+    return counts, streams
+
+
+def phase_serve_spec(label, ref_streams, fp_rate, *, kv_quant=None, lora=None,
+                     draft_seed=None, min_acceptance=0.0, window=64, traced=False,
+                     plain_packs=None):
+    """The fp serve's 8-request traffic with speculative decoding at k =
+    SPEC_K: the target drafts for itself unless ``draft_seed`` gives the
+    draft other weights. Each kernel's launches are held to the engine's
+    counts: every paged dispatch runs L layers of the target's attention, a
+    speculative step k + 1 draft decode steps (fp draft pages) and one
+    verify, a draft catch-up call L layers; with LoRA every one of them
+    launches bgmv 4 times a layer. Prints the end-to-end numbers, the
+    acceptance and the share of tokens equal to each serve's streams in
+    ``ref_streams`` (label -> streams; each request's common prefix)."""
+    names = [f"a{j}" for j in range(4)] if lora is not None else []
+    engine = serve_engine(kv_quant=kv_quant, lora=lora, draft_seed=draft_seed,
+                          speculative=SpeculativeConfig(
+                              num_draft_tokens=SPEC_K, min_acceptance=min_acceptance,
+                              window=window))
+    cfg, runner = engine.model.cfg, engine.spec_runner
+    for j, name in enumerate(names):
+        engine.register_adapter(name, make_adapter(cfg, lora, seed=j + 1))
+    rng = np.random.default_rng(7)  # the fp serve's prompts
+    adapters = tuple(names) + (None,)
+    add_traffic(engine, rng, "r", adapters=adapters)
+    metrics, dt, counts = run_served(engine, COUNTERS)
+    st, snap = engine.spec_stats, engine.metrics_snapshot()
+    L, k, S = cfg.num_layers, SPEC_K, st.steps
+    paged, calls = snap["engine.dispatch.paged"], runner.draft_catchup_calls
+    assert S > 0 and S == snap["engine.dispatch.speculative"] == runner.steps, (S, snap)
+    draft = L * (S * (k + 1) + calls)  # draft decode steps and catch-up calls
+    if kv_quant is None:
+        want = {"paged_attention": L * (paged + S) + draft}
+    else:
+        want = {"paged_attention": draft, "paged_attention_quant": L * (paged + S)}
+    want["bgmv"] = 4 * (L * (paged + S) + draft) if lora is not None else 0
+    for name, n in want.items():
+        assert counts[name] == n, (name, counts[name], n, paged, S, calls)
+    assert counts["flash_prefill"] == counts["dequantize_pages"] == 0, counts
+    if kv_quant is None:
+        assert counts["paged_attention_quant"] == counts["quantize_pages"] == 0, counts
+    if min_acceptance:
+        assert st.disabled_at_step is not None, st
+        assert engine.scheduler.cfg.speculative_tokens == 0
+    gen = sum(m.num_generated for m in metrics)
+    shares = []
+    for ref_label, streams in ref_streams.items():
+        same = sum(next((i for i, (a, b) in enumerate(zip(s.generated, streams[rid]))
+                         if a != b), len(streams[rid]))
+                   for rid, s in engine.seqs.items())
+        shares.append(f"{ref_label}'s {same} of {gen} ({same / gen:.1%})")
+    ttft = statistics.median(m.ttft for m in metrics)
+    extra = (f", disabled at step {st.disabled_at_step}"
+             if st.disabled_at_step is not None else "")
+    quant = (f"; quantize_pages {counts['quantize_pages']} (the plain KIVI serve's: "
+             f"{plain_packs})" if kv_quant is not None else "")
+    log(f"[6 serve] {cfg.name} full width, speculative k={k}, {label}: 8 requests, "
+        f"{gen} generated tokens in {dt:.2f} s = {gen / dt:.1f} generated tok/s (fp serve "
+        f"above: {fp_rate:.1f}), TTFT p50 {ttft * 1e3:.0f} ms, {engine.steps} steps, "
+        f"{S} speculative steps ({paged} paged dispatches); acceptance "
+        f"{st.acceptance_rate:.3f}, {st.tokens_per_step:.2f} tokens per speculative "
+        f"step{extra}; draft catch-up {snap['runner.spec.draft_catchup_tokens']} tokens "
+        f"in {calls} calls, {snap['runner.spec.draft_resets']} resets; tokens equal to "
+        f"the streams of (common prefixes) " + ", ".join(shares) + "; "
+        f"launches: " + ", ".join(f"{name} {counts[name]} (= {n})"
+                                  for name, n in want.items()) + quant
+        + f"; preemptions {snap['engine.preemptions']}, host_copy_bytes 0")
+    if traced:
+        traced_rerun(engine, rng, adapters=adapters)
     return counts
+
+
+def phase_serve_spec_lora_f32():
+    """The LoRA serve and its self-speculation (k = SPEC_K) again with an
+    f32 olmo-1b at full width (weights from seed 0, f32 pages: the paged
+    kernels' CUDA-core route and bgmv's f32 instances), on the same traffic.
+    In bf16 the verify's and the draft's sums round apart and random rank-8
+    adapters carry that on; in f32 a self-draft must propose what the target
+    verifies, and the streams must be the plain serve's. A wrong draft K/V
+    from the LoRA catch-up, or a row given another row's adapter, would show
+    here as low acceptance or parted streams."""
+    lora = LoRAConfig(rank=8, alpha=16.0, max_loaded_adapters=2)
+    cfg = dataclasses.replace(configs.get_config("olmo-1b"), dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    names = [f"a{j}" for j in range(4)]
+    out = {}
+    for spec in (None, SpeculativeConfig(num_draft_tokens=SPEC_K)):
+        engine = LLMEngine(model, params, EngineConfig(
+            block_size=16, num_blocks=640, max_model_len=1024, device="cuda",
+            lora=lora, speculative=spec, scheduler=SchedulerConfig(
+                max_batch_slots=8, max_batched_tokens=256, prefill_chunk=64)))
+        for j, name in enumerate(names):
+            engine.register_adapter(name, make_adapter(cfg, lora, seed=j + 1))
+        add_traffic(engine, np.random.default_rng(7), "r", adapters=names + [None])
+        metrics, dt, _ = run_served(engine, COUNTERS)
+        out[spec is not None] = (engine, metrics, dt)
+    (plain, pm, pdt), (engine, metrics, dt) = out[False], out[True]
+    st, snap = engine.spec_stats, engine.metrics_snapshot()
+    gen = sum(m.num_generated for m in metrics)
+    same = sum(next((i for i, (a, b) in enumerate(zip(s.generated, plain.seqs[rid].generated))
+                     if a != b), len(s.generated)) for rid, s in engine.seqs.items())
+    log(f"[6 serve] {cfg.name} full width f32, LoRA rank {lora.rank} x 4 adapters over "
+        f"{lora.max_loaded_adapters} slots: plain {gen / pdt:.1f} generated tok/s; "
+        f"speculative k={SPEC_K}, self-speculation {gen / dt:.1f} tok/s, {st.steps} "
+        f"speculative steps, acceptance {st.acceptance_rate:.3f}, {st.tokens_per_step:.2f} "
+        f"tokens per speculative step; draft catch-up "
+        f"{snap['runner.spec.draft_catchup_tokens']} tokens in "
+        f"{engine.spec_runner.draft_catchup_calls} calls; tokens equal to the plain f32 "
+        f"LoRA serve's streams (common prefixes) {same} of {gen} ({same / gen:.1%}); "
+        f"lora evictions {snap['lora.evictions']}")
+    assert st.steps > 0 and st.acceptance_rate >= 0.9, st
+    assert same >= 0.9 * gen, (same, gen)
+    del plain, engine, model, params
 
 
 def phase_serve_starcoder():
@@ -2141,6 +2418,7 @@ def main() -> None:
     phase_build()
     phase_kernel()
     phase_kernel_quant()
+    phase_kernel_verify()
     phase_kernel_kv_quant()
     phase_kernel_lora()
     phase_kernel_flash()
@@ -2153,11 +2431,25 @@ def main() -> None:
     phase_model_lora(model, params)
     del model, params
     torch.cuda.empty_cache()
-    fp_counts, fp_rate, fp_ttft = phase_serve()
+    fp_counts, fp_rate, fp_ttft, fp_streams = phase_serve()
     torch.cuda.empty_cache()
-    q_counts = phase_serve_quant()
+    q_counts, q_streams = phase_serve_quant()
     torch.cuda.empty_cache()
-    lora_counts = phase_serve_lora(fp_rate, fp_ttft)
+    lora_counts, lora_streams = phase_serve_lora(fp_rate, fp_ttft)
+    torch.cuda.empty_cache()
+    fp_ref = {"fp serve": fp_streams}
+    for label, refs, kw in (
+            ("self-speculation, fp pages", fp_ref, dict(traced=True)),
+            ("hostile draft (olmo-1b at seed 1)", fp_ref,
+             dict(draft_seed=1, min_acceptance=0.5, window=64)),
+            ("self-speculation, KIVI 8-bit pages", dict(fp_ref, **{"KIVI serve": q_streams}),
+             dict(kv_quant=QuantConfig(bits=8), plain_packs=q_counts["quantize_pages"])),
+            ("self-speculation, LoRA rank 8 x 4 adapters over 2 slots",
+             dict(fp_ref, **{"LoRA serve": lora_streams}),
+             dict(lora=LoRAConfig(rank=8, alpha=16.0, max_loaded_adapters=2)))):
+        phase_serve_spec(label, refs, fp_rate, **kw)
+        torch.cuda.empty_cache()
+    phase_serve_spec_lora_f32()
     torch.cuda.empty_cache()
     phase_model_starcoder()
     sc_counts = phase_serve_starcoder()

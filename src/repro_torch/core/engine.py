@@ -16,8 +16,14 @@ kernel.
 
 The engine runs on ``EngineConfig.device`` (``cuda`` by default; ``cpu``
 for the tests) and raises when CUDA is asked for and absent.
-``execution_backend="speculative"`` raises ``NotImplementedError`` naming
-its ROADMAP item. ``EngineConfig.kv_quant`` stores KIVI-quantized pages
+``execution_backend="speculative"`` (or ``EngineConfig.speculative`` under
+"auto") layers a ``SpeculativeRunner`` on the paged backend: decode groups
+go through draft–verify (k draft tokens, k + 1 positions verified in one
+target forward, ``core.sampling.rejection_sample`` on the device), prompt
+chunks stay on the paged path; greedy output equals plain paged decoding
+for any draft (over KIVI pages up to the reference's own divergence: a
+verify chunk reads the page it has just filled through the fp tail).
+``EngineConfig.kv_quant`` stores KIVI-quantized pages
 (uint8 codes + f16 scale/zero planes) that the quantized CUDA kernel
 reads, on the paged backend only; any other ``QuantConfig``, and KIVI
 pages on the gathered backend, raise. ``EngineConfig.lora`` (global-
@@ -32,7 +38,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,20 +47,39 @@ import torch
 from repro_torch.core.block_manager import BlockManager, OutOfBlocks
 from repro_torch.core.executor import PagedModelState, make_runners, marshal_batch
 from repro_torch.core.executor.base import ModelRunner
+from repro_torch.core.executor.speculative import SpeculativeRunner
 from repro_torch.core.kv_quant import QuantConfig
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore
-from repro_torch.core.metrics import RequestMetrics, VTCCounter, finalize_request
+from repro_torch.core.metrics import (RequestMetrics, SpeculativeStats, VTCCounter,
+                                      finalize_request)
 from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.request import Request, SeqState, SeqStatus
-from repro_torch.core.sampling import greedy_token_host, sample_token
+from repro_torch.core.sampling import (SamplingParams, greedy_token_host,
+                                       rejection_sample, sample_token)
 from repro_torch.core.scheduler import ChunkWork, Scheduler, SchedulerConfig
 from repro_torch.core.telemetry import NULL_TRACER, MetricsRegistry
 from repro_torch.models.model import resolve_device
 
-_NOT_PORTED = {
-    "speculative": "ROADMAP queue A.6 (speculative decoding)",
-}
 _QUANT_GATHERED = "ROADMAP queue A.3 (KIVI/GEAR stores on the gathered backend)"
+
+
+@dataclasses.dataclass
+class SpeculativeConfig:
+    """Draft–verify speculative decoding (survey §II.B).
+
+    ``draft_model`` / ``draft_params``: a built ``Model`` on the engine's
+    device and its params, sharing the target's vocabulary, with a paged
+    decode path. None = self-speculation (the target drafts for itself:
+    the correctness harness, every draft accepted in exact arithmetic).
+    ``num_draft_tokens``: k tokens proposed and verified per decode step.
+    Auto-disable: once the rolling window holds >= ``window`` proposals and
+    their acceptance rate is below ``min_acceptance``, the engine falls
+    back to plain paged decode for good. 0 disables the check."""
+    num_draft_tokens: int = 4
+    draft_model: Any = None
+    draft_params: Any = None
+    min_acceptance: float = 0.0
+    window: int = 64
 
 
 @dataclasses.dataclass
@@ -64,11 +90,12 @@ class EngineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     enable_prefix_cache: bool = True
     host_cache_blocks: int = 0  # AttentionStore host tier (0 = off)
-    execution_backend: str = "auto"  # auto | gathered | paged
+    execution_backend: str = "auto"  # auto | gathered | paged | speculative
     device: str = "cuda"  # where the model, the page mirror and the kernels run
     seed: int = 0
     kv_quant: Optional[QuantConfig] = None  # KIVI pages at rest
     lora: Optional[LoRAConfig] = None  # multi-tenant LoRA serving
+    speculative: Optional[SpeculativeConfig] = None  # draft–verify decode
 
 
 class LLMEngine:
@@ -77,10 +104,6 @@ class LLMEngine:
         self.params = params
         self.cfg = engine_cfg or EngineConfig()
         backend = self.cfg.execution_backend
-        if backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"execution_backend={backend!r} is not ported yet: "
-                f"{_NOT_PORTED[backend]}")
         if resolve_device(self.cfg.device).type != model.device.type:
             raise ValueError(f"EngineConfig.device={self.cfg.device!r} but the "
                              f"model lives on {model.device}")
@@ -127,6 +150,29 @@ class LLMEngine:
             per_batch = self.scheduler.cfg.max_adapters_per_batch or cap
             self.scheduler.cfg = dataclasses.replace(
                 self.scheduler.cfg, max_adapters_per_batch=min(per_batch, cap))
+        # speculative decoding layers on the paged backend: "auto" turns it
+        # on when a SpeculativeConfig is given, "speculative" without one
+        # means self-speculation
+        self.spec_runner: Optional[SpeculativeRunner] = None
+        self.spec_stats = SpeculativeStats()
+        self.spec_cfg = self.cfg.speculative
+        self._spec_active = False
+        self._spec_window: Deque[Tuple[int, int]] = deque()
+        if backend == "speculative" and self.spec_cfg is None:
+            self.spec_cfg = SpeculativeConfig()
+        if self.spec_cfg is not None and self.paged_runner is not None and \
+                backend in ("auto", "speculative"):
+            draft_model, draft_params = model, params
+            if self.spec_cfg.draft_model is not None:
+                draft_model = self.spec_cfg.draft_model
+                draft_params = self.spec_cfg.draft_params
+            self.spec_runner = SpeculativeRunner(
+                self.paged_runner, draft_model, draft_params,
+                self.spec_cfg.num_draft_tokens)
+            self._spec_active = True
+            self.scheduler.cfg = dataclasses.replace(
+                self.scheduler.cfg,
+                speculative_tokens=self.spec_cfg.num_draft_tokens)
         self.prefix_cache = PrefixCache(self.bm,
                                         host_capacity_blocks=self.cfg.host_cache_blocks) \
             if self.cfg.enable_prefix_cache else None
@@ -143,7 +189,7 @@ class LLMEngine:
         self.metrics = MetricsRegistry()
         self._dispatch_counters = {
             name: self.metrics.counter(f"engine.dispatch.{name}")
-            for name in ("gathered", "paged")}
+            for name in ("gathered", "paged", "speculative")}
         self._preempt_counter = self.metrics.counter("engine.preemptions")
         self._register_metrics()
 
@@ -191,12 +237,23 @@ class LLMEngine:
             reg.gauge("lora.loads", lambda: a.stats.loads)
             reg.gauge("lora.load_bytes", lambda: a.stats.load_bytes)
             reg.gauge("lora.rented_pages", lambda: a.rented_pages)
+        if self.spec_runner is not None:
+            st, sr = self.spec_stats, self.spec_runner
+            reg.gauge("spec.steps", lambda: st.steps)
+            reg.gauge("spec.proposed", lambda: st.proposed)
+            reg.gauge("spec.accepted", lambda: st.accepted)
+            reg.gauge("spec.emitted", lambda: st.emitted)
+            reg.gauge("spec.acceptance_rate", lambda: st.acceptance_rate)
+            reg.gauge("spec.tokens_per_step", lambda: st.tokens_per_step)
+            reg.gauge("runner.spec.draft_catchup_tokens",
+                      lambda: sr.draft_catchup_tokens)
+            reg.gauge("runner.spec.draft_resets", lambda: sr.draft_resets)
 
     def set_tracer(self, tracer) -> None:
         """Install a tracer on the engine and on every part that records
         spans (the runners, the adapter store)."""
         self.trace = self.runner.trace = tracer
-        for part in (self.paged_runner, self.adapters):
+        for part in (self.paged_runner, self.spec_runner, self.adapters):
             if part is not None:
                 part.trace = tracer
 
@@ -327,6 +384,8 @@ class LLMEngine:
                              computed=seq.num_computed)
         self._free_seq_memory(seq)
         self.scheduler.preempt(seq)
+        if self.spec_runner is not None:
+            self.spec_runner.forget(seq.request_id)
 
     def _free_seq_memory(self, seq: SeqState) -> None:
         if seq.block_table:
@@ -451,6 +510,132 @@ class LLMEngine:
             len(seq.generated) >= sp.max_new_tokens or \
             seq.total_len >= self.cfg.max_model_len - 1
 
+    # ------------------------------------------------------------------
+    # speculative decoding (survey §II.B)
+    # ------------------------------------------------------------------
+    def _run_spec_group(self, chunks: List[ChunkWork], k: int) -> None:
+        """Draft k, verify k + 1, rejection-sample, emit 1..k+1 tokens per
+        sequence. ``k`` is the plan's ``spec_tokens``: what the scheduler
+        charged the token budget for."""
+        if k < 1:
+            self._run_group(chunks, self.paged_runner)
+            return
+        inflight = self._step_inflight or {c.seq.request_id for c in chunks}
+        # verify writes positions [start, start + k], which must stay inside
+        # the table and the model window: sequences at the edge peel off to
+        # plain paged decode, and k stays the same for the rest
+        lim = self.cfg.max_model_len - 2 - k
+        edge = [c for c in chunks if c.start > lim]
+        chunks = [c for c in chunks if c.start <= lim]
+        if edge:
+            self._run_group(edge, self.paged_runner)
+        ready: List[ChunkWork] = []
+        for ch in chunks:
+            if ch.seq.status is not SeqStatus.RUNNING:
+                continue
+            try:
+                self._alloc_for(ch.seq, ch.start + 1 + k, protected=inflight)
+                # the whole speculative range is written: CoW all of it
+                self._handle_cow(ch.seq, dataclasses.replace(ch, length=1 + k))
+                ready.append(ch)
+            except OutOfBlocks:
+                self._do_preempt(ch.seq)
+        # one draft / rejection pass per (temperature, top_k)
+        groups: Dict[tuple, List[ChunkWork]] = {}
+        for ch in ready:
+            sp = ch.seq.request.sampling
+            groups.setdefault((sp.temperature, sp.top_k), []).append(ch)
+        tr = self.trace
+        for (temp, topk), group in groups.items():
+            sp = SamplingParams(temperature=temp, top_k=topk)
+            group, lora = self._ensure_lora(group, inflight)
+            if not group:
+                continue
+            with tr.span("marshal"):
+                batch = marshal_batch(group, self.cfg.block_size,
+                                      self.cfg.max_model_len)
+                batch.lora = lora
+            self._dispatch_counters["speculative"].inc()
+            if tr.enabled:
+                with tr.span("dispatch", track="executor", k=k,
+                             **self._dispatch_args(group, self.spec_runner)):
+                    d_toks, d_logits, t_logits = self.spec_runner.execute_spec(
+                        batch, k, sp, self._gen)
+            else:
+                d_toks, d_logits, t_logits = self.spec_runner.execute_spec(
+                    batch, k, sp, self._gen)
+            # the logits stay on the device; only (B, k+1) tokens come back
+            tokens, n_acc = rejection_sample(self._gen, d_toks, d_logits,
+                                             t_logits, sp)
+            tokens, n_acc = tokens.cpu().numpy(), n_acc.cpu().numpy()
+            now = time.time()
+            with tr.span("postprocess"):
+                for b, ch in enumerate(group):
+                    self._emit_spec(ch, tokens[b], int(n_acc[b]), k, now)
+            accepted = int(n_acc.sum())
+            self.spec_stats.steps += 1
+            self.spec_stats.proposed += k * len(group)
+            self.spec_stats.accepted += accepted
+            if tr.enabled:
+                tr.event("spec_accept", batch=len(group), k=k,
+                         proposed=k * len(group), accepted=accepted)
+            if self.spec_cfg.min_acceptance > 0:  # else the window never drains
+                self._spec_window.append((k * len(group), accepted))
+        self.spec_runner.clear_pending()
+        self._maybe_disable_spec()
+
+    def _emit_spec(self, ch: ChunkWork, row: np.ndarray, n_acc: int, k: int,
+                   now: float) -> None:
+        """Append one sequence's accepted run through ``_append_token`` (a
+        stop inside the run truncates it), commit its KIVI writes, then
+        roll back the speculative tail."""
+        seq = ch.seq
+        emitted = 0
+        stop = False
+        for tok in row[: n_acc + 1]:
+            self.vtc.charge(seq.request.user_id, output_tokens=1)
+            stop = self._append_token(seq, int(tok), now)
+            emitted += 1
+            if stop:
+                break
+        # positions [start, start + emitted) now hold real tokens' KV;
+        # everything past them is dead (masked by length, rewritten later)
+        seq.num_computed = ch.start + emitted
+        self.spec_stats.emitted += emitted
+        # KIVI stores: stage exactly the emitted tokens now that acceptance
+        # is known (no-op on fp stores), before rollback and finish so the
+        # prefix cache publishes complete pages
+        self.spec_runner.commit_writes(seq.request_id, emitted)
+        if stop:
+            self._finish(seq, now)
+            return
+        # free the blocks past what the accepted tokens (and the next step's
+        # input) need
+        keep = self.bm.blocks_needed(seq.total_len)
+        if len(seq.block_table) > keep:
+            self.bm.free(seq.block_table[keep:])
+            del seq.block_table[keep:]
+        self.spec_runner.commit(seq, ch.start, k, n_acc)
+
+    def _maybe_disable_spec(self) -> None:
+        """Turn speculation off for good once the rolling window's
+        acceptance rate falls below ``min_acceptance``; the scheduler's
+        budget goes back to 1 token per decode."""
+        spec = self.spec_cfg
+        if not self._spec_active or spec.min_acceptance <= 0:
+            return
+        wp = sum(p for p, _ in self._spec_window)
+        while self._spec_window and wp - self._spec_window[0][0] >= spec.window:
+            wp -= self._spec_window.popleft()[0]
+        if wp < spec.window:
+            return
+        wa = sum(a for _, a in self._spec_window)
+        if wa / wp < spec.min_acceptance:
+            self._spec_active = False
+            self.spec_stats.disabled_at_step = self.steps
+            self.scheduler.cfg = dataclasses.replace(self.scheduler.cfg,
+                                                     speculative_tokens=0)
+
     def _handle_cow(self, seq: SeqState, ch: ChunkWork) -> None:
         """Copy-on-write for shared blocks the chunk will write into."""
         bs = self.cfg.block_size
@@ -470,6 +655,8 @@ class LLMEngine:
                                      namespace=seq.request.adapter_id)
         self.scheduler.finish(seq)
         self._free_seq_memory(seq)
+        if self.spec_runner is not None:
+            self.spec_runner.forget(seq.request_id)
         self.finished.append(finalize_request(seq))
 
     # ------------------------------------------------------------------
@@ -495,22 +682,28 @@ class LLMEngine:
                                if c.seq.request.adapter_id is not None}
         try:
             runner = self.paged_runner or self.runner
+            rest = plan.chunks
+            if self._spec_active and plan.decode:
+                # speculative decode for the decode chunks; prompt chunks
+                # take the paged path below
+                self._run_spec_group(plan.decode, plan.spec_tokens)
+                rest = plan.prefill
             if self.scheduler.cfg.exact_chunks:
                 # exact-chunk scheduling: one dispatch per chunk length, in
                 # ascending order, on the same backend. The reference groups
                 # chunks with modality extras separately first; the port
                 # refuses extras, so only its non-extras half applies
                 by_len: Dict[int, List[ChunkWork]] = {}
-                for c in plan.chunks:
+                for c in rest:
                     by_len.setdefault(c.length, []).append(c)
                 for _, group in sorted(by_len.items()):
                     self._run_group(group, runner)
-            else:
-                # the whole ragged plan — decodes AND prompt chunks — fuses
-                # into ONE dispatch: paged when the backend exists
+            elif rest:
+                # the rest of the ragged plan — decodes AND prompt chunks —
+                # fuses into ONE dispatch: paged when the backend exists
                 # (decode_paged when all lengths are 1, extend_paged
                 # otherwise), gathered otherwise
-                self._run_group(plan.chunks, runner)
+                self._run_group(rest, runner)
         finally:
             self._step_inflight = None
             self._step_adapters = None

@@ -5,29 +5,32 @@
   * ``GatheredRunner`` always exists: the parity reference, and the only
     backend for stacks without a paged family (sliding-window attention);
   * ``PagedRunner`` exists when the stack is pure global attention (the
-    model has ``decode_paged``) and ``execution_backend`` is "auto" or
-    "paged"; the engine then runs every step on it.
-The speculative runner is queued in ROADMAP.md.
+    model has ``decode_paged``) and ``execution_backend`` is "auto",
+    "paged" or "speculative"; the engine then runs every step on it.
+  * ``SpeculativeRunner`` layers draft–verify decode on top of the paged
+    runner; the engine builds it itself (it needs the draft model).
 """
 from repro_torch.core.executor.base import (ExecBatch, ModelRunner,  # noqa: F401
                                             marshal_batch)
 from repro_torch.core.executor.gathered import GatheredRunner  # noqa: F401
 from repro_torch.core.executor.paged import PagedRunner  # noqa: F401
+from repro_torch.core.executor.speculative import SpeculativeRunner  # noqa: F401
 from repro_torch.core.executor.state import PagedModelState  # noqa: F401
 
 
 def make_runners(model, params, engine_cfg, store):
     """Returns (gathered, paged_or_None) per ``engine_cfg.execution_backend``:
-    "auto" | "gathered" | "paged". "paged" on a stack without a paged
-    family raises."""
+    "auto" | "gathered" | "paged" | "speculative". "speculative" builds the
+    paged runner its speculative runner layers on; "paged" or "speculative"
+    on a stack without a paged family raises."""
     backend = engine_cfg.execution_backend
-    if backend not in ("auto", "gathered", "paged"):
+    if backend not in ("auto", "gathered", "paged", "speculative"):
         raise ValueError(f"unknown execution_backend: {backend!r}")
     gathered = GatheredRunner(model, params, engine_cfg, store)
     paged = None
-    if backend in ("auto", "paged") and model.decode_paged is not None:
+    if backend != "gathered" and model.decode_paged is not None:
         paged = PagedRunner(model, params, engine_cfg, store)
-    if backend == "paged" and paged is None:
+    if backend in ("paged", "speculative") and paged is None:
         raise ValueError(
             f"execution_backend={backend!r} but {model.cfg.name} has no paged "
             "decode path (needs a pure global-attention stack)")

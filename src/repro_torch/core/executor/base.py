@@ -4,9 +4,9 @@ A copy of ``repro.core.executor.base`` for the port's text-only paths.
 The engine owns *policy* — admission, scheduling, block allocation, CoW,
 prefix caching, sampling, metrics. A runner owns *mechanism*: given a
 batch of scheduled chunks whose blocks are already allocated, execute the
-model and return per-chunk logits. The port has two backends,
-``PagedRunner`` and ``GatheredRunner``; the speculative runner is queued in
-ROADMAP.md.
+model and return per-chunk logits. The port has the reference's three
+backends: ``PagedRunner``, ``GatheredRunner`` and the ``SpeculativeRunner``
+layered on the paged one.
 """
 from __future__ import annotations
 

@@ -218,12 +218,35 @@ class PagedRunner(ModelRunner):
         self.steps += 1
         return logits[:B, :Cmax].float().cpu().numpy()
 
+    def verify(self, tokens: torch.Tensor, tables: np.ndarray,
+               lengths: np.ndarray, lora: Optional[dict] = None):
+        """The target's C-position forward that the speculative runner
+        borrows: ``model.verify_paged`` over the mirror (plus per-step fp
+        tails on quantized stores), every position real. ``tokens`` (B, C)
+        on the device. Returns (logits (B, C, V) on the device, writes with
+        (B, C, KV, D) leaves); the caller writes back what it keeps. A
+        failed call leaves the mirror suspect: it is rebuilt from the host
+        store next step."""
+        C = tokens.shape[1]
+        try:
+            logits, pages, writes = self.model.verify_paged(
+                self.params, tokens, self.call_pages(tables, lengths, C),
+                self._dev(tables), self._dev(lengths),
+                lora=lora_arg(lora, device=self.device))
+        except Exception:
+            self._full_sync = True
+            self._synced_version = -1
+            raise
+        self._pages = self.strip_tails(pages)
+        return logits, writes
+
     def writeback_tokens(self, tables: np.ndarray, lengths: np.ndarray,
                          C: int, writes, B: int,
                          chunk_lens: Optional[np.ndarray] = None) -> int:
         """O(tokens) host-store writeback of the per-token K/V returned by
-        ``decode_paged`` (C == 1, leaves (B, KV, D)) or ``extend_paged``
-        (leaves (B, C, KV, D), ragged). Rows past ``B`` and positions past a
+        ``decode_paged`` (C == 1, leaves (B, KV, D)), ``verify_paged`` (leaves
+        (B, C, KV, D)) or ``extend_paged`` (the same, ragged); shared by the
+        paged and speculative backends. Rows past ``B`` and positions past a
         row's ``chunk_lens`` only ever lived in the scratch page and never
         reach the host store. All leaves cross to the host in one copy.
         Returns bytes written."""

@@ -12,18 +12,25 @@
         --arch starcoder2-3b --requests 2   # sliding window: gathered backend
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --backend gathered  # olmo-1b on the gathered backend
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 2 --backend speculative --spec-k 3   # draft–verify decode
 
 ``--debug`` (the default) serves the reduced smoke config, ``--no-debug``
 the published one. ``--device`` defaults to ``cuda``; there is no CPU
 fallback. Weights are random, drawn from a seeded ``torch.Generator``.
 The report gives the steps, the paged ones among them, ``host_copy`` (the
-gathered backend's window traffic, 0 on the paged path) and, where the
-gathered backend ran, the batch rows of each attention route.
+gathered backend's window traffic, 0 on the paged path), where the
+gathered backend ran, the batch rows of each attention route and, where
+speculation ran, its acceptance rate, tokens per speculative step and
+speculative steps. Any ``--spec-*`` flag turns speculation on under
+``--backend auto``; without ``--spec-draft-seed`` the target drafts for
+itself.
 ``build_engine`` is the construction path ``chip_smoke.py`` drives too.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -31,7 +38,7 @@ import numpy as np
 
 from repro_torch import configs
 from repro_torch.core import (EngineConfig, LLMEngine, QuantConfig, Request,
-                              SamplingParams, SchedulerConfig)
+                              SamplingParams, SchedulerConfig, SpeculativeConfig)
 from repro_torch.core.lora import LoRAConfig, make_adapter
 from repro_torch.models import build_model
 
@@ -40,18 +47,25 @@ def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
                  backend: str = "auto", policy: str = "fcfs", seed: int = 0,
                  kv_quant: Optional[QuantConfig] = None,
                  lora: Optional[LoRAConfig] = None,
+                 speculative: Optional[SpeculativeConfig] = None,
+                 draft_seed: Optional[int] = None,
                  **engine_kw) -> LLMEngine:
     """Model (smoke or published config) + random weights + engine.
     ``kv_quant`` stores KIVI-quantized pages; ``lora`` turns on multi-tenant
-    LoRA (adapters are registered by the caller); ``engine_kw`` overrides
-    the serving defaults below (EngineConfig fields, e.g. ``max_model_len``
-    or a ``scheduler``)."""
+    LoRA (adapters are registered by the caller); ``speculative`` turns on
+    draft–verify decode, with the same model at weights from ``draft_seed``
+    as the draft when one is given (else the config's own draft, or the
+    target itself); ``engine_kw`` overrides the serving defaults below
+    (EngineConfig fields, e.g. ``max_model_len`` or a ``scheduler``)."""
     cfg = configs.smoke_config(arch) if debug else configs.get_config(arch)
     model = build_model(cfg, device=device)
     params = model.init(seed)
+    if speculative is not None and draft_seed is not None:
+        speculative = dataclasses.replace(speculative, draft_model=model,
+                                          draft_params=model.init(draft_seed))
     kw = dict(block_size=16, num_blocks=512, max_model_len=256,
               execution_backend=backend, device=device, seed=seed,
-              kv_quant=kv_quant, lora=lora,
+              kv_quant=kv_quant, lora=lora, speculative=speculative,
               scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=128,
                                         prefill_chunk=32, policy=policy))
     kw.update(engine_kw)
@@ -65,7 +79,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--policy", default="fcfs", choices=["fcfs", "vtc", "qoe"])
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "gathered", "paged", "speculative"],
-                    help="execution backend (speculative is not ported)")
+                    help="execution backend")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="draft tokens per speculative step (any --spec-* "
+                         "flag turns speculation on under --backend auto)")
+    ap.add_argument("--spec-draft-seed", type=int, default=None,
+                    help="draft = the same config at weights from this seed "
+                         "(default: self-speculation, draft == target)")
+    ap.add_argument("--spec-min-acceptance", type=float, default=0.0,
+                    help="turn speculation off below this windowed "
+                         "acceptance rate (0 = never)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the model and kernels run on")
     ap.add_argument("--kv-quant-bits", type=int, default=0,
@@ -87,9 +110,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     kv_quant = QuantConfig(bits=args.kv_quant_bits) if args.kv_quant_bits else None
     lora = LoRAConfig(rank=args.lora_rank, pool_pages=args.adapter_pool_pages) \
         if args.num_adapters else None
+    speculative = None
+    if (args.backend == "speculative" or args.spec_k is not None
+            or args.spec_draft_seed is not None or args.spec_min_acceptance > 0):
+        speculative = SpeculativeConfig(
+            num_draft_tokens=args.spec_k if args.spec_k is not None else 4,
+            min_acceptance=args.spec_min_acceptance)
     engine = build_engine(args.arch, debug=args.debug, device=args.device,
                           backend=args.backend, policy=args.policy,
-                          kv_quant=kv_quant, lora=lora)
+                          kv_quant=kv_quant, lora=lora, speculative=speculative,
+                          draft_seed=args.spec_draft_seed)
     cfg = engine.model.cfg
     for a in range(args.num_adapters):
         engine.register_adapter(f"a{a}", make_adapter(cfg, lora, seed=a + 1))
@@ -120,6 +150,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         mlora = (f", lora={args.num_adapters} adapters r{lora.rank} "
                  f"(hits={st.hits} misses={st.misses} evicts={st.evictions}, "
                  f"{engine.adapters.rented_pages} pages rented)")
+    spec = ""
+    if engine.spec_stats.steps:
+        st = engine.spec_stats
+        spec = (f", spec: acceptance={st.acceptance_rate:.2f} "
+                f"tokens/step={st.tokens_per_step:.2f} steps={st.steps}"
+                + (f" disabled@{st.disabled_at_step}"
+                   if st.disabled_at_step is not None else ""))
     routes = ""
     if engine.runner.steps:
         rr = engine.model.route_rows
@@ -132,7 +169,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"kv_util_peak={snap['block_manager.peak_used']/snap['block_manager.num_blocks']:.2f}, "
           f"preempts={snap['engine.preemptions']}, "
           f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{routes}{quant}"
-          f"{mlora}")
+          f"{mlora}{spec}")
 
 
 if __name__ == "__main__":

@@ -6,9 +6,10 @@ The twin of the attn+mlp part of ``repro.models.model.build_model``:
 a gathered ``(B, W, KV, D)`` cache window: prefill, chunked prefill, mixed
 batches, decode as chunks of one), and, where ``paged_decode_supported``
 holds (every layer global attention), ``decode_paged`` (one token) and
-``extend_paged`` (chunked prefill / ragged mixed batches); on other stacks
-(sliding-window attention: starcoder2-3b) those two are None, as in the
-reference. Parameters are plain dicts: ``{"embed": (V, d), "final_norm":
+``extend_paged`` (chunked prefill / ragged mixed batches) and
+``verify_paged`` (C real positions per row: speculative verify and draft
+catch-up); on other stacks (sliding-window attention: starcoder2-3b) those
+three are None, as in the reference. Parameters are plain dicts: ``{"embed": (V, d), "final_norm":
 {...}, ["lm_head": {"w": (d, V)}], "layers": [layer, ...]}`` with one dict
 per layer in ``cfg.layer_specs()`` order — the JAX package stacks repeats
 along a leading axis instead; ``models/convert.py`` unstacks them.
@@ -185,7 +186,7 @@ class Model:
         self.route_rows = {"flash_prefill": 0, "flash_attention": 0}
         if not paged_decode_supported(cfg):
             # no paged family for this stack: the gathered backend serves it
-            self.decode_paged = self.extend_paged = None
+            self.decode_paged = self.extend_paged = self.verify_paged = None
 
     # ---------------- init ---------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
@@ -312,6 +313,19 @@ class Model:
                 lora_ids=ids)
             writes.append({"k": k_new, "v": v_new})
         return self.head(params, x), pages, writes
+
+    # ---------------- verify_paged (C tokens, every position real) ------------
+    def verify_paged(self, params, tokens, pages, block_tables, lengths,
+                     lora=None):
+        """Score C tokens per sequence straight off the page stores: the
+        speculative verify (the target scores k drafts + 1 bonus position in
+        one forward) and the draft's paged catch-up. ``extend_paged`` with
+        every position real, so no ``chunk_lens`` and no scratch page; on
+        CUDA bf16 / f16 its attention is the paged kernel's native chunked
+        path at ``rows_per_seq = C`` (fp32 folds). ``decode_paged`` is the
+        C == 1 case. Returns (logits (B, C, V), pages, writes)."""
+        return self.extend_paged(params, tokens, pages, block_tables, lengths,
+                                 lora=lora)
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

@@ -106,9 +106,12 @@ def test_preemption_recompute_matches_jax():
 
 
 def test_unported_backends_raise():
-    # the gathered backend is ported (tests/test_torch_gathered.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _torch_engine(execution_backend="speculative")
+    # every backend of the reference is ported: the gathered one
+    # (tests/test_torch_gathered.py) and speculative decoding on the paged one
+    # (tests/test_torch_speculative.py); an unknown name still raises
+    eng = _torch_engine(execution_backend="speculative")
+    assert eng.spec_runner is not None and eng.spec_runner.paged is eng.paged_runner
+    assert eng.scheduler.cfg.speculative_tokens == eng.spec_cfg.num_draft_tokens == 4
     with pytest.raises(ValueError, match="unknown execution_backend"):
         _torch_engine(execution_backend="bogus")
 
