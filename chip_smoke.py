@@ -70,7 +70,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                plain bgmv, the null-slot row equal to the LoRA-free step);
                starcoder2-3b at its published width, gathered extend steps
                (a fresh batch, a mixed fresh/continuation batch), kernel vs
-               plain flash_prefill logits, profiled;
+               plain flash_prefill logits, profiled; llama4-scout at its
+               published width cut to one interleave block (3 chunked + 1
+               global NoPE layer, 16 experts top-1 + a shared one), the
+               same two kinds of gathered step over 8448-slot windows (a
+               continuation row across the 8192-token chunk boundary),
+               kernel vs plain flash_prefill logits gated in f32, profiled
+               with the MoE's share; a chunked layer's queries past the
+               boundary bit-equal under noise in the earlier chunk;
+               moe_apply vs its dense oracle moe_dense_ref in f32, and one
+               MoE layer timed at decode (T=8) and prefill (T=512) beside
+               its bytes bound and moe_dense_ref's time;
   6. serve   — the serving engine (launch/serve.py's build_engine) at full
                width: 8 requests, greedy, kernel launch counts checked;
                then the same traffic with KIVI 8-bit pages (the quantized
@@ -87,7 +97,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                each kernel's launches held to a formula over the dispatch
                counts, speculative steps and draft catch-up calls;
                then starcoder2-3b on the gathered backend (flash_prefill
-               launches = 30 x the steps holding a fresh row).
+               launches = 30 x the steps holding a fresh row), then the
+               llama4-scout block on it (flash_prefill launches = 4 x the
+               steps holding a fresh row).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -133,7 +145,9 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_chunked_quant_ref, paged_attention_chunked_ref,
     paged_attention_quant_ref, paged_attention_ref)
 from repro_torch.launch.serve import build_engine  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 
 # the kernels' wrappers and their launch counts, held here so that phase
 # 5's plain-attention patches of the module attributes do not hide them
@@ -354,7 +368,8 @@ def device_profile(label, fn, focus=()) -> None:
     torch.profiler for the kernels' time by name on the device clock. The
     device's busy share is their sum over that wall time. ``focus``:
     substrings of kernel names whose launches and share of the busy time are
-    reported too, one line each."""
+    reported too, one line each. Returns the busy microseconds (None when
+    the profiler recorded no kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     walls = []
@@ -382,13 +397,14 @@ def device_profile(label, fn, focus=()) -> None:
     if not busy:
         log(f"  {label}: wall {wall_us / 1e3:.3f} ms; device time not measured "
             "(the profiler recorded no kernel)")
-        return
+        return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"  {label}: wall {wall_us / 1e3:.3f} ms, {launches} device kernels, "
         f"busy {busy / 1e3:.3f} ms = {busy / wall_us:.1%} of wall; top: "
         + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms" for n, t in top))
     for f, (n, us) in focused.items():
         log(f"    {f}: {n} launches, {us / 1e3:.3f} ms = {us / busy:.1%} of busy")
+    return busy
 
 
 # ---------------------------------------------------------------------------
@@ -1579,7 +1595,8 @@ FLASH_CASES = [
     (1, 24, 2, 512, 128, 4096), (1, 24, 2, 2048, 128, 4096),
     (1, 24, 2, 8192, 128, 4096), (2, 24, 2, 300, 128, 4096),
     (1, 2, 2, 1, 128, 0), (2, 16, 2, 129, 64, 0), (1, 12, 1, 2053, 128, 1000),
-    (1, 8, 1, 500, 64, 100)]
+    (1, 8, 1, 500, 64, 100),
+    (2, 40, 8, 256, 128, 0)]  # llama4-scout's fresh rows: G = 5, the serve's chunk
 # f32 (the CUDA-core kernel): summation order only; bf16 and f16 (the
 # wgmma kernel: bf16 P split into head and remainder, f16 P rounded once):
 # tests/test_kernels_flash.py's bf16 tolerance
@@ -2403,6 +2420,306 @@ def phase_serve_starcoder():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# llama4-scout: routed + shared MoE, chunked attention, NoPE global layers
+# ---------------------------------------------------------------------------
+LLAMA4 = "llama4-scout-17b-a16e"
+# the two gathered extend steps over 8448-slot windows: label, cache_len and
+# real chunk length per row (C = 256). The mixed step's last row runs from
+# 8150 to 8213 across the 8192-token attention chunk boundary
+LLAMA4_W, LLAMA4_C = 8448, 256
+LLAMA4_STEPS = (("fresh B=2 C=256", [0, 0], [256, 256]),
+                ("mixed B=4 C=256", [0, 700, 0, 8150], [256, 1, 200, 64]))
+# moe_apply vs moe_dense_ref in f32 at published width: the same f32
+# matmuls (no TF32) over other row groupings, so summation order only, over
+# 5120- and 8192-term sums of O(1) terms
+MOE_ATOL_F32 = 1e-4
+# one expert's w1 (5120 x 16384) and w2 (8192 x 5120) in bf16: 251.7 MB
+EXPERT_BYTES = 3 * 5120 * 8192 * 2
+
+
+def llama4_block():
+    """llama4-scout at its published width, its depth cut to one interleave
+    block (3 chunked layers + 1 global NoPE layer) to fit one card: the
+    config and the published layer count."""
+    cfg = configs.get_config(LLAMA4)
+    return dataclasses.replace(cfg, stages=((cfg.stages[0][0], 1),)), cfg.num_layers
+
+
+def _to_f32_inplace(tree):
+    """Each leaf of a parameter tree cast to f32 in place of the bf16 one,
+    so the bf16 leaves are freed as the f32 ones are made (one interleave
+    block: 43.5 GB of f32 beside no more than one bf16 leaf)."""
+    for key in (range(len(tree)) if isinstance(tree, list) else list(tree)):
+        if isinstance(tree[key], (dict, list)):
+            _to_f32_inplace(tree[key])
+        else:
+            tree[key] = tree[key].float()
+
+
+def busy_ms(fn, reps: int = 5) -> float:
+    """Device busy milliseconds of one ``fn`` call on the profiler's clock:
+    every kernel's time summed over ``reps`` calls, over ``reps``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise RuntimeError("the profiler recorded no kernel")
+    return us / reps / 1e3
+
+
+def wall_ms(fn, reps: int = 10) -> float:
+    """Median host milliseconds of one synchronized ``fn`` call (for calls
+    that read the device from the host, which ``cuda_ms`` cannot hold)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def moe_timing(card, cfg, p):
+    """One MoE layer in bf16 (layer 0's weights) at decode (B=8 rows of one
+    token) and at prefill (T=512): ``moe_apply`` by the host clock around a
+    synchronized call (it reads the experts' counts from the device) and by
+    the profiler's busy time, beside its bound and ``moe_dense_ref``'s
+    times. Bound: the weights of the experts this input touches and of the
+    shared expert read once from HBM, x read and y written once, against
+    2 * 3 * d * f flops per routed and per shared token row at the bf16
+    tensor-core rate."""
+    d, f, k = cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for label, shape in (("decode T=8", (8, 1, d)), ("prefill T=512", (1, 512, d))):
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        T = x.shape[0] * x.shape[1]
+        _, experts, _ = moe_mod.route(p, cfg, x.reshape(T, d))
+        touched = int(torch.unique(experts).numel())
+        nbytes = (touched + cfg.num_shared_experts) * EXPERT_BYTES + 2 * x.numel() * 2
+        flops = 2 * 3 * d * f * T * (k + cfg.num_shared_experts)
+        bound_ms, bound_by = bound(card, nbytes, flops, tensor_cores=True)
+        y = moe_mod.moe_apply(p, cfg, x, capacity_factor=2.0)[0]
+        want = moe_mod.moe_dense_ref(p, cfg, x, capacity_factor=2.0)[0]
+        diff = (y.float() - want.float()).abs().max().item()
+
+        def grouped():
+            return moe_mod.moe_apply(p, cfg, x, capacity_factor=2.0)
+
+        def dense():
+            return moe_mod.moe_dense_ref(p, cfg, x, capacity_factor=2.0)
+        ms, busy = wall_ms(grouped), busy_ms(grouped)
+        dense_ms, dense_busy = wall_ms(dense), busy_ms(dense)
+        cap = moe_mod.capacity(T, k, cfg.num_experts, 2.0)
+        log(f"[5 timing] MoE layer {label} bf16, {touched} of {cfg.num_experts} experts "
+            f"touched + {cfg.num_shared_experts} shared: moe_apply {ms:.3f} ms wall, "
+            f"{busy:.3f} ms device busy; bound {bound_ms:.3f} ms ({nbytes / 1e6:.1f} MB "
+            f"at {card[1] / 1e12:g} TB/s, {flops / 1e9:.1f} GFLOP at {card[3] / 1e12:g} "
+            f"TFLOP/s; {bound_by}): busy at {bound_ms / busy:.1%} of bound; "
+            f"moe_dense_ref ({cfg.num_experts} x {cap} slots) {dense_ms:.3f} ms wall, "
+            f"{dense_busy:.3f} ms busy; bf16 outputs max |diff| {diff:.3g}")
+        del x, y, want
+
+
+def phase_model_llama4(card):
+    """llama4-scout at its published width (d_model 5120, 40 query heads
+    over 8 KV heads, 16 routed experts at top-1 + a shared expert of d_ff
+    8192, vocab 202048), its depth cut to one interleave block (3 chunked
+    layers, 8192-token chunks, + 1 global NoPE layer: 4 of 48), random bf16
+    weights from seed 0. Two gathered ``Model.extend`` steps over
+    8448-slot windows (``LLAMA4_STEPS``): logits with the flash_prefill
+    kernel vs with its plain version, printed in bf16 and gated in f32 on
+    the same weights cast in place (MODEL_ATOL_F32), the kernel launched
+    once per layer and call; each bf16 step profiled, with flash_prefill's
+    share and the MoE's (its four calls of the step replayed alone, busy
+    time over the step's). Then one chunked layer's ``attn_extend`` on the
+    mixed step twice, the second time with the crossing row's window slots
+    below 8192 overwritten by noise: its queries at positions >= 8192 must
+    come out bit for bit the same. Then ``moe_apply`` vs ``moe_dense_ref``
+    in f32 at published width (T=8 and T=512), and the MoE layer timing."""
+    cfg, full_layers = llama4_block()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    nparam = sum(x.numel() for x in _leaves(params))
+    log(f"[5 model] {cfg.name}: published width (d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads over {cfg.num_kv_heads} KV heads x {cfg.head_dim}, {cfg.num_experts} "
+        f"experts top-{cfg.top_k} + {cfg.num_shared_experts} shared, expert d_ff "
+        f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}), depth cut to one interleave block: "
+        f"{cfg.num_layers} of {full_layers} layers ("
+        + ", ".join(s.attn_kind for s in model.specs)
+        + f"; chunk {cfg.chunk_size}), {nparam / 1e9:.2f} B params bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    W, C = LLAMA4_W, LLAMA4_C
+    rng = np.random.default_rng(9)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    steps = []
+    for label, cache_len, lens in LLAMA4_STEPS:
+        B = len(lens)
+        win = model.init_cache(B, W)
+        for layer in win:
+            for x in layer.values():
+                x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+        steps.append((label, win, torch.tensor(
+            rng.integers(0, cfg.vocab_size, size=(B, C)), device="cuda"),
+            torch.tensor(cache_len, dtype=torch.int32, device="cuda"),
+            torch.arange(C, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]))
+
+    def run(m, prm, win, tok, cl, experts=None):
+        """Logits and flash_prefill launches of one step; ``experts``, a
+        list, receives each layer's routing."""
+        cache = [{n: x.clone() for n, x in layer.items()} for layer in win]
+        before = FLASH.launches
+        route = moe_mod.route
+
+        def record(*a):
+            out = route(*a)
+            experts.append(out[1])
+            return out
+        with mock.patch.object(moe_mod, "route", record if experts is not None else route):
+            logits = m.extend(prm, tok, cache, cl)[0]
+        torch.cuda.synchronize()
+        return logits.float(), FLASH.launches - before
+
+    drift = {}
+    for label, win, tok, cl, real in steps:
+        ek, ep = [], []
+        lk, n = run(model, params, win, tok, cl, ek)
+        # every fresh row's chunk lies inside the first 8192-token chunk
+        assert n == cfg.num_layers, n
+        assert lk.shape == (len(cl), C, cfg.vocab_size) and torch.isfinite(lk[real]).all()
+        with plain_flash():
+            lp, _ = run(model, params, win, tok, cl, ep)
+        # the bf16 drift's source: tokens whose top-1 expert differs between
+        # the kernel's run and the plain one (per layer, real positions)
+        flips = [int(((a != b).reshape(real.shape) & real).sum()) for a, b in zip(ek, ep)]
+        drift[label] = ((lk[real] - lp[real]).abs().max().item(),
+                        lk[real].abs().max().item(),
+                        (lk[real].argmax(-1) == lp[real].argmax(-1)).float().mean().item(),
+                        flips, int(real.sum()))
+        del lk, lp
+    moe_fn = moe_mod.moe_apply
+    for label, win, tok, cl, real in steps:
+        cache = [{n: x.clone() for n, x in layer.items()} for layer in win]
+        busy = device_profile(f"{cfg.name} extend {label} bf16", lambda: model.extend(
+            params, tok, cache, cl), focus="flash_prefill")
+        calls = []
+
+        def record(p, c, x, **kw):
+            calls.append((p, x.clone(), kw))
+            return moe_fn(p, c, x, **kw)
+        with mock.patch.object(moe_mod, "moe_apply", record):
+            model.extend(params, tok, cache, cl)
+        assert len(calls) == cfg.num_layers, len(calls)
+        moe_busy = busy_ms(lambda: [moe_fn(p, cfg, x, **kw) for p, x, kw in calls], reps=2)
+        log(f"    MoE ({cfg.num_layers} moe_apply calls of the step replayed alone): "
+            f"{moe_busy:.3f} ms busy"
+            + (f" = {moe_busy * 1e3 / busy:.1%} of the step's busy time" if busy else ""))
+        del cache, calls
+    # chunk independence: a chunked layer's queries past 8192 read only their chunk
+    label, win, tok, cl, real = steps[1]
+    row, start = 3, LLAMA4_STEPS[1][1][3]
+    past = cfg.chunk_size - start  # the row's first query at or past 8192
+    x = torch.randn((len(cl), C, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    route = attn_mod.extend_route(cl, C, W)
+    noisy = {n: t.clone() for n, t in win[0].items()}
+    for t in noisy.values():
+        t[row, :cfg.chunk_size] = torch.randn(t[row, :cfg.chunk_size].shape, generator=g,
+                                              device="cuda") * 50
+    outs = [attn_mod.attn_extend(params["layers"][0]["mixer"], cfg, model.specs[0], x,
+                                 {n: t.clone() for n, t in w.items()}, cl, route)[0]
+            for w in (win[0], noisy)]
+    same = torch.equal(outs[0][row, past:], outs[1][row, past:])
+    moved = not torch.equal(outs[0][row, :past], outs[1][row, :past])
+    log(f"  chunked layer, row at {start}..{start + LLAMA4_STEPS[1][2][3] - 1}: window "
+        f"slots < {cfg.chunk_size} replaced by noise; queries at >= {cfg.chunk_size} "
+        f"({C - past} of {C}) {'bit-equal' if same else 'FAIL'}, queries below "
+        f"{'moved' if moved else 'did not move (FAIL)'}")
+    if not (same and moved):
+        raise AssertionError("chunked attention read keys outside the query's chunk")
+    del noisy, outs, x
+    # moe_apply vs its dense oracle in f32 at published width
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p32 = moe_mod.make_moe_params(gen, cfg, torch.float32, "cuda")
+    for label, shape in (("T=8 (8 rows of 1)", (8, 1, cfg.d_model)),
+                         ("T=512", (1, 512, cfg.d_model))):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        y, aux = moe_mod.moe_apply(p32, cfg, x, capacity_factor=2.0)
+        want, want_aux = moe_mod.moe_dense_ref(p32, cfg, x, capacity_factor=2.0)
+        check(f"moe_apply vs moe_dense_ref {label} f32 (published width)", y, want,
+              MOE_ATOL_F32)
+        assert abs(aux.item() - want_aux.item()) <= 1e-6
+    del p32, x, y, want
+    torch.cuda.empty_cache()
+    moe_timing(card, cfg, params["layers"][0]["ff"])
+    # the f32 gate: the same weights and windows, cast in place
+    _to_f32_inplace(params)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32", param_dtype="float32"),
+                          device="cuda")
+    torch.cuda.empty_cache()
+    for label, win, tok, cl, real in steps:
+        win32 = [{n: x.float() for n, x in layer.items()} for layer in win]
+        lk, _ = run(model32, params, win32, tok, cl)
+        with plain_flash():
+            lp, _ = run(model32, params, win32, tok, cl)
+        check(f"{cfg.name} extend {label} f32 logits, kernel vs plain flash_prefill",
+              lk[real], lp[real], MODEL_ATOL_F32)
+        d, mx, agree, flips, nreal = drift[label]
+        log(f"    bf16: kernel vs plain logits max |diff| {d:.3g} (bf16 drift, not gated; "
+            f"logits max |x| {mx:.3g}; argmax equal on {agree:.1%} of real positions); "
+            f"top-1 expert differs on {flips} of {nreal} real positions by layer")
+        del win32, lk, lp
+    del model32, params, steps
+    torch.cuda.empty_cache()
+
+
+def phase_serve_llama4():
+    """llama4-scout, the same one-block cut, served on the gathered backend
+    (its only one) with the other serves' traffic: 8 requests queued at
+    once, prompts of 128-512 random tokens, 32 greedy output tokens each,
+    block 16, max_model_len 1024, prefill_chunk 256, 512 batched tokens a
+    step; then a traced rerun."""
+    cfg, _ = llama4_block()
+    model = build_model(cfg, device="cuda")
+    engine = LLMEngine(model, model.init(0), EngineConfig(
+        block_size=16, num_blocks=640, max_model_len=1024, device="cuda", seed=0,
+        scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=512,
+                                  prefill_chunk=256)))
+    runner = engine.runner
+    assert engine.paged_runner is None and runner.name == "gathered"
+    rng = np.random.default_rng(7)
+    add_traffic(engine, rng, "r")
+    metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    gen = sum(m.num_generated for m in metrics)
+    assert counts["flash_prefill"] == cfg.num_layers * runner.prefill_steps > 0, \
+        (counts, runner.prefill_steps)
+    assert all(n == 0 for k, n in counts.items() if k != "flash_prefill"), counts
+    rows = dict(model.route_rows)
+    ttft = statistics.median(m.ttft for m in metrics)
+    prompt = sum(m.num_prompt for m in metrics)
+    log(f"[6 serve] {cfg.name} published width, {cfg.num_layers} layers, gathered "
+        f"backend: 8 requests, {prompt} prompt + {gen} generated tokens in {dt:.2f} s = "
+        f"{gen / dt:.1f} generated tok/s, TTFT p50 {ttft * 1e3:.0f} ms, {engine.steps} "
+        f"steps ({runner.prefill_steps} with a fresh row), flash_prefill launches "
+        f"{counts['flash_prefill']} (= {cfg.num_layers} x {runner.prefill_steps}); rows "
+        f"by route: flash_prefill {rows['flash_prefill']}, flash_attention "
+        f"{rows['flash_attention']}; host_copy_bytes {engine.host_copy_bytes} "
+        f"({engine.host_copy_bytes / engine.steps / 1e6:.1f} MB per step); "
+        f"preemptions {engine.metrics_snapshot()['engine.preemptions']}")
+    traced_rerun(engine, rng)
+    return counts
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
@@ -2453,6 +2770,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_model_starcoder()
     sc_counts = phase_serve_starcoder()
+    torch.cuda.empty_cache()
+    phase_model_llama4(card)
+    torch.cuda.empty_cache()
+    phase_serve_llama4()
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for the quantized kernels (dequantize_pages
     # is on no serving path: only tests call it in the reference), the LoRA

@@ -1,9 +1,12 @@
 """Architecture config registry of the PyTorch port.
 
 A copy of ``repro.configs`` restricted to the architectures the port serves
-today: dense attn+mlp stacks. olmo-1b, gemma-2b and qwen2.5-32b (global
-attention) run on the paged path; starcoder2-3b (sliding-window attention)
-runs on the gathered backend only.
+today: attention stacks with a dense MLP or a routed MoE feed-forward.
+olmo-1b, gemma-2b and qwen2.5-32b (global attention, dense MLP) run on the
+paged path; starcoder2-3b (sliding-window attention) and
+llama4-scout-17b-a16e (blocks of three chunked-attention layers and one
+global NoPE layer, every feed-forward 16 routed experts at top-1 plus a
+shared expert) run on the gathered backend only.
 ``get_config("<arch-id>")`` returns the exact published config;
 ``smoke_config("<arch-id>")`` the reduced variant the CPU tests use (2
 layers, d_model <= 256, f32).
@@ -14,10 +17,12 @@ import dataclasses
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, dense_stages  # noqa: F401
 
-from repro_torch.configs import gemma_2b, olmo_1b, qwen2_5_32b, starcoder2_3b  # noqa: E402
+from repro_torch.configs import (gemma_2b, llama4_scout_17b_a16e, olmo_1b,  # noqa: E402
+                                qwen2_5_32b, starcoder2_3b)
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
-            for m in (qwen2_5_32b, gemma_2b, olmo_1b, starcoder2_3b)}
+            for m in (qwen2_5_32b, gemma_2b, olmo_1b, starcoder2_3b,
+                      llama4_scout_17b_a16e)}
 
 ARCHS = tuple(sorted(REGISTRY))
 

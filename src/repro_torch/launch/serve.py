@@ -11,6 +11,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch starcoder2-3b --requests 2   # sliding window: gathered backend
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch llama4-scout-17b-a16e --requests 2   # MoE, chunked: gathered
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --backend gathered  # olmo-1b on the gathered backend
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --backend speculative --spec-k 3   # draft–verify decode

@@ -23,8 +23,11 @@ exactly the causal prefill ``kernels/flash_attention`` computes, so it
 goes to ``ops.flash_prefill`` (the CUDA kernel on the card); a
 CONTINUATION row (decodes, later chunks, chunks after a prefix-cache hit)
 goes to ``flash_attention``, the plain twin of the reference's blockwise
-``lax`` attention, with per-row positions and ``kv_valid``. Global and
-sliding-window kinds; tensor parallelism comes with its own slice.
+``lax`` attention, with per-row positions and ``kv_valid``. Global,
+sliding-window and chunked (llama4) kinds; a chunked layer's fresh row
+takes the kernel only while its chunk lies inside the first attention
+chunk, where the chunk mask is plain causal (``fresh_rows_take_kernel``).
+Tensor parallelism comes with its own slice.
 """
 from __future__ import annotations
 
@@ -251,14 +254,12 @@ def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
 # gathered cache windows: masks, plain attention, chunk extend
 # ---------------------------------------------------------------------------
 
-def pair_mask(q_pos, k_pos, kind: str, *, window: int = 0, causal: bool = True):
+def pair_mask(q_pos, k_pos, kind: str, *, window: int = 0, chunk: int = 0,
+              causal: bool = True):
     """(..., Sq) and (..., Sk) absolute positions -> bool (..., Sq, Sk),
-    True = attend. Kinds ``global`` and ``window``; ``chunked`` (llama4)
-    belongs to no ported config and raises."""
-    if kind == "chunked":
-        raise NotImplementedError("chunked attention is not ported yet "
-                                  "(ROADMAP queue A.11)")
-    if kind not in ("global", "window"):
+    True = attend. Kinds ``global``, ``window`` (keys within ``window``
+    positions) and ``chunked`` (keys in the query's ``chunk``-token chunk)."""
+    if kind not in ("global", "window", "chunked"):
         raise ValueError(f"unknown attention kind {kind!r}")
     q = q_pos[..., :, None]
     k = k_pos[..., None, :]
@@ -266,12 +267,14 @@ def pair_mask(q_pos, k_pos, kind: str, *, window: int = 0, causal: bool = True):
                                           dtype=torch.bool, device=q.device)
     if kind == "window" and window:
         m = m & (k > q - window)
+    elif kind == "chunked" and chunk:
+        m = m & ((k // chunk) == (q // chunk))
     return m
 
 
 def flash_attention(q, k, v, *, q_pos, k_pos, kind: str = "global",
-                    window: int = 0, scale: float, causal: bool = True,
-                    kv_valid: Optional[torch.Tensor] = None):
+                    window: int = 0, chunk: int = 0, scale: float,
+                    causal: bool = True, kv_valid: Optional[torch.Tensor] = None):
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D); GQA via head grouping.
     q_pos: (Sq,) or (B, Sq), k_pos: (Sk,) or (B, Sk) absolute positions;
     kv_valid: (B, Sk) bool. Returns (B, Sq, H, Dv) in q's dtype; a row
@@ -287,7 +290,8 @@ def flash_attention(q, k, v, *, q_pos, k_pos, kind: str = "global",
     G = H // KV
     q_pos = torch.broadcast_to(torch.atleast_2d(q_pos), (B, Sq))
     k_pos = torch.broadcast_to(torch.atleast_2d(k_pos), (B, Sk))
-    valid = pair_mask(q_pos, k_pos, kind, window=window, causal=causal)  # (B,Sq,Sk)
+    valid = pair_mask(q_pos, k_pos, kind, window=window, chunk=chunk,
+                      causal=causal)  # (B, Sq, Sk)
     if kv_valid is not None:
         valid = valid & kv_valid[:, None, :]
     valid = valid[:, None, None]  # (B, 1, 1, Sq, Sk)
@@ -331,17 +335,27 @@ def extend_route(cache_len: torch.Tensor, C: int, W: int) -> ExtendRoute:
     return ExtendRoute(*(t.to(dev) for t in idx))
 
 
+def fresh_rows_take_kernel(cfg, spec, C: int) -> bool:
+    """Whether this layer's fresh rows of a C-wide chunk go to
+    ``flash_prefill``: global and window layers always; a chunked layer only
+    while the chunk lies inside the first attention chunk (C <= chunk_size),
+    where its mask is plain causal. Otherwise they take ``flash_attention``
+    with the chunk mask, as continuation rows do."""
+    return spec.attn_kind != "chunked" or not cfg.chunk_size or C <= cfg.chunk_size
+
+
 def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
                 lora=None, lora_ids=None):
     """Write a chunk's K/V at [cache_len, cache_len + C) of the cache window
     and attend. x: (B, C, d); cache: {"k", "v"} (B, W, KV, D), written IN
-    PLACE; cache_len: (B,) tokens already in the window. Fresh rows go to
-    ``flash_prefill`` over their own first C positions (the window holds
-    nothing else for them; a ragged row's padded queries are garbage no
-    one reads, and causality keeps its real queries off the padding's
-    K/V); continuation rows go to ``flash_attention`` over the whole window
-    with ``kv_valid = position < cache_len + C``, as the reference attends.
-    Returns (out (B, C, d), cache)."""
+    PLACE; cache_len: (B,) tokens already in the window. Where
+    ``fresh_rows_take_kernel`` holds, fresh rows go to ``flash_prefill``
+    over their own first C positions (the window holds nothing else for
+    them; a ragged row's padded queries are garbage no one reads, and
+    causality keeps its real queries off the padding's K/V); the other rows
+    go to ``flash_attention`` over the whole window with ``kv_valid =
+    position < cache_len + C``, as the reference attends. Returns (out (B,
+    C, d), cache)."""
     B, C, _ = x.shape
     q, k, v = _qkv(p, cfg, x, lora, lora_ids)
     pos = cache_len.long()[:, None] + torch.arange(C, device=x.device)
@@ -354,32 +368,33 @@ def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
     cache["v"][route.wb, route.wp] = v_new[route.wb, route.wc]
     window = cfg.sliding_window if spec.attn_kind == "window" else 0
     scale = _scale(cfg)
-    nf = len(route.fresh)
+    nk = len(route.fresh) if fresh_rows_take_kernel(cfg, spec, C) else 0
 
-    def fresh_rows(t):  # no copy when every row is fresh
-        return t if nf == B else t.index_select(0, route.fresh)
+    def rows(t, idx):  # no copy when idx is None: every row
+        return t if idx is None else t.index_select(0, idx)
 
     out = None
-    if nf:
+    if nk:
+        ki = None if nk == B else route.fresh
         # (B, C, heads, D) read through its strides as (B, heads, C, D)
-        out = flash_prefill(fresh_rows(q).transpose(1, 2),
-                            fresh_rows(k_new).transpose(1, 2),
-                            fresh_rows(v_new).transpose(1, 2),
+        out = flash_prefill(rows(q, ki).transpose(1, 2),
+                            rows(k_new, ki).transpose(1, 2),
+                            rows(v_new, ki).transpose(1, 2),
                             scale=scale, window=window).transpose(1, 2)
-    if nf < B:
-        ci = route.cont
+    if nk < B:
+        pi = route.cont if nk else None  # the continuation rows, or every row
         W = cache["k"].shape[1]
         kpos = torch.arange(W, device=x.device)
         oc = flash_attention(
-            q.index_select(0, ci), cache["k"].index_select(0, ci),
-            cache["v"].index_select(0, ci), q_pos=pos.index_select(0, ci),
-            k_pos=kpos, kind=spec.attn_kind, window=cfg.sliding_window, scale=scale,
-            kv_valid=kpos[None, :] < (cache_len.long().index_select(0, ci)[:, None] + C))
+            rows(q, pi), rows(cache["k"], pi), rows(cache["v"], pi),
+            q_pos=rows(pos, pi), k_pos=kpos, kind=spec.attn_kind,
+            window=cfg.sliding_window, chunk=cfg.chunk_size, scale=scale,
+            kv_valid=kpos[None, :] < (rows(cache_len.long(), pi)[:, None] + C))
         if out is None:
             out = oc
         else:
             full = q.new_empty(q.shape)
             full.index_copy_(0, route.fresh, out)
-            full.index_copy_(0, ci, oc)
+            full.index_copy_(0, pi, oc)
             out = full
     return proj_out_lora(p["wo"], out, lora, lora_ids), cache

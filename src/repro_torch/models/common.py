@@ -97,6 +97,16 @@ def glu_inner_act(activation: str):
     return act_fn(activation.split("_")[0] if is_glu(activation) else activation)
 
 
+def gated(activation: str, h):
+    """The feed-forward activation of a hidden state: for a gated
+    (``*_glu``) activation, act(g) * u with u the FIRST half of h and the
+    gate g the second; else act(h)."""
+    if is_glu(activation):
+        u, g = torch.chunk(h, 2, dim=-1)
+        return glu_inner_act(activation)(g) * u
+    return glu_inner_act(activation)(h)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------

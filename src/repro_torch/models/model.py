@@ -1,16 +1,19 @@
-"""Model factory of the PyTorch port: dense attention decoders on the paged
-and gathered serving paths.
+"""Model factory of the PyTorch port: attention decoders with a dense MLP or
+a routed MoE feed-forward, on the paged and gathered serving paths.
 
-The twin of the attn+mlp part of ``repro.models.model.build_model``:
+The twin of the attn+mlp and attn+moe part of ``repro.models.model.build_model``:
 ``embed_tokens``, ``head``, ``init_cache`` / ``extend`` (a chunk appended to
 a gathered ``(B, W, KV, D)`` cache window: prefill, chunked prefill, mixed
 batches, decode as chunks of one), and, where ``paged_decode_supported``
-holds (every layer global attention), ``decode_paged`` (one token) and
-``extend_paged`` (chunked prefill / ragged mixed batches) and
+holds (every layer global attention, MLP or MoE), ``decode_paged`` (one
+token) and ``extend_paged`` (chunked prefill / ragged mixed batches) and
 ``verify_paged`` (C real positions per row: speculative verify and draft
-catch-up); on other stacks (sliding-window attention: starcoder2-3b) those
-three are None, as in the reference. Parameters are plain dicts: ``{"embed": (V, d), "final_norm":
-{...}, ["lm_head": {"w": (d, V)}], "layers": [layer, ...]}`` with one dict
+catch-up); on other stacks (sliding-window attention: starcoder2-3b;
+chunked attention: llama4-scout) those three are None, as in the reference.
+A MoE layer's feed-forward is ``moe.moe_apply`` at capacity factor 2.0, as
+the reference serves it, with its aux loss dropped. Parameters are plain
+dicts: ``{"embed": (V, d), "final_norm": {...}, ["lm_head": {"w": (d, V)}],
+"layers": [layer, ...]}`` with one dict
 per layer in ``cfg.layer_specs()`` order — the JAX package stacks repeats
 along a leading axis instead; ``models/convert.py`` unstacks them.
 
@@ -22,7 +25,8 @@ over layers of ``{"k", "v"}`` windows, also written in place. Every step
 takes an optional multi-tenant LoRA operand whose per-row deltas go through
 ``bgmv_add`` at the six adapter sites of a layer (wq, wk, wv, wo, w1, w2),
 added in place to the projections' outputs in four launches: wq/wk/wv
-together, wo, w1, w2.
+together, wo, w1, w2. A MoE layer has the attention sites only (its experts
+are not adapted), so two launches.
 ``build_model(cfg, device=...)`` runs on ``cuda`` unless asked for ``cpu``
 and raises when CUDA is asked for and absent.
 """
@@ -37,8 +41,9 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.lora.ops import bgmv_add
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_norm, dense, glu_inner_act, is_glu,
-                                       make_dense, make_norm, normal_init)
+from repro_torch.models import moe
+from repro_torch.models.common import (apply_norm, dense, gated, is_glu, make_dense,
+                                       make_norm, normal_init)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -76,12 +81,7 @@ def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
     h = dense(p["w1"], x)
     if lora is not None and "w1" in lora:
         h, = bgmv_add(x, lora_ids, [(lora["w1"]["a"], lora["w1"]["b"], h)])
-    if is_glu(cfg.activation):
-        # u is the FIRST half of w1's output, the gate g the second
-        u, g = torch.chunk(h, 2, dim=-1)
-        h = glu_inner_act(cfg.activation)(g) * u
-    else:
-        h = glu_inner_act(cfg.activation)(h)
+    h = gated(cfg.activation, h)
     y = dense(p["w2"], h)
     if lora is not None and "w2" in lora:
         y, = bgmv_add(h, lora_ids, [(lora["w2"]["a"], lora["w2"]["b"], y)])
@@ -93,14 +93,20 @@ def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
 # ---------------------------------------------------------------------------
 
 def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
+    make_ff = moe.make_moe_params if spec.ff == "moe" else make_mlp_params
     return {"norm1": make_norm(cfg.norm, cfg.d_model, dtype, device),
             "mixer": attn.make_attention_params(gen, cfg, dtype, device),
             "norm2": make_norm(cfg.norm, cfg.d_model, dtype, device),
-            "ff": make_mlp_params(gen, cfg, dtype, device)}
+            "ff": make_ff(gen, cfg, dtype, device)}
 
 
 def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None):
+    """The feed-forward residual. A MoE layer serves at capacity factor 2.0
+    (the reference's serving value: over-provision rather than drop) and
+    takes no LoRA: its adapter sites are the attention projections only."""
     h = apply_norm(cfg.norm, p["norm2"], x)
+    if spec.ff == "moe":
+        return x + moe.moe_apply(p["ff"], cfg, h, capacity_factor=2.0)[0]
     return x + mlp_apply(p["ff"], cfg, h, lora, lora_ids)
 
 
@@ -145,10 +151,10 @@ def _layer_lora(lora):
 
 def paged_decode_supported(cfg: ModelConfig) -> bool:
     """Whether ``decode_paged`` covers this stack: every layer must be plain
-    global attention with a dense MLP."""
+    global attention (its feed-forward an MLP or a MoE)."""
     if cfg.family == "audio":
         return False
-    return all(s.mixer == "attn" and s.attn_kind == "global" and s.ff == "mlp"
+    return all(s.mixer == "attn" and s.attn_kind == "global"
                for p, _ in cfg.stages for s in p)
 
 
@@ -157,11 +163,12 @@ def paged_decode_supported(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 def ported_stack(cfg: ModelConfig) -> bool:
-    """Whether the port builds this stack: attn+mlp layers of the global and
-    sliding-window kinds, no learned positions, no encoder."""
+    """Whether the port builds this stack: attention layers of the global,
+    sliding-window and chunked kinds with an MLP or a MoE feed-forward, no
+    learned positions, no encoder."""
     return (cfg.family != "audio" and not cfg.learned_positions
-            and all(s.mixer == "attn" and s.ff == "mlp"
-                    and s.attn_kind in ("global", "window")
+            and all(s.mixer == "attn" and s.ff in ("mlp", "moe")
+                    and s.attn_kind in ("global", "window", "chunked")
                     for p, _ in cfg.stages for s in p))
 
 
@@ -169,15 +176,20 @@ class Model:
     """Functions over a parameter dict for one config on one device.
 
     ``route_rows`` counts the batch rows ``extend`` sent down each route
-    (``flash_prefill``: fresh rows; ``flash_attention``: continuation
-    rows), once per call, not per layer."""
+    (``flash_prefill``: fresh rows; ``flash_attention``: continuation rows,
+    and fresh rows of a layer where ``attn.fresh_rows_take_kernel`` fails),
+    once per call, not per layer: a row counts under each route it took in
+    any layer, so a fresh row of a llama4 chunk longer than ``chunk_size``
+    (the kernel in the global layers, the plain attention in the chunked
+    ones) counts under both."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if not ported_stack(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense attn+mlp stacks of global "
-                "and sliding-window attention only (ROADMAP queue A.11: other "
-                "model families)")
+                f"{cfg.name}: the port serves attention stacks (global, "
+                "sliding-window or chunked) with an MLP or MoE feed-forward; "
+                "MLA, state mixers (Mamba, xLSTM), encoder-decoder stacks and "
+                "learned positions are not ported yet (ROADMAP queue A.5)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
@@ -260,8 +272,10 @@ class Model:
         garbage the caller ignores. Returns (logits (B, C, V), cache)."""
         C = tokens.shape[1]
         route = attn.extend_route(cache_len, C, cache[0]["k"].shape[1])
-        self.route_rows["flash_prefill"] += len(route.fresh)
-        self.route_rows["flash_attention"] += len(route.cont)
+        kernel = [attn.fresh_rows_take_kernel(self.cfg, s, C) for s in self.specs]
+        nf = len(route.fresh)
+        self.route_rows["flash_prefill"] += nf if any(kernel) else 0
+        self.route_rows["flash_attention"] += len(route.cont) + (0 if all(kernel) else nf)
         x = self.embed_tokens(params, tokens)
         tables, ids = _layer_lora(lora)
         for p, spec, c, lt in zip(params["layers"], self.specs, cache, tables):

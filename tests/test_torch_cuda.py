@@ -1049,3 +1049,68 @@ def test_gathered_extend_row_split_on_card(cuda):
     cache_len = torch.tensor([3, 9, 1, 30], dtype=torch.int32, device="cuda")
     _, launches, rows = run()
     assert launches == 0 and rows["flash_prefill"] == 0
+
+
+# ---------------------------------------------------------------------------
+# llama4: the MoE feed-forward and chunked attention's fresh rows on the card
+# ---------------------------------------------------------------------------
+import dataclasses  # noqa: E402
+
+from repro_torch.models import moe  # noqa: E402
+
+# f32: both compute through the same f32 matmuls in other groupings (no
+# TF32), so summation order only; bf16: each expert row rounds to bf16 after
+# its w1 and its w2 matmul on either side, so a row may sit one bf16 step
+# (2^-8 relative at |y| ~ 1) apart, and the sum adds the shared expert's
+MOE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("T,top_k", [(8, 1), (512, 1), (300, 2), (9000, 1)])
+def test_moe_apply_matches_dense_ref_on_card(cuda, dtype, T, top_k):
+    """The grouped ``moe_apply`` (one matmul per expert over its kept tokens)
+    against the literal dense dispatch at a reduced width (d 512, 8 experts
+    of d_ff 256, a shared expert), the no-drop regime and, at T = 9000, the
+    drop regime at capacity factor 2.0."""
+    cfg = dataclasses.replace(configs.get_config("llama4-scout-17b-a16e"), d_model=512,
+                              num_experts=8, moe_d_ff=256, top_k=top_k)
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    p = moe.make_moe_params(gen, cfg, dtype, cuda)
+    x = torch.randn((1, T, cfg.d_model), generator=gen, device="cuda").to(dtype)
+    y, aux = moe.moe_apply(p, cfg, x, capacity_factor=2.0)
+    want, want_aux = moe.moe_dense_ref(p, cfg, x, capacity_factor=2.0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape and torch.isfinite(y).all()
+    torch.testing.assert_close(y.float(), want.float(), atol=MOE_ATOL[dtype], rtol=0)
+    torch.testing.assert_close(aux, want_aux, atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_chunked_fresh_rows_take_flash_prefill_only_inside_first_chunk(cuda):
+    """llama4 at smoke width (chunk 16, f32) on the card: a fresh batch of
+    C = 16 runs the kernel in both layers; at C = 24 only in the global
+    layer, the chunked one taking the plain attention with the chunk mask.
+    Logits equal those with the plain version in place of the kernel."""
+    model = build_model(configs.smoke_config("llama4-scout-17b-a16e"), device="cuda")
+    params = model.init(0)
+    cfg = model.cfg
+    kernel = fmod.flash_prefill
+    for C, launches_want in ((16, 2), (24, 1)):
+        g = torch.Generator(device="cuda").manual_seed(C)
+        tokens = torch.randint(0, cfg.vocab_size, (2, C), generator=g, device="cuda")
+        cache_len = torch.zeros(2, dtype=torch.int32, device="cuda")
+
+        def run():
+            cache = model.init_cache(2, 48)
+            before = kernel.launches
+            logits = model.extend(params, tokens, cache, cache_len)[0]
+            torch.cuda.synchronize()
+            return logits, kernel.launches - before
+
+        logits, launches = run()
+        assert launches == launches_want, (C, launches)
+        with mock.patch.object(fmod, "flash_prefill", flash_prefill_ref):
+            plain, _ = run()
+        assert torch.isfinite(logits).all()
+        assert (logits - plain).abs().max().item() <= 1e-4

@@ -8,6 +8,7 @@ the shape cases of ``tests/test_kernels_flash.py`` with its tolerances
 (f32 ``atol 1e-5``, bf16 ``3e-2``), plus the causality check. Then the
 port's ``models.attention.flash_attention`` against the reference's
 blockwise ``lax`` version for global and window kinds, per-row positions,
+and the chunked kind's mask,
 ``kv_valid`` and GQA/MQA (``atol 1e-5``: f32 sums in another order).
 Inputs are drawn with numpy from fixed seeds and handed to both.
 """
@@ -136,8 +137,19 @@ def test_flash_attention_row_without_keys_is_zero():
 
 
 def test_pair_mask_refuses_chunked():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tattn.pair_mask(torch.arange(4), torch.arange(4), "chunked")
+    """The chunked kind (llama4), refused until the port served it, masks as
+    JAX's ``pair_mask`` does, per-row positions too; an unknown kind is
+    still refused."""
+    q_pos = np.array([[0, 5, 15, 16, 17, 31], [30, 31, 32, 33, 47, 48]])
+    k_pos = np.arange(50)
+    for chunk in (0, 8, 16):
+        got = tattn.pair_mask(torch.from_numpy(q_pos), torch.from_numpy(k_pos),
+                              "chunked", chunk=chunk)
+        want = jattn.pair_mask(jnp.asarray(q_pos), jnp.asarray(k_pos), "chunked",
+                               chunk=chunk)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="unknown attention kind"):
+        tattn.pair_mask(torch.arange(4), torch.arange(4), "strided")
 
 
 def test_kernel_route_by_dtype_and_head_dim():

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 (and ``chip_smoke.py``) loads neither JAX nor the JAX package ``repro``.
 Checked in a fresh interpreter, where nothing else has imported them; the
-walk must reach the KIVI, LoRA and gathered-backend modules too."""
+walk must reach the KIVI, LoRA, gathered-backend and MoE modules too."""
 import os
 import subprocess
 import sys
@@ -34,6 +34,8 @@ gathered = {"repro_torch.configs.starcoder2_3b", "repro_torch.core.executor.gath
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.flash_attention.ref"}
 assert gathered <= set(mods), gathered - set(mods)
+moe = {"repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.models.moe"}
+assert moe <= set(mods), moe - set(mods)
 """
 
 
