@@ -99,7 +99,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                then starcoder2-3b on the gathered backend (flash_prefill
                launches = 30 x the steps holding a fresh row), then the
                llama4-scout block on it (flash_prefill launches = 4 x the
-               steps holding a fresh row).
+               steps holding a fresh row). Each traced rerun runs a second
+               engine built with ``TelemetryConfig()`` on the same model,
+               writes its Chrome trace under build/ and prints
+               tools/trace_summary.py's decode roofline fraction (live
+               tokens/s against launch/roofline.py's bound on this card);
+  7. disagg  — olmo-1b at full width, two engines on one model: the 8-request
+               traffic through a DisaggregatedServer over fp pages (7a) and
+               KIVI 8-bit pages (7c): 8 migrations and their bytes, no decode
+               chunk on the prefill engine and no chunk longer than 1 on the
+               decode engine, launches = 16 x both engines' paged steps, the
+               migrated blocks byte-equal in the decode engine's device
+               mirror after its next sync; bench_disagg.py's interference
+               traffic colocated and disaggregated (7b: no foreground token
+               from a step holding another sequence's prefill chunk when
+               disaggregated); the f32 model's disaggregated streams equal
+               to a colocated engine's (7d);
+  8. fleet   — a 2-instance ServingFleet on one olmo-1b, LoRA rank 8 x 4
+               adapters over 2 slots, all 8 requests on instance 0:
+               rebalancing migrations and their bytes, an adapter-bound
+               sequence served on its destination with the adapter faulted
+               in, bgmv launches = 4 x 16 x both instances' paged steps; in
+               f32 the streams equal one LoRA engine's that never migrates.
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -126,10 +147,11 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import (BlockManager, EngineConfig, LLMEngine,  # noqa: E402
                               QuantConfig, Request, SamplingParams, SchedulerConfig,
-                              SpeculativeConfig)
+                              SpeculativeConfig, TelemetryConfig, write_chrome_trace)
+from repro_torch.core.disagg import DisaggregatedServer  # noqa: E402
+from repro_torch.core.fleet import ServingFleet  # noqa: E402
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  # noqa: E402
 from repro_torch.core.executor import state as state_mod  # noqa: E402
-from repro_torch.core.telemetry import StepTracer  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_prefill_ref  # noqa: E402
@@ -144,6 +166,7 @@ from repro_torch.kernels.paged_attention import paged_attention_quant as qmod  #
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_chunked_quant_ref, paged_attention_chunked_ref,
     paged_attention_quant_ref, paged_attention_ref)
+from repro_torch.launch.roofline import card_for  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -160,11 +183,6 @@ BGMV_ADD = bgmod.bgmv_add  # holds bgmv's launch count: launches, not sites
 FLASH = fmod.flash_prefill
 SOURCES = [kmod.SOURCE, qmod.SOURCE, kvmod.SOURCE, bgmod.SOURCE, fmod.SOURCE]
 
-# data-sheet HBM bandwidth, non-tensor-core fp32 rate and dense bf16
-# tensor-core rate, by card name (NVIDIA data sheets; the first matching
-# substring wins)
-CARDS = [("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
-         ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12)]
 CASES = [  # B, KV, G, D, P, NB, NP — tests/test_kernels_paged.py:20-26
     (1, 1, 8, 64, 16, 8, 4), (2, 2, 4, 64, 16, 16, 4),
     (3, 4, 1, 32, 8, 16, 8), (2, 2, 5, 128, 32, 8, 2)]
@@ -417,9 +435,7 @@ def phase_device():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     name = torch.cuda.get_device_name(0)
-    card = next((c for c in CARDS if c[0] in name), None)
-    if card is None:
-        raise RuntimeError(f"no data-sheet rates for {name!r}")
+    card = card_for(name)  # launch/roofline.py's data-sheet rates (card[1:4])
     log("[1 device] nvidia-smi --query-gpu=name,power.limit:")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1707,10 +1723,9 @@ def phase_timing_flash(card):
 
 
 def build_olmo():
-    cfg = configs.get_config("olmo-1b")
     t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda")
-    params = model.init(0)
+    model, params = olmo_model("bfloat16")
+    cfg = model.cfg
     torch.cuda.synchronize()
     nparam = sum(x.numel() for x in _leaves(params))
     log(f"[5 model] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
@@ -2058,6 +2073,22 @@ def _leaves(tree):
         yield tree
 
 
+def olmo_model(dtype):
+    """olmo-1b at published width, random weights from seed 0, in ``dtype``."""
+    cfg = configs.get_config("olmo-1b")
+    cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+    model = build_model(cfg, device="cuda")
+    return model, model.init(0)
+
+
+def equal_share(streams, ref):
+    """Tokens of ``streams`` equal to ``ref``'s, over each request's common
+    prefix; and the total."""
+    same = sum(next((i for i, (a, b) in enumerate(zip(g, ref[rid])) if a != b),
+                    len(ref[rid])) for rid, g in streams.items())
+    return same, sum(len(g) for g in streams.values())
+
+
 def serve_engine(kv_quant=None, lora=None, **kw):
     return build_engine(
         "olmo-1b", debug=False, device="cuda", max_model_len=1024,
@@ -2109,27 +2140,49 @@ def run_served(engine, counters, paged=True):
     return metrics, dt, launches
 
 
-def traced_rerun(engine, rng, adapters=(None,)):
-    """The same traffic again (fresh prompts), traced: host-clock spans per
-    engine layer (``tail_upload`` and ``writeback`` run inside ``dispatch``,
+def traced_rerun(engine, rng, adapters=(None,), *, label):
+    """The same traffic again (fresh prompts) on a second engine over the
+    same model, weights, adapters and settings, built with
+    ``TelemetryConfig()``: host-clock spans per engine layer
+    (``tail_upload`` and ``writeback`` run inside ``dispatch``,
     ``lora_fault`` before it); the untraced run gives the end-to-end
-    numbers."""
-    tracer = StepTracer()
-    engine.set_tracer(tracer)
-    add_traffic(engine, rng, "t", adapters)
-    steps0, t0 = engine.steps, time.perf_counter()
-    traced = engine.run()[8:]
+    numbers. The Chrome trace goes to ``build/chip_smoke_trace_<label>.json``
+    and ``tools/trace_summary.py`` reads it back (exit 0 or the phase
+    fails); its decode roofline line is printed: live tokens/s of the paged
+    decode dispatches against ``launch/roofline.py``'s bound on this card."""
+    traced = LLMEngine(engine.model, engine.params,
+                       dataclasses.replace(engine.cfg, telemetry=TelemetryConfig()))
+    if engine.adapters is not None:
+        reg = engine.adapters.registry
+        for aid in reg.ids():
+            traced.register_adapter(aid, reg.get(aid))
+    add_traffic(traced, rng, "t", adapters)
+    t0 = time.perf_counter()
+    metrics = traced.run()
+    torch.cuda.synchronize()
     dt_traced = time.perf_counter() - t0
     spans = {}
-    for e in tracer.events:
-        if e.dur is not None:
+    for e in traced.trace.events:
+        if e.dur is not None and not e.track.startswith("batch.row"):
             key = e.name if e.name != "dispatch" else f"dispatch[{e.args['phase']}]"
             n_, us = spans.get(key, (0, 0.0))
             spans[key] = (n_ + 1, us + e.dur)
-    log(f"  traced rerun: {sum(m.num_generated for m in traced)} generated tokens in "
-        f"{dt_traced:.2f} s over {engine.steps - steps0} steps; host-clock spans: "
+    log(f"  traced rerun: {sum(m.num_generated for m in metrics)} generated tokens in "
+        f"{dt_traced:.2f} s over {traced.steps} steps; host-clock spans: "
         + ", ".join(f"{k} {n_}x {us / 1e3:.0f} ms"
                     for k, (n_, us) in sorted(spans.items(), key=lambda kv: -kv[1][1])))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = write_chrome_trace(
+        os.path.join(ROOT, "build", f"chip_smoke_trace_{label}.json"), traced.trace,
+        metadata={"arch": engine.model.cfg.name, "backend": engine.cfg.execution_backend,
+                  "device": torch.cuda.get_device_name(engine.device)})
+    summary = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "trace_summary.py"),
+                              path], capture_output=True, text=True, check=True,
+                             timeout=300).stdout
+    roof = next(line for line in summary.splitlines() if line.startswith("decode roofline"))
+    log(f"  trace {os.path.relpath(path, ROOT)} ({len(traced.trace.events)} events), "
+        f"tools/trace_summary.py exit 0: {roof}")
+    del traced
     return spans
 
 
@@ -2158,7 +2211,7 @@ def phase_serve():
         f"({engine.paged_steps} paged), {launches} kernel launches "
         f"(= {cfg.num_layers} x steps), host_copy_bytes 0")
     streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
-    traced_rerun(engine, rng)
+    traced_rerun(engine, rng, label="fp")
     return counts, gen / dt, ttft, streams
 
 
@@ -2218,7 +2271,7 @@ def phase_serve_quant():
         f"B per block vs {store.kv_fp16_bytes_per_block()} B as fp16 pages = "
         f"{ratio:.3f}x capacity")
     streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
-    spans = traced_rerun(engine, rng)
+    spans = traced_rerun(engine, rng, label="kivi8")
     n_wb, wb_us = spans.get("writeback", (0, 0.0))
     log(f"  KIVI traced rerun: writeback span {n_wb}x {wb_us / 1e3:.1f} ms (the page "
         "writes to host staging and the packs' round trips)")
@@ -2263,7 +2316,7 @@ def phase_serve_lora(fp_rate, fp_ttft):
         f"rented (= {store.pages_per_adapter} x {len(store.loaded)} resident); "
         f"preemptions {snap['engine.preemptions']}, host_copy_bytes 0")
     streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
-    traced_rerun(engine, rng, adapters=names + [None])
+    traced_rerun(engine, rng, adapters=names + [None], label="lora")
     return counts, streams
 
 
@@ -2312,9 +2365,7 @@ def phase_serve_spec(label, ref_streams, fp_rate, *, kv_quant=None, lora=None,
     gen = sum(m.num_generated for m in metrics)
     shares = []
     for ref_label, streams in ref_streams.items():
-        same = sum(next((i for i, (a, b) in enumerate(zip(s.generated, streams[rid]))
-                         if a != b), len(streams[rid]))
-                   for rid, s in engine.seqs.items())
+        same, _ = equal_share({rid: s.generated for rid, s in engine.seqs.items()}, streams)
         shares.append(f"{ref_label}'s {same} of {gen} ({same / gen:.1%})")
     ttft = statistics.median(m.ttft for m in metrics)
     extra = (f", disabled at step {st.disabled_at_step}"
@@ -2333,7 +2384,7 @@ def phase_serve_spec(label, ref_streams, fp_rate, *, kv_quant=None, lora=None,
                                   for name, n in want.items()) + quant
         + f"; preemptions {snap['engine.preemptions']}, host_copy_bytes 0")
     if traced:
-        traced_rerun(engine, rng, adapters=adapters)
+        traced_rerun(engine, rng, adapters=adapters, label="spec_fp")
     return counts
 
 
@@ -2347,10 +2398,8 @@ def phase_serve_spec_lora_f32():
     from the LoRA catch-up, or a row given another row's adapter, would show
     here as low acceptance or parted streams."""
     lora = LoRAConfig(rank=8, alpha=16.0, max_loaded_adapters=2)
-    cfg = dataclasses.replace(configs.get_config("olmo-1b"), dtype="float32",
-                              param_dtype="float32")
-    model = build_model(cfg, device="cuda")
-    params = model.init(0)
+    model, params = olmo_model("float32")
+    cfg = model.cfg
     names = [f"a{j}" for j in range(4)]
     out = {}
     for spec in (None, SpeculativeConfig(num_draft_tokens=SPEC_K)):
@@ -2366,8 +2415,8 @@ def phase_serve_spec_lora_f32():
     (plain, pm, pdt), (engine, metrics, dt) = out[False], out[True]
     st, snap = engine.spec_stats, engine.metrics_snapshot()
     gen = sum(m.num_generated for m in metrics)
-    same = sum(next((i for i, (a, b) in enumerate(zip(s.generated, plain.seqs[rid].generated))
-                     if a != b), len(s.generated)) for rid, s in engine.seqs.items())
+    same, _ = equal_share({rid: s.generated for rid, s in engine.seqs.items()},
+                          {rid: s.generated for rid, s in plain.seqs.items()})
     log(f"[6 serve] {cfg.name} full width f32, LoRA rank {lora.rank} x 4 adapters over "
         f"{lora.max_loaded_adapters} slots: plain {gen / pdt:.1f} generated tok/s; "
         f"speculative k={SPEC_K}, self-speculation {gen / dt:.1f} tok/s, {st.steps} "
@@ -2380,6 +2429,376 @@ def phase_serve_spec_lora_f32():
     assert st.steps > 0 and st.acceptance_rate >= 0.9, st
     assert same >= 0.9 * gen, (same, gen)
     del plain, engine, model, params
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: KV migration — disaggregated prefill/decode and the fleet
+# ---------------------------------------------------------------------------
+def migration_cfg(**kw):
+    """``serve_engine``'s settings with the prefix cache off, for engines
+    that share one model."""
+    return EngineConfig(block_size=16, num_blocks=640, max_model_len=1024, device="cuda",
+                        enable_prefix_cache=False, scheduler=SchedulerConfig(
+                            max_batch_slots=8, max_batched_tokens=256, prefill_chunk=64),
+                        **kw)
+
+
+def mirror_block(runner, block):
+    """One block of the paged runner's device mirror in ``block_payload``'s
+    order: each leaf's fp page, or its KIVI (codes, scale, zero)."""
+    out = []
+    for layer, name, idx in runner.store.attn_kv_leaves():
+        dev = runner._pages[layer][name]
+        if idx in runner.store.qplanes:
+            out.append(tuple(dev[k][:, block].cpu() for k in ("codes", "scale", "zero")))
+        else:
+            out.append(dev[:, block].cpu())
+    return out
+
+
+def payload_nbytes(payload):
+    """A migration payload's page bytes: fp pages, or KIVI codes, planes and
+    the staging page of a block still filling (not the packed flag)."""
+    return sum(t.numel() * t.element_size() for page in payload["blocks"]
+               for leaf in page if not isinstance(leaf, bool)
+               for t in (leaf if isinstance(leaf, tuple) else (leaf,)))
+
+
+class MigrationProbe:
+    """Instruments the engines of a ``DisaggregatedServer`` or a
+    ``ServingFleet`` through instance attributes over their methods: each
+    ``export_seq`` + ``import_seq`` pair's host time, each payload's blocks
+    and bytes and the destination's ``last_import_bytes``, the plan of every
+    engine step; at each destination's next mirror sync, the imported
+    blocks in its device mirror are held byte for byte against the payload
+    (``check_s``: the seconds that check takes, to be taken out of the
+    serve's time), and a migrated adapter-bound sequence scheduled in that
+    step is confirmed when its adapter is loaded there."""
+
+    def __init__(self, engines):
+        self.host_s, self.blocks, self.payload_bytes, self.import_bytes = [], [], [], []
+        self.filling = []  # KIVI blocks still filling per payload (staging shipped)
+        self.plans = {id(e): [] for e in engines}
+        self.adapter_confirmed = []  # (engine, request id, adapter id)
+        self.checked_blocks, self.check_s = 0, 0.0
+        self._t_export = 0.0
+        for eng in engines:
+            self._wrap(eng)
+
+    def _wrap(self, eng):
+        export, import_ = eng.export_seq, eng.import_seq
+        plan, sync = eng.scheduler.plan, eng.paged_runner.sync
+        pending, bound = [], {}  # (rid, table, blocks) to check; rid -> adapter
+
+        def export_seq(rid):
+            self._t_export = time.perf_counter()
+            pending[:] = [p for p in pending if p[0] != rid]
+            bound.pop(rid, None)
+            return export(rid)
+
+        def import_seq(payload):
+            seq = import_(payload)
+            self.host_s.append(time.perf_counter() - self._t_export)
+            self.blocks.append(len(payload["blocks"]))
+            self.payload_bytes.append(payload_nbytes(payload))
+            self.filling.append(sum(isinstance(page[-1], bool) and not page[-1]
+                                    for page in payload["blocks"]))
+            self.import_bytes.append(eng.last_import_bytes)
+            pending.append((seq.request_id, list(seq.block_table), payload["blocks"]))
+            if seq.request.adapter_id is not None:
+                bound[seq.request_id] = seq.request.adapter_id
+            return seq
+
+        def recorded_plan(now=0.0):
+            p = plan(now)
+            self.plans[id(eng)].append(p)
+            return p
+
+        def checked_sync():
+            sync()
+            for rid, aid in list(bound.items()):
+                if rid in (eng._step_inflight or ()) and eng.adapters.is_loaded(aid):
+                    self.adapter_confirmed.append((eng, rid, aid))
+                    del bound[rid]
+            if not pending:
+                return
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _, table, blocks in pending:
+                for b, page in zip(table, blocks):
+                    for got, want in zip(mirror_block(eng.paged_runner, b), page):
+                        got = got if isinstance(got, tuple) else (got,)
+                        want = want[:3] if isinstance(want, tuple) else (want,)
+                        assert all(g.dtype == w.dtype and torch.equal(g, w)
+                                   for g, w in zip(got, want)), (b, table)
+                    self.checked_blocks += 1
+            pending.clear()
+            self.check_s += time.perf_counter() - t0
+
+        eng.export_seq, eng.import_seq = export_seq, import_seq
+        eng.scheduler.plan, eng.paged_runner.sync = recorded_plan, checked_sync
+
+
+def run_migrating(server, counters):
+    """Serve the queued traffic through a ``DisaggregatedServer`` or a
+    ``ServingFleet`` with every kernel count set to 0 just before; returns
+    (metrics, seconds, launches by kernel). Every request finishes with 32
+    in-vocabulary tokens; no engine stages a window."""
+    for k in counters.values():
+        k.launches = 0  # the main path's count starts here
+    t0 = time.perf_counter()
+    metrics = server.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    engines = getattr(server, "engines", None) or (server.prefill_engine,
+                                                    server.decode_engine)
+    vocab = engines[0].model.cfg.vocab_size
+    assert len(metrics) == 8 and all(m.num_generated == 32 for m in metrics), \
+        [m.num_generated for m in metrics]
+    assert all(0 <= tok < vocab for s in server.seqs.values() for tok in s.generated)
+    for eng in engines:
+        assert eng.host_copy_bytes == 0 and eng.paged_steps == eng.steps, eng.steps
+    return metrics, dt, launches
+
+
+def phase_disagg(model, params, ref_label, ref_streams, kv_quant=None, fp_bytes=None):
+    """Phase 7a (fp pages) / 7c (``kv_quant``: KIVI pages): phase 6's
+    8-request traffic through a ``DisaggregatedServer`` whose two engines
+    share ``model``. Holds: 8 migrations, whose bytes are the payloads'
+    (fp: blocks x ``kv_bytes_per_block``); the prefill engine planned no
+    decode chunk and the decode engine no chunk longer than one token; each
+    attention kernel's launches = layers x both engines' paged steps (KIVI:
+    one pack launch per pack call); every migrated block in the decode
+    engine's device mirror byte-equal to its payload after the next sync."""
+    srv = DisaggregatedServer(model, params, prefill_cfg=migration_cfg(kv_quant=kv_quant),
+                              decode_cfg=migration_cfg(kv_quant=kv_quant))
+    pre, dec = srv.prefill_engine, srv.decode_engine
+    cfg, L = model.cfg, model.cfg.num_layers
+    probe = MigrationProbe((pre, dec))
+    add_traffic(pre, np.random.default_rng(7), "r")  # srv.add_request is pre's
+    packs = []
+    pack_op = state_mod.quantize_kv_pages
+
+    def recorded_pack(x, **kw):
+        packs.append(x.shape[0])
+        return pack_op(x, **kw)
+    with mock.patch.object(state_mod, "quantize_kv_pages", recorded_pack):
+        metrics, dt, counts = run_migrating(srv, COUNTERS)
+    dt -= probe.check_s
+    st = srv.stats
+    assert st.migrated == len(probe.blocks) == 8, (st, len(probe.blocks))
+    assert st.transfer_bytes == sum(probe.import_bytes) == sum(probe.payload_bytes), st
+    if kv_quant is None:
+        assert st.transfer_bytes == sum(probe.blocks) * dec.store.kv_bytes_per_block(), st
+    assert probe.checked_blocks == sum(probe.blocks), (probe.checked_blocks, probe.blocks)
+    assert not any(p.decode for p in probe.plans[id(pre)])
+    assert all(c.length == 1 for p in probe.plans[id(dec)] for c in p.chunks)
+    assert not pre.seqs and len(dec.finished) == 8
+    steps = pre.paged_steps + dec.paged_steps
+    kernel = "paged_attention" if kv_quant is None else "paged_attention_quant"
+    assert counts[kernel] == L * steps, (counts, pre.paged_steps, dec.paged_steps)
+    assert counts["quantize_pages"] == len(packs) and (kv_quant is None) == (not packs), \
+        (counts, len(packs))
+    assert all(n == 0 for k, n in counts.items()
+               if k not in (kernel, "quantize_pages")), counts
+    gen = sum(m.num_generated for m in metrics)
+    ttft = statistics.median(m.ttft for m in metrics)
+    gaps = [b - a for m in metrics for a, b in zip(m.token_times[1:], m.token_times[2:])]
+    streams = {rid: list(s.generated) for rid, s in srv.seqs.items()}
+    same, total = equal_share(streams, ref_streams)
+    kind = "fp pages" if kv_quant is None else f"KIVI {kv_quant.bits}-bit pages"
+    log(f"[{'7a' if kv_quant is None else '7c'} disagg] {cfg.name} full width, {kind}, "
+        f"prefill + decode engine on one model: 8 requests, {gen} generated tokens in "
+        f"{dt:.2f} s = {gen / dt:.1f} generated tok/s (mirror checks of "
+        f"{probe.check_s:.2f} s taken out), TTFT p50 {ttft * 1e3:.0f} ms; decode engine "
+        f"inter-token gap p50 {statistics.median(gaps) * 1e3:.1f} ms, max "
+        f"{max(gaps) * 1e3:.1f} ms; {st.migrated} migrations, {sum(probe.blocks)} blocks, "
+        f"transfer_bytes {st.transfer_bytes}"
+        + (f" (codes, planes and the staging of {sum(probe.filling)} blocks still "
+           f"filling; {st.transfer_bytes / fp_bytes:.3f} of 7a's {fp_bytes})" if fp_bytes
+           else f" (= {sum(probe.blocks)} x {dec.store.kv_bytes_per_block()} B)")
+        + f"; export_seq + import_seq host time median "
+        f"{statistics.median(probe.host_s) * 1e3:.1f} ms, max {max(probe.host_s) * 1e3:.1f} "
+        f"ms; {probe.checked_blocks} migrated blocks byte-equal in the decode engine's "
+        f"device mirror; steps: prefill engine {pre.steps} (no decode chunk), decode "
+        f"engine {dec.steps} (chunks of 1); launches: {kernel} {counts[kernel]} (= {L} x "
+        f"{steps}), quantize_pages {counts['quantize_pages']}; tokens equal to "
+        f"{ref_label}'s streams (common prefixes) {same} of {total} ({same / total:.1%})")
+    return st.transfer_bytes
+
+
+def phase_interference(model, params):
+    """Phase 7b: ``benchmarks/bench_disagg.py``'s traffic at full width — one
+    foreground request (8-token prompt, 64 greedy tokens) and, once it has
+    10 tokens, 4 background prompts of 512 random tokens with 2 new tokens
+    each — through a colocated engine and a ``DisaggregatedServer``. The
+    device is synchronized before each clock read. Gated: foreground
+    tokens emitted by an engine step whose plan also held another
+    sequence's prefill chunk, 0 disaggregated and above 0 colocated; the
+    foreground's decode gaps are printed."""
+    vocab = model.cfg.vocab_size
+    out = {}
+    for label in ("colocated", "disaggregated"):
+        rng = np.random.default_rng(5)
+        if label == "colocated":
+            target = LLMEngine(model, params, migration_cfg())
+            engines, has_work = (target,), target.scheduler.has_work
+        else:
+            target = DisaggregatedServer(model, params, prefill_cfg=migration_cfg(),
+                                         decode_cfg=migration_cfg())
+            engines, has_work = (target.prefill_engine, target.decode_engine), target.has_work
+        mixed = [0]
+        for eng in engines:
+            plans = []
+            plan, step = eng.scheduler.plan, eng.step
+
+            def recorded_plan(now=0.0, plan=plan, plans=plans):
+                plans.append(plan(now))
+                return plans[-1]
+
+            def counted_step(eng=eng, step=step, plans=plans):
+                fg = eng.seqs.get("fg")
+                before = len(fg.generated) if fg is not None else 0
+                plans.clear()
+                n = step()
+                if fg is not None and len(fg.generated) > before and any(
+                        c.seq.request_id != "fg" for p in plans for c in p.prefill):
+                    mixed[0] += len(fg.generated) - before
+                return n
+            eng.scheduler.plan, eng.step = recorded_plan, counted_step
+        target.add_request(Request(request_id="fg", prompt=[3] * 8, sampling=SamplingParams(
+            temperature=0.0, max_new_tokens=64)))
+        gaps, tprev, added = [], None, False
+        while has_work():
+            fg = target.seqs["fg"]
+            before = len(fg.generated)
+            if before >= 10 and not added:
+                for i in range(4):
+                    target.add_request(Request(
+                        request_id=f"bg{i}",
+                        prompt=[int(x) for x in rng.integers(2, vocab, 512)],
+                        sampling=SamplingParams(temperature=0.0, max_new_tokens=2)))
+                added = True
+            target.step()
+            if len(target.seqs["fg"].generated) > before:
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                if tprev is not None:
+                    gaps.append(now - tprev)
+                tprev = now
+        seqs = target.seqs
+        assert len(seqs["fg"].generated) == 64 and added
+        assert all(len(seqs[f"bg{i}"].generated) == 2 for i in range(4))
+        out[label] = (max(gaps[1:]), statistics.median(gaps), mixed[0])
+        del target, engines
+    assert out["disaggregated"][2] == 0 < out["colocated"][2], out
+    log(f"[7b interference] {model.cfg.name} full width, bench_disagg's traffic (fg: 8-token "
+        f"prompt, 64 greedy tokens; at its 10th token 4 prompts of 512 with 2 new tokens "
+        f"each): foreground decode gap max / p50: colocated "
+        f"{out['colocated'][0] * 1e3:.1f} / {out['colocated'][1] * 1e3:.1f} ms, "
+        f"disaggregated {out['disaggregated'][0] * 1e3:.1f} / "
+        f"{out['disaggregated'][1] * 1e3:.1f} ms "
+        f"({out['disaggregated'][0] / out['colocated'][0]:.2f}x); "
+        f"foreground tokens emitted by a step whose plan held another sequence's prefill "
+        f"chunk: colocated {out['colocated'][2]}, disaggregated {out['disaggregated'][2]}")
+
+
+def phase_disagg_f32(model, params):
+    """Phase 7d: 7a's traffic with an f32 olmo-1b through the
+    ``DisaggregatedServer`` and through one colocated engine: in f32 the
+    greedy streams must be equal."""
+    srv = DisaggregatedServer(model, params, prefill_cfg=migration_cfg(),
+                              decode_cfg=migration_cfg())
+    add_traffic(srv.prefill_engine, np.random.default_rng(7), "r")
+    metrics, dt, _ = run_migrating(srv, COUNTERS)
+    colo = LLMEngine(model, params, migration_cfg())
+    add_traffic(colo, np.random.default_rng(7), "r")
+    cmetrics, cdt, _ = run_served(colo, COUNTERS)
+    streams = {rid: list(s.generated) for rid, s in srv.seqs.items()}
+    ref = {rid: list(s.generated) for rid, s in colo.seqs.items()}
+    same, total = equal_share(streams, ref)
+    log(f"[7d disagg f32] {model.cfg.name} full width f32: disaggregated "
+        f"{total / dt:.1f} generated tok/s ({srv.stats.migrated} migrations, "
+        f"{srv.stats.transfer_bytes} B), colocated {total / cdt:.1f} tok/s; tokens equal "
+        f"{same} of {total}")
+    assert srv.stats.migrated == 8 and streams == ref, (same, total)
+
+
+def phase_fleet(model, params, f32=False, ref_streams=None):
+    """Phase 8: a ``ServingFleet`` of 2 instances on one model, LoRA rank 8
+    with 4 adapters registered fleet-wide over 2 slots an instance, the 8
+    requests naming a0-a3 and none, all added to instance 0, rebalanced at
+    a 0.05 load gap. Holds: at least one migration; ``migrated_bytes`` =
+    the destinations' ``last_import_bytes`` summed; a migrated adapter-bound
+    sequence served on its destination with the adapter loaded there (that
+    store missed at least once); bgmv launches = 4 x layers x both
+    instances' paged steps; migrated blocks byte-equal in the destination's
+    device mirror. ``f32`` (the f32 twin): the streams must also equal
+    those of one LoRA engine on the same model that is not migrated."""
+    cfg, L = model.cfg, model.cfg.num_layers
+    lora = LoRAConfig(rank=8, alpha=16.0, max_loaded_adapters=2)
+    fleet = ServingFleet(model, params, instances=2, engine_cfg=migration_cfg(lora=lora),
+                         rebalance_threshold=0.05)
+    names = [f"a{j}" for j in range(4)]
+    adapters = {name: make_adapter(cfg, lora, seed=j + 1) for j, name in enumerate(names)}
+    for name, w in adapters.items():
+        fleet.register_adapter(name, w)
+    probe = MigrationProbe(fleet.engines)
+    add_traffic(fleet.engines[0], np.random.default_rng(7), "r", adapters=names + [None])
+    moves = []  # (load gap before, after, migrations) of each rebalance that moved
+    rebalance = fleet.rebalance
+
+    def recorded_rebalance():
+        before = fleet.load_gap()
+        moved = rebalance()
+        if moved:
+            moves.append((before, fleet.load_gap(), moved))
+        return moved
+    fleet.rebalance = recorded_rebalance
+    metrics, dt, counts = run_migrating(fleet, COUNTERS)
+    dt -= probe.check_s
+    st = fleet.stats
+    steps = sum(e.paged_steps for e in fleet.engines)
+    assert st.migrations >= 1 and st.migrations == len(probe.import_bytes), st
+    assert st.migrated_bytes == sum(probe.import_bytes) == sum(probe.payload_bytes), st
+    assert probe.checked_blocks == sum(probe.blocks)
+    assert probe.adapter_confirmed and all(e.adapters.stats.misses >= 1
+                                           for e, _, _ in probe.adapter_confirmed), \
+        probe.adapter_confirmed
+    assert counts["bgmv"] == 4 * L * steps and counts["paged_attention"] == L * steps, \
+        (counts, steps)
+    assert all(n == 0 for k, n in counts.items() if k not in ("bgmv", "paged_attention")), \
+        counts
+    gen = sum(m.num_generated for m in metrics)
+    streams = {rid: list(s.generated) for rid, s in fleet.seqs.items()}
+    label = f"[8 fleet{' f32' if f32 else ''}]"
+    eng_dst = probe.adapter_confirmed[0][0]
+    log(f"{label} {cfg.name} full width{' f32' if f32 else ''}, 2 instances on one model, "
+        f"LoRA rank {lora.rank} x 4 adapters over {lora.max_loaded_adapters} slots each, "
+        f"8 requests added to instance 0: {gen} generated tokens in {dt:.2f} s = "
+        f"{gen / dt:.1f} generated tok/s; {st.migrations} migrations over {len(moves)} "
+        f"rebalances, {st.migrated_bytes} B (= the imports' last_import_bytes); load gap "
+        f"before / after each moving rebalance "
+        + ", ".join(f"{b:.3f} / {a:.3f} ({n})" for b, a, n in moves)
+        + f", final {fleet.load_gap():.3f}; migrated adapter-bound sequences served with "
+        f"their adapter loaded on the destination: {len(probe.adapter_confirmed)} "
+        f"(instance {fleet.engines.index(eng_dst)}: lora misses "
+        f"{eng_dst.adapters.stats.misses}); steps by instance "
+        f"{[e.steps for e in fleet.engines]}; launches: bgmv {counts['bgmv']} (= 4 x {L} x "
+        f"{steps}), paged_attention {counts['paged_attention']}; {probe.checked_blocks} "
+        f"migrated blocks byte-equal in the destination's device mirror")
+    if f32:
+        ref = LLMEngine(model, params, migration_cfg(lora=lora))
+        for name, w in adapters.items():
+            ref.register_adapter(name, w)
+        add_traffic(ref, np.random.default_rng(7), "r", adapters=names + [None])
+        run_served(ref, COUNTERS)
+        want = {rid: list(s.generated) for rid, s in ref.seqs.items()}
+        same, total = equal_share(streams, want)
+        log(f"{label} streams equal to one LoRA engine's that is not migrated: "
+            f"{same} of {total}")
+        assert streams == want, (same, total)
 
 
 def phase_serve_starcoder():
@@ -2416,7 +2835,7 @@ def phase_serve_starcoder():
         f"{rows['flash_attention']}; host_copy_bytes {engine.host_copy_bytes} "
         f"({engine.host_copy_bytes / engine.steps / 1e6:.1f} MB per step); "
         f"preemptions {engine.metrics_snapshot()['engine.preemptions']}")
-    traced_rerun(engine, rng)
+    traced_rerun(engine, rng, label="starcoder2_3b")
     return counts
 
 
@@ -2716,7 +3135,7 @@ def phase_serve_llama4():
         f"{rows['flash_attention']}; host_copy_bytes {engine.host_copy_bytes} "
         f"({engine.host_copy_bytes / engine.steps / 1e6:.1f} MB per step); "
         f"preemptions {engine.metrics_snapshot()['engine.preemptions']}")
-    traced_rerun(engine, rng)
+    traced_rerun(engine, rng, label="llama4_scout")
     return counts
 
 
@@ -2767,6 +3186,19 @@ def main() -> None:
         phase_serve_spec(label, refs, fp_rate, **kw)
         torch.cuda.empty_cache()
     phase_serve_spec_lora_f32()
+    torch.cuda.empty_cache()
+    model, params = olmo_model("bfloat16")
+    fp_bytes = phase_disagg(model, params, "the fp serve", fp_streams)
+    phase_interference(model, params)
+    phase_disagg(model, params, "the KIVI serve", q_streams, kv_quant=QuantConfig(bits=8),
+                 fp_bytes=fp_bytes)
+    phase_fleet(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    model, params = olmo_model("float32")
+    phase_disagg_f32(model, params)
+    phase_fleet(model, params, f32=True)
+    del model, params
     torch.cuda.empty_cache()
     phase_model_starcoder()
     sc_counts = phase_serve_starcoder()

@@ -27,4 +27,10 @@ from repro_torch.core.sampling import (SamplingParams,  # noqa: F401
                                        rejection_sample, sample_token,
                                        sampling_probs)
 from repro_torch.core.scheduler import Scheduler, SchedulerConfig, StepPlan  # noqa: F401
-from repro_torch.core.telemetry import MetricsRegistry, StepTracer  # noqa: F401
+from repro_torch.core.telemetry import (  # noqa: F401
+    MetricsRegistry,
+    StepTracer,
+    TelemetryConfig,
+    chrome_trace,
+    write_chrome_trace,
+)

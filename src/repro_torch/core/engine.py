@@ -33,6 +33,11 @@ base model in the same batch: each request names its ``adapter_id``, the
 KV-pool pages, and every step applies each row's deltas through the
 ``bgmv`` kernel. Sampling randomness comes from one
 ``torch.Generator`` seeded from ``EngineConfig.seed``.
+``EngineConfig.telemetry`` turns on the step tracer, whose paged decode
+dispatch spans carry the card's roofline bound (``launch/roofline.py``).
+``export_seq`` / ``import_seq`` move a sequence's tokens and KV pages
+(fp, or KIVI codes, planes and a still-filling page's staging) between
+engines: the primitive of ``core.disagg`` and ``core.fleet``.
 """
 from __future__ import annotations
 
@@ -57,7 +62,8 @@ from repro_torch.core.request import Request, SeqState, SeqStatus
 from repro_torch.core.sampling import (SamplingParams, greedy_token_host,
                                        rejection_sample, sample_token)
 from repro_torch.core.scheduler import ChunkWork, Scheduler, SchedulerConfig
-from repro_torch.core.telemetry import NULL_TRACER, MetricsRegistry
+from repro_torch.core.telemetry import (NULL_TRACER, MetricsRegistry, StepTracer,
+                                        TelemetryConfig)
 from repro_torch.models.model import resolve_device
 
 _QUANT_GATHERED = "ROADMAP queue A.3 (KIVI/GEAR stores on the gathered backend)"
@@ -96,6 +102,9 @@ class EngineConfig:
     kv_quant: Optional[QuantConfig] = None  # KIVI pages at rest
     lora: Optional[LoRAConfig] = None  # multi-tenant LoRA serving
     speculative: Optional[SpeculativeConfig] = None  # draft–verify decode
+    # step tracing + roofline annotation; the metrics registry is on
+    # regardless — None only disables the tracer
+    telemetry: Optional[TelemetryConfig] = None
 
 
 class LLMEngine:
@@ -183,14 +192,22 @@ class LLMEngine:
         self.steps = 0
         self._step_inflight: Optional[set] = None
         self._step_adapters: Optional[set] = None
-        # observability: the registry always exists; ``trace`` is the shared
-        # no-op until a caller installs a StepTracer (``set_tracer``)
-        self.trace = NULL_TRACER
+        # observability: the registry always exists; the tracer is the real
+        # thing only when configured — otherwise the shared NULL_TRACER makes
+        # every span site a no-op
+        tcfg = self.cfg.telemetry
+        self.trace = StepTracer(tcfg.trace_capacity) \
+            if tcfg is not None and tcfg.trace else NULL_TRACER
+        for part in (self.runner, self.paged_runner, self.spec_runner, self.adapters):
+            if part is not None:
+                part.trace = self.trace
         self.metrics = MetricsRegistry()
         self._dispatch_counters = {
             name: self.metrics.counter(f"engine.dispatch.{name}")
             for name in ("gathered", "paged", "speculative")}
         self._preempt_counter = self.metrics.counter("engine.preemptions")
+        self._bound_cache: Dict[Tuple[int, int], float] = {}
+        self.last_import_bytes = 0
         self._register_metrics()
 
     def _register_metrics(self) -> None:
@@ -248,14 +265,6 @@ class LLMEngine:
             reg.gauge("runner.spec.draft_catchup_tokens",
                       lambda: sr.draft_catchup_tokens)
             reg.gauge("runner.spec.draft_resets", lambda: sr.draft_resets)
-
-    def set_tracer(self, tracer) -> None:
-        """Install a tracer on the engine and on every part that records
-        spans (the runners, the adapter store)."""
-        self.trace = self.runner.trace = tracer
-        for part in (self.paged_runner, self.spec_runner, self.adapters):
-            if part is not None:
-                part.trace = tracer
 
     def metrics_snapshot(self) -> Dict[str, float]:
         """Flat name -> value dict over every registered instrument."""
@@ -423,6 +432,7 @@ class LLMEngine:
             with tr.span("dispatch", track="executor",
                          **self._dispatch_args(ready, runner)):
                 logits_np = runner.execute(batch)
+            self._chunk_spans(ready)
             with tr.span("postprocess"):
                 self._postprocess(ready, logits_np)
         else:
@@ -460,10 +470,55 @@ class LLMEngine:
 
     def _dispatch_args(self, chunks: List[ChunkWork],
                        runner: ModelRunner) -> dict:
-        """Span args for one dispatch (tracing-on path only)."""
+        """Span args for one dispatch (tracing-on path only). Decode
+        dispatches on the paged backends carry the analytic
+        ``decode_step_bound`` tokens/s so ``tools/trace_summary.py`` can
+        report the live-vs-roofline fraction."""
         ntok = sum(c.length for c in chunks)
-        return {"backend": runner.name, "batch": len(chunks), "tokens": ntok,
-                "phase": "decode" if ntok == len(chunks) else "prefill"}
+        phase = "decode" if ntok == len(chunks) else "prefill"
+        args = {"backend": runner.name, "batch": len(chunks), "tokens": ntok,
+                "phase": phase}
+        if phase == "decode" and runner is not self.runner:
+            seq_len = max(c.start + c.length for c in chunks)
+            bound = self._decode_bound(len(chunks), seq_len)
+            if bound is not None:
+                args["bound_tokens_per_s"] = bound
+        return args
+
+    def _decode_bound(self, batch: int, seq_len: int) -> Optional[float]:
+        """Cached analytic roofline (``launch/roofline.py``) of one paged
+        decode step on this engine's card — the data-sheet row of the CUDA
+        device's name (an unknown card raises), the SXM H100's on the CPU.
+        seq_len buckets to the next power of two so the cache stays small
+        over a run. The import is lazy: the launch layer loads only when
+        tracing asks for the bound."""
+        tcfg = self.cfg.telemetry
+        if tcfg is None or not tcfg.roofline:
+            return None
+        bucket = max(16, 1 << (max(seq_len, 2) - 1).bit_length())
+        key = (batch, bucket)
+        if key not in self._bound_cache:
+            from repro_torch.launch.roofline import H100_SXM, card_for, decode_step_bound
+            name = torch.cuda.get_device_name(self.device) \
+                if self.device.type == "cuda" else H100_SXM
+            out = decode_step_bound(self.model.cfg, batch=batch, seq_len=bucket,
+                                    card=card_for(name))
+            self._bound_cache[key] = float(out["tokens_per_s"])
+        return self._bound_cache[key]
+
+    def _chunk_spans(self, chunks: List[ChunkWork]) -> None:
+        """Synthesize per-chunk prefill/decode spans under the dispatch
+        just recorded (one track per batch row, seq/adapter ids in args)."""
+        tcfg = self.cfg.telemetry
+        if tcfg is None or not tcfg.chunk_spans or not self.trace.events:
+            return
+        ev = self.trace.events[-1]  # the dispatch span just appended
+        for b, ch in enumerate(chunks):
+            self.trace.record(
+                "decode" if ch.length == 1 else "prefill",
+                f"batch.row{b}", ev.ts, ev.dur, seq=ch.seq.request_id,
+                start=ch.start, len=ch.length,
+                adapter=ch.seq.request.adapter_id)
 
     def _postprocess(self, chunks: List[ChunkWork], logits_np: np.ndarray) -> None:
         """Sampling, prefix-cache publication, accounting, stop conditions."""
@@ -557,10 +612,16 @@ class LLMEngine:
                 batch.lora = lora
             self._dispatch_counters["speculative"].inc()
             if tr.enabled:
-                with tr.span("dispatch", track="executor", k=k,
-                             **self._dispatch_args(group, self.spec_runner)):
+                args = self._dispatch_args(group, self.spec_runner)
+                args["k"] = k
+                # a spec step emits up to k + 1 tokens per row; the per-token
+                # decode bound would misread, so the summary gets acceptance
+                # events instead of a roofline fraction for these spans
+                args.pop("bound_tokens_per_s", None)
+                with tr.span("dispatch", track="executor", **args):
                     d_toks, d_logits, t_logits = self.spec_runner.execute_spec(
                         batch, k, sp, self._gen)
+                self._chunk_spans(group)
             else:
                 d_toks, d_logits, t_logits = self.spec_runner.execute_spec(
                     batch, k, sp, self._gen)
@@ -715,3 +776,63 @@ class LLMEngine:
                 break
             self.step()
         return self.finished
+
+    # ------------------------------------------------------------------
+    # KV migration (disaggregated prefill/decode, survey §IV.B; also the
+    # Llumnix live-migration primitive from §V.A)
+    # ------------------------------------------------------------------
+    def export_seq(self, request_id: str) -> dict:
+        """Extract a sequence's tokens and pages and release it locally.
+        ``"state"`` is always None: the port has no state slots yet."""
+        seq = self.seqs.pop(request_id)
+        if self.spec_runner is not None:
+            self.spec_runner.forget(request_id)
+        payload = {
+            "request": seq.request,
+            "generated": list(seq.generated),
+            "num_computed": seq.num_computed,
+            "prefix_hit_tokens": seq.prefix_hit_tokens,
+            "first_token_time": seq.first_token_time,
+            "token_times": list(seq.token_times),
+            "blocks": [self.store.block_payload(b) for b in seq.block_table],
+            "state": None,
+        }
+        if seq in self.scheduler.running:
+            self.scheduler.running.remove(seq)
+        self._free_seq_memory(seq)
+        if self.trace.enabled:
+            self.trace.event("migrate_out", seq=request_id,
+                             blocks=len(payload["blocks"]))
+        return payload
+
+    def import_seq(self, payload: dict) -> SeqState:
+        """Admit a migrated sequence; the bytes restored are left in
+        ``last_import_bytes``. Restored blocks are dirty, so the paged
+        runner's device mirror uploads them at its next sync."""
+        req = payload["request"]
+        if req.adapter_id is not None and self.adapters is None:
+            raise ValueError(
+                f"migrated request {req.request_id!r} is bound to adapter "
+                f"{req.adapter_id!r} but this engine has no EngineConfig.lora")
+        if payload["state"] is not None:
+            raise NotImplementedError(
+                f"migrated request {req.request_id!r} carries a state slot: "
+                "state mixers are not ported yet (ROADMAP queue A.5.4)")
+        seq = SeqState(request=req, status=SeqStatus.RUNNING,
+                       generated=list(payload["generated"]),
+                       num_computed=payload["num_computed"],
+                       prefix_hit_tokens=payload["prefix_hit_tokens"],
+                       first_token_time=payload["first_token_time"],
+                       token_times=list(payload["token_times"]))
+        nbytes = 0
+        blocks = self.bm.allocate(len(payload["blocks"]))
+        for b, page in zip(blocks, payload["blocks"]):
+            nbytes += self.store.restore_block(b, page)
+        seq.block_table = blocks
+        self.seqs[req.request_id] = seq
+        self.scheduler.running.append(seq)
+        self.last_import_bytes = nbytes
+        if self.trace.enabled:
+            self.trace.event("migrate_in", seq=req.request_id,
+                             bytes=nbytes, blocks=len(blocks))
+        return seq

@@ -16,6 +16,9 @@
         --requests 2 --backend gathered  # olmo-1b on the gathered backend
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --backend speculative --spec-k 3   # draft–verify decode
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 2 --trace-out build/t.json   # then:
+    python tools/trace_summary.py build/t.json
 
 ``--debug`` (the default) serves the reduced smoke config, ``--no-debug``
 the published one. ``--device`` defaults to ``cuda``; there is no CPU
@@ -26,7 +29,9 @@ gathered backend ran, the batch rows of each attention route and, where
 speculation ran, its acceptance rate, tokens per speculative step and
 speculative steps. Any ``--spec-*`` flag turns speculation on under
 ``--backend auto``; without ``--spec-draft-seed`` the target drafts for
-itself.
+itself. ``--trace-out`` turns step tracing on and writes a Chrome
+trace-event JSON (``otherData``: arch, backend, device name) that
+``tools/trace_summary.py`` summarizes, decode roofline fraction included.
 ``build_engine`` is the construction path ``chip_smoke.py`` drives too.
 """
 from __future__ import annotations
@@ -37,10 +42,12 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch import configs
 from repro_torch.core import (EngineConfig, LLMEngine, QuantConfig, Request,
-                              SamplingParams, SchedulerConfig, SpeculativeConfig)
+                              SamplingParams, SchedulerConfig, SpeculativeConfig,
+                              TelemetryConfig, write_chrome_trace)
 from repro_torch.core.lora import LoRAConfig, make_adapter
 from repro_torch.models import build_model
 
@@ -51,14 +58,16 @@ def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
                  lora: Optional[LoRAConfig] = None,
                  speculative: Optional[SpeculativeConfig] = None,
                  draft_seed: Optional[int] = None,
+                 telemetry: Optional[TelemetryConfig] = None,
                  **engine_kw) -> LLMEngine:
     """Model (smoke or published config) + random weights + engine.
     ``kv_quant`` stores KIVI-quantized pages; ``lora`` turns on multi-tenant
     LoRA (adapters are registered by the caller); ``speculative`` turns on
     draft–verify decode, with the same model at weights from ``draft_seed``
     as the draft when one is given (else the config's own draft, or the
-    target itself); ``engine_kw`` overrides the serving defaults below
-    (EngineConfig fields, e.g. ``max_model_len`` or a ``scheduler``)."""
+    target itself); ``telemetry`` turns on step tracing; ``engine_kw``
+    overrides the serving defaults below (EngineConfig fields, e.g.
+    ``max_model_len`` or a ``scheduler``)."""
     cfg = configs.smoke_config(arch) if debug else configs.get_config(arch)
     model = build_model(cfg, device=device)
     params = model.init(seed)
@@ -68,6 +77,7 @@ def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
     kw = dict(block_size=16, num_blocks=512, max_model_len=256,
               execution_backend=backend, device=device, seed=seed,
               kv_quant=kv_quant, lora=lora, speculative=speculative,
+              telemetry=telemetry,
               scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=128,
                                         prefill_chunk=32, policy=policy))
     kw.update(engine_kw)
@@ -105,6 +115,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--adapter-pool-pages", type=int, default=0,
                     help="cap on KV-pool pages the adapter store may rent "
                          "(0 = share the pool freely)")
+    ap.add_argument("--trace-out", default=None,
+                    help="enable step tracing and write a Perfetto-loadable "
+                         "Chrome trace-event JSON here (inspect with "
+                         "tools/trace_summary.py)")
     ap.add_argument("--debug", action=argparse.BooleanOptionalAction,
                     default=True, help="smoke config (--no-debug: published)")
     args = ap.parse_args(argv)
@@ -121,7 +135,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     engine = build_engine(args.arch, debug=args.debug, device=args.device,
                           backend=args.backend, policy=args.policy,
                           kv_quant=kv_quant, lora=lora, speculative=speculative,
-                          draft_seed=args.spec_draft_seed)
+                          draft_seed=args.spec_draft_seed,
+                          telemetry=TelemetryConfig() if args.trace_out else None)
     cfg = engine.model.cfg
     for a in range(args.num_adapters):
         engine.register_adapter(f"a{a}", make_adapter(cfg, lora, seed=a + 1))
@@ -172,6 +187,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"preempts={snap['engine.preemptions']}, "
           f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{routes}{quant}"
           f"{mlora}{spec}")
+    if args.trace_out:
+        device = torch.cuda.get_device_name(engine.device) \
+            if engine.device.type == "cuda" else "cpu"
+        path = write_chrome_trace(args.trace_out, engine.trace, metadata={
+            "arch": args.arch, "backend": args.backend, "device": device})
+        print(f"trace: {len(engine.trace.events)} events -> {path} "
+              f"(summarize with tools/trace_summary.py)")
 
 
 if __name__ == "__main__":

@@ -1114,3 +1114,57 @@ def test_chunked_fresh_rows_take_flash_prefill_only_inside_first_chunk(cuda):
             plain, _ = run()
         assert torch.isfinite(logits).all()
         assert (logits - plain).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# KV migration: imported blocks reach the destination's device mirror
+# ---------------------------------------------------------------------------
+from repro_torch.core import (EngineConfig, LLMEngine, QuantConfig, Request,  # noqa: E402
+                              SamplingParams)
+
+
+def _mirror_block(runner, block):
+    """One block of the paged runner's device mirror, in ``block_payload``'s
+    order: each leaf's fp page, or its (codes, scale, zero)."""
+    out = []
+    for layer, name, idx in runner.store.attn_kv_leaves():
+        dev = runner._pages[layer][name]
+        if idx in runner.store.qplanes:
+            out.append(tuple(dev[k][:, block].cpu() for k in ("codes", "scale", "zero")))
+        else:
+            out.append(dev[:, block].cpu())
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [None, 8])
+def test_migrated_blocks_reach_device_mirror(cuda, bits):
+    """olmo-1b at smoke width on the card: a sequence prefilled on one engine
+    is exported and imported into another; after the destination's next
+    mirror sync, each of its blocks in the device mirror is byte-equal to
+    the payload (fp pages; KIVI codes and planes), and it decodes on."""
+    model = build_model(configs.smoke_config("olmo-1b"), device="cuda")
+    params = model.init(0)
+
+    def engine():
+        return LLMEngine(model, params, EngineConfig(
+            block_size=8, num_blocks=64, max_model_len=128, device="cuda",
+            kv_quant=QuantConfig(bits=bits) if bits else None))
+    src, dst = engine(), engine()
+    dst.add_request(Request(request_id="warm", prompt=list(range(2, 12)),
+                            sampling=SamplingParams(max_new_tokens=2)))
+    dst.run()  # the mirror exists before the import
+    seq = src.add_request(Request(request_id="m", prompt=list(range(3, 40)),
+                                  sampling=SamplingParams(max_new_tokens=6)))
+    while not seq.generated:
+        src.step()
+    payload = src.export_seq("m")
+    moved = dst.import_seq(payload)
+    dst.paged_runner.sync()
+    for b, page in zip(moved.block_table, payload["blocks"]):
+        for got, want in zip(_mirror_block(dst.paged_runner, b), page):
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want[:3] if isinstance(want, tuple) else (want,)):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+    dst.run()
+    assert len(moved.generated) == 6

@@ -286,11 +286,10 @@ def test_olmo_gathered_lora_matches_jax():
 
 
 def test_traced_gathered_serve_records_window_spans():
-    from repro_torch.core.telemetry import StepTracer
+    from repro_torch.core.telemetry import TelemetryConfig
 
-    eng = _torch_engine("starcoder2-3b")
-    tracer = StepTracer()
-    eng.set_tracer(tracer)
+    eng = _torch_engine("starcoder2-3b", telemetry=TelemetryConfig())
+    tracer = eng.trace
     cfg = eng.model.cfg
     rng = np.random.default_rng(3)
     for i in range(2):

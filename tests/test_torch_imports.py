@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing every module of ``repro_torch``
 (and ``chip_smoke.py``) loads neither JAX nor the JAX package ``repro``.
 Checked in a fresh interpreter, where nothing else has imported them; the
-walk must reach the KIVI, LoRA, gathered-backend and MoE modules too."""
+walk must reach the KIVI, LoRA, gathered-backend and MoE modules, and the
+migration (disaggregation, fleet), telemetry config / export and roofline
+modules too."""
 import os
 import subprocess
 import sys
@@ -36,6 +38,10 @@ gathered = {"repro_torch.configs.starcoder2_3b", "repro_torch.core.executor.gath
 assert gathered <= set(mods), gathered - set(mods)
 moe = {"repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.models.moe"}
 assert moe <= set(mods), moe - set(mods)
+migration = {"repro_torch.core.disagg", "repro_torch.core.fleet",
+             "repro_torch.core.telemetry.config", "repro_torch.core.telemetry.export",
+             "repro_torch.launch.roofline"}
+assert migration <= set(mods), migration - set(mods)
 """
 
 

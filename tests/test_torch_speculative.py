@@ -54,7 +54,7 @@ from repro.models import split_params  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.core import (EngineConfig, LLMEngine, QuantConfig, Request,  # noqa: E402
                               SamplingParams, SchedulerConfig, SpeculativeConfig,
-                              StepTracer, rejection_sample, sampling_probs)
+                              TelemetryConfig, rejection_sample, sampling_probs)
 from repro_torch.core.lora import LoRAConfig  # noqa: E402
 from repro_torch.core.prefix_cache import chain_hashes  # noqa: E402
 from repro_torch.core.scheduler import ChunkWork  # noqa: E402
@@ -327,7 +327,7 @@ def _jax_engine(case, backend="speculative"):
                                    prefill_chunk=16)))
 
 
-def _port_engine(case, backend="speculative", seed=0):
+def _port_engine(case, backend="speculative", seed=0, telemetry=None):
     tm, params = _port_model(case.arch)
     spec = None
     if backend == "speculative":
@@ -338,6 +338,7 @@ def _port_engine(case, backend="speculative", seed=0):
                                  min_acceptance=case.min_acceptance, window=case.window)
     return LLMEngine(tm, params, EngineConfig(
         **_engine_kw(case, backend), device="cpu", seed=seed, speculative=spec,
+        telemetry=telemetry,
         kv_quant=QuantConfig(bits=case.bits) if case.bits else None,
         lora=LoRAConfig(**LORA) if case.adapters else None,
         scheduler=SchedulerConfig(max_batch_slots=4, max_batched_tokens=48,
@@ -573,9 +574,8 @@ def test_spec_traced_run_records_spans():
     case = Case("traced", prompts="reference", n=2, max_new=6)
     cfg = tconfigs.smoke_config("olmo-1b")
     prompts, max_new = _prompts(case, cfg)
-    eng = _port_engine(case)
-    tracer = StepTracer()
-    eng.set_tracer(tracer)
+    eng = _port_engine(case, telemetry=TelemetryConfig())
+    tracer = eng.trace
     _serve(eng, case, prompts, max_new, False)
     names = {e.name for e in tracer.events}
     assert {"draft_catchup", "spec_propose", "spec_verify", "spec_accept"} <= names
