@@ -29,7 +29,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                (byte-equal: f32 / bf16 / f16 pages x C 32-256 and 48 x
                axis, f32 and f16 planes, P 4-32, NP 1-4097, .5 ties and
                extreme ranges that reach the division; every unpack
-               instance),
+               instance), the gathered backend's KIVI window at
+               starcoder2-3b's heads (packed and still-filling blocks,
+               dequantized by the unpack kernel: bit-equal to the plain
+               version and to the store's host dequantization),
                the LoRA bgmv (shape cases, ranks 4-64, ragged Din / Dout,
                olmo-1b's three adapter sites; null-slot rows exactly 0;
                the fused q/k/v launch at olmo-1b's, qwen2.5-32b's and
@@ -80,7 +83,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                boundary bit-equal under noise in the earlier chunk;
                moe_apply vs its dense oracle moe_dense_ref in f32, and one
                MoE layer timed at decode (T=8) and prefill (T=512) beside
-               its bytes bound and moe_dense_ref's time;
+               its bytes bound and moe_dense_ref's time; deepseek-v3 at its
+               published width cut to one dense and one MoE MLA layer (256
+               experts top-8 + a shared one), three gathered steps over
+               1024-slot latent windows (fresh B=2 C=256, mixed, decode
+               B=8), finite logits, profiled with the MoE's and the MLA
+               attention's shares; mla_decode vs mla_extend and moe_apply
+               vs moe_dense_ref (T=8) in f32;
   6. serve   — the serving engine (launch/serve.py's build_engine) at full
                width: 8 requests, greedy, kernel launch counts checked;
                then the same traffic with KIVI 8-bit pages (the quantized
@@ -99,7 +108,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                then starcoder2-3b on the gathered backend (flash_prefill
                launches = 30 x the steps holding a fresh row), then the
                llama4-scout block on it (flash_prefill launches = 4 x the
-               steps holding a fresh row). Each traced rerun runs a second
+               steps holding a fresh row), then starcoder2-3b with KIVI
+               8-bit pages on it (dequantize_pages = 2 x steps: the window
+               dequantized on the card; quantize_pages = 2 x the rows
+               whose chunk fills a page; the upload against the fp
+               window; traced rerun), the deepseek block on it (no kernel,
+               every row plain, host_copy_bytes = its formula) and again
+               with kv_quant (the latents' round trip), and the f32 smoke
+               twins (deepseek; starcoder2-3b with KIVI pages): the card's
+               greedy streams equal the CPU's. Each traced rerun runs a second
                engine built with ``TelemetryConfig()`` on the same model,
                writes its Chrome trace under build/ and prints
                tools/trace_summary.py's decode roofline fraction (live
@@ -127,6 +144,7 @@ Prints one ``{"kernels": [...]}`` line, then as the very last line
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -152,6 +170,7 @@ from repro_torch.core.disagg import DisaggregatedServer  # noqa: E402
 from repro_torch.core.fleet import ServingFleet  # noqa: E402
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  # noqa: E402
 from repro_torch.core.executor import state as state_mod  # noqa: E402
+from repro_torch.core.executor.gathered import dequantize_window  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_prefill_ref  # noqa: E402
@@ -170,6 +189,7 @@ from repro_torch.launch.roofline import card_for  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 
 # the kernels' wrappers and their launch counts, held here so that phase
@@ -828,6 +848,56 @@ def phase_kernel_kv_quant():
                             [UNPACK(*packed, out_dtype=dtype)],
                             [dequantize_pages_ref(*packed, out_dtype=dtype)])
     torch.cuda.synchronize()
+
+
+def phase_kernel_gathered_window():
+    """The gathered backend's KIVI window at starcoder2-3b's heads (KV 2, D
+    128, P 16, bf16 staging, 8-bit pages; 4 layers, 8 rows of a 1024-slot
+    table at ragged lengths): the store packs every filled page through
+    the pack kernel, then the window of its packed blocks and of its blocks
+    still filling is dequantized by the unpack kernel
+    (``gathered.dequantize_window`` on the card) and by the same call on
+    the CPU (the plain version): bit-equal, and equal to the store's host
+    dequantization."""
+    log("[3 kernel vs plain version on the card: the gathered KIVI window]")
+    cfg = dataclasses.replace(configs.get_config("starcoder2-3b"),
+                              stages=configs.dense_stages(4, "window"))
+    P, W, B = 16, 1024, 8
+    store = state_mod.PagedModelState(cfg, EngineConfig(
+        block_size=P, num_blocks=B * W // P, max_model_len=W, device="cuda",
+        kv_quant=QuantConfig(bits=8)), "cuda")
+    rng = np.random.default_rng(3)
+    lens = [1024, 1000, 777, 512, 300, 129, 16, 5]
+    tables = np.arange(B * W // P).reshape(B, W // P)
+    blk = np.concatenate([tables[b, np.arange(n) // P] for b, n in enumerate(lens)])
+    off = np.concatenate([np.arange(n) % P for n in lens])
+    idxs = [i for _, _, i in store.attn_kv_leaves()]
+    payloads = [torch.from_numpy(rng.normal(size=(len(blk), cfg.num_kv_heads, cfg.head_dim))
+                                 .astype(np.float32)).to(torch.bfloat16) for _ in idxs]
+    store._quant_write_group(idxs, torch.from_numpy(blk), torch.from_numpy(off), payloads)
+    for b, n in enumerate(lens):  # entries past a row's blocks point at block 0
+        tables[b, -(-n // P):] = 0
+    packed = store.block_quantized[np.unique(tables)]
+    assert packed.any() and not packed.all()
+    parts = store.gather_quantized(tables)
+    up = sum(t.numel() * t.element_size() for name in ("k", "v")
+             for t in parts[name].values())
+    fp = B * W * cfg.num_kv_heads * cfg.head_dim * 2 * len(idxs)
+    before = UNPACK.launches
+    dev = dequantize_window(parts, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    assert UNPACK.launches == before + 2, UNPACK.launches - before
+    plain = dequantize_window(parts, "cpu", torch.bfloat16)
+    host = store.gather(tables)
+    got = [x[n].cpu() for x in dev for n in ("k", "v")]
+    check_equal(f"gathered KIVI window (starcoder2-3b heads, {len(idxs) // 2} layers, B={B}, "
+                f"W={W}, {int(packed.sum())} packed + {int((~packed).sum())} filling "
+                "blocks), unpack kernel (2 launches) vs plain", got,
+                [x[n] for x in plain for n in ("k", "v")])
+    check_equal("the same window vs the store's host dequantization", got,
+                [x[n] for x in host for n in ("k", "v")])
+    log(f"  upload {up} B against the fp window's {fp} B ({up / fp:.1%}): codes and planes "
+        "of each distinct block once, staging only for blocks still filling")
 
 
 # B, C, KV, G, D, P, NB, NP, chunk starts, tail_start (None: starts // P *
@@ -2836,7 +2906,7 @@ def phase_serve_starcoder():
         f"({engine.host_copy_bytes / engine.steps / 1e6:.1f} MB per step); "
         f"preemptions {engine.metrics_snapshot()['engine.preemptions']}")
     traced_rerun(engine, rng, label="starcoder2_3b")
-    return counts
+    return counts, gen / dt, ttft
 
 
 # ---------------------------------------------------------------------------
@@ -3139,6 +3209,298 @@ def phase_serve_llama4():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# quantized stores on the gathered backend; deepseek-v3 (MLA + 256 experts)
+# ---------------------------------------------------------------------------
+def record_chunks(runner):
+    """Wrap ``runner.execute`` so each step's (start, length) of every chunk
+    is appended to the returned list (for the byte and launch formulas)."""
+    steps, execute = [], runner.execute
+
+    def run(batch):
+        steps.append([(c.start, c.length) for c in batch.chunks])
+        return execute(batch)
+    runner.execute = run
+    return steps
+
+
+def phase_serve_starcoder_quant(fp_rate, fp_ttft):
+    """starcoder2-3b at full width with KIVI 8-bit pages on the gathered
+    backend, phase 6's starcoder2-3b traffic and settings. Each step's
+    window is dequantized on the card (``dequantize_pages``: 2 launches a
+    step, one per leaf name) and each row whose chunk fills a page packs
+    (``quantize_pages``: 2 launches per such row, one per grouping axis).
+    Printed: the bytes uploaded against the fp window's (what
+    ``host_copy_bytes`` charges for the gathers), tok/s and TTFT p50 beside
+    the fp serve's; then a traced rerun (gather, window_upload, scatter)."""
+    engine = build_engine(
+        "starcoder2-3b", debug=False, device="cuda", max_model_len=1024,
+        num_blocks=640, block_size=16, kv_quant=QuantConfig(bits=8),
+        scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=1024,
+                                  prefill_chunk=512))
+    cfg, runner, store = engine.model.cfg, engine.runner, engine.store
+    assert engine.paged_runner is None and store.quantized
+    steps = record_chunks(runner)
+    rng = np.random.default_rng(7)
+    add_traffic(engine, rng, "r")
+    metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    gen = sum(m.num_generated for m in metrics)
+    P = engine.cfg.block_size
+    fills = sum((st + ln) // P > st // P for step in steps for st, ln in step)
+    assert counts["dequantize_pages"] == 2 * engine.steps, (counts, engine.steps)
+    assert counts["quantize_pages"] == 2 * fills, (counts, fills)
+    assert counts["flash_prefill"] == cfg.num_layers * runner.prefill_steps > 0, counts
+    assert counts["paged_attention"] == counts["paged_attention_quant"] == counts["bgmv"] == 0
+    fp_window = sum(len(step) for step in steps) * engine.cfg.max_model_len * \
+        cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    ttft = statistics.median(m.ttft for m in metrics)
+    log(f"[6 serve] {cfg.name} full width, KIVI 8-bit pages, gathered backend: "
+        f"{gen} generated tokens in {dt:.2f} s = {gen / dt:.1f} tok/s ({gen / dt / fp_rate:.2f}x "
+        f"the fp serve's {fp_rate:.1f}), TTFT p50 {ttft * 1e3:.0f} ms (fp {fp_ttft * 1e3:.0f} "
+        f"ms), {engine.steps} steps; dequantize_pages {counts['dequantize_pages']} launches "
+        f"(= 2 x {engine.steps} steps), quantize_pages {counts['quantize_pages']} (= 2 x "
+        f"{fills} rows filling a page); window upload {runner.window_upload_bytes} B against "
+        f"the fp window's {fp_window} B ({runner.window_upload_bytes / fp_window:.1%}); "
+        f"host_copy_bytes {engine.host_copy_bytes} (the reference's count: the fp window "
+        f"and the written tokens); pack round trip {store.pack_transfer_bytes} B; "
+        f"{int(store.block_quantized.sum())} blocks packed at the end")
+    traced_rerun(engine, rng, label="starcoder2_3b_kivi")
+    return counts
+
+
+DEEPSEEK = "deepseek-v3-671b"
+# gathered extend steps over 1024-slot windows: label, cache_len and real
+# chunk length per row
+DEEPSEEK_W = 1024
+DEEPSEEK_STEPS = (("fresh B=2 C=256", [0, 0], [256, 256]),
+                  ("mixed B=4 C=256", [0, 700, 0, 1000], [256, 1, 200, 1]),
+                  ("decode B=8 C=1", [100, 250, 380, 512, 640, 777, 900, 1010], [1] * 8))
+# mla_decode (absorbed) vs mla_extend (expanded) in f32: the same function
+# summed in other orders (over the 512-wide latent against the 192-wide
+# expanded head), no TF32; O(1) outputs
+MLA_ATOL_F32 = 1e-4
+
+
+def deepseek_block():
+    """deepseek-v3 at its published width, its depth cut to one dense and
+    one MoE layer (of 3 and 58); the config and the published layer count."""
+    cfg = configs.get_config(DEEPSEEK)
+    return dataclasses.replace(cfg, stages=((cfg.stages[0][0], 1), (cfg.stages[1][0], 1))), \
+        cfg.num_layers
+
+
+def replay_busy(fn_mod, name, step):
+    """Device busy ms of one step's calls of ``fn_mod.<name>``, replayed
+    alone, and their number."""
+    calls, fn = [], getattr(fn_mod, name)
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return fn(*a, **kw)
+    with mock.patch.object(fn_mod, name, record):
+        step()
+    return busy_ms(lambda: [fn(*a, **kw) for a, kw in calls], reps=2), len(calls)
+
+
+def phase_model_deepseek():
+    """deepseek-v3 at its published width (d_model 7168, 128 MLA heads:
+    q_lora_rank 1536, kv_lora_rank 512, qk 128 + 64 rope, v 128; 256 routed
+    experts at top-8, sigmoid + bias routing, + 1 shared; vocab 129280), its
+    depth cut to one dense and one MoE layer, random bf16 weights from seed
+    0. Three gathered ``Model.extend`` steps over 1024-slot latent windows
+    (``DEEPSEEK_STEPS``): finite logits at the real positions, every row on
+    the plain attention (no flash_prefill launch); each profiled, with the
+    MoE's and the MLA attention's shares (their calls replayed alone).
+    Returns (model, params) for phase 6's serves."""
+    cfg, full_layers = deepseek_block()
+    gc.collect()  # earlier phases' engines hold their models in cycles
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    nparam = sum(x.numel() for x in _leaves(params))
+    log(f"[5 model] {cfg.name}: published width (d_model {cfg.d_model}, {cfg.num_heads} "
+        f"MLA heads, q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}, qk "
+        f"{cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim} rope, v {cfg.v_head_dim}; "
+        f"{cfg.num_experts} experts top-{cfg.top_k} + {cfg.num_shared_experts} shared, "
+        f"expert d_ff {cfg.moe_d_ff}, dense d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth "
+        f"cut to {cfg.num_layers} of {full_layers} layers (dense, MoE): {nparam} params, "
+        f"{nparam * 2 / 1e9:.1f} GB bf16, built in {time.perf_counter() - t0:.1f} s; the "
+        f"latent cache {(cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2} B per token per "
+        f"layer against {cfg.num_heads * (cfg.head_dim + cfg.v_head_dim) * 2} B of expanded "
+        "K/V")
+    W, H = DEEPSEEK_W, cfg.num_heads
+    rng = np.random.default_rng(9)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for label, cache_len, lens in DEEPSEEK_STEPS:
+        B, C = len(lens), max(lens)
+        win = model.init_cache(B, W)
+        for layer in win:
+            for x in layer.values():
+                x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+        tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, C)), device="cuda")
+        cl = torch.tensor(cache_len, dtype=torch.int32, device="cuda")
+        real = torch.arange(C, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]
+
+        def step():
+            return model.extend(params, tok, win, cl)[0]
+        before, rows = FLASH.launches, dict(model.route_rows)
+        logits = step().float()
+        torch.cuda.synchronize()
+        assert FLASH.launches == before and model.route_rows["flash_prefill"] == \
+            rows["flash_prefill"], "an MLA row reached flash_prefill"
+        assert logits.shape == (B, C, cfg.vocab_size) and torch.isfinite(logits[real]).all()
+        kv_mb = B * W * H * (cfg.head_dim + cfg.v_head_dim) * 2 / 1e6
+        log(f"  {label}: logits finite at {int(real.sum())} real positions (max |x| "
+            f"{logits[real].abs().max().item():.3g}); expanded K/V {kv_mb:.0f} MB a layer, "
+            f"f32 scores {B * H * C * W * 4 / 1e9:.3f} GB a layer")
+        del logits
+        busy = device_profile(f"{cfg.name} extend {label} bf16", step)
+        for fn_mod, name, what in ((moe_mod, "moe_apply", "MoE"),
+                                   (mla_mod, "mla_extend", "MLA attention")):
+            part, n = replay_busy(fn_mod, name, step)
+            log(f"    {what} ({n} {name} calls of the step replayed alone): {part:.3f} ms "
+                "busy" + (f" = {part * 1e3 / busy:.1%} of the step's busy time" if busy
+                          else ""))
+        del win
+        torch.cuda.empty_cache()
+    return model, params
+
+
+def phase_serve_deepseek(model, params, kv_quant=None, ref=None):
+    """The deepseek block on the gathered backend (its only one), the other
+    serves' traffic: 8 requests, prompts of 128-512 tokens, 32 greedy
+    tokens each, block 16, max_model_len 1024, prefill_chunk 256, 512
+    batched tokens a step. No kernel runs on this path; every row takes the
+    plain attention. ``host_copy_bytes`` is held to its formula: 2 layers x
+    (512 + 64) latent values x 2 bytes, times each step's rows x 1024 window
+    slots plus the tokens it wrote. ``kv_quant``: the latents' quantize-
+    dequantize round trip into fp pages, its streams compared with
+    ``ref``'s (not gated). Returns the streams."""
+    cfg = model.cfg
+    engine = LLMEngine(model, params, EngineConfig(
+        block_size=16, num_blocks=640, max_model_len=1024, device="cuda", seed=0,
+        kv_quant=kv_quant, scheduler=SchedulerConfig(
+            max_batch_slots=8, max_batched_tokens=512, prefill_chunk=256)))
+    runner = engine.runner
+    assert engine.paged_runner is None and not engine.store.quantized
+    steps = record_chunks(runner)
+    add_traffic(engine, np.random.default_rng(7), "r")
+    model.route_rows = dict.fromkeys(model.route_rows, 0)
+    metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    assert all(n == 0 for n in counts.values()), counts
+    rows = dict(model.route_rows)
+    assert rows == {"flash_prefill": 0, "flash_attention": sum(map(len, steps))}, rows
+    per_slot = cfg.num_layers * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
+    want = per_slot * sum(len(s) * engine.cfg.max_model_len + sum(ln for _, ln in s)
+                          for s in steps)
+    assert engine.host_copy_bytes == want, (engine.host_copy_bytes, want)
+    gen = sum(m.num_generated for m in metrics)
+    ttft = statistics.median(m.ttft for m in metrics)
+    streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
+    kind = "fp latents" if kv_quant is None else f"kv_quant {kv_quant.bits}-bit (round trip)"
+    extra = ""
+    if ref is not None:
+        same, total = equal_share(streams, ref)
+        extra = f"; {same} of {total} tokens equal to the fp serve's (not gated)"
+    log(f"[6 serve] {cfg.name} block, {kind}, gathered backend: 8 requests, "
+        f"{sum(m.num_prompt for m in metrics)} prompt + {gen} generated tokens in "
+        f"{dt:.2f} s = {gen / dt:.1f} generated tok/s, TTFT p50 {ttft * 1e3:.0f} ms, "
+        f"{engine.steps} steps ({runner.prefill_steps} with a fresh row); rows by route "
+        f"flash_attention {rows['flash_attention']}, flash_prefill 0; host_copy_bytes "
+        f"{engine.host_copy_bytes} (= formula; {engine.host_copy_bytes / engine.steps / 1e6:.1f} "
+        f"MB a step); preemptions {engine.metrics_snapshot()['engine.preemptions']}{extra}")
+    del engine
+    return streams
+
+
+def phase_deepseek_f32(model, params):
+    """One MLA layer in f32 at published width: ``mla_decode`` (absorbed)
+    against ``mla_extend`` (expanded) at C = 1, B = 8 over 1024-slot
+    windows (MLA_ATOL_F32). Then ``moe_apply`` against ``moe_dense_ref`` at
+    T = 8 in f32 on the MoE layer's own weights, cast in place after every
+    other parameter is freed (the f32 experts are 45.3 GB)."""
+    cfg = dataclasses.replace(model.cfg, dtype="float32", param_dtype="float32")
+    spec = model.specs[0]
+    p32 = _to_f32(params["layers"][0]["mixer"])
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B, W = 8, DEEPSEEK_W
+    cache = {"c_kv": torch.randn(B, W, cfg.kv_lora_rank, generator=g, device="cuda"),
+             "k_pe": torch.randn(B, W, cfg.qk_rope_head_dim, generator=g, device="cuda")}
+    x = torch.randn(B, 1, cfg.d_model, generator=g, device="cuda")
+    cl = torch.tensor([0, 1, 100, 511, 512, 700, 1000, 1023], device="cuda")
+    a = {k: v.clone() for k, v in cache.items()}
+    od, a = mla_mod.mla_decode(p32, cfg, spec, x, a, cl)
+    oe, cache = mla_mod.mla_extend(p32, cfg, spec, x, cache, cl)
+    assert all(torch.equal(a[k], cache[k]) for k in a)
+    check(f"{DEEPSEEK} MLA layer f32 (published width, B={B}, W={W}): mla_decode vs "
+          f"mla_extend at C=1 (outputs max |x| {oe.abs().max().item():.3g})", od, oe,
+          MLA_ATOL_F32)
+    del p32, cache, a, od, oe
+    ff = params["layers"][1]["ff"]
+    params.clear()  # the caller's dict: frees the block but the MoE layer
+    torch.cuda.empty_cache()
+    _to_f32_inplace(ff)
+    torch.cuda.empty_cache()
+    x = torch.randn(8, 1, cfg.d_model, generator=g, device="cuda")
+    touched = int(torch.unique(moe_mod.route(ff, cfg, x.reshape(8, -1))[1]).numel())
+    y, aux = moe_mod.moe_apply(ff, cfg, x, capacity_factor=2.0)
+    want, want_aux = moe_mod.moe_dense_ref(ff, cfg, x, capacity_factor=2.0)
+    check(f"{DEEPSEEK} moe_apply vs moe_dense_ref T=8 (8 rows of 1) f32 (published "
+          f"width, {cfg.num_experts} experts top-{cfg.top_k}, {touched} touched)", y, want,
+          MOE_ATOL_F32)
+    assert abs(aux.item() - want_aux.item()) <= 1e-6
+    del ff, x, y, want
+    torch.cuda.empty_cache()
+
+
+def smoke_serve(arch, params, device, bits=None):
+    """The smoke config of ``arch`` in f32 on ``device`` with the given CPU
+    weights: 4 greedy requests (the ``gpu`` tests' twin). Returns (streams,
+    engine)."""
+    model = build_model(configs.smoke_config(arch), device=device)
+    eng = LLMEngine(model, _to_device(params, device), EngineConfig(
+        block_size=8, num_blocks=128, max_model_len=128, device=device,
+        kv_quant=QuantConfig(bits=bits) if bits else None))
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        eng.add_request(Request(
+            request_id=f"r{i}", prompt=[int(t) for t in rng.integers(
+                2, model.cfg.vocab_size, int(rng.integers(12, 40)))],
+            sampling=SamplingParams(max_new_tokens=12)))
+    eng.run()
+    return {rid: s.generated for rid, s in eng.seqs.items()}, eng
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_smoke_twins():
+    """The f32 smoke twins of tests/test_torch_cuda.py: the same weights
+    served on the CPU (plain versions) and on the card (kernels) give equal
+    greedy streams: deepseek's latents, and starcoder2-3b's KIVI 8-bit pages
+    (pack and unpack kernels, flash_prefill)."""
+    for arch, bits in ((DEEPSEEK, None), ("starcoder2-3b", 8)):
+        params = build_model(configs.smoke_config(arch), device="cpu").init(0)
+        cpu, _ = smoke_serve(arch, params, "cpu", bits)
+        before = UNPACK.launches
+        gpu, eng = smoke_serve(arch, params, "cuda", bits)
+        same, total = equal_share(gpu, cpu)
+        unpacks = UNPACK.launches - before
+        ok = gpu == cpu and unpacks == (2 * eng.steps if bits else 0)
+        log(f"[6 serve] {arch} smoke f32{', KIVI 8-bit pages' if bits else ''}: card vs CPU "
+            f"streams {same} of {total} tokens equal, {eng.steps} steps, unpack {unpacks} "
+            f"launches: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{arch} smoke: the card's streams differ from the CPU's")
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
@@ -3156,6 +3518,7 @@ def main() -> None:
     phase_kernel_quant()
     phase_kernel_verify()
     phase_kernel_kv_quant()
+    phase_kernel_gathered_window()
     phase_kernel_lora()
     phase_kernel_flash()
     timing = {"paged_attention": phase_timing(card), **phase_timing_quant(card),
@@ -3201,16 +3564,28 @@ def main() -> None:
     del model, params
     torch.cuda.empty_cache()
     phase_model_starcoder()
-    sc_counts = phase_serve_starcoder()
+    sc_counts, sc_rate, sc_ttft = phase_serve_starcoder()
+    torch.cuda.empty_cache()
+    scq_counts = phase_serve_starcoder_quant(sc_rate, sc_ttft)
     torch.cuda.empty_cache()
     phase_model_llama4(card)
     torch.cuda.empty_cache()
     phase_serve_llama4()
+    torch.cuda.empty_cache()
+    model, params = phase_model_deepseek()
+    ds_streams = phase_serve_deepseek(model, params)
+    phase_serve_deepseek(model, params, kv_quant=QuantConfig(bits=8), ref=ds_streams)
+    phase_deepseek_f32(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    phase_smoke_twins()
     # each kernel's launches on the path it serves: fp pages for
-    # paged_attention, KIVI pages for the quantized kernels (dequantize_pages
-    # is on no serving path: only tests call it in the reference), the LoRA
-    # serve for bgmv, the gathered starcoder2-3b serve for flash_prefill
+    # paged_attention, KIVI pages for paged_attention_quant and
+    # quantize_pages, the gathered KIVI starcoder2-3b serve for
+    # dequantize_pages (its window), the LoRA serve for bgmv, the gathered
+    # starcoder2-3b serve for flash_prefill
     launches = dict(q_counts, paged_attention=fp_counts["paged_attention"],
+                    dequantize_pages=scq_counts["dequantize_pages"],
                     bgmv=lora_counts["bgmv"], flash_prefill=sc_counts["flash_prefill"])
     sources = {"paged_attention": kmod.SOURCE, "paged_attention_quant": qmod.SOURCE,
                "quantize_pages": kvmod.SOURCE, "dequantize_pages": kvmod.SOURCE,

@@ -1,12 +1,14 @@
 """Architecture config registry of the PyTorch port.
 
 A copy of ``repro.configs`` restricted to the architectures the port serves
-today: attention stacks with a dense MLP or a routed MoE feed-forward.
-olmo-1b, gemma-2b and qwen2.5-32b (global attention, dense MLP) run on the
-paged path; starcoder2-3b (sliding-window attention) and
-llama4-scout-17b-a16e (blocks of three chunked-attention layers and one
-global NoPE layer, every feed-forward 16 routed experts at top-1 plus a
-shared expert) run on the gathered backend only.
+today: attention and multi-head latent attention (MLA) stacks with a dense
+MLP or a routed MoE feed-forward. olmo-1b, gemma-2b and qwen2.5-32b (global
+attention, dense MLP) run on the paged path; starcoder2-3b (sliding-window
+attention), llama4-scout-17b-a16e (blocks of three chunked-attention layers
+and one global NoPE layer, every feed-forward 16 routed experts at top-1
+plus a shared expert) and deepseek-v3-671b (MLA, 3 dense then 58 MoE
+layers of 256 routed experts at top-8 plus a shared expert) run on the
+gathered backend only.
 ``get_config("<arch-id>")`` returns the exact published config;
 ``smoke_config("<arch-id>")`` the reduced variant the CPU tests use (2
 layers, d_model <= 256, f32).
@@ -17,12 +19,13 @@ import dataclasses
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, dense_stages  # noqa: F401
 
-from repro_torch.configs import (gemma_2b, llama4_scout_17b_a16e, olmo_1b,  # noqa: E402
-                                qwen2_5_32b, starcoder2_3b)
+from repro_torch.configs import (deepseek_v3_671b, gemma_2b,  # noqa: E402
+                                llama4_scout_17b_a16e, olmo_1b, qwen2_5_32b,
+                                starcoder2_3b)
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
             for m in (qwen2_5_32b, gemma_2b, olmo_1b, starcoder2_3b,
-                      llama4_scout_17b_a16e)}
+                      llama4_scout_17b_a16e, deepseek_v3_671b)}
 
 ARCHS = tuple(sorted(REGISTRY))
 

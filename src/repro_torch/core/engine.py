@@ -8,7 +8,9 @@ stack the ``PagedRunner`` runs every step (pure decode, prompt chunks,
 mixed SplitFuse steps) straight off block-indexed page stores through
 ``model.decode_paged`` / ``model.extend_paged`` and the CUDA paged-
 attention kernel on the card. Stacks without a paged family (sliding-
-window attention: starcoder2-3b), and any stack under
+window attention: starcoder2-3b; chunked attention: llama4-scout; MLA:
+deepseek-v3), ``kv_quant`` configs the quantized pages cannot hold, and any
+stack under
 ``execution_backend="gathered"``, run on the ``GatheredRunner``: pages
 gathered into dense windows, ``model.extend``, the written slots scattered
 back, every prompt's first chunk through the CUDA ``flash_prefill``
@@ -23,10 +25,13 @@ target forward, ``core.sampling.rejection_sample`` on the device), prompt
 chunks stay on the paged path; greedy output equals plain paged decoding
 for any draft (over KIVI pages up to the reference's own divergence: a
 verify chunk reads the page it has just filled through the fp tail).
-``EngineConfig.kv_quant`` stores KIVI-quantized pages
-(uint8 codes + f16 scale/zero planes) that the quantized CUDA kernel
-reads, on the paged backend only; any other ``QuantConfig``, and KIVI
-pages on the gathered backend, raise. ``EngineConfig.lora`` (global-
+``EngineConfig.kv_quant`` with the KIVI axes and no GEAR residual, on an
+attention K/V store, stores KIVI-quantized pages (uint8 codes + f16
+scale/zero planes) that the quantized CUDA kernel reads on the paged
+backend, and that the gathered backend dequantizes on the device; any other
+``QuantConfig`` (or MLA latents) keeps fp pages, serves on the gathered
+backend and stores each written value's quantize–dequantize round trip, as
+the reference does. ``EngineConfig.lora`` (global-
 attention stacks, either backend) serves many LoRA adapters of the one
 base model in the same batch: each request names its ``adapter_id``, the
 ``PagedAdapterStore`` faults adapters into device tables by renting
@@ -65,9 +70,6 @@ from repro_torch.core.scheduler import ChunkWork, Scheduler, SchedulerConfig
 from repro_torch.core.telemetry import (NULL_TRACER, MetricsRegistry, StepTracer,
                                         TelemetryConfig)
 from repro_torch.models.model import resolve_device
-
-_QUANT_GATHERED = "ROADMAP queue A.3 (KIVI/GEAR stores on the gathered backend)"
-
 
 @dataclasses.dataclass
 class SpeculativeConfig:
@@ -123,15 +125,6 @@ class LLMEngine:
         self.store = PagedModelState(model.cfg, self.cfg, device=self.device)
         self.runner, self.paged_runner = make_runners(model, params, self.cfg,
                                                       self.store)
-        if self.cfg.kv_quant is not None and (self.paged_runner is None
-                                              or not self.store.quantized):
-            # the reference stages quantized windows through the gathered
-            # backend for these; the port does not yet
-            raise NotImplementedError(
-                f"kv_quant={self.cfg.kv_quant} on {model.cfg.name} with "
-                f"execution_backend={backend!r}: only the KIVI axes (keys per "
-                "channel, values per token) without a GEAR residual, on the "
-                f"paged backend, are ported; the rest is {_QUANT_GATHERED}")
         if self.paged_runner is not None:
             # sacrificial page: ragged-chunk padding writes land here —
             # reserved up front so it can never be a member of a real table
@@ -299,7 +292,7 @@ class LLMEngine:
         if req.extras:
             raise NotImplementedError(
                 f"request {req.request_id!r}: modality extras are not ported "
-                "yet (ROADMAP queue A.11)")
+                "yet (ROADMAP queue A.5.5)")
         if req.arrival_time == 0.0:
             req.arrival_time = time.time()
         seq = SeqState(request=req)

@@ -1,24 +1,39 @@
 """GatheredRunner: the gather -> ``model.extend`` -> scatter backend.
 
 The port of ``repro.core.executor.gathered``. Each step gathers the
-scheduled sequences' pages from the host store into dense (B, W, KV, D)
-windows per layer (``PagedModelState.gather``), uploads them to the
-model's device, runs ``model.extend`` over the whole (B, C) batch
-(decodes are chunks of length 1 — SplitFuse unified batching; C is the
-longest chunk, not padded further), then scatters the newly written
-positions back to their pages. Every prompt's first chunk runs its
-attention through the ``flash_prefill`` kernel on the card (fresh rows,
-``models/attention.py::attn_extend``).
+scheduled sequences' pages from the host store into dense (B, W) windows
+per cache leaf (``PagedModelState.gather``), uploads them to the model's
+device, runs ``model.extend`` over the whole (B, C) batch (decodes are
+chunks of length 1 — SplitFuse unified batching; C is the longest chunk,
+not padded further), then scatters the newly written positions back to
+their pages. Every prompt's first chunk runs its attention through the
+``flash_prefill`` kernel on the card (fresh rows of attention layers,
+``models/attention.py::attn_extend``); MLA layers attend plainly.
 
 It is the parity reference of the paged backend and the only backend for
-stacks without a paged family: sliding-window attention (starcoder2-3b).
-All window traffic is charged to ``PagedModelState.host_copy_bytes``.
-Spans (with a tracer installed): ``gather`` (the host-side window copy),
-``window_upload`` (host -> device) and ``scatter`` (the written slots back
-to the host store). ``steps`` counts executed batches, ``prefill_steps``
-those holding at least one fresh row (``cache_len == 0``).
+stacks without a paged family (sliding-window and chunked attention, MLA)
+and for ``kv_quant`` configs the quantized page layout cannot hold (their
+round trip happens in ``scatter``). KIVI-quantized stores reach the model
+through ``dequantize_window``: the distinct blocks' codes, f16 planes and
+the staging pages of blocks still filling are uploaded, then dequantized
+on the device by ``dequantize_kv_pages`` — the CUDA unpack kernel on the
+card, one launch per leaf name ("k", "v"), so 2 launches a step; a
+fp-store step launches none. The scatter's page fills launch the pack
+(``quantize_pages``, one launch per grouping axis per row that fills a
+page; ``PagedModelState._quant_write_group``).
+
+All window traffic is charged to ``PagedModelState.host_copy_bytes`` as the
+reference charges it (the fp window, quantized or not);
+``window_upload_bytes`` counts what really crosses to the device. Spans
+(with a tracer installed): ``gather`` (the host-side copy), ``window_upload``
+(host -> device, and the dequantization of a quantized window) and
+``scatter`` (the written slots back to the host store). ``steps`` counts
+executed batches, ``prefill_steps`` those holding at least one fresh row
+(``cache_len == 0``).
 """
 from __future__ import annotations
+
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -26,6 +41,35 @@ import torch
 from repro_torch.core.executor.base import ExecBatch, ModelRunner, lora_arg
 from repro_torch.core.executor.state import PagedModelState
 from repro_torch.core.telemetry import NULL_TRACER
+from repro_torch.kernels.kv_quant import dequantize_kv_pages
+
+
+def dequantize_window(parts: dict, device, dtype) -> List[Dict[str, torch.Tensor]]:
+    """``PagedModelState.gather_quantized``'s parts -> per-layer {"k", "v"}
+    (B, W, KV, D) windows in ``dtype`` on ``device``: per leaf name, the
+    codes and planes of every layer's distinct blocks go up in one copy
+    each and are dequantized in one ``dequantize_kv_pages`` call, the
+    staging pages of blocks still filling overwrite theirs, and the table
+    (``inv``) spreads the blocks over each row's window. Bit-equal to the
+    host dequantization of ``PagedModelState.gather``."""
+    inv = parts["inv"].to(device)
+    B, nb = inv.shape
+    W = parts["W"]
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in parts["k"]["codes"]]
+    for name in ("k", "v"):
+        p = {k: t.to(device) for k, t in parts[name].items()}
+        L, KV, n, P, D = p["codes"].shape
+        pages = dequantize_kv_pages(
+            p["codes"].reshape(-1, P, D), p["scale"].reshape((-1,) + p["scale"].shape[3:]),
+            p["zero"].reshape((-1,) + p["zero"].shape[3:]), out_dtype=dtype
+        ).reshape(L, KV, n, P, D)
+        if len(parts["open"]):
+            pages[:, :, parts["open"].to(device)] = p["stage"]
+        win = pages[:, :, inv]  # (L, KV, B, nb, P, D)
+        for layer in range(L):
+            out[layer][name] = win[layer].permute(1, 2, 3, 0, 4).reshape(
+                B, nb * P, KV, D)[:, :W]
+    return out
 
 
 class GatheredRunner(ModelRunner):
@@ -41,20 +85,33 @@ class GatheredRunner(ModelRunner):
         self.trace = NULL_TRACER
         self.steps = 0
         self.prefill_steps = 0
+        self.window_upload_bytes = 0
+
+    def _upload(self, tensors) -> None:
+        self.window_upload_bytes += sum(t.numel() * t.element_size() for t in tensors)
 
     def execute(self, batch: ExecBatch) -> np.ndarray:
         chunks = batch.chunks
+        store = self.store
         with self.trace.span("gather", track="executor"):
-            window = self.store.gather(batch.tables)
+            window = store.gather_quantized(batch.tables) if store.quantized \
+                else store.gather(batch.tables)
         with self.trace.span("window_upload", track="executor"):
-            cache = [{n: t.to(self.device) for n, t in layer.items()} for layer in window]
+            if store.quantized:
+                self._upload([window["inv"], window["open"]] + [
+                    t for name in ("k", "v") for t in window[name].values()])
+                cache = dequantize_window(window, self.device, store.dtype)
+            else:
+                self._upload([t for layer in window for t in layer.values()])
+                cache = [{n: t.to(self.device) for n, t in layer.items()}
+                         for layer in window]
         logits, new_cache = self.model.extend(
             self.params, torch.from_numpy(batch.tokens).to(self.device), cache,
             torch.from_numpy(batch.cache_lens).to(self.device),
             lora=lora_arg(batch.lora, device=self.device))
         with self.trace.span("scatter", track="executor"):
-            self.store.scatter(new_cache, batch.tables, [c.start for c in chunks],
-                               [c.length for c in chunks])
+            store.scatter(new_cache, batch.tables, [c.start for c in chunks],
+                          [c.length for c in chunks], quant=self.cfg.kv_quant)
         self.steps += 1
         self.prefill_steps += bool((batch.cache_lens == 0).any())
         return logits.float().cpu().numpy()

@@ -1,10 +1,14 @@
 """Host-authoritative page stores backing the serving engine.
 
-The attention-K/V subset of ``repro.core.executor.state``.
-``PagedModelState`` owns one CPU tensor per (layer, k/v) in the cache dtype
-(numpy has no bfloat16) and in the paged-attention kernel's layout
-(KV, NB, P, D), so a device mirror syncs blocks with one ``index_copy_`` per
-leaf and no transpose. Shapes come from the model config.
+The paged part of ``repro.core.executor.state``. ``PagedModelState`` owns
+one CPU tensor per (layer, cache leaf) in the cache dtype (numpy has no
+bfloat16). The leaves and their per-token shapes come from the model
+(``models.model.cache_leaf_shapes``): an attention layer's ``k`` and ``v``
+(KV, D), an MLA layer's latent ``c_kv`` (kv_lora_rank) and roped key
+``k_pe`` (qk_rope_head_dim). Every store is (heads, NB, P, width) with the
+block on axis 1: (KV, NB, P, D), the paged-attention kernel's layout, so a
+device mirror syncs blocks with one ``index_copy_`` per leaf and no
+transpose; an MLA leaf is (1, NB, P, width).
 
 The paged path reads pages on the device through block tables and writes
 each chunk's own K/V back here (O(tokens), ``write_token_group``), which
@@ -14,22 +18,27 @@ host-tier restores. Engine-side mutations (CoW copies, restores) bump
 device mirror re-syncs just those blocks.
 
 The gathered backend (``GatheredRunner``) reads whole windows instead:
-``gather`` copies each row's pages into a dense (B, W, KV, D) window per
-layer and ``scatter`` writes back only the positions a step wrote.
-``host_copy_bytes`` counts that staging as the reference does (the window
-per gather, the written payload per scatter); the paged path keeps it at
-0.
+``gather`` copies each row's pages into a dense (B, W) + per-token shape
+window per leaf and ``scatter`` writes back only the positions a step
+wrote. ``host_copy_bytes`` counts that staging as the reference does (the
+window per gather, the written payload per scatter); the paged path keeps
+it at 0.
 
 KIVI quantization at rest (``EngineConfig.kv_quant`` with the KIVI axes and
-no GEAR residual, ``quantized``): each leaf holds uint8 codes, with f16
-scale/zero planes in ``qplanes`` — (KV, NB, 1, D) for keys (grouped per
-channel), (KV, NB, P, 1) for values (per token). A page packs exactly ONCE,
-when its last slot is written, through ``kernels/kv_quant``'s pack on the
-engine's device (the CUDA kernel on the card), from complete group
-statistics. Until then its tokens live full-precision in the staging store
-``qstage`` and reach attention through the quantized kernel's fp tail
-(``PagedRunner.call_pages``). ``block_quantized`` says which side of that
-line each block is on. Only fills dirty the device mirror.
+no GEAR residual, on a store of attention K/V only: ``quantized``): each
+leaf holds uint8 codes, with f16 scale/zero planes in ``qplanes`` — (KV,
+NB, 1, D) for keys (grouped per channel), (KV, NB, P, 1) for values (per
+token). A page packs exactly ONCE, when its last slot is written, through
+``kernels/kv_quant``'s pack on the engine's device (the CUDA kernel on the
+card), from complete group statistics. Until then its tokens live
+full-precision in the staging store ``qstage`` and reach attention through
+the quantized kernel's fp tail (``PagedRunner.call_pages``) or the gathered
+window's overlay (``gather_quantized``). ``block_quantized`` says which side
+of that line each block is on. Only fills dirty the device mirror.
+
+Any other ``kv_quant`` (MLA latents, a GEAR ``residual_rank``, non-KIVI
+axes) keeps fp stores, serves on the gathered backend only, and takes the
+reference's quantize–dequantize round trip in ``scatter``.
 """
 from __future__ import annotations
 
@@ -38,9 +47,9 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.kv_quant import QuantConfig
+from repro_torch.core.kv_quant import QuantConfig, dequantize, quantize
 from repro_torch.kernels.kv_quant import quantize_kv_pages
-from repro_torch.models.model import DTYPES
+from repro_torch.models.model import DTYPES, cache_leaf_shapes
 
 
 def next_pow2(n: int) -> int:
@@ -53,22 +62,37 @@ def next_pow2(n: int) -> int:
 
 
 class PagedModelState:
-    """Per-layer K/V page stores, host side. ``device`` is where page packs
-    run (the engine's device)."""
+    """Per-layer page stores of the model's cache leaves, host side.
+    ``device`` is where page packs run (the engine's device)."""
 
     def __init__(self, model_cfg, engine_cfg, device):
         self.cfg = engine_cfg
         self.device = torch.device(device)
         self.dtype = DTYPES[model_cfg.dtype]
-        shape = (model_cfg.num_kv_heads, engine_cfg.num_blocks,
-                 engine_cfg.block_size, model_cfg.head_dim)
+        NB, P = engine_cfg.num_blocks, engine_cfg.block_size
         self.num_layers = model_cfg.num_layers
         self._leaves: List[Tuple[int, str, int]] = []
+        self.shapes: List[tuple] = []  # each store's per-token shape
         self.stores: List[torch.Tensor] = []
-        for layer in range(model_cfg.num_layers):
-            for name in ("k", "v"):
+        index: Dict[Tuple[int, str], int] = {}
+        for layer, leaves in enumerate(cache_leaf_shapes(model_cfg)):
+            for name, shape in leaves.items():
+                heads, width = shape if len(shape) == 2 else (1,) + shape
+                index[layer, name] = len(self.stores)
                 self._leaves.append((layer, name, len(self.stores)))
-                self.stores.append(torch.zeros(shape, dtype=self.dtype))
+                self.shapes.append(shape)
+                self.stores.append(torch.zeros((heads, NB, P, width), dtype=self.dtype))
+        # the reference stacks a stage's repeats along a leading axis of one
+        # leaf, so its round-trip statistics pool them: the stores of one
+        # stage's pattern slot over its repeats, in models/convert.py's order
+        self.repeat_groups: List[List[int]] = []
+        offset = 0
+        for pattern, reps in model_cfg.stages:
+            for i in range(len(pattern)):
+                for layer, name in [k for k in index if k[0] == offset + i]:
+                    self.repeat_groups.append(
+                        [index[offset + r * len(pattern) + i, name] for r in range(reps)])
+            offset += len(pattern) * reps
         self.host_copy_bytes = 0
         # quantized stores: the pack's round trip — staging pages in their
         # own dtype to the pack's device, codes and f16 planes back
@@ -85,19 +109,20 @@ class PagedModelState:
         self.quantized = bool(
             self.quant is not None and self.quant.residual_rank == 0
             and self.quant.key_axis == "channel"
-            and self.quant.value_axis == "token")
+            and self.quant.value_axis == "token"
+            and self.attn_kv_leaves())
         # block -> "codes+planes are current" (page filled and packed); a
         # False block's live tokens are served from the fp staging store
-        self.block_quantized = np.zeros(engine_cfg.num_blocks, bool)
+        self.block_quantized = np.zeros(NB, bool)
         if self.quantized:
             for _, name, idx in self._leaves:
-                KV, NB, P, D = shape
+                KV, _, _, D = self.stores[idx].shape
                 axis = "channel" if name == "k" else "token"
                 pshape = (KV, NB, 1, D) if axis == "channel" else (KV, NB, P, 1)
                 self.qaxis[idx] = axis
                 self.qdtype[idx] = self.dtype
                 self.qstage[idx] = self.stores[idx]
-                self.stores[idx] = torch.zeros(shape, dtype=torch.uint8)
+                self.stores[idx] = torch.zeros_like(self.stores[idx], dtype=torch.uint8)
                 self.qplanes[idx] = {"scale": torch.zeros(pshape, dtype=torch.float16),
                                      "zero": torch.zeros(pshape, dtype=torch.float16)}
 
@@ -106,7 +131,11 @@ class PagedModelState:
         self.dirty_blocks.update(int(b) for b in blocks)
 
     def attn_kv_leaves(self) -> List[Tuple[int, str, int]]:
-        """(layer, "k"/"v", leaf index) for every page store."""
+        """(layer, "k"/"v", leaf index) for every page store — or [] as soon
+        as one store is not an attention k/v (MLA latents), as the
+        reference's does: the paged path cannot parse such a cache."""
+        if any(name not in ("k", "v") for _, name, _ in self._leaves):
+            return []
         return list(self._leaves)
 
     # ------------------------------------------------------------------
@@ -172,34 +201,86 @@ class PagedModelState:
     # gathered backend: dense cache windows
     # ------------------------------------------------------------------
     def gather(self, tables: np.ndarray) -> List[Dict[str, torch.Tensor]]:
-        """tables: (B, nmax) block ids. Returns, per layer, {"k", "v"} host
-        windows (B, W, KV, D) with W = min(nmax * P, max_model_len): row b's
-        positions in its table's order. Table entries past a row's blocks
-        point at block 0 and bring in bytes that the model never reads as
-        valid keys."""
-        if self.quantized:
-            raise NotImplementedError(
-                "KIVI-quantized pages on the gathered backend are not ported "
-                "yet (ROADMAP queue A.3: KIVI/GEAR stores on the gathered backend)")
+        """tables: (B, nmax) block ids. Returns, per layer, each leaf's host
+        window (B, W) + per-token shape with W = min(nmax * P,
+        max_model_len): row b's positions in its table's order. Table
+        entries past a row's blocks point at block 0 and bring in bytes
+        that the model never reads as valid keys. A quantized leaf's window
+        is what the quantized kernel serves: ``codes * scale + zero`` (f32,
+        then the staging dtype) for a packed block, the fp staging page for
+        a block still filling — the reference's host dequantization, and
+        the plain version of ``GatheredRunner``'s device-side one
+        (``gather_quantized``)."""
         idx = torch.from_numpy(np.ascontiguousarray(tables, np.int64))
         B, nb = idx.shape
         W = min(nb * self.cfg.block_size, self.cfg.max_model_len)
         out: List[Dict[str, torch.Tensor]] = [{} for _ in range(self.num_layers)]
         for layer, name, li in self._leaves:
-            pages = self.stores[li][:, idx]  # (KV, B, nb, P, D)
-            KV, _, _, P, D = pages.shape
-            win = pages.permute(1, 2, 3, 0, 4).reshape(B, nb * P, KV, D)[:, :W]
+            pages = self.stores[li][:, idx]  # (h, B, nb, P, w)
+            if li in self.qplanes:
+                planes = self.qplanes[li]
+                deq = (pages.float() * planes["scale"][:, idx].float()
+                       + planes["zero"][:, idx].float()).to(self.qdtype[li])
+                packed = torch.from_numpy(self.block_quantized[tables])
+                pages = torch.where(packed[None, :, :, None, None], deq,
+                                    self.qstage[li][:, idx])
+            P = pages.shape[3]
+            win = pages.permute(1, 2, 3, 0, 4).reshape(
+                (B, nb * P) + self.shapes[li])[:, :W]
             self.host_copy_bytes += win.numel() * win.element_size()
             out[layer][name] = win
         return out
 
+    def gather_quantized(self, tables: np.ndarray) -> dict:
+        """The parts of a quantized window that the gathered runner uploads
+        and dequantizes on its device (``gathered.dequantize_window``):
+        each distinct block of ``tables`` once, with ``inv`` (B, nmax) each
+        table entry's index among them, and, per leaf name
+        ("k", "v"), every layer's ``codes`` (L, KV, n, P, D) and f16
+        ``scale`` / ``zero`` planes of those blocks, plus ``stage`` (L, KV,
+        n_open, P, D), the fp staging pages of the blocks still filling, at
+        ``open`` (n_open,) among the ids. ``host_copy_bytes`` is charged the
+        fp window, as the reference's ``gather`` charges it."""
+        bs = self.cfg.block_size
+        B, nb = tables.shape
+        W = min(nb * bs, self.cfg.max_model_len)
+        ids, inv = np.unique(tables, return_inverse=True)
+        open_at = np.nonzero(~self.block_quantized[ids])[0]
+        tid = torch.from_numpy(ids.astype(np.int64))
+        oid = torch.from_numpy(ids[open_at].astype(np.int64))
+        out = {"inv": torch.from_numpy(inv.reshape(B, nb).astype(np.int64)),
+               "open": torch.from_numpy(open_at.astype(np.int64)), "W": W}
+        for name in ("k", "v"):
+            leaves = [idx for _, n, idx in self._leaves if n == name]
+            parts = {"codes": [self.stores[i] for i in leaves],
+                     "scale": [self.qplanes[i]["scale"] for i in leaves],
+                     "zero": [self.qplanes[i]["zero"] for i in leaves],
+                     "stage": [self.qstage[i] for i in leaves]}
+            out[name] = {}
+            for part, srcs in parts.items():
+                sel = oid if part == "stage" else tid
+                buf = torch.empty((len(srcs), srcs[0].shape[0], len(sel))
+                                  + srcs[0].shape[2:], dtype=srcs[0].dtype)
+                for j, src in enumerate(srcs):
+                    torch.index_select(src, 1, sel, out=buf[j])
+                out[name][part] = buf
+            self.host_copy_bytes += len(leaves) * B * W * int(
+                np.prod(self.shapes[leaves[0]])) * self.dtype.itemsize
+        return out
+
     def scatter(self, new_cache: List[Dict[str, torch.Tensor]], tables: np.ndarray,
-                starts: List[int], lengths: List[int]) -> None:
+                starts: List[int], lengths: List[int],
+                quant: Optional[QuantConfig] = None) -> None:
         """Write back the positions [starts[b], starts[b] + lengths[b]) of
-        every row of ``new_cache`` (per-layer {"k", "v"} (B, W, KV, D)
-        windows, on any device): one device-side selection of those slots
-        across all layers, one copy to the host, then the page writes.
-        Touched blocks are marked dirty."""
+        every row of ``new_cache`` (per-layer windows, on any device): one
+        device-side selection of those slots across all leaves, one copy to
+        the host, then the page writes. Quantized stores write row by row,
+        in row order, as the reference does: each row's staging writes,
+        then the packs of the pages it filled. fp stores under a ``quant``
+        config the page layout cannot hold (MLA latents, a GEAR residual,
+        non-KIVI axes) store the reference's quantize–dequantize round trip
+        of each row's written values (``_round_trip``). Touched blocks are
+        marked dirty."""
         bs = self.cfg.block_size
         rows = [(b, st, ln) for b, (st, ln) in enumerate(zip(starts, lengths)) if ln > 0]
         if not rows:
@@ -209,15 +290,57 @@ class PagedModelState:
         pos = np.concatenate([np.arange(st, st + ln) for _, st, ln in rows])
         blk = torch.from_numpy(tables[bi, pos // bs].astype(np.int64))
         off = torch.from_numpy(pos % bs)
-        dev = new_cache[0]["k"].device
+        dev = next(iter(new_cache[0].values())).device
         sel = (torch.from_numpy(bi).to(dev), torch.from_numpy(pos).to(dev))
-        payload = torch.stack([new_cache[layer][name][sel]
-                               for layer, name, _ in self._leaves]).cpu()
-        for (_, _, li), vals in zip(self._leaves, payload):
+        n = len(pos)
+        flat = torch.cat([new_cache[layer][name][sel].reshape(n, -1)
+                          for layer, name, _ in self._leaves], dim=1).cpu()
+        vals = [v.reshape((n,) + self.shapes[li]) for (_, _, li), v in zip(
+            self._leaves, flat.split([int(np.prod(s)) for s in self.shapes], dim=1))]
+        for (_, _, li), v in zip(self._leaves, vals):
+            self.host_copy_bytes += v.numel() * self.dtype.itemsize
+        if self.quantized:
+            idxs = [li for _, _, li in self._leaves]
+            at = 0
+            for _, _, ln in rows:
+                part = slice(at, at + ln)
+                self._quant_write_group(idxs, blk[part], off[part],
+                                        [v[part] for v in vals])
+                at += ln
+            self.version += 1
+            return
+        if quant is not None:
+            vals = self._round_trip(vals, [ln for _, _, ln in rows], quant)
+        for li, v in enumerate(vals):
             store = self.stores[li]
-            store[:, blk, off] = vals.transpose(0, 1).to(store.dtype)
-            self.host_copy_bytes += vals.numel() * store.element_size()
+            store[:, blk, off] = v.reshape(n, store.shape[0], -1).transpose(0, 1).to(
+                store.dtype)
         self._touch(np.unique(blk.numpy()))
+
+    def _round_trip(self, vals: List[torch.Tensor], lens: List[int],
+                    quant: QuantConfig) -> List[torch.Tensor]:
+        """The reference's round trip for caches the quantized page layout
+        cannot hold (``repro.core.executor.state.scatter``): each row's
+        written values, one leaf of a stage's pattern slot with its R
+        repeats stacked in front, (R, ln) + per-token shape, are quantized
+        at ``quant.bits`` and dequantized back into the store dtype. The
+        reference's leaf always has 3 or more dimensions there, so the
+        grouping axis is always "channel" — the configured axes and the
+        GEAR ``residual_rank`` are not read — and every statistic pools the
+        R repeats, the row's ln positions and any heads."""
+        out = list(vals)
+        for group in self.repeat_groups:
+            at = 0
+            rows = []
+            for ln in lens:
+                x = torch.stack([vals[li][at: at + ln] for li in group])
+                axis = "channel" if x.dim() >= 3 else "token"
+                rows.append(dequantize(*quantize(x, quant.bits, axis)).to(self.dtype))
+                at += ln
+            y = torch.cat(rows, dim=1)
+            for r, li in enumerate(group):
+                out[li] = y[r]
+        return out
 
     # ------------------------------------------------------------------
     def write_token_group(self, leaf_idxs: List[int], blocks: torch.Tensor,

@@ -63,6 +63,15 @@ def _mixer_params(cfg: ModelConfig, mixer: str) -> float:
     if mixer == "attn":
         return d * cfg.num_heads * cfg.head_dim + 2 * d * cfg.kv_dim + \
             cfg.num_heads * cfg.head_dim * d
+    if mixer == "mla":
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        if cfg.q_lora_rank:
+            n = d * cfg.q_lora_rank + cfg.q_lora_rank * cfg.num_heads * qk
+        else:
+            n = d * cfg.num_heads * qk
+        n += d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+        n += cfg.kv_lora_rank * cfg.num_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+        return n + cfg.num_heads * cfg.v_head_dim * d
     raise ValueError(f"no parameter count for mixer {mixer!r}")
 
 

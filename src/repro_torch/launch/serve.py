@@ -15,6 +15,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --backend gathered  # olmo-1b on the gathered backend
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch deepseek-v3-671b --requests 2   # MLA latents: gathered
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch starcoder2-3b --requests 2 --kv-quant-bits 8   # KIVI, gathered
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 2 --backend gathered --kv-quant-bits 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --backend speculative --spec-k 3   # draft–verify decode
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --trace-out build/t.json   # then:
@@ -25,7 +31,10 @@ the published one. ``--device`` defaults to ``cuda``; there is no CPU
 fallback. Weights are random, drawn from a seeded ``torch.Generator``.
 The report gives the steps, the paged ones among them, ``host_copy`` (the
 gathered backend's window traffic, 0 on the paged path), where the
-gathered backend ran, the batch rows of each attention route and, where
+gathered backend ran, the batch rows of each attention route, the KIVI
+capacity where the store holds quantized pages (``--kv-quant-bits`` on an
+MLA stack stores the latents' quantize–dequantize round trip in fp pages
+instead, as the reference does, and prints no capacity) and, where
 speculation ran, its acceptance rate, tokens per speculative step and
 speculative steps. Any ``--spec-*`` flag turns speculation on under
 ``--backend auto``; without ``--spec-draft-seed`` the target drafts for
@@ -105,7 +114,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="torch device the model and kernels run on")
     ap.add_argument("--kv-quant-bits", type=int, default=0,
                     help="KIVI-quantize KV pages at rest at this many bits "
-                         "(2, 4 or 8; keys per channel, values per token); "
+                         "(2, 4 or 8; keys per channel, values per token; "
+                         "on an MLA stack, the latents' round trip); "
                          "0 = fp pages")
     ap.add_argument("--num-adapters", type=int, default=0,
                     help="serve this many synthetic LoRA tenants (requests "
@@ -156,7 +166,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     gen = sum(m.num_generated for m in metrics)
     snap = engine.metrics_snapshot()
     quant = ""
-    if kv_quant is not None:
+    if kv_quant is not None and engine.store.quantized:
         st = engine.store
         quant = (f", kv_quant={kv_quant.bits}bit "
                  f"({st.kv_fp16_bytes_per_block() / st.kv_bytes_per_block():.2f}x "

@@ -337,10 +337,14 @@ def extend_route(cache_len: torch.Tensor, C: int, W: int) -> ExtendRoute:
 
 def fresh_rows_take_kernel(cfg, spec, C: int) -> bool:
     """Whether this layer's fresh rows of a C-wide chunk go to
-    ``flash_prefill``: global and window layers always; a chunked layer only
-    while the chunk lies inside the first attention chunk (C <= chunk_size),
-    where its mask is plain causal. Otherwise they take ``flash_attention``
-    with the chunk mask, as continuation rows do."""
+    ``flash_prefill``: global and window attention layers always; a chunked
+    layer only while the chunk lies inside the first attention chunk (C <=
+    chunk_size), where its mask is plain causal. Otherwise they take
+    ``flash_attention`` with the chunk mask, as continuation rows do. An MLA
+    layer never does: its queries and keys are nope + rope wide and its
+    values v wide, and the kernel takes one head dim (``models/mla.py``)."""
+    if spec.mixer == "mla":
+        return False
     return spec.attn_kind != "chunked" or not cfg.chunk_size or C <= cfg.chunk_size
 
 

@@ -20,9 +20,11 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 def normal_init(gen: torch.Generator, shape, dtype, scale, device):
-    """``scale * N(0, 1)`` drawn in fp32 from ``gen``, cast to ``dtype``."""
+    """``scale * N(0, 1)`` drawn in fp32 from ``gen``, cast to ``dtype``;
+    scaled in place, so a large bf16 leaf (a 256-expert ``w1``) costs one
+    fp32 copy on the way, not two."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def make_dense(gen, in_dim, out_dim, dtype, device, *, bias=False,

@@ -35,6 +35,9 @@ def convert_params(cfg: ModelConfig, jax_values: Dict[str, Any]) -> Dict[str, An
             return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
         return torch.tensor(a)
 
+    # jax_values["mtp"] (DeepSeek-V3's multi-token prediction block) is
+    # skipped: the reference reads it only in its training forward, which
+    # the port does not have yet (ROADMAP A.6)
     out: Dict[str, Any] = {"embed": leaf(jax_values["embed"]),
                            "final_norm": _map(jax_values["final_norm"], leaf)}
     if "lm_head" in jax_values:

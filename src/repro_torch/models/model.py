@@ -1,7 +1,9 @@
-"""Model factory of the PyTorch port: attention decoders with a dense MLP or
-a routed MoE feed-forward, on the paged and gathered serving paths.
+"""Model factory of the PyTorch port: attention and multi-head latent
+attention (MLA) decoders with a dense MLP or a routed MoE feed-forward, on
+the paged and gathered serving paths.
 
-The twin of the attn+mlp and attn+moe part of ``repro.models.model.build_model``:
+The twin of the attention, MLA, MLP and MoE part of
+``repro.models.model.build_model``:
 ``embed_tokens``, ``head``, ``init_cache`` / ``extend`` (a chunk appended to
 a gathered ``(B, W, KV, D)`` cache window: prefill, chunked prefill, mixed
 batches, decode as chunks of one), and, where ``paged_decode_supported``
@@ -9,7 +11,8 @@ holds (every layer global attention, MLP or MoE), ``decode_paged`` (one
 token) and ``extend_paged`` (chunked prefill / ragged mixed batches) and
 ``verify_paged`` (C real positions per row: speculative verify and draft
 catch-up); on other stacks (sliding-window attention: starcoder2-3b;
-chunked attention: llama4-scout) those three are None, as in the reference.
+chunked attention: llama4-scout; MLA: deepseek-v3) those three are None, as
+in the reference.
 A MoE layer's feed-forward is ``moe.moe_apply`` at capacity factor 2.0, as
 the reference serves it, with its aux loss dropped. Parameters are plain
 dicts: ``{"embed": (V, d), "final_norm": {...}, ["lm_head": {"w": (d, V)}],
@@ -21,7 +24,9 @@ Pages are a list over layers of ``{"k", "v"}`` tensors in kernel layout
 (KV, NB, P, D), written in place — or, for KIVI-quantized stores, of
 ``{"codes", "scale", "zero", "tail"}`` dicts that the step reads and does
 not write (``attention._attn_chunk_quant``). A gathered cache is a list
-over layers of ``{"k", "v"}`` windows, also written in place. Every step
+over layers of windows, also written in place: ``{"k", "v"}`` (B, W, KV, D)
+for attention, ``{"c_kv", "k_pe"}`` (B, W, r) and (B, W, rope) latents for
+MLA (``cache_leaf_shapes``). Every step
 takes an optional multi-tenant LoRA operand whose per-row deltas go through
 ``bgmv_add`` at the six adapter sites of a layer (wq, wk, wv, wo, w1, w2),
 added in place to the projections' outputs in four launches: wq/wk/wv
@@ -41,7 +46,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.lora.ops import bgmv_add
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
+from repro_torch.models import mla, moe
 from repro_torch.models.common import (apply_norm, dense, gated, is_glu, make_dense,
                                        make_norm, normal_init)
 
@@ -94,8 +99,10 @@ def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
 
 def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
     make_ff = moe.make_moe_params if spec.ff == "moe" else make_mlp_params
+    make_mixer = mla.make_mla_params if spec.mixer == "mla" \
+        else attn.make_attention_params
     return {"norm1": make_norm(cfg.norm, cfg.d_model, dtype, device),
-            "mixer": attn.make_attention_params(gen, cfg, dtype, device),
+            "mixer": make_mixer(gen, cfg, dtype, device),
             "norm2": make_norm(cfg.norm, cfg.d_model, dtype, device),
             "ff": make_ff(gen, cfg, dtype, device)}
 
@@ -134,10 +141,13 @@ def _layer_extend_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
 def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
                   lora_ids=None):
     """C-token extend over a gathered cache window (the twin of the
-    reference's ``_layer_extend`` for attn+mlp layers)."""
+    reference's ``_layer_extend`` for attention and MLA layers)."""
     h = apply_norm(cfg.norm, p["norm1"], x)
-    y, cache = attn.attn_extend(p["mixer"], cfg, spec, h, cache, cache_len, route,
-                                lora, lora_ids)
+    if spec.mixer == "mla":
+        y, cache = mla.mla_extend(p["mixer"], cfg, spec, h, cache, cache_len, route)
+    else:
+        y, cache = attn.attn_extend(p["mixer"], cfg, spec, h, cache, cache_len,
+                                    route, lora, lora_ids)
     return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), cache
 
 
@@ -164,12 +174,28 @@ def paged_decode_supported(cfg: ModelConfig) -> bool:
 
 def ported_stack(cfg: ModelConfig) -> bool:
     """Whether the port builds this stack: attention layers of the global,
-    sliding-window and chunked kinds with an MLP or a MoE feed-forward, no
-    learned positions, no encoder."""
+    sliding-window and chunked kinds, or MLA layers, with an MLP or a MoE
+    feed-forward, no learned positions, no encoder."""
     return (cfg.family != "audio" and not cfg.learned_positions
-            and all(s.mixer == "attn" and s.ff in ("mlp", "moe")
+            and all(s.mixer in ("attn", "mla") and s.ff in ("mlp", "moe")
                     and s.attn_kind in ("global", "window", "chunked")
                     for p, _ in cfg.stages for s in p))
+
+
+def cache_leaf_shapes(cfg: ModelConfig) -> List[Dict[str, tuple]]:
+    """Per layer, in ``layer_specs()`` order, each cache leaf's name and its
+    shape per token: ``{"k", "v"}: (KV, D)`` for attention, ``{"c_kv":
+    (kv_lora_rank,), "k_pe": (qk_rope_head_dim,)}`` for MLA. A gathered
+    window leaf is (B, W) + that shape (``Model.init_cache``); the page
+    store derives its stores from the same table."""
+    out = []
+    for spec in cfg.layer_specs():
+        if spec.mixer == "mla":
+            out.append({"c_kv": (cfg.kv_lora_rank,), "k_pe": (cfg.qk_rope_head_dim,)})
+        else:
+            kv = (cfg.num_kv_heads, cfg.head_dim)
+            out.append({"k": kv, "v": kv})
+    return out
 
 
 class Model:
@@ -186,10 +212,11 @@ class Model:
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if not ported_stack(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: the port serves attention stacks (global, "
-                "sliding-window or chunked) with an MLP or MoE feed-forward; "
-                "MLA, state mixers (Mamba, xLSTM), encoder-decoder stacks and "
-                "learned positions are not ported yet (ROADMAP queue A.5)")
+                f"{cfg.name}: the port serves attention (global, sliding-window "
+                "or chunked) and MLA stacks with an MLP or MoE feed-forward; "
+                "state mixers (Mamba, xLSTM: ROADMAP queue A.5.4), "
+                "encoder-decoder stacks and learned positions (A.5.5) are not "
+                "ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
@@ -204,7 +231,9 @@ class Model:
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """Random weights from a ``torch.Generator`` seeded with ``seed`` on
         the model's device (JAX's init draws other bits for the same seed;
-        parity tests convert the JAX weights instead)."""
+        parity tests convert the JAX weights instead). No multi-token
+        prediction block: the reference reads it only in its training
+        forward, which the port does not have yet (ROADMAP A.6)."""
         cfg, dev, pdt = self.cfg, self.device, self.pdtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         d = cfg.d_model
@@ -241,13 +270,14 @@ class Model:
                  for name in ("k", "v")} for _ in self.specs]
 
     def init_cache(self, batch: int, max_seq: int) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed gathered cache windows, one {"k", "v"} pair of (batch,
-        max_seq, KV, D) tensors per layer, in the activation dtype on the
-        model's device."""
-        cfg = self.cfg
-        shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-        return [{name: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                 for name in ("k", "v")} for _ in self.specs]
+        """Zeroed gathered cache windows, per layer one (batch, max_seq) +
+        per-token shape tensor for each leaf of ``cache_leaf_shapes``: {"k",
+        "v"} (B, W, KV, D) for attention, {"c_kv": (B, W, r), "k_pe": (B, W,
+        rope)} for MLA, in the activation dtype on the model's device."""
+        return [{name: torch.zeros((batch, max_seq) + shape, dtype=self.dtype,
+                                   device=self.device)
+                 for name, shape in leaves.items()}
+                for leaves in cache_leaf_shapes(self.cfg)]
 
     # ---------------- shared helpers ----------------------------------------
     def embed_tokens(self, params, tokens):
@@ -266,12 +296,12 @@ class Model:
     @torch.no_grad()
     def extend(self, params, tokens, cache, cache_len, lora=None):
         """tokens: (B, C) at positions [cache_len, cache_len + C); cache: a
-        list over layers of {"k", "v"} (B, W, KV, D) windows, written in
-        place; cache_len: (B,) tokens already cached per row. ``lora`` as in
+        list over layers of windows (``init_cache``), written in place;
+        cache_len: (B,) tokens already cached per row. ``lora`` as in
         ``decode_paged``. Logits of a ragged row's padded positions are
         garbage the caller ignores. Returns (logits (B, C, V), cache)."""
         C = tokens.shape[1]
-        route = attn.extend_route(cache_len, C, cache[0]["k"].shape[1])
+        route = attn.extend_route(cache_len, C, next(iter(cache[0].values())).shape[1])
         kernel = [attn.fresh_rows_take_kernel(self.cfg, s, C) for s in self.specs]
         nf = len(route.fresh)
         self.route_rows["flash_prefill"] += nf if any(kernel) else 0

@@ -1168,3 +1168,108 @@ def test_migrated_blocks_reach_device_mirror(cuda, bits):
                 assert g.dtype == w.dtype and torch.equal(g, w)
     dst.run()
     assert len(moved.generated) == 6
+
+
+# ---------------------------------------------------------------------------
+# quantized stores on the gathered backend, and MLA (deepseek-v3), on the card
+# ---------------------------------------------------------------------------
+from repro_torch.core.executor.gathered import dequantize_window  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _smoke_serve(arch, params, device, bits=None, steps=None):
+    """The smoke config of ``arch`` in f32 on ``device`` with the given CPU
+    weights, 4 greedy requests; ``steps``: stop after that many steps.
+    Returns the engine."""
+    model = build_model(configs.smoke_config(arch), device=device)
+    eng = LLMEngine(model, _tree_to(params, device), EngineConfig(
+        block_size=8, num_blocks=128, max_model_len=128, device=device,
+        kv_quant=QuantConfig(bits=bits) if bits else None))
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        eng.add_request(Request(
+            request_id=f"r{i}", prompt=[int(t) for t in rng.integers(
+                2, model.cfg.vocab_size, int(rng.integers(12, 40)))],
+            sampling=SamplingParams(max_new_tokens=12)))
+    if steps is None:
+        eng.run()
+    else:
+        for _ in range(steps):
+            eng.step()
+    return eng
+
+
+@pytest.mark.gpu
+def test_gathered_kivi_window_kernel_bit_equal_to_plain(cuda):
+    """starcoder2-3b smoke with KIVI 8-bit pages, mid-serve (packed blocks
+    and blocks still filling): the window dequantized on the card by the
+    unpack kernel (one launch per leaf name) is bit-equal to the plain
+    version's and to the store's host dequantization."""
+    params = build_model(configs.smoke_config("starcoder2-3b"), device="cpu").init(0)
+    eng = _smoke_serve("starcoder2-3b", params, "cuda", bits=8, steps=6)
+    store = eng.store
+    seqs = list(eng.seqs.values())
+    tables = np.zeros((len(seqs), 16), np.int64)
+    for b, s in enumerate(seqs):
+        tables[b, :len(s.block_table)] = s.block_table
+    packed = store.block_quantized[np.unique(tables)]
+    assert packed.any() and not packed.all()
+    parts = store.gather_quantized(tables)
+    before = kvmod.dequantize_pages.launches
+    dev = dequantize_window(parts, "cuda", store.dtype)
+    torch.cuda.synchronize()
+    assert kvmod.dequantize_pages.launches == before + 2
+    plain = dequantize_window(parts, "cpu", store.dtype)
+    host = store.gather(tables)
+    for d, p, h in zip(dev, plain, host):
+        for n in ("k", "v"):
+            assert d[n].is_cuda and torch.equal(d[n].cpu(), p[n])
+            assert torch.equal(p[n], h[n])
+
+
+@pytest.mark.gpu
+def test_mla_decode_matches_extend_on_card(cuda):
+    """One deepseek-v3 MLA layer at smoke width in f32 on the card: the
+    absorbed decode and the expanded extend at C = 1 (atol 1e-4: f32 sums
+    in other orders, no TF32)."""
+    cfg = configs.smoke_config("deepseek-v3-671b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = mla_mod.make_mla_params(gen, cfg, torch.float32, "cuda")
+    spec = cfg.layer_specs()[0]
+    W = 64
+    cache = {"c_kv": torch.randn(4, W, cfg.kv_lora_rank, device="cuda", generator=gen),
+             "k_pe": torch.randn(4, W, cfg.qk_rope_head_dim, device="cuda", generator=gen)}
+    x = torch.randn(4, 1, cfg.d_model, device="cuda", generator=gen)
+    cl = torch.tensor([0, 9, 40, 63], device="cuda")
+    a = {k: v.clone() for k, v in cache.items()}
+    b = {k: v.clone() for k, v in cache.items()}
+    od, a = mla_mod.mla_decode(p, cfg, spec, x, a, cl)
+    oe, b = mla_mod.mla_extend(p, cfg, spec, x, b, cl)
+    torch.testing.assert_close(od, oe, atol=1e-4, rtol=0)
+    for k in a:
+        assert torch.equal(a[k], b[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,bits", [("deepseek-v3-671b", None), ("starcoder2-3b", 8)])
+def test_smoke_streams_on_card_equal_cpu(cuda, arch, bits):
+    """The same f32 smoke weights served on the CPU and on the card give the
+    same greedy streams: deepseek's latents, and starcoder2-3b's KIVI pages
+    packed by the pack kernel and dequantized by the unpack kernel."""
+    params = build_model(configs.smoke_config(arch), device="cpu").init(0)
+    cpu = _smoke_serve(arch, params, "cpu", bits=bits)
+    launches = (kvmod.quantize_pages.launches, kvmod.dequantize_pages.launches)
+    gpu = _smoke_serve(arch, params, "cuda", bits=bits)
+    got = {rid: s.generated for rid, s in gpu.seqs.items()}
+    assert got == {rid: s.generated for rid, s in cpu.seqs.items()}
+    if bits:
+        assert kvmod.dequantize_pages.launches - launches[1] == 2 * gpu.steps
+        assert kvmod.quantize_pages.launches > launches[0]

@@ -349,11 +349,21 @@ def test_quant_payload_round_trip_and_capacity(port_model):
 
 
 def test_quant_configs_without_a_paged_layout_raise(port_model):
+    """The twin of ``tests/test_executor.py::test_kv_quant_routing``: KIVI
+    pages keep the paged runner; a GEAR residual or non-KIVI axes get no
+    paged runner and serve on the gathered backend (their quantize-
+    dequantize round trip); demanding the paged backend for them raises."""
+    eng = _port_engine(port_model)
+    assert eng.paged_runner is not None and eng.store.quantized
     for qc in (QuantConfig(bits=8, residual_rank=2),
                QuantConfig(bits=8, key_axis="token"),
                QuantConfig(bits=8, value_axis="channel")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A.3"):
-            _port_engine(port_model, kv_quant=qc)
+        eng = _port_engine(port_model, kv_quant=qc)
+        assert eng.paged_runner is None and not eng.store.quantized
+        assert eng.runner.name == "gathered"
+    with pytest.raises(ValueError, match="no paged decode path"):
+        _port_engine(port_model, execution_backend="paged",
+                     kv_quant=QuantConfig(bits=8, residual_rank=2))
 
 
 def test_serve_entry_point_quantized_on_cpu(capsys):

@@ -196,21 +196,47 @@ def test_starcoder2_paged_backend_raises():
         _torch_engine("starcoder2-3b", execution_backend="paged")
 
 
-def test_starcoder2_kv_quant_and_lora_raise():
+def _serve_kivi(arch, bits, backend):
+    """One trace on both engines with KIVI pages at ``bits`` (the two
+    packages' own QuantConfig)."""
+    from repro.core.kv_quant import QuantConfig as JQuantConfig
     from repro_torch.core import QuantConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.3"):
-        _torch_engine("starcoder2-3b", kv_quant=QuantConfig(bits=8))
+    cfg, _, _ = bcommon.small_model(arch)
+    reqs = bcommon.make_requests(cfg, 4, np.random.default_rng(9))
+    jeng = bcommon.make_engine(arch, execution_backend=backend,
+                               kv_quant=JQuantConfig(bits=bits))
+    teng = _torch_engine(arch, execution_backend=backend, kv_quant=QuantConfig(bits=bits))
+    for r in reqs:
+        jeng.add_request(dataclasses.replace(r))
+        teng.add_request(_port_request(r))
+    jeng.run()
+    teng.run()
+    assert teng.paged_runner is None and teng.store.quantized
+    assert teng.host_copy_bytes == jeng.store.host_copy_bytes > 0
+    return ({rid: s.generated for rid, s in jeng.seqs.items()},
+            {rid: s.generated for rid, s in teng.seqs.items()})
+
+
+def test_starcoder2_kv_quant_and_lora_raise():
+    """KIVI pages serve starcoder2-3b on the gathered backend, with JAX's
+    streams; LoRA still needs a pure global-attention stack, in both
+    packages."""
+    from repro_torch.core import QuantConfig
+
+    jout, tout = _serve_kivi("starcoder2-3b", 8, "auto")
+    assert tout == jout
     with pytest.raises(ValueError, match="pure global-attention"):
         _torch_engine("starcoder2-3b", lora=LoRAConfig())
+    with pytest.raises(ValueError, match="no paged decode path"):
+        _torch_engine("starcoder2-3b", execution_backend="paged",
+                      kv_quant=QuantConfig(bits=8))
 
 
 def test_kivi_pages_on_gathered_backend_raise():
-    from repro_torch.core import QuantConfig
-
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.3"):
-        _torch_engine("olmo-1b", execution_backend="gathered",
-                      kv_quant=QuantConfig(bits=8))
+    """olmo-1b's KIVI pages on the gathered backend: JAX's streams."""
+    jout, tout = _serve_kivi("olmo-1b", 4, "gathered")
+    assert tout == jout
 
 
 @pytest.fixture(scope="module")

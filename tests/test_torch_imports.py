@@ -3,7 +3,8 @@
 Checked in a fresh interpreter, where nothing else has imported them; the
 walk must reach the KIVI, LoRA, gathered-backend and MoE modules, and the
 migration (disaggregation, fleet), telemetry config / export and roofline
-modules too."""
+modules, and MLA (deepseek-v3) with the page store and gathered runner
+that hold its latents and KIVI windows."""
 import os
 import subprocess
 import sys
@@ -42,6 +43,9 @@ migration = {"repro_torch.core.disagg", "repro_torch.core.fleet",
              "repro_torch.core.telemetry.config", "repro_torch.core.telemetry.export",
              "repro_torch.launch.roofline"}
 assert migration <= set(mods), migration - set(mods)
+mla = {"repro_torch.configs.deepseek_v3_671b", "repro_torch.models.mla",
+       "repro_torch.core.executor.state", "repro_torch.core.executor.gathered"}
+assert mla <= set(mods), mla - set(mods)
 """
 
 
