@@ -41,7 +41,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                delta, null-slot rows bit-equal to base + 0), and the causal
                flash prefill (shape cases x f32 / bf16 / f16,
                starcoder2-3b's heads with and without a binding window,
-               ragged S, group sizes 1-12, causality, strided
+               ragged S, group sizes 1-12, llama4-scout's and
+               jamba-v0.1-52b's fresh chunks, causality, strided
                model-layout inputs); the speculative verify's chunks (C = 2,
                4, 5) through the model-layout ops at olmo-1b's, qwen2.5-32b's
                and gemma-2b's decode heads, over fp pages (native chunked
@@ -89,7 +90,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                1024-slot latent windows (fresh B=2 C=256, mixed, decode
                B=8), finite logits, profiled with the MoE's and the MLA
                attention's shares; mla_decode vs mla_extend and moe_apply
-               vs moe_dense_ref (T=8) in f32;
+               vs moe_dense_ref (T=8) in f32; jamba-v0.1-52b at its
+               published width cut to one block (7 Mamba + 1 attention
+               layer, 4 MoE feed-forwards of 16 experts top-2), a fresh
+               B=2 C=256 and a decode B=8 step, profiled with the Mamba
+               layers' and the MoE's shares, flash_prefill once per fresh
+               step; one Mamba layer in f32 fed in chunks (37 + 91 + 1)
+               against whole; xlstm-1.3b whole (48 layers), C=256
+               (chunkwise mLSTM), C=200 (recurrence) and decode B=4 steps;
+               one mLSTM layer in f32, chunkwise against the recurrence;
   6. serve   — the serving engine (launch/serve.py's build_engine) at full
                width: 8 requests, greedy, kernel launch counts checked;
                then the same traffic with KIVI 8-bit pages (the quantized
@@ -114,9 +123,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                whose chunk fills a page; the upload against the fp
                window; traced rerun), the deepseek block on it (no kernel,
                every row plain, host_copy_bytes = its formula) and again
-               with kv_quant (the latents' round trip), and the f32 smoke
-               twins (deepseek; starcoder2-3b with KIVI pages): the card's
-               greedy streams equal the CPU's. Each traced rerun runs a second
+               with kv_quant (the latents' round trip), the Jamba block
+               (8 state slots; flash_prefill = the dispatches holding a
+               fresh row; host_copy_bytes = windows, written tokens and
+               each row's state slot both ways) and again with KIVI 8-bit
+               attention pages (dequantize_pages = 2 per dispatch,
+               quantize_pages = 2 per filling row), xlstm-1.3b (4 slots:
+               host_copy_bytes = 2 x 706 511 616 B a row), and the f32
+               smoke twins (deepseek; starcoder2-3b with KIVI pages; jamba
+               with fp and KIVI pages; xlstm): the card's greedy streams
+               equal the CPU's; a recycled state slot's stream equals a
+               fresh engine's. Each traced rerun runs a second
                engine built with ``TelemetryConfig()`` on the same model,
                writes its Chrome trace under build/ and prints
                tools/trace_summary.py's decode roofline fraction (live
@@ -189,8 +206,11 @@ from repro_torch.launch.roofline import card_for  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
+from repro_torch.models.model import cache_leaf_shapes  # noqa: E402
 
 # the kernels' wrappers and their launch counts, held here so that phase
 # 5's plain-attention patches of the module attributes do not hide them
@@ -1682,7 +1702,12 @@ FLASH_CASES = [
     (1, 24, 2, 8192, 128, 4096), (2, 24, 2, 300, 128, 4096),
     (1, 2, 2, 1, 128, 0), (2, 16, 2, 129, 64, 0), (1, 12, 1, 2053, 128, 1000),
     (1, 8, 1, 500, 64, 100),
-    (2, 40, 8, 256, 128, 0)]  # llama4-scout's fresh rows: G = 5, the serve's chunk
+    (2, 40, 8, 256, 128, 0),  # llama4-scout's fresh rows: G = 5, the serve's chunk
+    # jamba-v0.1-52b's attention layer (G = 4, no RoPE): phase 5's fresh
+    # B=2, C=256 step, which is also the serve's full fresh chunk; a ragged
+    # one-row chunk of the serve's (its prompts of 128-256 tokens go whole);
+    # a chunk of 512
+    (2, 32, 8, 256, 128, 0), (1, 32, 8, 200, 128, 0), (2, 32, 8, 512, 128, 0)]
 # f32 (the CUDA-core kernel): summation order only; bf16 and f16 (the
 # wgmma kernel: bf16 P split into head and remainder, f16 P rounded once):
 # tests/test_kernels_flash.py's bf16 tolerance
@@ -2167,23 +2192,25 @@ def serve_engine(kv_quant=None, lora=None, **kw):
                                   prefill_chunk=64), **kw)
 
 
-def add_traffic(engine, rng, prefix, adapters=(None,)):
-    """8 requests, prompts of 128-512 random tokens, 32 greedy tokens each;
-    request i names adapter ``adapters[i % len(adapters)]``."""
+def add_traffic(engine, rng, prefix, adapters=(None,), n=8, prompt=(128, 512), gen=32):
+    """``n`` requests (8), prompts of ``prompt`` (128-512) random tokens,
+    ``gen`` (32) greedy tokens each; request i names adapter
+    ``adapters[i % len(adapters)]``."""
     vocab = engine.model.cfg.vocab_size
-    for i in range(8):
-        n = int(rng.integers(128, 513))
+    for i in range(n):
+        ln = int(rng.integers(prompt[0], prompt[1] + 1))
         engine.add_request(Request(
-            request_id=f"{prefix}{i}", prompt=[int(x) for x in rng.integers(2, vocab, n)],
+            request_id=f"{prefix}{i}", prompt=[int(x) for x in rng.integers(2, vocab, ln)],
             adapter_id=adapters[i % len(adapters)],
-            sampling=SamplingParams(temperature=0.0, max_new_tokens=32)))
+            sampling=SamplingParams(temperature=0.0, max_new_tokens=gen)))
 
 
-def run_served(engine, counters, paged=True):
-    """Serve the queued traffic with every kernel count set to 0 just
-    before; returns (metrics, seconds, launches by kernel). ``paged``: every
-    step ran on the paged backend, with no window staging; else every step
-    ran gathered."""
+def run_served(engine, counters, paged=True, n=8, gen=32):
+    """Serve the queued traffic (``n`` requests of ``gen`` tokens) with
+    every kernel count set to 0 just before; returns (metrics, seconds,
+    launches by kernel). ``paged``: every step ran on the paged backend,
+    with no window staging; else every step ran gathered (a state stack's
+    exact-chunk steps in one dispatch per chunk length)."""
     for k in counters.values():
         k.launches = 0  # the main path's count starts here
     t0 = time.perf_counter()
@@ -2192,7 +2219,7 @@ def run_served(engine, counters, paged=True):
     dt = time.perf_counter() - t0
     launches = {name: k.launches for name, k in counters.items()}
     cfg = engine.model.cfg
-    assert len(metrics) == 8 and all(m.num_generated == 32 for m in metrics), \
+    assert len(metrics) == n and all(m.num_generated == gen for m in metrics), \
         [m.num_generated for m in metrics]
     assert all(0 <= tok < cfg.vocab_size for s in engine.seqs.values()
                for tok in s.generated)
@@ -2205,7 +2232,11 @@ def run_served(engine, counters, paged=True):
             assert snap["engine.dispatch.paged"] + snap["engine.dispatch.speculative"] \
                 >= engine.steps > 0, snap
     else:
-        assert engine.paged_steps == 0 and engine.runner.steps == engine.steps > 0
+        assert engine.paged_steps == 0 and engine.steps > 0
+        if engine.scheduler.cfg.exact_chunks:
+            assert engine.runner.steps >= engine.steps
+        else:
+            assert engine.runner.steps == engine.steps
         assert engine.host_copy_bytes > 0
     return metrics, dt, launches
 
@@ -3457,8 +3488,8 @@ def phase_deepseek_f32(model, params):
 
 def smoke_serve(arch, params, device, bits=None):
     """The smoke config of ``arch`` in f32 on ``device`` with the given CPU
-    weights: 4 greedy requests (the ``gpu`` tests' twin). Returns (streams,
-    engine)."""
+    weights: 4 greedy requests (the ``gpu`` tests' twin; a state stack
+    holds 32 state slots). Returns (streams, engine)."""
     model = build_model(configs.smoke_config(arch), device=device)
     eng = LLMEngine(model, _to_device(params, device), EngineConfig(
         block_size=8, num_blocks=128, max_model_len=128, device=device,
@@ -3484,21 +3515,396 @@ def _to_device(tree, device):
 def phase_smoke_twins():
     """The f32 smoke twins of tests/test_torch_cuda.py: the same weights
     served on the CPU (plain versions) and on the card (kernels) give equal
-    greedy streams: deepseek's latents, and starcoder2-3b's KIVI 8-bit pages
-    (pack and unpack kernels, flash_prefill)."""
-    for arch, bits in ((DEEPSEEK, None), ("starcoder2-3b", 8)):
+    greedy streams: deepseek's latents, starcoder2-3b's KIVI 8-bit pages
+    (pack and unpack kernels, flash_prefill), jamba's state slots with fp
+    and with KIVI 8-bit attention pages, and xlstm's state slots. The
+    unpack runs twice per dispatch (a state stack dispatches once per
+    chunk length, so more than once in some steps)."""
+    for arch, bits in ((DEEPSEEK, None), ("starcoder2-3b", 8), (JAMBA, None), (JAMBA, 8),
+                       (XLSTM, None)):
         params = build_model(configs.smoke_config(arch), device="cpu").init(0)
         cpu, _ = smoke_serve(arch, params, "cpu", bits)
         before = UNPACK.launches
         gpu, eng = smoke_serve(arch, params, "cuda", bits)
         same, total = equal_share(gpu, cpu)
         unpacks = UNPACK.launches - before
-        ok = gpu == cpu and unpacks == (2 * eng.steps if bits else 0)
+        ok = gpu == cpu and unpacks == (2 * eng.runner.steps if bits else 0)
         log(f"[6 serve] {arch} smoke f32{', KIVI 8-bit pages' if bits else ''}: card vs CPU "
-            f"streams {same} of {total} tokens equal, {eng.steps} steps, unpack {unpacks} "
-            f"launches: {'ok' if ok else 'FAIL'}")
+            f"streams {same} of {total} tokens equal, {eng.steps} steps "
+            f"({eng.runner.steps} dispatches), unpack {unpacks} launches: "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{arch} smoke: the card's streams differ from the CPU's")
+
+
+# ---------------------------------------------------------------------------
+# state mixers: jamba-v0.1-52b (Mamba + MoE + GQA attention), xlstm-1.3b
+# ---------------------------------------------------------------------------
+JAMBA = "jamba-v0.1-52b"
+XLSTM = "xlstm-1.3b"
+# gathered extend steps of the Jamba block over 1024-slot attention windows:
+# label, cache_len per row, chunk length (a state stack's rows share one)
+JAMBA_W = 1024
+JAMBA_STEPS = (("fresh B=2 C=256", [0, 0], 256),
+               ("decode B=8 C=1", [100, 250, 380, 512, 640, 777, 900, 1010], 1))
+# xlstm-1.3b steps: C = 256 takes the chunkwise mLSTM (S >= 128, S % 64 == 0),
+# C = 200 the recurrence
+XLSTM_STEPS = (("fresh B=2 C=256 (chunkwise mLSTM)", [0, 0], 256),
+               ("fresh B=2 C=200 (mLSTM recurrence)", [0, 0], 200),
+               ("decode B=4 C=1", [130, 200, 260, 300], 1))
+# f32 chunked-equals-whole checks of one state layer at published width: the
+# same function summed in another order (Mamba: the scan from a carried
+# state and the single-step branch; mLSTM: chunkwise against recurrence)
+STATE_ATOL_F32 = 1e-4
+
+
+def free_device(label):
+    """Drop what earlier phases left (cycles included) and log the card's
+    free memory before ``label`` is built."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  before {label}: {free / 1e9:.1f} of {total / 1e9:.1f} GB of device memory free")
+
+
+def jamba_block():
+    """jamba-v0.1-52b at its published width, its depth cut to one Jamba
+    block (7 Mamba + 1 attention layer, MoE on the odd offsets) of four,
+    since 52 B parameters do not fit one card: the config and the published
+    layer count."""
+    cfg = configs.get_config(JAMBA)
+    return dataclasses.replace(cfg, stages=((cfg.stages[0][0], 1),)), cfg.num_layers
+
+
+def state_steps(model, steps, W, seed):
+    """Each step's (label, cache, tokens, cache_len): empty states, attention
+    windows of W slots filled with noise."""
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for label, cache_len, C in steps:
+        B = len(cache_len)
+        cache = model.init_cache(B, W)
+        for layer, spec in zip(cache, model.specs):
+            if spec.mixer == "attn":
+                for x in layer.values():
+                    x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+        out.append((label, cache, torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, C)),
+                                               device="cuda"),
+                    torch.tensor(cache_len, dtype=torch.int32, device="cuda")))
+    return out
+
+
+def phase_model_jamba():
+    """jamba-v0.1-52b at its published width (d_model 4096, Mamba d_inner
+    8192, d_state 16, d_conv 4, dt rank 256; one attention layer of 32
+    heads over 8 KV heads x 128, no RoPE; 16 experts of d_ff 14336 at top-2
+    on 4 of the 8 layers, dense d_ff 14336 on the others; vocab 65536), its
+    depth cut to one block of 8 layers, random bf16 weights from seed 0.
+    Two gathered ``Model.extend`` steps (``JAMBA_STEPS``): finite logits,
+    ``flash_prefill`` launched once per fresh step (the attention layer's
+    fresh rows) and not at all in decode; each profiled, with the Mamba
+    layers' and the MoE's shares (their calls replayed alone). Returns
+    (model, params)."""
+    cfg, full_layers = jamba_block()
+    free_device(f"the {JAMBA} block")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    nparam = sum(x.numel() for x in _leaves(params))
+    store_bytes = sum(leaf.dtype.itemsize * math.prod(leaf.shape)
+                      for leaves in cache_leaf_shapes(cfg) for leaf in leaves.values()
+                      if leaf.state)
+    log(f"[5 model] {cfg.name}: published width (d_model {cfg.d_model}, Mamba d_inner "
+        f"{mamba_mod.d_inner_of(cfg)}, d_state {cfg.ssm_d_state}, dt rank "
+        f"{mamba_mod.dt_rank_of(cfg)}; attention {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} KV heads x {cfg.head_dim}; {cfg.num_experts} experts top-"
+        f"{cfg.top_k}, d_ff {cfg.d_ff}; vocab {cfg.vocab_size}), depth cut to one block: "
+        f"{cfg.num_layers} of {full_layers} layers ("
+        + ", ".join(f"{s.mixer}+{s.ff}" for s in model.specs)
+        + f"): {nparam} params, {nparam * 2 / 1e9:.1f} GB bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s; state {store_bytes} B a sequence")
+    for label, cache, tok, cl in state_steps(model, JAMBA_STEPS, JAMBA_W, 9):
+        B, C = tok.shape
+
+        def step():
+            return model.extend(params, tok, cache, cl)[0]
+        before = FLASH.launches
+        logits = step().float()
+        torch.cuda.synchronize()
+        want = 1 if C > 1 else 0  # fresh rows in the one attention layer
+        assert FLASH.launches - before == want, (label, FLASH.launches - before)
+        assert logits.shape == (B, C, cfg.vocab_size) and torch.isfinite(logits).all()
+        log(f"  {label}: logits finite (max |x| {logits.abs().max().item():.3g}), "
+            f"flash_prefill launches {want}")
+        del logits
+        busy = device_profile(f"{cfg.name} extend {label} bf16", step, focus="flash_prefill")
+        for fn_mod, name, what in ((mamba_mod, "mamba_forward", "Mamba layers"),
+                                   (moe_mod, "moe_apply", "MoE")):
+            part, n = replay_busy(fn_mod, name, step)
+            log(f"    {what} ({n} {name} calls of the step replayed alone): {part:.3f} ms "
+                "busy" + (f" = {part * 1e3 / busy:.1%} of the step's busy time" if busy
+                          else ""))
+        del cache
+        torch.cuda.empty_cache()
+    return model, params
+
+
+def phase_jamba_f32(model, params):
+    """One Mamba layer of the block in f32 at published width: a sequence of
+    129 tokens fed in chunks of 37, 91 and 1 (the scan from a carried state,
+    then the single-step branch) against the whole, outputs, final SSM
+    state and conv window within STATE_ATOL_F32 (the twin of
+    tests/test_recurrent.py::test_mamba_chunked_equals_full)."""
+    cfg = dataclasses.replace(model.cfg, dtype="float32", param_dtype="float32")
+    p32 = _to_f32(params["layers"][0]["mixer"])
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = 0.5 * torch.randn(2, 129, cfg.d_model, generator=g, device="cuda")
+    whole, (conv_w, ssm_w) = mamba_mod.mamba_forward(p32, cfg, x)
+    st = mamba_mod.init_mamba_cache(cfg, 2, torch.float32, "cuda")
+    conv, ssm, outs = st["conv"], st["ssm"], []
+    for lo, hi in ((0, 37), (37, 128), (128, 129)):
+        y, (conv, ssm) = mamba_mod.mamba_forward(p32, cfg, x[:, lo:hi], conv_state=conv,
+                                                 ssm_state=ssm)
+        outs.append(y)
+    check(f"{JAMBA} Mamba layer f32 (published width, B=2, S=129): chunks 37 + 91 + 1 vs "
+          f"whole (outputs max |x| {whole.abs().max().item():.3g})", torch.cat(outs, 1),
+          whole, STATE_ATOL_F32)
+    check(f"{JAMBA} Mamba layer f32: final SSM state, chunks vs whole", ssm, ssm_w,
+          STATE_ATOL_F32)
+    # the last 3 inputs of in_proj: one matmul of another batch shape apart
+    check(f"{JAMBA} Mamba layer f32: final conv window, chunks vs whole", conv, conv_w,
+          STATE_ATOL_F32)
+    del p32, x, whole, outs
+    torch.cuda.empty_cache()
+
+
+def state_host_bytes(engine, steps):
+    """What ``host_copy_bytes`` charges a gathered state stack, the
+    reference's count: per dispatch, each row's window of ``max_model_len``
+    slots of every page leaf and the tokens it wrote, and each row's state
+    slot read and written whole."""
+    st, cfg = engine.store, engine.model.cfg
+    per_token = sum(math.prod(s) for s in st.shapes) * st.dtype.itemsize
+    W = engine.cfg.max_model_len
+    return sum(len(s) * (W * per_token + 2 * st.state_bytes_per_slot())
+               + sum(ln for _, ln in s) * per_token for s in steps)
+
+
+def check_flash_served(model, steps) -> None:
+    """``flash_prefill`` held against its plain version at every shape a
+    serve gave it: per dispatch with a fresh row, (fresh rows, H, KV, the
+    chunk's length, D), in the model's dtype and in f32, at FLASH_ATOL. Run
+    after the serve's counts were read, so these launches count nowhere."""
+    cfg = model.cfg
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = sorted({(sum(st == 0 for st, _ in s), max(ln for _, ln in s))
+                     for s in steps if any(st == 0 for st, _ in s)})
+    log(f"  flash_prefill at the serve's {len(shapes)} fresh shapes (B, S): {shapes}")
+    for B, S in shapes:
+        for dtype in dict.fromkeys((model.dtype, torch.float32)):
+            q, k, v = flash_inputs(2, B, H, KV, S, D, dtype)
+            check(f"flash_prefill served (B, H, KV, S, D) = {(B, H, KV, S, D)} "
+                  f"{str(dtype)[6:]}", FLASH(q, k, v, scale=D ** -0.5),
+                  flash_prefill_ref(q, k, v, scale=D ** -0.5), FLASH_ATOL[dtype])
+            del q, k, v
+
+
+def phase_serve_jamba(model, params, kv_quant=None, fp=None):
+    """The Jamba block on the gathered backend (its only one) with the other
+    serves' traffic: 8 requests, prompts of 128-512 tokens, 32 greedy tokens
+    each, block 16, max_model_len 1024, prefill_chunk 256, 512 batched tokens
+    a step, 8 state slots. Exact chunks: one dispatch per chunk length.
+    ``flash_prefill`` launches once per dispatch holding a fresh row;
+    ``host_copy_bytes`` equals ``state_host_bytes``. With ``kv_quant``
+    (KIVI 8-bit attention pages beside the state slots):
+    ``dequantize_pages`` 2 launches a dispatch, ``quantize_pages`` 2 per row
+    whose chunk fills a page, tok/s and TTFT beside ``fp``'s. Returns
+    (launches, tok/s, TTFT p50 s)."""
+    cfg = model.cfg
+    engine = LLMEngine(model, params, EngineConfig(
+        block_size=16, num_blocks=640, num_state_slots=8, max_model_len=1024,
+        device="cuda", seed=0, kv_quant=kv_quant, scheduler=SchedulerConfig(
+            max_batch_slots=8, max_batched_tokens=512, prefill_chunk=256)))
+    runner, store = engine.runner, engine.store
+    assert engine.paged_runner is None and store.quantized == (kv_quant is not None)
+    assert engine.scheduler.cfg.exact_chunks and engine.prefix_cache is None
+    steps = record_chunks(runner)
+    add_traffic(engine, np.random.default_rng(7), "r")
+    model.route_rows = dict.fromkeys(model.route_rows, 0)
+    metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    assert all(len({ln for _, ln in s}) == 1 for s in steps), "a ragged state dispatch"
+    fresh = sum(any(st == 0 for st, _ in s) for s in steps)
+    assert counts["flash_prefill"] == fresh == runner.prefill_steps > 0, (counts, fresh)
+    check_flash_served(model, steps)
+    want = state_host_bytes(engine, steps)
+    assert engine.host_copy_bytes == want, (engine.host_copy_bytes, want)
+    P = engine.cfg.block_size
+    fills = sum((st + ln) // P > st // P for s in steps for st, ln in s)
+    if kv_quant is None:
+        assert counts["quantize_pages"] == counts["dequantize_pages"] == 0, counts
+    else:
+        assert counts["dequantize_pages"] == 2 * runner.steps, (counts, runner.steps)
+        assert counts["quantize_pages"] == 2 * fills, (counts, fills)
+    assert counts["paged_attention"] == counts["paged_attention_quant"] == counts["bgmv"] == 0
+    gen = sum(m.num_generated for m in metrics)
+    rate, ttft = gen / dt, statistics.median(m.ttft for m in metrics)
+    slot = store.state_bytes_per_slot()
+    kind = "fp pages" if kv_quant is None else f"KIVI {kv_quant.bits}-bit attention pages"
+    extra = "" if fp is None else (f" ({rate / fp[0]:.2f}x the fp serve's {fp[0]:.1f}; "
+                                   f"TTFT fp {fp[1] * 1e3:.0f} ms)")
+    quant = "" if kv_quant is None else (
+        f"; dequantize_pages {counts['dequantize_pages']} launches (= 2 x {runner.steps} "
+        f"dispatches), quantize_pages {counts['quantize_pages']} (= 2 x {fills} rows "
+        f"filling a page); window upload {runner.window_upload_bytes} B")
+    log(f"[6 serve] {cfg.name} block, {kind}, gathered backend: 8 requests, "
+        f"{sum(m.num_prompt for m in metrics)} prompt + {gen} generated tokens in {dt:.2f} s "
+        f"= {rate:.1f} generated tok/s{extra}, TTFT p50 {ttft * 1e3:.0f} ms, {engine.steps} "
+        f"steps in {runner.steps} dispatches ({runner.prefill_steps} with a fresh row); "
+        f"flash_prefill {counts['flash_prefill']} launches (= 1 attention layer x "
+        f"{fresh}); host_copy_bytes {engine.host_copy_bytes} (= formula: windows, written "
+        f"tokens and {slot} B of state per row each way; "
+        f"{engine.host_copy_bytes / engine.steps / 1e6:.1f} MB a step){quant}; "
+        f"preemptions {engine.metrics_snapshot()['engine.preemptions']}")
+    del engine
+    return counts, rate, ttft
+
+
+def phase_model_xlstm():
+    """xlstm-1.3b whole (48 layers: 6 x (7 mLSTM + 1 sLSTM), d_model 2048, 4
+    heads, mLSTM d_inner 4096, sLSTM FFN 4/3; vocab 50304), random bf16
+    weights from seed 0. Three gathered ``Model.extend`` steps
+    (``XLSTM_STEPS``): finite logits and no kernel (no attention); the
+    chunkwise step and the decode step profiled, the recurrence step timed
+    by the host clock (some 200 000 launches). Then one mLSTM layer in f32:
+    a 256-token sequence whole (chunkwise) against four 64-token chunks
+    from the carried state (the recurrence) within STATE_ATOL_F32. Returns
+    (model, params)."""
+    cfg = configs.get_config(XLSTM)
+    free_device(XLSTM)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    nparam = sum(x.numel() for x in _leaves(params))
+    log(f"[5 model] {cfg.name}: published width and depth ({cfg.num_layers} layers: "
+        f"{sum(s.mixer == 'mlstm' for s in model.specs)} mLSTM, "
+        f"{sum(s.mixer == 'slstm' for s in model.specs)} sLSTM; d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, mLSTM d_inner {xlstm_mod.mlstm_d_inner(cfg)}; vocab "
+        f"{cfg.vocab_size}): {nparam} params, {nparam * 2 / 1e9:.1f} GB bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for label, cache, tok, cl in state_steps(model, XLSTM_STEPS, 16, 11):
+        B, C = tok.shape
+
+        def step():
+            return model.extend(params, tok, cache, cl)[0]
+        before = FLASH.launches
+        t0 = time.perf_counter()
+        logits = step().float()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert FLASH.launches == before
+        assert logits.shape == (B, C, cfg.vocab_size) and torch.isfinite(logits).all()
+        log(f"  {label}: logits finite (max |x| {logits.abs().max().item():.3g}), first "
+            f"call {wall * 1e3:.0f} ms wall")
+        del logits
+        if C == 200:
+            log(f"  {cfg.name} extend {label} bf16: wall {wall_ms(step, reps=2):.1f} ms "
+                "(not profiled: one launch per op per time step)")
+        else:
+            device_profile(f"{cfg.name} extend {label} bf16", step)
+        del cache
+        torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = _to_f32(params["layers"][0]["mixer"])
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = 0.5 * torch.randn(2, 256, cfg.d_model, generator=g, device="cuda")
+    whole, _ = xlstm_mod.mlstm_forward(p32, c32, x)
+    st, outs = None, []
+    for lo in range(0, 256, 64):
+        y, st = xlstm_mod.mlstm_forward(p32, c32, x[:, lo:lo + 64], state=st)
+        outs.append(y)
+    check(f"{XLSTM} mLSTM layer f32 (published width, B=2, S=256): chunkwise vs 4 x 64 "
+          f"by the recurrence (outputs max |x| {whole.abs().max().item():.3g})",
+          torch.cat(outs, 1), whole, STATE_ATOL_F32)
+    del p32, x, whole, outs, st
+    torch.cuda.empty_cache()
+    return model, params
+
+
+def phase_serve_xlstm(model, params):
+    """xlstm-1.3b on the gathered backend: 4 requests, prompts of 128-256
+    tokens, 16 greedy tokens each, 4 state slots, block 16, max_model_len
+    1024, prefill_chunk 256. No page leaf and no kernel: every byte of
+    ``host_copy_bytes`` is a state slot, read and written whole, 706 511 616
+    B a row each way."""
+    cfg = model.cfg
+    engine = LLMEngine(model, params, EngineConfig(
+        block_size=16, num_blocks=640, num_state_slots=4, max_model_len=1024,
+        device="cuda", seed=0, scheduler=SchedulerConfig(
+            max_batch_slots=4, max_batched_tokens=512, prefill_chunk=256)))
+    runner, store = engine.runner, engine.store
+    assert engine.paged_runner is None and not store.shapes
+    assert len(store.state_leaves) == 4 * cfg.num_layers, len(store.state_leaves)
+    slot = store.state_bytes_per_slot()
+    assert slot == 706_511_616, slot
+    steps = record_chunks(runner)
+    add_traffic(engine, np.random.default_rng(7), "r", n=4, prompt=(128, 256), gen=16)
+    metrics, dt, counts = run_served(engine, COUNTERS, paged=False, n=4, gen=16)
+    assert all(n == 0 for n in counts.values()), counts
+    rows = sum(len(s) for s in steps)
+    assert engine.host_copy_bytes == 2 * rows * slot == state_host_bytes(engine, steps)
+    assert runner.window_upload_bytes == rows * slot, runner.window_upload_bytes
+    gen = sum(m.num_generated for m in metrics)
+    decode = [s for s in steps if all(ln == 1 for _, ln in s)]
+    log(f"[6 serve] {cfg.name} whole, gathered backend, state slots only: 4 requests, "
+        f"{sum(m.num_prompt for m in metrics)} prompt + {gen} generated tokens in {dt:.2f} s "
+        f"= {gen / dt:.1f} generated tok/s, TTFT p50 "
+        f"{statistics.median(m.ttft for m in metrics) * 1e3:.0f} ms, {engine.steps} steps "
+        f"in {runner.steps} dispatches; state {slot} B a row each way (decode dispatches of "
+        f"{sorted({len(s) for s in decode})} rows: "
+        f"{max(len(s) for s in decode) * slot / 1e9:.2f} GB each way at the widest); "
+        f"host_copy_bytes {engine.host_copy_bytes} (= 2 x {rows} rows x {slot} B); "
+        f"kernel launches 0")
+    del engine
+
+
+def phase_recycled_slot():
+    """The reference's dirty-slot fault, absent on the card: jamba at smoke
+    width in f32, 4 state slots; a request served after another has
+    finished (its slot handed out again) equals the same request in a
+    fresh engine."""
+    cfg = configs.smoke_config(JAMBA)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    rng = np.random.default_rng(5)
+    reqs = [Request(request_id=f"r{i}", prompt=[int(t) for t in rng.integers(
+        2, cfg.vocab_size, n)], sampling=SamplingParams(max_new_tokens=8))
+        for i, n in enumerate((30, 45))]
+
+    def engine():
+        return LLMEngine(model, params, EngineConfig(
+            block_size=8, num_blocks=128, num_state_slots=4, max_model_len=128,
+            device="cuda"))
+    fresh, reused = engine(), engine()
+    fresh.add_request(dataclasses.replace(reqs[1]))
+    fresh.run()
+    reused.add_request(dataclasses.replace(reqs[0]))
+    reused.step()
+    slot = reused.seqs["r0"].state_slot
+    reused.run()
+    reused.add_request(dataclasses.replace(reqs[1]))
+    reused.step()
+    assert reused.seqs["r1"].state_slot == slot  # the finished request's slot
+    reused.run()
+    ok = reused.seqs["r1"].generated == fresh.seqs["r1"].generated
+    log(f"[6 serve] {JAMBA} smoke f32, recycled state slot {slot}: the second request's "
+        f"stream {reused.seqs['r1'].generated} "
+        f"{'equals' if ok else 'DIFFERS FROM'} a fresh engine's")
+    if not ok:
+        raise AssertionError("a recycled state slot changed a stream")
 
 
 REPLACES = {
@@ -3578,7 +3984,17 @@ def main() -> None:
     phase_deepseek_f32(model, params)
     del model, params
     torch.cuda.empty_cache()
+    model, params = phase_model_jamba()
+    jamba = phase_serve_jamba(model, params)
+    phase_serve_jamba(model, params, kv_quant=QuantConfig(bits=8), fp=jamba[1:])
+    phase_jamba_f32(model, params)
+    del model, params
+    model, params = phase_model_xlstm()
+    phase_serve_xlstm(model, params)
+    del model, params
+    free_device("the smoke twins")
     phase_smoke_twins()
+    phase_recycled_slot()
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for paged_attention_quant and
     # quantize_pages, the gathered KIVI starcoder2-3b serve for

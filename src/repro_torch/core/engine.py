@@ -9,12 +9,25 @@ mixed SplitFuse steps) straight off block-indexed page stores through
 ``model.decode_paged`` / ``model.extend_paged`` and the CUDA paged-
 attention kernel on the card. Stacks without a paged family (sliding-
 window attention: starcoder2-3b; chunked attention: llama4-scout; MLA:
-deepseek-v3), ``kv_quant`` configs the quantized pages cannot hold, and any
-stack under
+deepseek-v3; state mixers: jamba-v0.1-52b, xlstm-1.3b), ``kv_quant``
+configs the quantized pages cannot hold, and any stack under
 ``execution_backend="gathered"``, run on the ``GatheredRunner``: pages
 gathered into dense windows, ``model.extend``, the written slots scattered
 back, every prompt's first chunk through the CUDA ``flash_prefill``
 kernel.
+
+A stack with a state mixer (Mamba, mLSTM, sLSTM) also holds one
+fixed-size *state slot* per sequence, from a slab of
+``EngineConfig.num_state_slots`` apart from the KV blocks (the block
+manager's state slots, the survey's paged memory applied to a model
+without a KV cache). As in the reference, such an engine schedules exact
+chunk groups (one dispatch per chunk length, so no state runs over
+padding) and turns prefix reuse off (a state is not content-addressable
+per block). Unlike the reference, a slot is reset to the model's empty
+history whenever ``_alloc_for`` hands it out: the reference reuses a freed
+slot as it was left, so a recycled or re-allocated slot (after a finish
+or a preemption) starts from its previous owner's final state there
+(ROADMAP C).
 
 The engine runs on ``EngineConfig.device`` (``cuda`` by default; ``cpu``
 for the tests) and raises when CUDA is asked for and absent.
@@ -41,8 +54,9 @@ KV-pool pages, and every step applies each row's deltas through the
 ``EngineConfig.telemetry`` turns on the step tracer, whose paged decode
 dispatch spans carry the card's roofline bound (``launch/roofline.py``).
 ``export_seq`` / ``import_seq`` move a sequence's tokens and KV pages
-(fp, or KIVI codes, planes and a still-filling page's staging) between
-engines: the primitive of ``core.disagg`` and ``core.fleet``.
+(fp, or KIVI codes, planes and a still-filling page's staging) and its
+state slot between engines: the primitive of ``core.disagg`` and
+``core.fleet``.
 """
 from __future__ import annotations
 
@@ -69,7 +83,7 @@ from repro_torch.core.sampling import (SamplingParams, greedy_token_host,
 from repro_torch.core.scheduler import ChunkWork, Scheduler, SchedulerConfig
 from repro_torch.core.telemetry import (NULL_TRACER, MetricsRegistry, StepTracer,
                                         TelemetryConfig)
-from repro_torch.models.model import resolve_device
+from repro_torch.models.model import STATE_MIXERS, resolve_device
 
 @dataclasses.dataclass
 class SpeculativeConfig:
@@ -94,6 +108,7 @@ class SpeculativeConfig:
 class EngineConfig:
     block_size: int = 16
     num_blocks: int = 512
+    num_state_slots: int = 32  # per-sequence state slots of state-mixer stacks
     max_model_len: int = 256  # marshalled table width = max_model_len // block_size
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     enable_prefix_cache: bool = True
@@ -109,11 +124,24 @@ class EngineConfig:
     telemetry: Optional[TelemetryConfig] = None
 
 
+def _has_state_mixer(cfg) -> bool:
+    """Whether the stack carries per-sequence state (Mamba, mLSTM, sLSTM
+    layers; the reference counts an audio stack's cross-attention KV too)."""
+    return any(s.mixer in STATE_MIXERS
+               for p, _ in cfg.stages for s in p) or cfg.family == "audio"
+
+
 class LLMEngine:
     def __init__(self, model, params, engine_cfg: Optional[EngineConfig] = None):
         self.model = model
         self.params = params
         self.cfg = engine_cfg or EngineConfig()
+        if _has_state_mixer(model.cfg):
+            # one dispatch per chunk length, and no prefix reuse: cached
+            # blocks do not determine a recurrent state
+            self.cfg = dataclasses.replace(
+                self.cfg, enable_prefix_cache=False, scheduler=dataclasses.replace(
+                    self.cfg.scheduler, exact_chunks=True))
         backend = self.cfg.execution_backend
         if resolve_device(self.cfg.device).type != model.device.type:
             raise ValueError(f"EngineConfig.device={self.cfg.device!r} but the "
@@ -121,7 +149,8 @@ class LLMEngine:
         self.device = model.device
         self.vtc = VTCCounter()
         self.scheduler = Scheduler(self.cfg.scheduler, self.vtc)
-        self.bm = BlockManager(self.cfg.num_blocks, self.cfg.block_size)
+        self.bm = BlockManager(self.cfg.num_blocks, self.cfg.block_size,
+                               self.cfg.num_state_slots)
         self.store = PagedModelState(model.cfg, self.cfg, device=self.device)
         self.runner, self.paged_runner = make_runners(model, params, self.cfg,
                                                       self.store)
@@ -341,12 +370,17 @@ class LLMEngine:
     # ------------------------------------------------------------------
     def _alloc_for(self, seq: SeqState, target_tokens: int,
                    protected: Optional[set] = None) -> None:
-        """Grow seq's block table; on pressure, evict prefix-cache blocks then
-        preempt running sequences — but never one in the current batch group
-        (``protected``), whose pages this step will read."""
+        """Grow seq's block table, and give a sequence of a state stack its
+        state slot, reset to the empty history; on pressure, evict
+        prefix-cache blocks then preempt running sequences — but never one
+        in the current batch group (``protected``), whose pages this step
+        will read."""
         while True:
             try:
                 self.bm.ensure_capacity(seq.block_table, target_tokens)
+                if seq.state_slot is None and self.store.state_leaves:
+                    seq.state_slot = self.bm.allocate_state_slot()
+                    self.store.reset_state(seq.state_slot)
                 return
             except OutOfBlocks:
                 if not self._relieve_pressure(protected or {seq.request_id}):
@@ -393,6 +427,9 @@ class LLMEngine:
         if seq.block_table:
             self.bm.free(seq.block_table)
             seq.block_table = []
+        if seq.state_slot is not None:
+            self.bm.free_state_slot(seq.state_slot)
+            seq.state_slot = None
 
     # ------------------------------------------------------------------
     def _run_group(self, chunks: List[ChunkWork], runner: ModelRunner) -> None:
@@ -775,8 +812,8 @@ class LLMEngine:
     # Llumnix live-migration primitive from §V.A)
     # ------------------------------------------------------------------
     def export_seq(self, request_id: str) -> dict:
-        """Extract a sequence's tokens and pages and release it locally.
-        ``"state"`` is always None: the port has no state slots yet."""
+        """Extract a sequence's tokens, pages and state slot (``"state"``:
+        the slot's leaves, or None without one) and release it locally."""
         seq = self.seqs.pop(request_id)
         if self.spec_runner is not None:
             self.spec_runner.forget(request_id)
@@ -788,7 +825,8 @@ class LLMEngine:
             "first_token_time": seq.first_token_time,
             "token_times": list(seq.token_times),
             "blocks": [self.store.block_payload(b) for b in seq.block_table],
-            "state": None,
+            "state": (self.store.state_payload(seq.state_slot)
+                      if seq.state_slot is not None else None),
         }
         if seq in self.scheduler.running:
             self.scheduler.running.remove(seq)
@@ -799,18 +837,22 @@ class LLMEngine:
         return payload
 
     def import_seq(self, payload: dict) -> SeqState:
-        """Admit a migrated sequence; the bytes restored are left in
-        ``last_import_bytes``. Restored blocks are dirty, so the paged
-        runner's device mirror uploads them at its next sync."""
+        """Admit a migrated sequence; the bytes restored (pages and state)
+        are left in ``last_import_bytes``. Restored blocks are dirty, so the
+        paged runner's device mirror uploads them at its next sync. A state
+        payload lands in a fresh slot as it was exported (no reset)."""
         req = payload["request"]
         if req.adapter_id is not None and self.adapters is None:
             raise ValueError(
                 f"migrated request {req.request_id!r} is bound to adapter "
                 f"{req.adapter_id!r} but this engine has no EngineConfig.lora")
-        if payload["state"] is not None:
-            raise NotImplementedError(
-                f"migrated request {req.request_id!r} carries a state slot: "
-                "state mixers are not ported yet (ROADMAP queue A.5.4)")
+        carries, holds = payload["state"] is not None, bool(self.store.state_leaves)
+        if carries != holds:
+            raise ValueError(
+                f"migrated request {req.request_id!r} "
+                f"{'carries' if carries else 'has no'} state slot but this "
+                f"engine's model ({self.model.cfg.name}) "
+                f"{'has' if holds else 'has no'} state leaves")
         seq = SeqState(request=req, status=SeqStatus.RUNNING,
                        generated=list(payload["generated"]),
                        num_computed=payload["num_computed"],
@@ -822,6 +864,9 @@ class LLMEngine:
         for b, page in zip(blocks, payload["blocks"]):
             nbytes += self.store.restore_block(b, page)
         seq.block_table = blocks
+        if payload["state"] is not None:
+            seq.state_slot = self.bm.allocate_state_slot()
+            nbytes += self.store.restore_state(seq.state_slot, payload["state"])
         self.seqs[req.request_id] = seq
         self.scheduler.running.append(seq)
         self.last_import_bytes = nbytes

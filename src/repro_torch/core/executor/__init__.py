@@ -4,8 +4,9 @@
 ``repro.core.executor.make_runners`` does:
   * ``GatheredRunner`` always exists: the parity reference, and the only
     backend for stacks without a paged family (sliding-window and chunked
-    attention, MLA) and for ``kv_quant`` configs the quantized page layout
-    cannot hold (a GEAR residual, non-KIVI axes);
+    attention, MLA, state mixers: no paged runner is built for a store
+    with a state leaf) and for ``kv_quant`` configs the quantized page
+    layout cannot hold (a GEAR residual, non-KIVI axes);
   * ``PagedRunner`` exists when the stack is pure global attention (the
     model has ``decode_paged``, the store holds attention K/V only), the
     store can hold ``kv_quant`` (None, or KIVI pages: ``store.quantized``)
@@ -33,6 +34,7 @@ def make_runners(model, params, engine_cfg, store):
     gathered = GatheredRunner(model, params, engine_cfg, store)
     paged = None
     eligible = (model.decode_paged is not None and store.attn_kv_leaves()
+                and not store.state_leaves
                 and (engine_cfg.kv_quant is None or store.quantized))
     if backend != "gathered" and eligible:
         paged = PagedRunner(model, params, engine_cfg, store)

@@ -25,13 +25,16 @@ class ExecBatch:
     """Marshalled per-step batch shared by runners.
 
     tokens: (B, C) int32; cache_lens: (B,) tokens already cached per seq;
-    tables: (B, nmax) block ids. ``lora`` is attached by the ENGINE after
+    tables: (B, nmax) block ids; slots: (B,) state slots (0 where a
+    sequence has none: stacks without state mixers). ``lora`` is attached
+    by the ENGINE after
     marshaling (it owns the adapter store): {"ids": (B,) adapter-table
     slots, "layers": device adapter tables} — see core/lora/store.py."""
     chunks: List[ChunkWork]
     tokens: np.ndarray
     cache_lens: np.ndarray
     tables: np.ndarray
+    slots: np.ndarray
     lora: Optional[dict] = None
 
 
@@ -58,6 +61,7 @@ def marshal_batch(chunks: List[ChunkWork], block_size: int,
     tokens = np.zeros((B, C), np.int32)
     cache_lens = np.zeros((B,), np.int32)
     tables = np.zeros((B, nmax), np.int64)
+    slots = np.zeros((B,), np.int64)
     for b, ch in enumerate(chunks):
         seq = ch.seq
         toks = seq.all_tokens
@@ -65,8 +69,9 @@ def marshal_batch(chunks: List[ChunkWork], block_size: int,
         cache_lens[b] = ch.start
         tb = seq.block_table[:nmax]
         tables[b, : len(tb)] = tb
+        slots[b] = seq.state_slot if seq.state_slot is not None else 0
     return ExecBatch(chunks=chunks, tokens=tokens, cache_lens=cache_lens,
-                     tables=tables)
+                     tables=tables, slots=slots)
 
 
 class ModelRunner(abc.ABC):

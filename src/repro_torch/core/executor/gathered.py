@@ -8,10 +8,16 @@ chunks of length 1 — SplitFuse unified batching; C is the longest chunk,
 not padded further), then scatters the newly written positions back to
 their pages. Every prompt's first chunk runs its attention through the
 ``flash_prefill`` kernel on the card (fresh rows of attention layers,
-``models/attention.py::attn_extend``); MLA layers attend plainly.
+``models/attention.py::attn_extend``); MLA layers attend plainly. A
+state-mixer stack's per-sequence states come up from their slots beside
+the windows (``batch.slots``) and go back whole after the step, inside the
+same ``window_upload`` and ``scatter`` spans; the engine runs such stacks
+one chunk length per dispatch, so every row's states advance over real
+tokens only.
 
 It is the parity reference of the paged backend and the only backend for
-stacks without a paged family (sliding-window and chunked attention, MLA)
+stacks without a paged family (sliding-window and chunked attention, MLA,
+state mixers)
 and for ``kv_quant`` configs the quantized page layout cannot hold (their
 round trip happens in ``scatter``). KIVI-quantized stores reach the model
 through ``dequantize_window``: the distinct blocks' codes, f16 planes and
@@ -46,16 +52,18 @@ from repro_torch.kernels.kv_quant import dequantize_kv_pages
 
 def dequantize_window(parts: dict, device, dtype) -> List[Dict[str, torch.Tensor]]:
     """``PagedModelState.gather_quantized``'s parts -> per-layer {"k", "v"}
-    (B, W, KV, D) windows in ``dtype`` on ``device``: per leaf name, the
-    codes and planes of every layer's distinct blocks go up in one copy
-    each and are dequantized in one ``dequantize_kv_pages`` call, the
-    staging pages of blocks still filling overwrite theirs, and the table
-    (``inv``) spreads the blocks over each row's window. Bit-equal to the
-    host dequantization of ``PagedModelState.gather``."""
+    (B, W, KV, D) windows in ``dtype`` on ``device``, and the state leaves
+    of state-mixer layers: per leaf name, the codes and planes of every
+    attention layer's distinct blocks go up in one copy each and are
+    dequantized in one ``dequantize_kv_pages`` call, the staging pages of
+    blocks still filling overwrite theirs, and the table (``inv``) spreads
+    the blocks over each row's window. Bit-equal to the host
+    dequantization of ``PagedModelState.gather``."""
     inv = parts["inv"].to(device)
     B, nb = inv.shape
     W = parts["W"]
-    out: List[Dict[str, torch.Tensor]] = [{} for _ in parts["k"]["codes"]]
+    out: List[Dict[str, torch.Tensor]] = [
+        {n: t.to(device) for n, t in layer.items()} for layer in parts["state"]]
     for name in ("k", "v"):
         p = {k: t.to(device) for k, t in parts[name].items()}
         L, KV, n, P, D = p["codes"].shape
@@ -66,8 +74,8 @@ def dequantize_window(parts: dict, device, dtype) -> List[Dict[str, torch.Tensor
         if len(parts["open"]):
             pages[:, :, parts["open"].to(device)] = p["stage"]
         win = pages[:, :, inv]  # (L, KV, B, nb, P, D)
-        for layer in range(L):
-            out[layer][name] = win[layer].permute(1, 2, 3, 0, 4).reshape(
+        for j, layer in enumerate(parts["layers"]):
+            out[layer][name] = win[j].permute(1, 2, 3, 0, 4).reshape(
                 B, nb * P, KV, D)[:, :W]
     return out
 
@@ -94,12 +102,13 @@ class GatheredRunner(ModelRunner):
         chunks = batch.chunks
         store = self.store
         with self.trace.span("gather", track="executor"):
-            window = store.gather_quantized(batch.tables) if store.quantized \
-                else store.gather(batch.tables)
+            window = store.gather_quantized(batch.tables, batch.slots) \
+                if store.quantized else store.gather(batch.tables, batch.slots)
         with self.trace.span("window_upload", track="executor"):
             if store.quantized:
                 self._upload([window["inv"], window["open"]] + [
-                    t for name in ("k", "v") for t in window[name].values()])
+                    t for name in ("k", "v") for t in window[name].values()] + [
+                    t for layer in window["state"] for t in layer.values()])
                 cache = dequantize_window(window, self.device, store.dtype)
             else:
                 self._upload([t for layer in window for t in layer.values()])
@@ -111,7 +120,8 @@ class GatheredRunner(ModelRunner):
             lora=lora_arg(batch.lora, device=self.device))
         with self.trace.span("scatter", track="executor"):
             store.scatter(new_cache, batch.tables, [c.start for c in chunks],
-                          [c.length for c in chunks], quant=self.cfg.kv_quant)
+                          [c.length for c in chunks], quant=self.cfg.kv_quant,
+                          slots=batch.slots)
         self.steps += 1
         self.prefill_steps += bool((batch.cache_lens == 0).any())
         return logits.float().cpu().numpy()

@@ -1,14 +1,30 @@
 """Host-authoritative page stores backing the serving engine.
 
-The paged part of ``repro.core.executor.state``. ``PagedModelState`` owns
-one CPU tensor per (layer, cache leaf) in the cache dtype (numpy has no
-bfloat16). The leaves and their per-token shapes come from the model
-(``models.model.cache_leaf_shapes``): an attention layer's ``k`` and ``v``
-(KV, D), an MLA layer's latent ``c_kv`` (kv_lora_rank) and roped key
-``k_pe`` (qk_rope_head_dim). Every store is (heads, NB, P, width) with the
-block on axis 1: (KV, NB, P, D), the paged-attention kernel's layout, so a
-device mirror syncs blocks with one ``index_copy_`` per leaf and no
-transpose; an MLA leaf is (1, NB, P, width).
+The port of ``repro.core.executor.state``. ``PagedModelState`` owns one
+CPU tensor per (layer, cache leaf) in the leaf's dtype (numpy has no
+bfloat16). The leaves come from the model
+(``models.model.cache_leaf_shapes``). Page leaves have a shape per token:
+an attention layer's ``k`` and ``v`` (KV, D), an MLA layer's latent
+``c_kv`` (kv_lora_rank) and roped key ``k_pe`` (qk_rope_head_dim). Every
+page store is (heads, NB, P, width) with the block on axis 1: (KV, NB, P,
+D), the paged-attention kernel's layout, so a device mirror syncs blocks
+with one ``index_copy_`` per leaf and no transpose; an MLA leaf is (1, NB,
+P, width).
+
+State leaves (a Mamba, mLSTM or sLSTM layer's fixed-size state per
+sequence) live apart from the pages, in ``state_stores``: one
+(num_state_slots,) + leaf shape tensor per leaf, in its own dtype (a conv
+window in the activation dtype, the recurrences' states in f32), indexed
+by the state slot the block manager hands a sequence. ``gather`` /
+``scatter`` read and write whole slots and charge their bytes to
+``host_copy_bytes`` on both sides, as the reference does;
+``state_payload`` / ``restore_state`` move a slot between engines.
+``reset_state`` writes a slot's empty history (the model's
+``init_state``: zeros, ``m = -1e30`` for the xLSTM stabilizers), which the
+engine does whenever it hands a slot out; the reference never does, so a
+recycled slot there starts from its previous owner's final state (ROADMAP
+C). Page-only bookkeeping (the KIVI layout's eligibility,
+``repeat_groups``, bytes per block) sees page leaves only.
 
 The paged path reads pages on the device through block tables and writes
 each chunk's own K/V back here (O(tokens), ``write_token_group``), which
@@ -49,7 +65,7 @@ import torch
 
 from repro_torch.core.kv_quant import QuantConfig, dequantize, quantize
 from repro_torch.kernels.kv_quant import quantize_kv_pages
-from repro_torch.models.model import DTYPES, cache_leaf_shapes
+from repro_torch.models.model import DTYPES, cache_leaf_shapes, init_state
 
 
 def next_pow2(n: int) -> int:
@@ -72,11 +88,24 @@ class PagedModelState:
         NB, P = engine_cfg.num_blocks, engine_cfg.block_size
         self.num_layers = model_cfg.num_layers
         self._leaves: List[Tuple[int, str, int]] = []
-        self.shapes: List[tuple] = []  # each store's per-token shape
+        self.shapes: List[tuple] = []  # each page store's per-token shape
         self.stores: List[torch.Tensor] = []
+        # state leaves: (layer, name), their slot stores and empty histories
+        self.state_leaves: List[Tuple[int, str]] = []
+        self.state_stores: List[torch.Tensor] = []
+        self._state_init: List[torch.Tensor] = []
         index: Dict[Tuple[int, str], int] = {}
+        specs = model_cfg.layer_specs()
         for layer, leaves in enumerate(cache_leaf_shapes(model_cfg)):
-            for name, shape in leaves.items():
+            for name, leaf in leaves.items():
+                if leaf.state:
+                    self.state_leaves.append((layer, name))
+                    self.state_stores.append(torch.zeros(
+                        (engine_cfg.num_state_slots,) + leaf.shape, dtype=leaf.dtype))
+                    self._state_init.append(
+                        init_state(model_cfg, specs[layer], 1, "cpu")[name][0])
+                    continue
+                shape = leaf.shape
                 heads, width = shape if len(shape) == 2 else (1,) + shape
                 index[layer, name] = len(self.stores)
                 self._leaves.append((layer, name, len(self.stores)))
@@ -133,7 +162,9 @@ class PagedModelState:
     def attn_kv_leaves(self) -> List[Tuple[int, str, int]]:
         """(layer, "k"/"v", leaf index) for every page store — or [] as soon
         as one store is not an attention k/v (MLA latents), as the
-        reference's does: the paged path cannot parse such a cache."""
+        reference's does: the paged path cannot parse such a cache. State
+        leaves are not page stores and do not count: a Jamba store's
+        attention pages are KIVI-eligible, as in the reference."""
         if any(name not in ("k", "v") for _, name, _ in self._leaves):
             return []
         return list(self._leaves)
@@ -200,8 +231,25 @@ class PagedModelState:
     # ------------------------------------------------------------------
     # gathered backend: dense cache windows
     # ------------------------------------------------------------------
-    def gather(self, tables: np.ndarray) -> List[Dict[str, torch.Tensor]]:
-        """tables: (B, nmax) block ids. Returns, per layer, each leaf's host
+    def gather_state(self, slots: Optional[np.ndarray]) -> List[Dict[str, torch.Tensor]]:
+        """slots: (B,) state slots, or None. Returns, per layer, each state
+        leaf's (B,) + leaf shape host copy of those slots (empty dicts for
+        page layers, and everywhere without slots), charged to
+        ``host_copy_bytes``."""
+        out: List[Dict[str, torch.Tensor]] = [{} for _ in range(self.num_layers)]
+        if slots is None or not self.state_leaves:
+            return out
+        idx = torch.from_numpy(np.ascontiguousarray(slots, np.int64))
+        for (layer, name), store in zip(self.state_leaves, self.state_stores):
+            sl = store[idx]
+            self.host_copy_bytes += sl.numel() * sl.element_size()
+            out[layer][name] = sl
+        return out
+
+    def gather(self, tables: np.ndarray, slots: Optional[np.ndarray] = None
+               ) -> List[Dict[str, torch.Tensor]]:
+        """tables: (B, nmax) block ids; slots: (B,) state slots (state
+        leaves: ``gather_state``). Returns, per layer, each page leaf's host
         window (B, W) + per-token shape with W = min(nmax * P,
         max_model_len): row b's positions in its table's order. Table
         entries past a row's blocks point at block 0 and bring in bytes
@@ -214,7 +262,7 @@ class PagedModelState:
         idx = torch.from_numpy(np.ascontiguousarray(tables, np.int64))
         B, nb = idx.shape
         W = min(nb * self.cfg.block_size, self.cfg.max_model_len)
-        out: List[Dict[str, torch.Tensor]] = [{} for _ in range(self.num_layers)]
+        out = self.gather_state(slots)
         for layer, name, li in self._leaves:
             pages = self.stores[li][:, idx]  # (h, B, nb, P, w)
             if li in self.qplanes:
@@ -231,16 +279,19 @@ class PagedModelState:
             out[layer][name] = win
         return out
 
-    def gather_quantized(self, tables: np.ndarray) -> dict:
+    def gather_quantized(self, tables: np.ndarray,
+                         slots: Optional[np.ndarray] = None) -> dict:
         """The parts of a quantized window that the gathered runner uploads
         and dequantizes on its device (``gathered.dequantize_window``):
         each distinct block of ``tables`` once, with ``inv`` (B, nmax) each
         table entry's index among them, and, per leaf name
-        ("k", "v"), every layer's ``codes`` (L, KV, n, P, D) and f16
-        ``scale`` / ``zero`` planes of those blocks, plus ``stage`` (L, KV,
-        n_open, P, D), the fp staging pages of the blocks still filling, at
-        ``open`` (n_open,) among the ids. ``host_copy_bytes`` is charged the
-        fp window, as the reference's ``gather`` charges it."""
+        ("k", "v"), every attention layer's ``codes`` (L, KV, n, P, D) and
+        f16 ``scale`` / ``zero`` planes of those blocks, plus ``stage`` (L,
+        KV, n_open, P, D), the fp staging pages of the blocks still filling,
+        at ``open`` (n_open,) among the ids; ``layers`` (L,) the model layer
+        of each, and ``state`` the slots' state leaves (``gather_state``).
+        ``host_copy_bytes`` is charged the fp window and the slots, as the
+        reference's ``gather`` charges them."""
         bs = self.cfg.block_size
         B, nb = tables.shape
         W = min(nb * bs, self.cfg.max_model_len)
@@ -249,7 +300,9 @@ class PagedModelState:
         tid = torch.from_numpy(ids.astype(np.int64))
         oid = torch.from_numpy(ids[open_at].astype(np.int64))
         out = {"inv": torch.from_numpy(inv.reshape(B, nb).astype(np.int64)),
-               "open": torch.from_numpy(open_at.astype(np.int64)), "W": W}
+               "open": torch.from_numpy(open_at.astype(np.int64)), "W": W,
+               "layers": [layer for layer, n, _ in self._leaves if n == "k"],
+               "state": self.gather_state(slots)}
         for name in ("k", "v"):
             leaves = [idx for _, n, idx in self._leaves if n == name]
             parts = {"codes": [self.stores[i] for i in leaves],
@@ -268,29 +321,52 @@ class PagedModelState:
                 np.prod(self.shapes[leaves[0]])) * self.dtype.itemsize
         return out
 
+    def scatter_state(self, new_cache: List[Dict[str, torch.Tensor]],
+                      slots: np.ndarray, lengths: List[int]) -> None:
+        """Write each row's new state (``new_cache``'s state leaves, (B,) +
+        leaf shape, on any device) into its slot, for the rows that ran
+        (``lengths[b] > 0``), charging those bytes to ``host_copy_bytes``:
+        one device-side selection and one copy to the host per leaf."""
+        rows = [b for b, ln in enumerate(lengths) if ln > 0]
+        if not self.state_leaves or not rows:
+            return
+        sl = torch.from_numpy(np.ascontiguousarray(slots, np.int64)[rows])
+        sel = None
+        for (layer, name), store in zip(self.state_leaves, self.state_stores):
+            leaf = new_cache[layer][name]
+            if sel is None:
+                sel = torch.tensor(rows, device=leaf.device)
+            v = leaf.index_select(0, sel).cpu()
+            store[sl] = v.to(store.dtype)
+            self.host_copy_bytes += v.numel() * v.element_size()
+
     def scatter(self, new_cache: List[Dict[str, torch.Tensor]], tables: np.ndarray,
                 starts: List[int], lengths: List[int],
-                quant: Optional[QuantConfig] = None) -> None:
+                quant: Optional[QuantConfig] = None,
+                slots: Optional[np.ndarray] = None) -> None:
         """Write back the positions [starts[b], starts[b] + lengths[b]) of
-        every row of ``new_cache`` (per-layer windows, on any device): one
-        device-side selection of those slots across all leaves, one copy to
-        the host, then the page writes. Quantized stores write row by row,
+        every row of ``new_cache`` (per-layer windows, on any device), and
+        with ``slots`` every row's new state (``scatter_state``): one
+        device-side selection of the page slots across all leaves, one copy
+        to the host, then the page writes. Quantized stores write row by row,
         in row order, as the reference does: each row's staging writes,
         then the packs of the pages it filled. fp stores under a ``quant``
         config the page layout cannot hold (MLA latents, a GEAR residual,
         non-KIVI axes) store the reference's quantize–dequantize round trip
         of each row's written values (``_round_trip``). Touched blocks are
         marked dirty."""
+        if slots is not None:
+            self.scatter_state(new_cache, slots, lengths)
         bs = self.cfg.block_size
         rows = [(b, st, ln) for b, (st, ln) in enumerate(zip(starts, lengths)) if ln > 0]
-        if not rows:
+        if not rows or not self._leaves:
             self.version += 1
             return
         bi = np.concatenate([np.full(ln, b) for b, _, ln in rows])
         pos = np.concatenate([np.arange(st, st + ln) for _, st, ln in rows])
         blk = torch.from_numpy(tables[bi, pos // bs].astype(np.int64))
         off = torch.from_numpy(pos % bs)
-        dev = next(iter(new_cache[0].values())).device
+        dev = new_cache[self._leaves[0][0]][self._leaves[0][1]].device
         sel = (torch.from_numpy(bi).to(dev), torch.from_numpy(pos).to(dev))
         n = len(pos)
         flat = torch.cat([new_cache[layer][name][sel].reshape(n, -1)
@@ -422,6 +498,36 @@ class PagedModelState:
             self.block_quantized[block] = payload[-1]
         self._touch([block])
         return nbytes
+
+    # ------------------------------------------------------------------
+    # state slots
+    # ------------------------------------------------------------------
+    def reset_state(self, slot: int) -> None:
+        """Write the empty history (``init_state``) into every state leaf
+        of ``slot``: the engine's step whenever it hands a slot out."""
+        for store, init in zip(self.state_stores, self._state_init):
+            store[slot] = init
+
+    def state_payload(self, slot: int) -> List[torch.Tensor]:
+        """One slot's state leaves, copied (migration)."""
+        return [store[slot].clone() for store in self.state_stores]
+
+    def restore_state(self, slot: int, payload: List[torch.Tensor]) -> int:
+        """Write a ``state_payload`` into ``slot``; returns its bytes."""
+        if len(payload) != len(self.state_stores):
+            raise ValueError(f"a state payload of {len(payload)} leaves for a store "
+                             f"of {len(self.state_stores)} state leaves")
+        nbytes = 0
+        for store, leaf in zip(self.state_stores, payload):
+            store[slot] = leaf
+            nbytes += leaf.numel() * leaf.element_size()
+        self.version += 1
+        return nbytes
+
+    def state_bytes_per_slot(self) -> int:
+        """Bytes of one slot across every state leaf: what a step moves each
+        way per row of a state stack."""
+        return sum(s[0].numel() * s.element_size() for s in self.state_stores)
 
     def kv_bytes_per_block(self) -> int:
         """Bytes one block occupies across layers: for quantized stores,

@@ -16,6 +16,7 @@ report read XLA dry-run artifacts and have no counterpart here.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional
 
 from repro_torch.configs.base import ModelConfig
@@ -72,12 +73,28 @@ def _mixer_params(cfg: ModelConfig, mixer: str) -> float:
         n += d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
         n += cfg.kv_lora_rank * cfg.num_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim)
         return n + cfg.num_heads * cfg.v_head_dim * d
+    if mixer == "mamba":
+        di = cfg.ssm_expand * d
+        dr = max(1, math.ceil(d / 16))
+        N = cfg.ssm_d_state
+        # in_proj, conv, x_proj, dt_proj, A_log, D, out_proj (biases uncounted)
+        return d * 2 * di + cfg.ssm_d_conv * di + di * (dr + 2 * N) + dr * di + \
+            di * N + di + di * d
+    if mixer == "mlstm":
+        di = int(cfg.mlstm_proj_factor * d)
+        return d * 2 * di + 4 * di + 3 * di * di + di * 2 * cfg.num_heads + di * d
+    if mixer == "slstm":
+        dh = d // cfg.num_heads
+        df = int(cfg.slstm_proj_factor * d)
+        return d * 4 * d + cfg.num_heads * dh * 4 * dh + d * 2 * df + df * d
     raise ValueError(f"no parameter count for mixer {mixer!r}")
 
 
 def _ff_params(cfg: ModelConfig, ff: str, active: bool) -> float:
     d = cfg.d_model
     glu = 2 if is_glu(cfg.activation) else 1
+    if ff == "none":  # xLSTM blocks: no separate feed-forward
+        return 0
     if ff == "mlp":
         return d * cfg.d_ff * glu + cfg.d_ff * d
     if ff == "moe":

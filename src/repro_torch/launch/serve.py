@@ -17,6 +17,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch deepseek-v3-671b --requests 2   # MLA latents: gathered
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch jamba-v0.1-52b --requests 2   # Mamba + MoE + attention: gathered
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch xlstm-1.3b --requests 2       # mLSTM + sLSTM: gathered
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch starcoder2-3b --requests 2 --kv-quant-bits 8   # KIVI, gathered
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --backend gathered --kv-quant-bits 8
@@ -42,6 +46,13 @@ itself. ``--trace-out`` turns step tracing on and writes a Chrome
 trace-event JSON (``otherData``: arch, backend, device name) that
 ``tools/trace_summary.py`` summarizes, decode roofline fraction included.
 ``build_engine`` is the construction path ``chip_smoke.py`` drives too.
+
+State-mixer stacks (jamba-v0.1-52b, xlstm-1.3b) hold one state slot per
+sequence in host memory, 64 slots as the reference serves them. At
+published width xLSTM's state is 706 511 616 bytes a sequence (the 42
+mLSTM layers' f32 matrix memories, 16.8 MB each), so 64 slots are 45.2 GB
+of host memory, and every step moves each scheduled sequence's state to
+the device and back; Jamba's is 4 014 080 bytes a sequence per 8 layers.
 """
 from __future__ import annotations
 
@@ -83,7 +94,7 @@ def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
     if speculative is not None and draft_seed is not None:
         speculative = dataclasses.replace(speculative, draft_model=model,
                                           draft_params=model.init(draft_seed))
-    kw = dict(block_size=16, num_blocks=512, max_model_len=256,
+    kw = dict(block_size=16, num_blocks=512, num_state_slots=64, max_model_len=256,
               execution_backend=backend, device=device, seed=seed,
               kv_quant=kv_quant, lora=lora, speculative=speculative,
               telemetry=telemetry,

@@ -342,8 +342,10 @@ def fresh_rows_take_kernel(cfg, spec, C: int) -> bool:
     chunk_size), where its mask is plain causal. Otherwise they take
     ``flash_attention`` with the chunk mask, as continuation rows do. An MLA
     layer never does: its queries and keys are nope + rope wide and its
-    values v wide, and the kernel takes one head dim (``models/mla.py``)."""
-    if spec.mixer == "mla":
+    values v wide, and the kernel takes one head dim (``models/mla.py``);
+    nor does a state mixer (Mamba, mLSTM, sLSTM), which attends to
+    nothing."""
+    if spec.mixer != "attn":
         return False
     return spec.attn_kind != "chunked" or not cfg.chunk_size or C <= cfg.chunk_size
 

@@ -7,7 +7,12 @@ leaves of shape (R, ...)); the port keeps one dict per layer in
 ``cfg.layer_specs()`` order, so stage ``si``, repeat ``r``, pattern slot
 ``i`` becomes ``layers[offset(si) + r * len(pattern) + i]``. Weights keep
 their JAX layouts ((d, H, hd) projections, (in, out) dense), so no
-transposes. ``convert_adapter`` unstacks a LoRA adapter's stage tree the
+transposes, and their dtypes (a Mamba layer's f32 ``A_log`` and ``D``
+beside bf16 weights). The state mixers' trees (Mamba ``conv_w`` /
+``conv_b``, ``x_proj``, ``dt_proj`` with its bias; mLSTM ``w_if``,
+``head_norm``; sLSTM ``r``, ``group_norm``, ``ffn_*``) unstack like any
+other, and a layer without a feed-forward (xLSTM's) has no ``norm2`` and
+no ``ff``. ``convert_adapter`` unstacks a LoRA adapter's stage tree the
 same way. Imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations

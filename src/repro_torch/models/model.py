@@ -1,8 +1,9 @@
 """Model factory of the PyTorch port: attention and multi-head latent
 attention (MLA) decoders with a dense MLP or a routed MoE feed-forward, on
-the paged and gathered serving paths.
+the paged and gathered serving paths, and stacks with state mixers (Mamba:
+jamba-v0.1-52b; mLSTM and sLSTM: xlstm-1.3b) on the gathered path.
 
-The twin of the attention, MLA, MLP and MoE part of
+The twin of the attention, MLA, state-mixer, MLP and MoE part of
 ``repro.models.model.build_model``:
 ``embed_tokens``, ``head``, ``init_cache`` / ``extend`` (a chunk appended to
 a gathered ``(B, W, KV, D)`` cache window: prefill, chunked prefill, mixed
@@ -11,8 +12,8 @@ holds (every layer global attention, MLP or MoE), ``decode_paged`` (one
 token) and ``extend_paged`` (chunked prefill / ragged mixed batches) and
 ``verify_paged`` (C real positions per row: speculative verify and draft
 catch-up); on other stacks (sliding-window attention: starcoder2-3b;
-chunked attention: llama4-scout; MLA: deepseek-v3) those three are None, as
-in the reference.
+chunked attention: llama4-scout; MLA: deepseek-v3; state mixers) those
+three are None, as in the reference.
 A MoE layer's feed-forward is ``moe.moe_apply`` at capacity factor 2.0, as
 the reference serves it, with its aux loss dropped. Parameters are plain
 dicts: ``{"embed": (V, d), "final_norm": {...}, ["lm_head": {"w": (d, V)}],
@@ -26,7 +27,10 @@ Pages are a list over layers of ``{"k", "v"}`` tensors in kernel layout
 not write (``attention._attn_chunk_quant``). A gathered cache is a list
 over layers of windows, also written in place: ``{"k", "v"}`` (B, W, KV, D)
 for attention, ``{"c_kv", "k_pe"}`` (B, W, r) and (B, W, rope) latents for
-MLA (``cache_leaf_shapes``). Every step
+MLA, and for a state mixer its per-sequence state, (B,) + the leaf's
+shape, which ``extend`` replaces by the state after the chunk
+(``cache_leaf_shapes``). A layer whose ``ff`` is "none" (xLSTM's) has no
+``norm2`` and no ``ff``. Every step
 takes an optional multi-tenant LoRA operand whose per-row deltas go through
 ``bgmv_add`` at the six adapter sites of a layer (wq, wk, wv, wo, w1, w2),
 added in place to the projections' outputs in four launches: wq/wk/wv
@@ -39,19 +43,22 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.lora.ops import bgmv_add
 from repro_torch.models import attention as attn
-from repro_torch.models import mla, moe
+from repro_torch.models import mamba, mla, moe, xlstm
 from repro_torch.models.common import (apply_norm, dense, gated, is_glu, make_dense,
                                        make_norm, normal_init)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+
+# mixers whose cache is a fixed-size state per sequence, not pages
+STATE_MIXERS = ("mamba", "mlstm", "slstm")
 
 
 def resolve_device(device) -> torch.device:
@@ -97,20 +104,28 @@ def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
 # single layer
 # ---------------------------------------------------------------------------
 
+MIXERS = {"attn": attn.make_attention_params, "mla": mla.make_mla_params,
+          "mamba": mamba.make_mamba_params, "mlstm": xlstm.make_mlstm_params,
+          "slstm": xlstm.make_slstm_params}
+
+
 def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
-    make_ff = moe.make_moe_params if spec.ff == "moe" else make_mlp_params
-    make_mixer = mla.make_mla_params if spec.mixer == "mla" \
-        else attn.make_attention_params
-    return {"norm1": make_norm(cfg.norm, cfg.d_model, dtype, device),
-            "mixer": make_mixer(gen, cfg, dtype, device),
-            "norm2": make_norm(cfg.norm, cfg.d_model, dtype, device),
-            "ff": make_ff(gen, cfg, dtype, device)}
+    p = {"norm1": make_norm(cfg.norm, cfg.d_model, dtype, device),
+         "mixer": MIXERS[spec.mixer](gen, cfg, dtype, device)}
+    if spec.ff != "none":
+        make_ff = moe.make_moe_params if spec.ff == "moe" else make_mlp_params
+        p["norm2"] = make_norm(cfg.norm, cfg.d_model, dtype, device)
+        p["ff"] = make_ff(gen, cfg, dtype, device)
+    return p
 
 
 def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None):
-    """The feed-forward residual. A MoE layer serves at capacity factor 2.0
-    (the reference's serving value: over-provision rather than drop) and
-    takes no LoRA: its adapter sites are the attention projections only."""
+    """The feed-forward residual; none where ``spec.ff`` is "none". A MoE
+    layer serves at capacity factor 2.0 (the reference's serving value:
+    over-provision rather than drop) and takes no LoRA: its adapter sites
+    are the attention projections only."""
+    if spec.ff == "none":
+        return x
     h = apply_norm(cfg.norm, p["norm2"], x)
     if spec.ff == "moe":
         return x + moe.moe_apply(p["ff"], cfg, h, capacity_factor=2.0)[0]
@@ -138,12 +153,28 @@ def _layer_extend_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
     return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), pages, kv_new
 
 
+def _state_extend(p, spec, cfg, h, state):
+    """A state mixer over a chunk from each row's carried state: (y, the
+    state after the chunk). Every row's C positions are real (the engine
+    groups state stacks by exact chunk length)."""
+    if spec.mixer == "mamba":
+        y, (conv, ssm) = mamba.mamba_forward(p, cfg, h, conv_state=state["conv"],
+                                             ssm_state=state["ssm"])
+        return y, {"conv": conv, "ssm": ssm}
+    fwd = xlstm.mlstm_forward if spec.mixer == "mlstm" else xlstm.slstm_forward
+    return fwd(p, cfg, h, state=state)
+
+
 def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
                   lora_ids=None):
-    """C-token extend over a gathered cache window (the twin of the
-    reference's ``_layer_extend`` for attention and MLA layers)."""
+    """C-token extend over a gathered cache window, or from a state mixer's
+    carried state (the twin of the reference's ``_layer_extend``). Returns
+    (x, the layer's cache: the window written in place, or the new
+    state)."""
     h = apply_norm(cfg.norm, p["norm1"], x)
-    if spec.mixer == "mla":
+    if spec.mixer in STATE_MIXERS:
+        y, cache = _state_extend(p["mixer"], spec, cfg, h, cache)
+    elif spec.mixer == "mla":
         y, cache = mla.mla_extend(p["mixer"], cfg, spec, h, cache, cache_len, route)
     else:
         y, cache = attn.attn_extend(p["mixer"], cfg, spec, h, cache, cache_len,
@@ -174,26 +205,60 @@ def paged_decode_supported(cfg: ModelConfig) -> bool:
 
 def ported_stack(cfg: ModelConfig) -> bool:
     """Whether the port builds this stack: attention layers of the global,
-    sliding-window and chunked kinds, or MLA layers, with an MLP or a MoE
-    feed-forward, no learned positions, no encoder."""
+    sliding-window and chunked kinds, MLA layers or state mixers (Mamba,
+    mLSTM, sLSTM), with an MLP, a MoE or no feed-forward, no learned
+    positions, no encoder."""
     return (cfg.family != "audio" and not cfg.learned_positions
-            and all(s.mixer in ("attn", "mla") and s.ff in ("mlp", "moe")
-                    and s.attn_kind in ("global", "window", "chunked")
-                    for p, _ in cfg.stages for s in p))
+            and all((s.mixer in STATE_MIXERS or (
+                s.mixer in ("attn", "mla")
+                and s.attn_kind in ("global", "window", "chunked")))
+                and s.ff in ("mlp", "moe", "none")
+                for p, _ in cfg.stages for s in p))
 
 
-def cache_leaf_shapes(cfg: ModelConfig) -> List[Dict[str, tuple]]:
-    """Per layer, in ``layer_specs()`` order, each cache leaf's name and its
-    shape per token: ``{"k", "v"}: (KV, D)`` for attention, ``{"c_kv":
-    (kv_lora_rank,), "k_pe": (qk_rope_head_dim,)}`` for MLA. A gathered
-    window leaf is (B, W) + that shape (``Model.init_cache``); the page
-    store derives its stores from the same table."""
+class CacheLeaf(NamedTuple):
+    """One cache leaf of a layer. A page leaf (``state`` False: attention
+    K/V, MLA latents) has its ``shape`` per token; the page store keeps it
+    in pages and the gathered backend in (B, W) + shape windows. A state
+    leaf (``state`` True: a state mixer's) has its ``shape`` per sequence,
+    with no token axis, and lives in a state slot. ``dtype``: the
+    activation dtype for page leaves and conv windows, f32 for the
+    recurrences' states."""
+    shape: tuple
+    dtype: torch.dtype
+    state: bool = False
+
+
+def init_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
+               device) -> Dict[str, torch.Tensor]:
+    """A state mixer's empty history for ``batch`` sequences: the
+    reference's ``init_mamba_cache`` / ``init_mlstm_cache`` /
+    ``init_slstm_cache`` (zeros, and the stabilizer ``m`` at -1e30)."""
+    init = {"mamba": mamba.init_mamba_cache, "mlstm": xlstm.init_mlstm_cache,
+            "slstm": xlstm.init_slstm_cache}[spec.mixer]
+    return init(cfg, batch, DTYPES[cfg.dtype], device)
+
+
+def cache_leaf_shapes(cfg: ModelConfig) -> List[Dict[str, CacheLeaf]]:
+    """Per layer, in ``layer_specs()`` order, each cache leaf's name and
+    ``CacheLeaf``: page leaves ``{"k", "v"}: (KV, D)`` for attention,
+    ``{"c_kv": (kv_lora_rank,), "k_pe": (qk_rope_head_dim,)}`` for MLA;
+    state leaves Mamba ``{"conv": (K-1, d_inner), "ssm": (d_inner, N)
+    f32}``, mLSTM ``{"conv": (3, d_inner), "C": (H, dh, dh), "n": (H, dh),
+    "m": (H,)}`` (all but conv f32), sLSTM ``{"c", "n", "h": (d,), "m":
+    (H,)}`` f32. ``Model.init_cache`` and the page store derive their
+    tensors from this table."""
+    dt = DTYPES[cfg.dtype]
     out = []
     for spec in cfg.layer_specs():
-        if spec.mixer == "mla":
-            out.append({"c_kv": (cfg.kv_lora_rank,), "k_pe": (cfg.qk_rope_head_dim,)})
+        if spec.mixer in STATE_MIXERS:
+            out.append({n: CacheLeaf(tuple(t.shape[1:]), t.dtype, state=True)
+                        for n, t in init_state(cfg, spec, 1, "meta").items()})
+        elif spec.mixer == "mla":
+            out.append({"c_kv": CacheLeaf((cfg.kv_lora_rank,), dt),
+                        "k_pe": CacheLeaf((cfg.qk_rope_head_dim,), dt)})
         else:
-            kv = (cfg.num_kv_heads, cfg.head_dim)
+            kv = CacheLeaf((cfg.num_kv_heads, cfg.head_dim), dt)
             out.append({"k": kv, "v": kv})
     return out
 
@@ -207,16 +272,18 @@ class Model:
     once per call, not per layer: a row counts under each route it took in
     any layer, so a fresh row of a llama4 chunk longer than ``chunk_size``
     (the kernel in the global layers, the plain attention in the chunked
-    ones) counts under both."""
+    ones) counts under both. State-mixer layers attend on no route: a
+    Jamba row counts as its attention layer routes it, an xLSTM row under
+    neither."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if not ported_stack(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the port serves attention (global, sliding-window "
-                "or chunked) and MLA stacks with an MLP or MoE feed-forward; "
-                "state mixers (Mamba, xLSTM: ROADMAP queue A.5.4), "
-                "encoder-decoder stacks and learned positions (A.5.5) are not "
-                "ported yet")
+                "or chunked), MLA and state-mixer (Mamba, mLSTM, sLSTM) stacks "
+                "with an MLP, MoE or no feed-forward; encoder-decoder stacks "
+                "and learned positions (ROADMAP queue A.5.5) are not ported "
+                "yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
@@ -270,14 +337,17 @@ class Model:
                  for name in ("k", "v")} for _ in self.specs]
 
     def init_cache(self, batch: int, max_seq: int) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed gathered cache windows, per layer one (batch, max_seq) +
-        per-token shape tensor for each leaf of ``cache_leaf_shapes``: {"k",
-        "v"} (B, W, KV, D) for attention, {"c_kv": (B, W, r), "k_pe": (B, W,
-        rope)} for MLA, in the activation dtype on the model's device."""
-        return [{name: torch.zeros((batch, max_seq) + shape, dtype=self.dtype,
+        """An empty gathered cache on the model's device, per layer: for
+        each page leaf of ``cache_leaf_shapes`` a zeroed (batch, max_seq) +
+        per-token shape window, {"k", "v"} (B, W, KV, D) for attention,
+        {"c_kv": (B, W, r), "k_pe": (B, W, rope)} for MLA, in the
+        activation dtype; a state mixer's empty history (``init_state``)."""
+        return [init_state(self.cfg, spec, batch, self.device)
+                if spec.mixer in STATE_MIXERS else
+                {name: torch.zeros((batch, max_seq) + leaf.shape, dtype=leaf.dtype,
                                    device=self.device)
-                 for name, shape in leaves.items()}
-                for leaves in cache_leaf_shapes(self.cfg)]
+                 for name, leaf in leaves.items()}
+                for spec, leaves in zip(self.specs, cache_leaf_shapes(self.cfg))]
 
     # ---------------- shared helpers ----------------------------------------
     def embed_tokens(self, params, tokens):
@@ -296,22 +366,34 @@ class Model:
     @torch.no_grad()
     def extend(self, params, tokens, cache, cache_len, lora=None):
         """tokens: (B, C) at positions [cache_len, cache_len + C); cache: a
-        list over layers of windows (``init_cache``), written in place;
-        cache_len: (B,) tokens already cached per row. ``lora`` as in
-        ``decode_paged``. Logits of a ragged row's padded positions are
-        garbage the caller ignores. Returns (logits (B, C, V), cache)."""
+        list over layers (``init_cache``) of windows, written in place, and
+        of state-mixer states; cache_len: (B,) tokens already cached per
+        row. ``lora`` as in ``decode_paged``. Logits of a ragged row's
+        padded positions are garbage the caller ignores (a state stack
+        takes no ragged rows: its states would run over the padding).
+        Returns (logits (B, C, V), the cache list with each state layer's
+        entry replaced by its state after the chunk)."""
         C = tokens.shape[1]
-        route = attn.extend_route(cache_len, C, next(iter(cache[0].values())).shape[1])
-        kernel = [attn.fresh_rows_take_kernel(self.cfg, s, C) for s in self.specs]
-        nf = len(route.fresh)
-        self.route_rows["flash_prefill"] += nf if any(kernel) else 0
-        self.route_rows["flash_attention"] += len(route.cont) + (0 if all(kernel) else nf)
+        windows = [next(iter(c.values())) for c, s in zip(cache, self.specs)
+                   if s.mixer not in STATE_MIXERS]
+        # the window width comes from an attention layer's leaf; a stack of
+        # state mixers alone writes no window
+        route = attn.extend_route(cache_len, C, windows[0].shape[1] if windows else 0)
+        kernel = [attn.fresh_rows_take_kernel(self.cfg, s, C) for s in self.specs
+                  if s.mixer not in STATE_MIXERS]
+        if kernel:
+            nf = len(route.fresh)
+            self.route_rows["flash_prefill"] += nf if any(kernel) else 0
+            self.route_rows["flash_attention"] += len(route.cont) + (
+                0 if all(kernel) else nf)
         x = self.embed_tokens(params, tokens)
         tables, ids = _layer_lora(lora)
+        out = []
         for p, spec, c, lt in zip(params["layers"], self.specs, cache, tables):
-            x, _ = _layer_extend(p, spec, self.cfg, x, c, cache_len, route, lora=lt,
+            x, c = _layer_extend(p, spec, self.cfg, x, c, cache_len, route, lora=lt,
                                  lora_ids=ids)
-        return self.head(params, x), cache
+            out.append(c)
+        return self.head(params, x), out
 
     # ---------------- decode_paged (one token) --------------------------------
     @torch.no_grad()

@@ -918,6 +918,11 @@ FLASH_CASES = [
     (1, 2, 2, 1, 64, 0), (1, 2, 2, 63, 128, 0), (1, 8, 1, 127, 64, 0),
     (1, 12, 1, 129, 128, 0), (2, 2, 2, 500, 64, 100), (1, 12, 1, 2053, 128, 4096),
     (1, 16, 2, 2053, 64, 1000),
+    # jamba-v0.1-52b's attention layer: H 32 over KV 8 (G 4), D 128, no
+    # RoPE and no window: two fresh rows of a 256-token chunk (the serve's
+    # full chunk at prefill_chunk 256, and the model step's), one ragged
+    # row of a prompt that goes whole, a chunk of 512
+    (2, 32, 8, 256, 128, 0), (1, 32, 8, 200, 128, 0), (2, 32, 8, 512, 128, 0),
 ]
 # f32 (the CUDA-core kernel): summation order only; bf16 / f16 (the wgmma
 # kernel: bf16 P split into head and remainder, f16 P rounded once):
@@ -1259,17 +1264,87 @@ def test_mla_decode_matches_extend_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch,bits", [("deepseek-v3-671b", None), ("starcoder2-3b", 8)])
+@pytest.mark.parametrize("arch,bits", [("deepseek-v3-671b", None), ("starcoder2-3b", 8),
+                                       ("jamba-v0.1-52b", None), ("jamba-v0.1-52b", 8),
+                                       ("xlstm-1.3b", None)])
 def test_smoke_streams_on_card_equal_cpu(cuda, arch, bits):
     """The same f32 smoke weights served on the CPU and on the card give the
-    same greedy streams: deepseek's latents, and starcoder2-3b's KIVI pages
-    packed by the pack kernel and dequantized by the unpack kernel."""
+    same greedy streams: deepseek's latents, starcoder2-3b's and jamba's
+    KIVI pages packed by the pack kernel and dequantized by the unpack
+    kernel, jamba's and xlstm's state slots."""
     params = build_model(configs.smoke_config(arch), device="cpu").init(0)
     cpu = _smoke_serve(arch, params, "cpu", bits=bits)
     launches = (kvmod.quantize_pages.launches, kvmod.dequantize_pages.launches)
     gpu = _smoke_serve(arch, params, "cuda", bits=bits)
     got = {rid: s.generated for rid, s in gpu.seqs.items()}
     assert got == {rid: s.generated for rid, s in cpu.seqs.items()}
-    if bits:
-        assert kvmod.dequantize_pages.launches - launches[1] == 2 * gpu.steps
+    if bits:  # twice a dispatch (a state stack dispatches once per chunk length)
+        assert kvmod.dequantize_pages.launches - launches[1] == 2 * gpu.runner.steps
         assert kvmod.quantize_pages.launches > launches[0]
+
+
+# ---------------------------------------------------------------------------
+# state mixers (Mamba, mLSTM): plain PyTorch on the card, as in the reference
+# ---------------------------------------------------------------------------
+
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
+
+
+@pytest.mark.gpu
+def test_state_mixers_chunked_equal_full_on_card(cuda):
+    """Mamba (chunks 37 + 91 + 1: the scan from a carried state, then the
+    single-step branch) and mLSTM (128 chunkwise + 1 + 39 by the
+    recurrence) at smoke width in f32 on the card: the chunks equal the
+    whole sequence (atol 1e-4: f32 sums in other orders, no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = configs.smoke_config("jamba-v0.1-52b")
+    p = mamba_mod.make_mamba_params(gen, cfg, torch.float32, "cuda")
+    x = 0.5 * torch.randn(2, 129, cfg.d_model, device="cuda", generator=gen)
+    full, (fc, fs) = mamba_mod.mamba_forward(p, cfg, x)
+    st = mamba_mod.init_mamba_cache(cfg, 2, torch.float32, "cuda")
+    conv, ssm, outs = st["conv"], st["ssm"], []
+    for lo, hi in ((0, 37), (37, 128), (128, 129)):
+        y, (conv, ssm) = mamba_mod.mamba_forward(p, cfg, x[:, lo:hi], conv_state=conv,
+                                                 ssm_state=ssm)
+        outs.append(y)
+    torch.testing.assert_close(torch.cat(outs, 1), full, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ssm, fs, atol=1e-4, rtol=0)
+    torch.testing.assert_close(conv, fc, atol=1e-4, rtol=0)
+    cfg = configs.smoke_config("xlstm-1.3b")
+    p = xlstm_mod.make_mlstm_params(gen, cfg, torch.float32, "cuda")
+    x = 0.5 * torch.randn(2, 168, cfg.d_model, device="cuda", generator=gen)
+    full, _ = xlstm_mod.mlstm_forward(p, cfg, x)
+    st, outs = None, []
+    for lo, hi in ((0, 128), (128, 129), (129, 168)):
+        y, st = xlstm_mod.mlstm_forward(p, cfg, x[:, lo:hi], state=st)
+        outs.append(y)
+    torch.testing.assert_close(torch.cat(outs, 1), full, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_recycled_state_slot_on_card_equals_fresh_engine(cuda):
+    """jamba at smoke width in f32 on the card, 4 state slots: a request
+    served after another has finished (its slot recycled) equals the same
+    request in a fresh engine."""
+    cfg = configs.smoke_config("jamba-v0.1-52b")
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    rng = np.random.default_rng(5)
+    reqs = [Request(request_id=f"r{i}", prompt=[int(t) for t in rng.integers(
+        2, cfg.vocab_size, n)], sampling=SamplingParams(max_new_tokens=8))
+        for i, n in enumerate((30, 45))]
+
+    def engine():
+        return LLMEngine(model, params, EngineConfig(
+            block_size=8, num_blocks=128, num_state_slots=4, max_model_len=128,
+            device="cuda"))
+    fresh, reused = engine(), engine()
+    fresh.add_request(dataclasses.replace(reqs[1]))
+    fresh.run()
+    reused.add_request(dataclasses.replace(reqs[0]))
+    reused.run()
+    reused.add_request(dataclasses.replace(reqs[1]))
+    reused.run()
+    assert reused.seqs["r1"].generated == fresh.seqs["r1"].generated

@@ -203,7 +203,9 @@ def test_import_refuses_adapter_bound_without_lora(olmo):
     with pytest.raises(ValueError, match="bound to adapter 'a0' but this engine "
                                          "has no EngineConfig.lora"):
         dst.import_seq(payload)
-    with pytest.raises(NotImplementedError, match="state slot"):
+    # a state payload into an engine whose model has no state leaves
+    with pytest.raises(ValueError, match="carries state slot but this engine's "
+                                         "model .* has no state leaves"):
         dst.import_seq(dict(payload, state=[np.zeros(1)],
                             request=dataclasses.replace(payload["request"],
                                                         adapter_id=None)))

@@ -3,8 +3,9 @@
 Checked in a fresh interpreter, where nothing else has imported them; the
 walk must reach the KIVI, LoRA, gathered-backend and MoE modules, and the
 migration (disaggregation, fleet), telemetry config / export and roofline
-modules, and MLA (deepseek-v3) with the page store and gathered runner
-that hold its latents and KIVI windows."""
+modules, MLA (deepseek-v3) with the page store and gathered runner
+that hold its latents and KIVI windows, and the state mixers (Mamba,
+xLSTM) with the jamba-v0.1-52b and xlstm-1.3b configs."""
 import os
 import subprocess
 import sys
@@ -46,6 +47,9 @@ assert migration <= set(mods), migration - set(mods)
 mla = {"repro_torch.configs.deepseek_v3_671b", "repro_torch.models.mla",
        "repro_torch.core.executor.state", "repro_torch.core.executor.gathered"}
 assert mla <= set(mods), mla - set(mods)
+state = {"repro_torch.configs.jamba_v0_1_52b", "repro_torch.configs.xlstm_1_3b",
+         "repro_torch.models.mamba", "repro_torch.models.xlstm"}
+assert state <= set(mods), state - set(mods)
 """
 
 
