@@ -154,7 +154,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                rebalancing migrations and their bytes, an adapter-bound
                sequence served on its destination with the adapter faulted
                in, bgmv launches = 4 x 16 x both instances' paged steps; in
-               f32 the streams equal one LoRA engine's that never migrates.
+               f32 the streams equal one LoRA engine's that never migrates;
+  9. modality — run after phase 6's last serve: whisper-base whole on the
+               gathered backend (8 requests with 1500 random audio frames
+               each, prompts of 16-64 tokens, 32 greedy tokens; the encoder
+               on each first chunk, 18.4 MB of cross K/V a state slot
+               through the host every dispatch; flash_prefill = 6 x the
+               dispatches holding a fresh row, at D = 64) and internvl2-2b
+               at published width on auto (8 requests with 256 random image
+               rows ahead of 128-512 tokens, 32 greedy tokens: the image
+               chunks gathered in groups of their own, flash_prefill = 24 x
+               those, every other dispatch paged, paged_attention = 24 x
+               those at G = 2, no prefix-cache lookup); flash_prefill and
+               paged_attention held against their plain versions at every
+               shape the serves gave them, the serves' most common fresh
+               shapes timed, a decode step of each profiled; the f32 smoke
+               twins of both families with extras (card streams equal the
+               CPU's).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -1074,10 +1090,11 @@ def phase_kernel_verify():
     torch.cuda.synchronize()
 
 
-# decode shapes timed in phase 4 beside OLMO: qwen2.5-32b's heads (GQA) and
-# gemma-2b's (MQA)
+# decode shapes timed in phase 4 beside OLMO: qwen2.5-32b's and
+# internvl2-2b's heads (GQA) and gemma-2b's (MQA)
 DECODE_SHAPES = [("olmo-1b", OLMO),
                  ("qwen2.5-32b heads", dict(B=8, KV=8, G=5, D=128, P=16, L=1024)),
+                 ("internvl2-2b heads", dict(B=8, KV=8, G=2, D=128, P=16, L=1024)),
                  ("gemma-2b heads", dict(B=8, KV=1, G=8, D=256, P=16, L=1024))]
 
 
@@ -1089,8 +1106,8 @@ def split_sweep(call) -> str:
 
 
 def phase_timing(card):
-    """paged_attention at its four shapes, all bf16, every row L = 1024:
-    olmo-1b, qwen2.5-32b's heads and gemma-2b's heads in decode, and the
+    """paged_attention at its five shapes, all bf16, every row L = 1024:
+    olmo-1b, qwen2.5-32b's, internvl2-2b's and gemma-2b's heads in decode, and the
     olmo-1b ragged extend layer (B=4, C=64, chunk starts 0/100/513/300 in a
     1024-slot table). Bound: the K/V positions the rows see (whole decode
     rows; per sequence up to lengths + C in extend), q in and out once,
@@ -2209,8 +2226,10 @@ def run_served(engine, counters, paged=True, n=8, gen=32):
     """Serve the queued traffic (``n`` requests of ``gen`` tokens) with
     every kernel count set to 0 just before; returns (metrics, seconds,
     launches by kernel). ``paged``: every step ran on the paged backend,
-    with no window staging; else every step ran gathered (a state stack's
-    exact-chunk steps in one dispatch per chunk length)."""
+    with no window staging; None: some dispatches ran on each backend
+    (chunks carrying images gathered, the rest paged); else every step ran
+    gathered (a state stack's exact-chunk steps in one dispatch per chunk
+    length)."""
     for k in counters.values():
         k.launches = 0  # the main path's count starts here
     t0 = time.perf_counter()
@@ -2223,7 +2242,10 @@ def run_served(engine, counters, paged=True, n=8, gen=32):
         [m.num_generated for m in metrics]
     assert all(0 <= tok < cfg.vocab_size for s in engine.seqs.values()
                for tok in s.generated)
-    if paged:
+    if paged is None:
+        assert engine.paged_steps > 0 and engine.runner.steps > 0
+        assert engine.host_copy_bytes > 0
+    elif paged:
         assert engine.host_copy_bytes == 0, engine.host_copy_bytes
         if engine.spec_runner is None:
             assert engine.paged_steps == engine.steps > 0
@@ -3907,6 +3929,347 @@ def phase_recycled_slot():
         raise AssertionError("a recycled state slot changed a stream")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the modality families — whisper-base (encoder, cross-attention,
+# learned positions) and internvl2-2b (the image splice), served through
+# request extras
+# ---------------------------------------------------------------------------
+WHISPER = "whisper-base"
+INTERNVL = "internvl2-2b"
+
+
+def record_paged_calls():
+    """Patch the model's two paged-attention entries (``paged_attend``:
+    decode; ``paged_attend_extend``: native chunked extend) so every call's
+    (kind, q shape, page shape, table width, lengths) is appended to the
+    returned list before it goes on to the op, whose kernel launch counts as
+    before. Returns (the list, the patch)."""
+    calls = []
+
+    def wrap(kind, fn):
+        def recorded(q, k, v, tables, lengths, *, scale):
+            calls.append((kind, tuple(q.shape), tuple(k.shape), tables.shape[1],
+                          lengths.clone()))
+            return fn(q, k, v, tables, lengths, scale=scale)
+        return recorded
+    return calls, mock.patch.multiple(
+        attn_mod, paged_attend=wrap("decode", ops.paged_attend),
+        paged_attend_extend=wrap("extend", ops.paged_attend_extend))
+
+
+def check_paged_served(calls) -> None:
+    """``paged_attention`` held against its plain version at every distinct
+    shape a serve gave it — decode (B, 1, H, D) and native chunked extend
+    (B, C, H, D) — with the serve's lengths and table width, random pages
+    and tables, bf16, at ATOL, through the model's ops (kernel, then the
+    plain version under ``plain_attention``). Run after the serve's counts
+    were read, so these launches count nowhere."""
+    shapes = {}
+    for kind, qs, ks, NP, lengths in calls:
+        shapes.setdefault((kind, qs, ks[0], ks[2], NP), lengths.tolist())
+    log(f"  paged_attention at the serve's {len(shapes)} distinct shapes (of "
+        f"{len(calls)} calls): decode B "
+        f"{sorted({qs[0] for kind, qs, *_ in shapes if kind == 'decode'})}, extend "
+        f"(B, C) {sorted({qs[:2] for kind, qs, *_ in shapes if kind == 'extend'})}")
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for (kind, qs, KV, P, NP), lengths in sorted(shapes.items(), key=str):
+        B, H, D = qs[0], qs[2], qs[3]
+        _, k, v, t, ln = inputs(3, B, KV, H // KV, D, P, B * NP, NP, torch.bfloat16,
+                                lengths=lengths)
+        q = torch.randn(qs, generator=g, device="cuda").to(torch.bfloat16)
+        fn = ops.paged_attend if kind == "decode" else ops.paged_attend_extend
+        got = fn(q, k, v, t, ln, scale=D ** -0.5)
+        with plain_attention():
+            want = fn(q, k, v, t, ln, scale=D ** -0.5)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= ATOL[torch.bfloat16]:
+            check(f"paged_attention served {kind} {qs} NP={NP}", got, want,
+                  ATOL[torch.bfloat16])
+        worst = max(worst, err)
+    log(f"  paged_attention at every served shape vs plain: max_abs_err={worst:.3g} "
+        f"(atol {ATOL[torch.bfloat16]:g}) ok")
+
+
+def timed_dispatches(runner):
+    """Wrap ``runner.execute`` so each dispatch's (rows, longest chunk, host
+    seconds) is appended to the returned list; a dispatch ends with its
+    logits on the host, so the host clock covers its device work."""
+    out, execute = [], runner.execute
+
+    def run(batch):
+        t0 = time.perf_counter()
+        logits = execute(batch)
+        out.append((len(batch.chunks), max(c.length for c in batch.chunks),
+                    time.perf_counter() - t0))
+        return logits
+    runner.execute = run
+    return out
+
+
+def dispatch_walls(label, walls) -> str:
+    """The median host time of ``walls``' prefill and decode dispatches."""
+    parts = []
+    for kind, sel in (("prefill", [w for w in walls if w[1] > 1]),
+                      ("decode", [w for w in walls if w[1] == 1])):
+        if sel:
+            parts.append(f"{len(sel)} {kind} {statistics.median(w[2] for w in sel) * 1e3:.1f}"
+                         f" ms median (max {max(w[2] for w in sel) * 1e3:.1f})")
+    return f"{label} dispatches: " + ", ".join(parts)
+
+
+def time_flash_shape(card, label, B, H, KV, S, D):
+    """flash_prefill at one causal bf16 shape beside its bound, its plain
+    version and SDPA(is_causal, enable_gqa), as phase 4 times starcoder2-3b's
+    (no window)."""
+    q, k, v = flash_inputs(5, B, H, KV, S, D, torch.bfloat16)
+    scale = D ** -0.5
+    got = FLASH(q, k, v, scale=scale)
+    err = check(f"flash_prefill {label} timed shape vs plain", got,
+                flash_prefill_ref(q, k, v, scale=scale), FLASH_ATOL[torch.bfloat16])
+    ms = cuda_ms(lambda: FLASH(q, k, v, scale=scale))
+    plain_ms = cuda_ms(lambda: flash_prefill_ref(q, k, v, scale=scale))
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
+                                              enable_gqa=True)
+    check(f"SDPA vs kernel {label}", library(), got, FLASH_ATOL[torch.bfloat16])
+    library_ms = cuda_ms(library)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * B * H * D * live_pairs(S, 0)
+    bound_ms, bound_by = bound(card, nbytes, flops, tensor_cores=True)
+    log(f"[9 timing] flash_prefill {label} B={B} H={H} KV={KV} S={S} D={D} bf16 "
+        f"({fmod.kernel_route(q.dtype, D)}): kernel {ms * 1e3:.1f} us, bound "
+        f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; "
+        f"{bound_by}), plain {plain_ms * 1e3:.1f} us, SDPA(is_causal, enable_gqa) "
+        f"{library_ms * 1e3:.1f} us; kernel / SDPA {ms / library_ms:.2f}; "
+        f"{bound_ms / ms:.1%} of bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err)
+
+
+def most_common_fresh(steps):
+    """(fresh rows, chunk length) of the serve's most frequent fresh
+    dispatch shape (the longest on a tie)."""
+    shapes = [(sum(st == 0 for st, _ in s), max(ln for _, ln in s))
+              for s in steps if any(st == 0 for st, _ in s)]
+    return max(set(shapes), key=lambda sh: (shapes.count(sh), sh[1]))
+
+
+def bf16_rows(rng, shape, scale):
+    """Random rows rounded to bf16 (the host's numpy has no bf16), f32."""
+    x = torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32))
+    return x.to(torch.bfloat16).float().numpy()
+
+
+def modality_traffic(engine, rng, n, prompt, gen, extras):
+    """``n`` requests, prompts of ``prompt`` random tokens, ``gen`` greedy
+    tokens each, request i carrying ``extras(i)``."""
+    vocab = engine.model.cfg.vocab_size
+    for i in range(n):
+        ln = int(rng.integers(prompt[0], prompt[1] + 1))
+        engine.add_request(Request(
+            request_id=f"r{i}", prompt=[int(x) for x in rng.integers(2, vocab, ln)],
+            extras=extras(i), sampling=SamplingParams(temperature=0.0, max_new_tokens=gen)))
+
+
+def phase_serve_whisper(card):
+    """whisper-base whole (6 encoder + 6 decoder layers, d_model 512, 8 heads
+    x 64, 1500 audio frames, 448 learned positions, vocab 51865), random
+    bf16 weights from seed 0, on the gathered backend (its only one): 8
+    requests, each with its own 1500 random frames (bf16-rounded), prompts
+    of 16-64 tokens, 32 greedy tokens, block 16, max_model_len 448, 8 state
+    slots. Exact chunks; the encoder runs on each request's first chunk and
+    its cross K/V (18 432 000 B a slot) cross the host with every dispatch
+    of that request, both ways. flash_prefill launches = 6 x the dispatches
+    holding a fresh row (the wgmma route at D = 64), held against its plain
+    version at every fresh shape; one decode step (B = 8) profiled. Returns
+    (launches, the timing of the most common fresh shape)."""
+    cfg = configs.get_config(WHISPER)
+    free_device(WHISPER)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    nparam = sum(x.numel() for x in _leaves(params))
+    engine = LLMEngine(model, params, EngineConfig(
+        block_size=16, num_blocks=256, num_state_slots=8, max_model_len=448,
+        device="cuda", seed=0, scheduler=SchedulerConfig(
+            max_batch_slots=8, max_batched_tokens=512, prefill_chunk=256)))
+    runner, store = engine.runner, engine.store
+    assert engine.paged_runner is None and engine.prefix_cache is None
+    slot = store.state_bytes_per_slot()
+    assert slot == 18_432_000, slot
+    log(f"[9 serve] {cfg.name}: published width and depth ({cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
+        f"{cfg.head_dim}, {cfg.n_audio_ctx} frames, {cfg.learned_positions} positions): "
+        f"{nparam} params, {nparam * 2 / 1e6:.1f} MB bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s; cross K/V {slot} B a state slot "
+        f"({len(store.state_leaves)} leaves)")
+    steps = record_chunks(runner)
+    walls = timed_dispatches(runner)
+    rng = np.random.default_rng(7)
+    frames = [bf16_rows(rng, (cfg.n_audio_ctx, cfg.d_model), 1.0) for _ in range(8)]
+    modality_traffic(engine, rng, 8, (16, 64), 32,
+                     lambda i: {"audio_frames": frames[i]})
+    metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    fresh = sum(any(st == 0 for st, _ in s) for s in steps)
+    assert counts["flash_prefill"] == cfg.num_layers * fresh > 0, (counts, fresh)
+    assert all(n == 0 for k, n in counts.items() if k != "flash_prefill"), counts
+    assert engine.host_copy_bytes == state_host_bytes(engine, steps)
+    rows = sum(len(s) for s in steps)
+    gen = sum(m.num_generated for m in metrics)
+    log(f"[9 serve] {cfg.name} whole, gathered backend: 8 requests, "
+        f"{sum(m.num_prompt for m in metrics)} prompt + {gen} generated tokens in "
+        f"{dt:.2f} s = {gen / dt:.1f} generated tok/s, TTFT p50 "
+        f"{statistics.median(m.ttft for m in metrics) * 1e3:.0f} ms, {engine.steps} steps "
+        f"in {runner.steps} dispatches ({fresh} with a fresh row: the encoder's); "
+        f"flash_prefill {counts['flash_prefill']} launches (= {cfg.num_layers} x {fresh}, "
+        f"{fmod.kernel_route(model.dtype, cfg.head_dim)}); cross K/V {slot / 1e6:.1f} MB a "
+        f"row each way, {2 * rows * slot / 1e9:.2f} GB over {rows} dispatched rows; "
+        f"host_copy_bytes {engine.host_copy_bytes} (= formula; "
+        f"{engine.host_copy_bytes / engine.steps / 1e6:.1f} MB a step); window upload "
+        f"{runner.window_upload_bytes} B")
+    log("  " + dispatch_walls("gathered", walls))
+    check_flash_served(model, steps)
+    B, S = most_common_fresh(steps)
+    timing = time_flash_shape(card, f"{cfg.name} fresh rows (the serve's most common)",
+                              B, cfg.num_heads, cfg.num_kv_heads, S, cfg.head_dim)
+    # one decode step (B = 8, C = 1) over a 448-slot window and 1500 cross rows
+    cache = model.init_cache(8, 448)
+    tok = torch.randint(2, cfg.vocab_size, (8, 1), device="cuda")
+    cl = torch.tensor([40 + 45 * i for i in range(8)], dtype=torch.int32, device="cuda")
+    device_profile(f"{cfg.name} decode step B=8 (extend C=1, cross over "
+                   f"{cfg.n_audio_ctx} frames) bf16",
+                   lambda: model.extend(params, tok, cache, cl)[0])
+    del engine, model, params, cache
+    return counts, timing
+
+
+def phase_serve_internvl(card):
+    """internvl2-2b at its published width and depth (24 layers, d_model
+    2048, 16 heads over 8 KV heads x 128, d_ff 8192, vocab 92553), random
+    bf16 weights from seed 0, on ``auto``: 8 requests, each with 256 random
+    image rows (bf16-rounded, scale 0.02) ahead of a prompt of 128-512
+    tokens, 32 greedy tokens, block 16, max_model_len 1024, prefill_chunk
+    256, 512 batched tokens a step. The image's chunk [0, 256) runs
+    gathered in a group of its own (flash_prefill: 24 launches per such
+    dispatch, H 16 over KV 8, D 128), every other chunk and every decode
+    paged (paged_attention: 24 per paged dispatch, G = 2). Both kernels held
+    against their plain versions at the serve's shapes; one decode_paged
+    step (B = 8) profiled. Returns (launches, the flash timing)."""
+    cfg = configs.get_config(INTERNVL)
+    free_device(INTERNVL)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    torch.cuda.synchronize()
+    nparam = sum(x.numel() for x in _leaves(params))
+    log(f"[9 serve] {cfg.name}: published width and depth ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} KV heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{cfg.num_image_tokens} image rows): {nparam} params, {nparam * 2 / 1e9:.2f} GB "
+        f"bf16, built in {time.perf_counter() - t0:.1f} s")
+    engine = LLMEngine(model, params, EngineConfig(
+        block_size=16, num_blocks=640, max_model_len=1024, device="cuda", seed=0,
+        scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=512,
+                                  prefill_chunk=256)))
+    runner, paged = engine.runner, engine.paged_runner
+    assert paged is not None and engine.prefix_cache is not None
+    gsteps = record_chunks(runner)
+    gwalls, pwalls = timed_dispatches(runner), timed_dispatches(paged)
+    rng = np.random.default_rng(7)
+    images = [bf16_rows(rng, (cfg.num_image_tokens, cfg.d_model), 0.02) for _ in range(8)]
+    modality_traffic(engine, rng, 8, (128, 512), 32,
+                     lambda i: {"vision_embeds": images[i]})
+    calls, patch = record_paged_calls()
+    with patch:
+        metrics, dt, counts = run_served(engine, COUNTERS, paged=None)
+    fresh = sum(any(st == 0 for st, _ in s) for s in gsteps)
+    assert all(st < cfg.num_image_tokens for s in gsteps for st, _ in s), gsteps
+    assert counts["flash_prefill"] == cfg.num_layers * fresh > 0, (counts, fresh)
+    assert counts["paged_attention"] == cfg.num_layers * engine.paged_steps == len(calls), \
+        (counts, engine.paged_steps, len(calls))
+    assert all(n == 0 for k, n in counts.items()
+               if k not in ("flash_prefill", "paged_attention")), counts
+    pc = engine.prefix_cache.stats
+    assert pc.lookups == 0 and pc.inserted_blocks == 0, (pc.lookups, pc.inserted_blocks)
+    snap = engine.metrics_snapshot()
+    decode = sum(kind == "decode" for kind, *_ in calls) // cfg.num_layers
+    gen = sum(m.num_generated for m in metrics)
+    log(f"[9 serve] {cfg.name} published width, auto: 8 requests, "
+        f"{sum(m.num_prompt for m in metrics)} prompt positions (256 image rows each) + "
+        f"{gen} generated tokens in {dt:.2f} s = {gen / dt:.1f} generated tok/s, TTFT p50 "
+        f"{statistics.median(m.ttft for m in metrics) * 1e3:.0f} ms, {engine.steps} steps: "
+        f"{runner.steps} gathered dispatches (the images, {fresh} with a fresh row) and "
+        f"{engine.paged_steps} paged ({decode} decode); flash_prefill "
+        f"{counts['flash_prefill']} launches (= {cfg.num_layers} x {fresh}), "
+        f"paged_attention {counts['paged_attention']} (= {cfg.num_layers} x "
+        f"{engine.paged_steps}); dispatch counters gathered "
+        f"{snap['engine.dispatch.gathered']} paged {snap['engine.dispatch.paged']}; "
+        f"host_copy_bytes {engine.host_copy_bytes} (the image dispatches' windows); "
+        f"prefix cache: 0 lookups, 0 blocks registered")
+    log("  " + dispatch_walls("gathered (image)", gwalls) + "; "
+        + dispatch_walls("paged", pwalls))
+    check_flash_served(model, gsteps)
+    check_paged_served(calls)
+    B, S = most_common_fresh(gsteps)
+    timing = time_flash_shape(card, f"{cfg.name} image chunk (the serve's most common)",
+                              B, cfg.num_heads, cfg.num_kv_heads, S, cfg.head_dim)
+    # one decode_paged step (B = 8) over 16-slot pages, rows at 400-750
+    NB, P = 8 * 64, 16
+    pages = model.init_pages(NB, P)
+    tables = torch.arange(NB, dtype=torch.int32, device="cuda").reshape(8, 64)
+    lengths = torch.tensor([400 + 50 * i for i in range(8)], dtype=torch.int32,
+                           device="cuda")
+    tok = torch.randint(2, cfg.vocab_size, (8, 1), device="cuda")
+    device_profile(f"{cfg.name} decode_paged step B=8 bf16",
+                   lambda: model.decode_paged(params, tok, pages, tables, lengths)[0],
+                   focus=PAGED_FOCUS)
+    del engine, model, params, pages
+    return counts, timing
+
+
+def smoke_serve_extras(arch, params, device):
+    """The smoke config of ``arch`` in f32 on ``device`` with the given CPU
+    weights: 4 greedy requests with random extras (audio frames, or image
+    rows ahead of the text) over 8-token chunks, so an image straddles a
+    chunk boundary. Returns (streams, engine)."""
+    model = build_model(configs.smoke_config(arch), device=device)
+    cfg = model.cfg
+    eng = LLMEngine(model, _to_device(params, device), EngineConfig(
+        block_size=8, num_blocks=128, max_model_len=128, device=device,
+        scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=64,
+                                  prefill_chunk=6)))
+    rng = np.random.default_rng(4)
+    key, rows = (("audio_frames", cfg.n_audio_ctx) if cfg.family == "audio"
+                 else ("vision_embeds", cfg.num_image_tokens))
+    extras = [rng.normal(size=(rows, cfg.d_model)).astype(np.float32) for _ in range(4)]
+    modality_traffic(eng, rng, 4, (12, 40), 12, lambda i: {key: extras[i]})
+    eng.run()
+    return {rid: s.generated for rid, s in eng.seqs.items()}, eng
+
+
+def phase_modality_twins():
+    """The f32 smoke twins of both families: the same weights and extras
+    served on the CPU (plain versions) and on the card (kernels) give equal
+    greedy streams."""
+    for arch in (WHISPER, INTERNVL):
+        params = build_model(configs.smoke_config(arch), device="cpu").init(0)
+        cpu, _ = smoke_serve_extras(arch, params, "cpu")
+        before = (FLASH.launches, KERNEL.launches)
+        gpu, eng = smoke_serve_extras(arch, params, "cuda")
+        same, total = equal_share(gpu, cpu)
+        ok = gpu == cpu
+        log(f"[9 serve] {arch} smoke f32 with extras: card vs CPU streams {same} of "
+            f"{total} tokens equal, {eng.steps} steps ({eng.runner.steps} gathered, "
+            f"{eng.paged_steps} paged dispatches), flash_prefill "
+            f"{FLASH.launches - before[0]} / paged_attention {KERNEL.launches - before[1]} "
+            f"launches: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{arch} smoke: the card's streams differ from the CPU's")
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
@@ -3995,6 +4358,11 @@ def main() -> None:
     free_device("the smoke twins")
     phase_smoke_twins()
     phase_recycled_slot()
+    w_counts, _ = phase_serve_whisper(card)
+    torch.cuda.empty_cache()
+    v_counts, _ = phase_serve_internvl(card)
+    torch.cuda.empty_cache()
+    phase_modality_twins()
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for paged_attention_quant and
     # quantize_pages, the gathered KIVI starcoder2-3b serve for
@@ -4006,11 +4374,17 @@ def main() -> None:
     sources = {"paged_attention": kmod.SOURCE, "paged_attention_quant": qmod.SOURCE,
                "quantize_pages": kvmod.SOURCE, "dequantize_pages": kvmod.SOURCE,
                "bgmv": bgmod.SOURCE, "flash_prefill": fmod.SOURCE}
+    # and each path's own count (set to 0 just before it, read just after)
+    paths = {"olmo-1b paged fp": fp_counts, "olmo-1b paged KIVI": q_counts,
+             "olmo-1b paged LoRA": lora_counts, "starcoder2-3b gathered": sc_counts,
+             "starcoder2-3b gathered KIVI": scq_counts, "jamba block gathered": jamba[0],
+             "whisper-base gathered": w_counts, "internvl2-2b auto": v_counts}
     kernels = [dict(name=k, route="cuda", source=os.path.relpath(sources[k], ROOT),
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=timing[k]["max_abs_err"], ms=timing[k]["ms"],
                     plain_ms=timing[k]["plain_ms"], bound_ms=timing[k]["bound_ms"],
-                    bound_by=timing[k]["bound_by"], library_ms=timing[k]["library_ms"])
+                    bound_by=timing[k]["bound_by"], library_ms=timing[k]["library_ms"],
+                    launches_by_path={p: c[k] for p, c in paths.items() if c.get(k)})
                for k in REPLACES]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

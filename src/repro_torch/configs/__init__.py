@@ -3,15 +3,20 @@
 A copy of ``repro.configs`` restricted to the architectures the port serves
 today: attention and multi-head latent attention (MLA) stacks with a dense
 MLP or a routed MoE feed-forward, and the state mixers (Mamba, mLSTM,
-sLSTM). olmo-1b, gemma-2b and qwen2.5-32b (global attention, dense MLP)
-run on the paged path; starcoder2-3b (sliding-window attention),
+sLSTM), and the modality families: whisper-base (an encoder-decoder with
+cross-attention and learned positions) and internvl2-2b (a global GQA
+decoder that takes image embeddings ahead of its text). olmo-1b, gemma-2b,
+qwen2.5-32b and internvl2-2b (global attention, dense MLP) run on the
+paged path (internvl2-2b's chunks that carry the image on the gathered
+one); starcoder2-3b (sliding-window attention),
 llama4-scout-17b-a16e (blocks of three chunked-attention layers and one
 global NoPE layer, every feed-forward 16 routed experts at top-1 plus a
 shared expert), deepseek-v3-671b (MLA, 3 dense then 58 MoE layers of 256
 routed experts at top-8 plus a shared expert), jamba-v0.1-52b (blocks of 7
 Mamba layers and one GQA attention layer, every other feed-forward 16
 experts at top-2) and xlstm-1.3b (blocks of 7 mLSTM and one sLSTM layer,
-no separate feed-forward) run on the gathered backend only.
+no separate feed-forward) and whisper-base run on the gathered backend
+only.
 ``get_config("<arch-id>")`` returns the exact published config;
 ``smoke_config("<arch-id>")`` the reduced variant the CPU tests use (2
 layers, d_model <= 256, f32).
@@ -23,13 +28,14 @@ import dataclasses
 from repro_torch.configs.base import LayerSpec, ModelConfig, dense_stages  # noqa: F401
 
 from repro_torch.configs import (deepseek_v3_671b, gemma_2b,  # noqa: E402
-                                jamba_v0_1_52b, llama4_scout_17b_a16e, olmo_1b,
-                                qwen2_5_32b, starcoder2_3b, xlstm_1_3b)
+                                internvl2_2b, jamba_v0_1_52b, llama4_scout_17b_a16e,
+                                olmo_1b, qwen2_5_32b, starcoder2_3b, whisper_base,
+                                xlstm_1_3b)
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
             for m in (qwen2_5_32b, gemma_2b, olmo_1b, starcoder2_3b,
                       llama4_scout_17b_a16e, deepseek_v3_671b, jamba_v0_1_52b,
-                      xlstm_1_3b)}
+                      xlstm_1_3b, whisper_base, internvl2_2b)}
 
 ARCHS = tuple(sorted(REGISTRY))
 

@@ -1,15 +1,16 @@
 """LLMEngine: continuous-batching serving engine over paged KV storage.
 
-The port of ``repro.core.engine`` for text-only dense decoders. This
-module is the *policy* layer — admission, scheduling, block allocation,
-copy-on-write, prefix caching, preemption, sampling, metrics; a runner is
-the mechanism (``executor.make_runners``). On a pure global-attention
-stack the ``PagedRunner`` runs every step (pure decode, prompt chunks,
-mixed SplitFuse steps) straight off block-indexed page stores through
+The port of ``repro.core.engine``. This module is the *policy* layer —
+admission, scheduling, block allocation, copy-on-write, prefix caching,
+preemption, sampling, metrics; a runner is the mechanism
+(``executor.make_runners``). On a pure global-attention stack the
+``PagedRunner`` runs every step (pure decode, prompt chunks, mixed
+SplitFuse steps) straight off block-indexed page stores through
 ``model.decode_paged`` / ``model.extend_paged`` and the CUDA paged-
 attention kernel on the card. Stacks without a paged family (sliding-
 window attention: starcoder2-3b; chunked attention: llama4-scout; MLA:
-deepseek-v3; state mixers: jamba-v0.1-52b, xlstm-1.3b), ``kv_quant``
+deepseek-v3; state mixers: jamba-v0.1-52b, xlstm-1.3b; whisper-base's
+encoder-decoder), ``kv_quant``
 configs the quantized pages cannot hold, and any stack under
 ``execution_backend="gathered"``, run on the ``GatheredRunner``: pages
 gathered into dense windows, ``model.extend``, the written slots scattered
@@ -28,6 +29,23 @@ history whenever ``_alloc_for`` hands it out: the reference reuses a freed
 slot as it was left, so a recycled or re-allocated slot (after a finish
 or a preemption) starts from its previous owner's final state there
 (ROADMAP C).
+
+Requests may carry modality extras (``Request.extras``): whisper's
+``audio_frames`` and internvl's ``vision_embeds``. Every chunk that carries
+them (``executor.base.chunk_carries_extras``: a request's first chunk, and
+any chunk over an image position) runs gathered, in a group of its own, on
+both the exact-chunks and the fused path; any batch a runner cannot take
+(``ModelRunner.supports``) falls back to the gathered one. whisper's
+encoder runs on the first chunk and its cross K/V stay in the request's
+state slot (the reference counts an audio stack's cross K/V as state, so
+prefix reuse is off and chunks are exact). An image's N rows own KV
+positions [0, N) ahead of the text (``SeqState.image_len``): block tables,
+the token budget, chunk boundaries and ``max_model_len`` count them, the
+first token is sampled at position N + len(prompt) - 1, and the prefix
+cache neither looks up nor registers such a request (its placeholder
+tokens would match another image's pages). The reference's engine
+delivers the image with the first chunk but keeps the text's positions
+(ROADMAP C): the port serves what the reference's model gives.
 
 The engine runs on ``EngineConfig.device`` (``cuda`` by default; ``cpu``
 for the tests) and raises when CUDA is asked for and absent.
@@ -70,7 +88,7 @@ import torch
 
 from repro_torch.core.block_manager import BlockManager, OutOfBlocks
 from repro_torch.core.executor import PagedModelState, make_runners, marshal_batch
-from repro_torch.core.executor.base import ModelRunner
+from repro_torch.core.executor.base import ModelRunner, chunk_carries_extras
 from repro_torch.core.executor.speculative import SpeculativeRunner
 from repro_torch.core.kv_quant import QuantConfig
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore
@@ -138,7 +156,7 @@ class LLMEngine:
         self.cfg = engine_cfg or EngineConfig()
         if _has_state_mixer(model.cfg):
             # one dispatch per chunk length, and no prefix reuse: cached
-            # blocks do not determine a recurrent state
+            # blocks determine neither a recurrent state nor a cross K/V
             self.cfg = dataclasses.replace(
                 self.cfg, enable_prefix_cache=False, scheduler=dataclasses.replace(
                     self.cfg.scheduler, exact_chunks=True))
@@ -319,9 +337,7 @@ class LLMEngine:
                 f"adapter_id={req.adapter_id!r} but EngineConfig.lora is "
                 "not configured on this engine")
         if req.extras:
-            raise NotImplementedError(
-                f"request {req.request_id!r}: modality extras are not ported "
-                "yet (ROADMAP queue A.5.5)")
+            self._check_extras(req)
         if req.arrival_time == 0.0:
             req.arrival_time = time.time()
         seq = SeqState(request=req)
@@ -330,12 +346,34 @@ class LLMEngine:
         self.scheduler.add(seq)
         return seq
 
+    def _check_extras(self, req: Request) -> None:
+        """Refuse extras the model has no use for, or of another shape than
+        the stubbed frontend's: ``audio_frames`` (n_audio_ctx, d_model) on an
+        audio stack, ``vision_embeds`` (num_image_tokens, d_model) on a VLM;
+        and images on a speculative engine, whose draft has no image
+        splice."""
+        cfg = self.model.cfg
+        want = {"audio": ("audio_frames", cfg.n_audio_ctx),
+                "vlm": ("vision_embeds", cfg.num_image_tokens)}.get(cfg.family)
+        for k, v in req.extras.items():
+            if want is None or (k, np.shape(v)) != (want[0], (want[1], cfg.d_model)):
+                raise ValueError(
+                    f"request {req.request_id!r}: extras {k!r} of shape {np.shape(v)} "
+                    f"on {cfg.name} (family {cfg.family!r}), which takes "
+                    + (f"{want[0]!r} of shape {(want[1], cfg.d_model)}" if want
+                       else "none"))
+        if "vision_embeds" in req.extras and self.spec_runner is not None:
+            raise ValueError(f"request {req.request_id!r}: an image on a speculative "
+                             "engine (its draft does not splice the image)")
+
     def _prefix_lookup(self, seq: SeqState) -> None:
         """Prefix-cache lookup at admission and again while the request
         waits in queue (a burst of same-prefix requests can hit blocks
-        inserted by whichever of them prefilled first)."""
+        inserted by whichever of them prefilled first). None for a request
+        with an image: its placeholder tokens do not name its pages."""
         req = seq.request
-        if self.prefix_cache is not None and len(req.prompt) > self.cfg.block_size:
+        if self.prefix_cache is not None and len(req.prompt) > self.cfg.block_size \
+                and not seq.image_len:
             t0 = self.trace.now()
             # namespaced by adapter: a tenant's KV embeds its adapter's k/v
             # deltas, so identical token prefixes under different adapters
@@ -457,6 +495,8 @@ class LLMEngine:
             batch = marshal_batch(ready, self.cfg.block_size,
                                   self.cfg.max_model_len)
             batch.lora = lora
+        if not runner.supports(batch):
+            runner = self.runner  # the gathered fallback (modality extras)
         self._dispatch_counters[runner.name].inc()
         if tr.enabled:
             with tr.span("dispatch", track="executor",
@@ -559,8 +599,10 @@ class LLMEngine:
             seq.num_computed = max(seq.num_computed, ch.start + ch.length)
             end = ch.start + ch.length
             # publish completed full prompt blocks immediately so concurrent
-            # same-prefix requests can reuse them (vLLM-style eager insert)
-            if self.prefix_cache is not None and seq.num_computed >= bs:
+            # same-prefix requests can reuse them (vLLM-style eager insert);
+            # none of a request with an image
+            if self.prefix_cache is not None and seq.num_computed >= bs \
+                    and not seq.image_len:
                 prompt_computed = min(seq.num_computed, seq.prompt_len)
                 nfull = prompt_computed // bs
                 self.prefix_cache.insert(seq.request.prompt[: nfull * bs],
@@ -741,7 +783,7 @@ class LLMEngine:
 
     def _finish(self, seq: SeqState, now: float) -> None:
         seq.finish_time = now
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not seq.image_len:
             self.prefix_cache.insert(seq.all_tokens, seq.block_table,
                                      namespace=seq.request.adapter_id)
         self.scheduler.finish(seq)
@@ -779,22 +821,29 @@ class LLMEngine:
                 # take the paged path below
                 self._run_spec_group(plan.decode, plan.spec_tokens)
                 rest = plan.prefill
+            # chunks carrying modality extras run gathered as a group of
+            # their own on both paths: fused with others they would lose
+            # their extras (marshal_batch raises)
+            carry = [chunk_carries_extras(c) for c in rest]
+            parts = [([c for c, f in zip(rest, carry) if f], self.runner),
+                     ([c for c, f in zip(rest, carry) if not f], runner)]
             if self.scheduler.cfg.exact_chunks:
                 # exact-chunk scheduling: one dispatch per chunk length, in
-                # ascending order, on the same backend. The reference groups
-                # chunks with modality extras separately first; the port
-                # refuses extras, so only its non-extras half applies
-                by_len: Dict[int, List[ChunkWork]] = {}
-                for c in rest:
-                    by_len.setdefault(c.length, []).append(c)
-                for _, group in sorted(by_len.items()):
-                    self._run_group(group, runner)
-            elif rest:
+                # ascending order, extras groups first
+                for part, part_runner in parts:
+                    by_len: Dict[int, List[ChunkWork]] = {}
+                    for c in part:
+                        by_len.setdefault(c.length, []).append(c)
+                    for _, group in sorted(by_len.items()):
+                        self._run_group(group, part_runner)
+            else:
                 # the rest of the ragged plan — decodes AND prompt chunks —
                 # fuses into ONE dispatch: paged when the backend exists
                 # (decode_paged when all lengths are 1, extend_paged
                 # otherwise), gathered otherwise
-                self._run_group(rest, runner)
+                for part, part_runner in parts:
+                    if part:
+                        self._run_group(part, part_runner)
         finally:
             self._step_inflight = None
             self._step_adapters = None

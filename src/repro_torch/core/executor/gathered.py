@@ -17,8 +17,11 @@ tokens only.
 
 It is the parity reference of the paged backend and the only backend for
 stacks without a paged family (sliding-window and chunked attention, MLA,
-state mixers)
-and for ``kv_quant`` configs the quantized page layout cannot hold (their
+state mixers, whisper's encoder-decoder), for every chunk that carries
+modality extras (``batch.extras``: audio frames, image rows; they go up to
+the model's device in its activation dtype in an ``extras_upload`` span,
+and ``Model.extend`` runs the encoder or splices the image), and for
+``kv_quant`` configs the quantized page layout cannot hold (their
 round trip happens in ``scatter``). KIVI-quantized stores reach the model
 through ``dequantize_window``: the distinct blocks' codes, f16 planes and
 the staging pages of blocks still filling are uploaded, then dequantized
@@ -114,10 +117,15 @@ class GatheredRunner(ModelRunner):
                 self._upload([t for layer in window for t in layer.values()])
                 cache = [{n: t.to(self.device) for n, t in layer.items()}
                          for layer in window]
+        extras = None
+        if batch.extras is not None:
+            with self.trace.span("extras_upload", track="executor"):
+                extras = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    self.device, self.store.dtype) for k, v in batch.extras.items()}
         logits, new_cache = self.model.extend(
             self.params, torch.from_numpy(batch.tokens).to(self.device), cache,
             torch.from_numpy(batch.cache_lens).to(self.device),
-            lora=lora_arg(batch.lora, device=self.device))
+            lora=lora_arg(batch.lora, device=self.device), batch=extras)
         with self.trace.span("scatter", track="executor"):
             store.scatter(new_cache, batch.tables, [c.start for c in chunks],
                           [c.length for c in chunks], quant=self.cfg.kv_quant,

@@ -150,7 +150,13 @@ class PagedRunner(ModelRunner):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ------------------------------------------------------------------
+    def supports(self, batch: ExecBatch) -> bool:
+        """Modality extras reach the model through ``extend`` only, on the
+        gathered backend; everything else runs here."""
+        return batch.extras is None
+
     def execute(self, batch: ExecBatch) -> np.ndarray:
+        assert self.supports(batch)
         self.sync()
         lengths = batch.cache_lens  # chunk start == tokens already cached
         try:

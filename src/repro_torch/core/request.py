@@ -1,4 +1,14 @@
-"""Request and sequence state for the serving engine."""
+"""Request and sequence state for the serving engine.
+
+A request's ``extras`` carry the stubbed modality frontends' outputs:
+``audio_frames`` (n_audio_ctx, d_model) for whisper, ``vision_embeds``
+(N, d_model) for internvl. A sequence's positions are its KV positions:
+an image's N rows own [0, N) ahead of the prompt, as the model splices
+them, so ``prompt_len``, ``total_len`` and ``all_tokens`` (N placeholder
+zeros first) count them and block tables, the token budget, chunk
+boundaries and ``max_model_len`` see them; ``generated`` holds the
+sampled tokens only.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -47,8 +57,18 @@ class SeqState:
         return self.request.request_id
 
     @property
+    def image_len(self) -> int:
+        """KV positions the request's image owns ahead of its prompt: the
+        rows of ``extras["vision_embeds"]``, 0 without one."""
+        ext = self.request.extras
+        img = ext.get("vision_embeds") if ext else None
+        return 0 if img is None else len(img)
+
+    @property
     def prompt_len(self) -> int:
-        return len(self.request.prompt)
+        """Positions ahead of the first generated token: the image's and
+        the prompt's."""
+        return self.image_len + len(self.request.prompt)
 
     @property
     def total_len(self) -> int:
@@ -56,7 +76,10 @@ class SeqState:
 
     @property
     def all_tokens(self) -> List[int]:
-        return list(self.request.prompt) + list(self.generated)
+        """The token at every position: a placeholder 0 at each image
+        position (the model replaces its embedding), then the prompt and the
+        generated tokens."""
+        return [0] * self.image_len + list(self.request.prompt) + list(self.generated)
 
     @property
     def prefill_target(self) -> int:

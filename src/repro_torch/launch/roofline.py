@@ -115,6 +115,17 @@ def param_counts(cfg: ModelConfig) -> Dict[str, float]:
         m = _mixer_params(cfg, spec.mixer)
         total += m + _ff_params(cfg, spec.ff, active=False)
         active += m + _ff_params(cfg, spec.ff, active=True)
+    # the learned position table and, for whisper, the bidirectional
+    # encoder's attention + MLP layers and each decoder layer's
+    # cross-attention (q, k, v, o at the decoder's heads); the reference's
+    # count has the encoder only
+    extra = cfg.learned_positions * cfg.d_model
+    if cfg.encoder_layers:
+        extra += cfg.encoder_layers * (_mixer_params(cfg, "attn") +
+                                       _ff_params(cfg, "mlp", False))
+        extra += cfg.num_layers * _mixer_params(cfg, "attn")
+    total += extra
+    active += extra
     return {"total": total, "active": active}
 
 

@@ -28,6 +28,12 @@ sliding-window and chunked (llama4) kinds; a chunked layer's fresh row
 takes the kernel only while its chunk lies inside the first attention
 chunk, where the chunk mask is plain causal (``fresh_rows_take_kernel``).
 Tensor parallelism comes with its own slice.
+
+whisper's encoder self-attention (``attn_bidir``) and its decoder's
+cross-attention over the encoder states (``cross_attend``) are not causal,
+so ``flash_prefill`` cannot take them: both are the plain
+``flash_attention`` with ``causal=False``, as the reference computes them
+outside Pallas.
 """
 from __future__ import annotations
 
@@ -404,3 +410,41 @@ def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
             full.index_copy_(0, pi, oc)
             out = full
     return proj_out_lora(p["wo"], out, lora, lora_ids), cache
+
+
+# ---------------------------------------------------------------------------
+# non-causal attention: whisper's encoder and its decoder's cross-attention
+# ---------------------------------------------------------------------------
+
+def attn_bidir(p, cfg, spec, x):
+    """Bidirectional self-attention over a whole sequence (whisper's
+    encoder, the twin of the reference's ``attn_forward(causal=False)``):
+    x (B, S, d) -> (B, S, d), every position attending to every other."""
+    S = x.shape[1]
+    q, k, v = _qkv(p, cfg, x)
+    pos = torch.arange(S, device=x.device)
+    if _uses_rope(cfg, spec):
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = flash_attention(q, k, v, q_pos=pos, k_pos=pos, kind="global",
+                          scale=_scale(cfg), causal=False)
+    return proj_out(p["wo"], out)
+
+
+def cross_kv(p, enc, dtype):
+    """A decoder layer's cross-attention keys and values over the encoder
+    states enc (B, T, d): two (B, T, KV, D) tensors in ``dtype``."""
+    return proj_qkv(p["wk"], enc).to(dtype), proj_qkv(p["wv"], enc).to(dtype)
+
+
+def cross_attend(p, cfg, x, enc_k, enc_v):
+    """Cross-attention of x (B, S, d) over every encoder position of
+    enc_k / enc_v (B, T, KV, D), at the scale 1/sqrt(head_dim) (the
+    reference's ``_cross_attend``, which reads no ``softmax_scale``).
+    Returns (B, S, d)."""
+    S, T = x.shape[1], enc_k.shape[1]
+    q = proj_qkv(p["wq"], x)
+    out = flash_attention(q, enc_k, enc_v, q_pos=torch.arange(S, device=x.device),
+                          k_pos=torch.arange(T, device=x.device), kind="global",
+                          scale=1.0 / math.sqrt(cfg.head_dim), causal=False)
+    return proj_out(p["wo"], out)

@@ -1,5 +1,5 @@
 """Shared building blocks on torch tensors: norms, dense, activations, RoPE,
-initializers. Twins of ``repro.models.common`` with the JAX numerics:
+sinusoidal positions, initializers. Twins of ``repro.models.common`` with the JAX numerics:
 norms compute in fp32 with the population variance, ``gelu`` is the tanh
 approximation (``jax.nn.gelu``'s default), and RoPE rotates the two HALVES
 of the head in fp32. Parameters are plain nested dicts of tensors; the
@@ -129,3 +129,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sinusoidal positions
+# ---------------------------------------------------------------------------
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (length, dim) in fp32: the sines
+    of ``dim // 2`` geometric frequencies, then their cosines."""
+    log_timescale = math.log(10_000.0) / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(dim // 2, dtype=torch.float32,
+                                                  device=device))
+    scaled = torch.arange(length, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)

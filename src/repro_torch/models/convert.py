@@ -12,7 +12,10 @@ beside bf16 weights). The state mixers' trees (Mamba ``conv_w`` /
 ``conv_b``, ``x_proj``, ``dt_proj`` with its bias; mLSTM ``w_if``,
 ``head_norm``; sLSTM ``r``, ``group_norm``, ``ffn_*``) unstack like any
 other, and a layer without a feed-forward (xLSTM's) has no ``norm2`` and
-no ``ff``. ``convert_adapter`` unstacks a LoRA adapter's stage tree the
+no ``ff``. A whisper tree's learned ``pos_embed`` comes over as it is,
+each decoder layer's ``cross_norm`` and ``cross`` with the layer, and its
+encoder (one stacked stage of ``{"l0": layer}``) becomes ``{"layers":
+[...], "final_norm"}``. ``convert_adapter`` unstacks a LoRA adapter's stage tree the
 same way. Imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
@@ -42,11 +45,12 @@ def convert_params(cfg: ModelConfig, jax_values: Dict[str, Any]) -> Dict[str, An
 
     # jax_values["mtp"] (DeepSeek-V3's multi-token prediction block) is
     # skipped: the reference reads it only in its training forward, which
-    # the port does not have yet (ROADMAP A.6)
+    # the port does not have yet (ROADMAP A.2)
     out: Dict[str, Any] = {"embed": leaf(jax_values["embed"]),
                            "final_norm": _map(jax_values["final_norm"], leaf)}
-    if "lm_head" in jax_values:
-        out["lm_head"] = _map(jax_values["lm_head"], leaf)
+    for name in ("lm_head", "pos_embed"):
+        if name in jax_values:
+            out[name] = _map(jax_values[name], leaf)
     layers = []
     for si, (pattern, reps) in enumerate(cfg.stages):
         stage = jax_values["stages"][si]
@@ -54,6 +58,12 @@ def convert_params(cfg: ModelConfig, jax_values: Dict[str, Any]) -> Dict[str, An
             for i in range(len(pattern)):
                 layers.append(_map(stage[f"l{i}"], lambda a: leaf(np.asarray(a)[r])))
     out["layers"] = layers
+    if "encoder" in jax_values:
+        enc = jax_values["encoder"]
+        out["encoder"] = {
+            "layers": [_map(enc["stages"][0]["l0"], lambda a: leaf(np.asarray(a)[r]))
+                       for r in range(cfg.encoder_layers)],
+            "final_norm": _map(enc["final_norm"], leaf)}
     return out
 
 

@@ -1,7 +1,8 @@
 """Model factory of the PyTorch port: attention and multi-head latent
 attention (MLA) decoders with a dense MLP or a routed MoE feed-forward, on
-the paged and gathered serving paths, and stacks with state mixers (Mamba:
-jamba-v0.1-52b; mLSTM and sLSTM: xlstm-1.3b) on the gathered path.
+the paged and gathered serving paths, stacks with state mixers (Mamba:
+jamba-v0.1-52b; mLSTM and sLSTM: xlstm-1.3b) and whisper's
+encoder-decoder on the gathered path, and internvl's image splice.
 
 The twin of the attention, MLA, state-mixer, MLP and MoE part of
 ``repro.models.model.build_model``:
@@ -38,6 +39,21 @@ together, wo, w1, w2. A MoE layer has the attention sites only (its experts
 are not adapted), so two launches.
 ``build_model(cfg, device=...)`` runs on ``cuda`` unless asked for ``cpu``
 and raises when CUDA is asked for and absent.
+
+Modality extras reach ``extend`` through its ``batch`` dict, as in the
+reference. ``audio_frames`` (B, T, d) (whisper, ``family == "audio"``):
+``run_encoder`` (sinusoidal positions, then bidirectional layers) and each
+decoder layer's cross K/V (``cross_kv_all``), which replace the layer's
+``cross_k`` / ``cross_v`` state leaves; every later chunk reads them back
+from there. A whisper decoder layer adds its cross-attention after the
+self-attention (``cross_norm``, ``cross``), and every step adds the learned
+position of each row (``pos_embed``, indices clipped to the table as the
+reference clips them). ``vision_embeds`` (B, N, d) (internvl, ``family ==
+"vlm"``): ``splice_vision`` replaces the embedding rows at absolute
+positions below N by those image rows, so a request's image owns KV
+positions [0, N) ahead of its text; a chunk from 0 over the whole image is
+exactly the reference's concatenation, and a chunk may end or start inside
+the image.
 """
 from __future__ import annotations
 
@@ -52,13 +68,17 @@ from repro_torch.kernels.lora.ops import bgmv_add
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, mla, moe, xlstm
 from repro_torch.models.common import (apply_norm, dense, gated, is_glu, make_dense,
-                                       make_norm, normal_init)
+                                       make_norm, normal_init, sinusoidal_positions)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 # mixers whose cache is a fixed-size state per sequence, not pages
 STATE_MIXERS = ("mamba", "mlstm", "slstm")
+# an audio decoder layer's cross-attention K/V: state leaves of one slot
+CROSS_LEAVES = ("cross_k", "cross_v")
+# whisper's encoder layers
+ENC_SPEC = LayerSpec(mixer="attn", ff="mlp", attn_kind="global")
 
 
 def resolve_device(device) -> torch.device:
@@ -109,9 +129,13 @@ MIXERS = {"attn": attn.make_attention_params, "mla": mla.make_mla_params,
           "slstm": xlstm.make_slstm_params}
 
 
-def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
+def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, *,
+                cross: bool = False):
     p = {"norm1": make_norm(cfg.norm, cfg.d_model, dtype, device),
          "mixer": MIXERS[spec.mixer](gen, cfg, dtype, device)}
+    if cross:  # a whisper decoder layer's cross-attention
+        p["cross_norm"] = make_norm(cfg.norm, cfg.d_model, dtype, device)
+        p["cross"] = attn.make_attention_params(gen, cfg, dtype, device)
     if spec.ff != "none":
         make_ff = moe.make_moe_params if spec.ff == "moe" else make_mlp_params
         p["norm2"] = make_norm(cfg.norm, cfg.d_model, dtype, device)
@@ -168,9 +192,10 @@ def _state_extend(p, spec, cfg, h, state):
 def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
                   lora_ids=None):
     """C-token extend over a gathered cache window, or from a state mixer's
-    carried state (the twin of the reference's ``_layer_extend``). Returns
-    (x, the layer's cache: the window written in place, or the new
-    state)."""
+    carried state (the twin of the reference's ``_layer_extend``); a
+    whisper decoder layer then attends over its ``cross_k`` / ``cross_v``
+    leaves. Returns (x, the layer's cache: the window written in place, or
+    the new state)."""
     h = apply_norm(cfg.norm, p["norm1"], x)
     if spec.mixer in STATE_MIXERS:
         y, cache = _state_extend(p["mixer"], spec, cfg, h, cache)
@@ -179,7 +204,11 @@ def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
     else:
         y, cache = attn.attn_extend(p["mixer"], cfg, spec, h, cache, cache_len,
                                     route, lora, lora_ids)
-    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), cache
+    x = x + y
+    if "cross" in p:
+        hc = apply_norm(cfg.norm, p["cross_norm"], x)
+        x = x + attn.cross_attend(p["cross"], cfg, hc, cache["cross_k"], cache["cross_v"])
+    return _ff_branch(p, spec, cfg, x, lora, lora_ids), cache
 
 
 def _layer_lora(lora):
@@ -206,37 +235,49 @@ def paged_decode_supported(cfg: ModelConfig) -> bool:
 def ported_stack(cfg: ModelConfig) -> bool:
     """Whether the port builds this stack: attention layers of the global,
     sliding-window and chunked kinds, MLA layers or state mixers (Mamba,
-    mLSTM, sLSTM), with an MLP, a MoE or no feed-forward, no learned
-    positions, no encoder."""
-    return (cfg.family != "audio" and not cfg.learned_positions
-            and all((s.mixer in STATE_MIXERS or (
-                s.mixer in ("attn", "mla")
-                and s.attn_kind in ("global", "window", "chunked")))
-                and s.ff in ("mlp", "moe", "none")
-                for p, _ in cfg.stages for s in p))
+    mLSTM, sLSTM), with an MLP, a MoE or no feed-forward; learned positions
+    and whisper's encoder (``family == "audio"``) included."""
+    return all((s.mixer in STATE_MIXERS or (
+        s.mixer in ("attn", "mla") and s.attn_kind in ("global", "window", "chunked")))
+        and s.ff in ("mlp", "moe", "none")
+        for p, _ in cfg.stages for s in p)
 
 
 class CacheLeaf(NamedTuple):
     """One cache leaf of a layer. A page leaf (``state`` False: attention
     K/V, MLA latents) has its ``shape`` per token; the page store keeps it
     in pages and the gathered backend in (B, W) + shape windows. A state
-    leaf (``state`` True: a state mixer's) has its ``shape`` per sequence,
-    with no token axis, and lives in a state slot. ``dtype``: the
-    activation dtype for page leaves and conv windows, f32 for the
-    recurrences' states."""
+    leaf (``state`` True: a state mixer's, or a whisper decoder layer's
+    cross K/V) has its ``shape`` per sequence, with no token axis, and
+    lives in a state slot. ``dtype``: the activation dtype for page leaves,
+    conv windows and cross K/V, f32 for the recurrences' states."""
     shape: tuple
     dtype: torch.dtype
     state: bool = False
 
 
+def has_cross(cfg: ModelConfig) -> bool:
+    """Whether the decoder layers attend over encoder states (whisper)."""
+    return cfg.family == "audio"
+
+
 def init_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
                device) -> Dict[str, torch.Tensor]:
-    """A state mixer's empty history for ``batch`` sequences: the
-    reference's ``init_mamba_cache`` / ``init_mlstm_cache`` /
-    ``init_slstm_cache`` (zeros, and the stabilizer ``m`` at -1e30)."""
-    init = {"mamba": mamba.init_mamba_cache, "mlstm": xlstm.init_mlstm_cache,
-            "slstm": xlstm.init_slstm_cache}[spec.mixer]
-    return init(cfg, batch, DTYPES[cfg.dtype], device)
+    """A layer's per-sequence state leaves for ``batch`` sequences, empty:
+    a state mixer's history, the reference's ``init_mamba_cache`` /
+    ``init_mlstm_cache`` / ``init_slstm_cache`` (zeros, and the stabilizer
+    ``m`` at -1e30); a whisper decoder layer's cross K/V, zeros of
+    (n_audio_ctx, KV, D) in the activation dtype, as the reference's
+    ``init_cache`` makes them; {} for any other layer."""
+    if spec.mixer in STATE_MIXERS:
+        init = {"mamba": mamba.init_mamba_cache, "mlstm": xlstm.init_mlstm_cache,
+                "slstm": xlstm.init_slstm_cache}[spec.mixer]
+        return init(cfg, batch, DTYPES[cfg.dtype], device)
+    if not has_cross(cfg):
+        return {}
+    shape = (batch, cfg.n_audio_ctx, cfg.num_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=DTYPES[cfg.dtype], device=device)
+            for n in CROSS_LEAVES}
 
 
 def cache_leaf_shapes(cfg: ModelConfig) -> List[Dict[str, CacheLeaf]]:
@@ -246,21 +287,37 @@ def cache_leaf_shapes(cfg: ModelConfig) -> List[Dict[str, CacheLeaf]]:
     state leaves Mamba ``{"conv": (K-1, d_inner), "ssm": (d_inner, N)
     f32}``, mLSTM ``{"conv": (3, d_inner), "C": (H, dh, dh), "n": (H, dh),
     "m": (H,)}`` (all but conv f32), sLSTM ``{"c", "n", "h": (d,), "m":
-    (H,)}`` f32. ``Model.init_cache`` and the page store derive their
-    tensors from this table."""
+    (H,)}`` f32; a whisper decoder layer's ``{"cross_k", "cross_v":
+    (n_audio_ctx, KV, D)}`` after its page leaves. Each leaf's kind comes
+    from the model, not from its shape: the reference's store reads any
+    leaf whose second axis equals ``max_model_len`` as pages, so it would
+    page the cross K/V where ``n_audio_ctx == max_model_len``.
+    ``Model.init_cache`` and the page store derive their tensors from this
+    table."""
     dt = DTYPES[cfg.dtype]
     out = []
     for spec in cfg.layer_specs():
         if spec.mixer in STATE_MIXERS:
-            out.append({n: CacheLeaf(tuple(t.shape[1:]), t.dtype, state=True)
-                        for n, t in init_state(cfg, spec, 1, "meta").items()})
+            leaves = {}
         elif spec.mixer == "mla":
-            out.append({"c_kv": CacheLeaf((cfg.kv_lora_rank,), dt),
-                        "k_pe": CacheLeaf((cfg.qk_rope_head_dim,), dt)})
+            leaves = {"c_kv": CacheLeaf((cfg.kv_lora_rank,), dt),
+                      "k_pe": CacheLeaf((cfg.qk_rope_head_dim,), dt)}
         else:
             kv = CacheLeaf((cfg.num_kv_heads, cfg.head_dim), dt)
-            out.append({"k": kv, "v": kv})
+            leaves = {"k": kv, "v": kv}
+        leaves.update({n: CacheLeaf(tuple(t.shape[1:]), t.dtype, state=True)
+                       for n, t in init_state(cfg, spec, 1, "meta").items()})
+        out.append(leaves)
     return out
+
+
+def _window(c, spec):
+    """The layer's window of the gathered cache (an attention layer's
+    ``k``, an MLA layer's ``c_kv``), whose width is the window's; None for
+    a state mixer."""
+    if spec.mixer in STATE_MIXERS:
+        return None
+    return c["c_kv"] if spec.mixer == "mla" else c["k"]
 
 
 class Model:
@@ -281,9 +338,7 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves attention (global, sliding-window "
                 "or chunked), MLA and state-mixer (Mamba, mLSTM, sLSTM) stacks "
-                "with an MLP, MoE or no feed-forward; encoder-decoder stacks "
-                "and learned positions (ROADMAP queue A.5.5) are not ported "
-                "yet")
+                "with an MLP, MoE or no feed-forward")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
@@ -295,12 +350,13 @@ class Model:
             self.decode_paged = self.extend_paged = self.verify_paged = None
 
     # ---------------- init ---------------------------------------------------
-    def init(self, seed: int = 0) -> Dict[str, Any]:
+    def init(self, seed: int = 0, max_seq: int = 0) -> Dict[str, Any]:
         """Random weights from a ``torch.Generator`` seeded with ``seed`` on
         the model's device (JAX's init draws other bits for the same seed;
-        parity tests convert the JAX weights instead). No multi-token
-        prediction block: the reference reads it only in its training
-        forward, which the port does not have yet (ROADMAP A.6)."""
+        parity tests convert the JAX weights instead). Learned positions
+        draw ``max(learned_positions, max_seq)`` rows, as the reference's.
+        No multi-token prediction block: the reference reads it only in its
+        training forward, which the port does not have yet (ROADMAP A.2)."""
         cfg, dev, pdt = self.cfg, self.device, self.pdtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         d = cfg.d_model
@@ -308,11 +364,20 @@ class Model:
             "embed": normal_init(gen, (cfg.vocab_size, d), pdt, d ** -0.5, dev),
             "final_norm": make_norm(cfg.norm, d, pdt, dev),
         }
+        if cfg.learned_positions:
+            params["pos_embed"] = normal_init(
+                gen, (max(cfg.learned_positions, max_seq), d), pdt, 0.02, dev)
         if not cfg.tie_embeddings:
             params["lm_head"] = make_dense(gen, d, cfg.vocab_size, pdt, dev,
                                            scale=1.0 / math.sqrt(d))
-        params["layers"] = [_layer_init(gen, spec, cfg, pdt, dev)
+        cross = has_cross(cfg)
+        params["layers"] = [_layer_init(gen, spec, cfg, pdt, dev, cross=cross)
                             for spec in self.specs]
+        if cross:
+            params["encoder"] = {
+                "layers": [_layer_init(gen, ENC_SPEC, cfg, pdt, dev)
+                           for _ in range(cfg.encoder_layers)],
+                "final_norm": make_norm(cfg.norm, d, pdt, dev)}
         return params
 
     def init_pages(self, num_blocks: int, block_size: int,
@@ -341,13 +406,16 @@ class Model:
         each page leaf of ``cache_leaf_shapes`` a zeroed (batch, max_seq) +
         per-token shape window, {"k", "v"} (B, W, KV, D) for attention,
         {"c_kv": (B, W, r), "k_pe": (B, W, rope)} for MLA, in the
-        activation dtype; a state mixer's empty history (``init_state``)."""
-        return [init_state(self.cfg, spec, batch, self.device)
-                if spec.mixer in STATE_MIXERS else
-                {name: torch.zeros((batch, max_seq) + leaf.shape, dtype=leaf.dtype,
-                                   device=self.device)
-                 for name, leaf in leaves.items()}
-                for spec, leaves in zip(self.specs, cache_leaf_shapes(self.cfg))]
+        activation dtype; then the layer's empty states (``init_state``: a
+        state mixer's history, a whisper layer's cross K/V)."""
+        out = []
+        for spec, leaves in zip(self.specs, cache_leaf_shapes(self.cfg)):
+            layer = {name: torch.zeros((batch, max_seq) + leaf.shape, dtype=leaf.dtype,
+                                       device=self.device)
+                     for name, leaf in leaves.items() if not leaf.state}
+            layer.update(init_state(self.cfg, spec, batch, self.device))
+            out.append(layer)
+        return out
 
     # ---------------- shared helpers ----------------------------------------
     def embed_tokens(self, params, tokens):
@@ -356,26 +424,80 @@ class Model:
             e = e * math.sqrt(self.cfg.d_model)
         return e
 
+    def add_positions(self, params, x, pos):
+        """x plus the learned position of each (B, C) absolute position
+        ``pos``, clipped to the table as the reference clips it; x where
+        the config has none."""
+        if not self.cfg.learned_positions:
+            return x
+        table = params["pos_embed"]
+        return x + table[pos.long().clamp(0, table.shape[0] - 1)].to(self.dtype)
+
     def head(self, params, x):
         x = apply_norm(self.cfg.norm, params["final_norm"], x)
         w = params["embed"].t() if self.cfg.tie_embeddings \
             else params["lm_head"]["w"]
         return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
+    def run_encoder(self, params, frames):
+        """frames: (B, T, d) post-frontend embeddings (the stubbed audio
+        frontend's output). Sinusoidal positions, then the bidirectional
+        encoder layers and its final norm. Returns (B, T, d)."""
+        cfg = self.cfg
+        T = frames.shape[1]
+        x = frames.to(self.dtype) + sinusoidal_positions(
+            T, cfg.d_model, frames.device).to(self.dtype)
+        for p in params["encoder"]["layers"]:
+            h = apply_norm(cfg.norm, p["norm1"], x)
+            x = _ff_branch(p, ENC_SPEC, cfg, x + attn.attn_bidir(p["mixer"], cfg,
+                                                                 ENC_SPEC, h))
+        return apply_norm(cfg.norm, params["encoder"]["final_norm"], x)
+
+    def cross_kv_all(self, params, enc):
+        """Each decoder layer's cross K/V over the encoder states enc
+        (B, T, d): a list over layers of {"cross_k", "cross_v"} (B, T, KV,
+        D) in the activation dtype."""
+        return [dict(zip(CROSS_LEAVES, attn.cross_kv(p["cross"], enc, self.dtype)))
+                for p in params["layers"]]
+
+    def splice_vision(self, params, tokens, vision_embeds, cache_len):
+        """The token embeddings of a (B, C) chunk at positions [cache_len,
+        cache_len + C), with the rows at absolute positions below N replaced
+        by image rows ``vision_embeds`` (B, N, d): position i < N takes
+        image row i. From cache_len 0 over the whole image, this is the
+        reference's ``splice_vision`` (the image ahead of the text) with N
+        placeholder tokens in front of the text."""
+        x = self.embed_tokens(params, tokens)
+        B, C, d = x.shape
+        N = vision_embeds.shape[1]
+        pos = cache_len.long()[:, None] + torch.arange(C, device=x.device)
+        rows = vision_embeds.to(x.dtype).gather(
+            1, pos.clamp(max=N - 1)[..., None].expand(B, C, d))
+        return torch.where((pos < N)[..., None], rows, x)
+
     # ---------------- extend (gathered cache windows) -------------------------
     @torch.no_grad()
-    def extend(self, params, tokens, cache, cache_len, lora=None):
+    def extend(self, params, tokens, cache, cache_len, lora=None, batch=None):
         """tokens: (B, C) at positions [cache_len, cache_len + C); cache: a
         list over layers (``init_cache``) of windows, written in place, and
-        of state-mixer states; cache_len: (B,) tokens already cached per
-        row. ``lora`` as in ``decode_paged``. Logits of a ragged row's
-        padded positions are garbage the caller ignores (a state stack
-        takes no ragged rows: its states would run over the padding).
-        Returns (logits (B, C, V), the cache list with each state layer's
-        entry replaced by its state after the chunk)."""
+        of states; cache_len: (B,) tokens already cached per row. ``lora``
+        as in ``decode_paged``. ``batch``: modality extras on the model's
+        device, for every row of the call — ``audio_frames`` (B, T, d) on
+        an audio stack (the encoder runs and its cross K/V replace the
+        layers' ``cross_k`` / ``cross_v``), ``vision_embeds`` (B, N, d) on a
+        VLM (``splice_vision``); other stacks ignore them, as the
+        reference does. Logits of a ragged row's padded positions are
+        garbage the caller ignores (a state stack takes no ragged rows: its
+        states would run over the padding). Returns (logits (B, C, V), the
+        cache list with each state layer's entry replaced by its state
+        after the chunk)."""
+        cfg = self.cfg
+        extras = batch or {}
         C = tokens.shape[1]
-        windows = [next(iter(c.values())) for c, s in zip(cache, self.specs)
-                   if s.mixer not in STATE_MIXERS]
+        if has_cross(cfg) and "audio_frames" in extras:
+            enc = self.run_encoder(params, extras["audio_frames"])
+            cache = [dict(c, **kv) for c, kv in zip(cache, self.cross_kv_all(params, enc))]
+        windows = [w for w in map(_window, cache, self.specs) if w is not None]
         # the window width comes from an attention layer's leaf; a stack of
         # state mixers alone writes no window
         route = attn.extend_route(cache_len, C, windows[0].shape[1] if windows else 0)
@@ -386,7 +508,12 @@ class Model:
             self.route_rows["flash_prefill"] += nf if any(kernel) else 0
             self.route_rows["flash_attention"] += len(route.cont) + (
                 0 if all(kernel) else nf)
-        x = self.embed_tokens(params, tokens)
+        if cfg.family == "vlm" and "vision_embeds" in extras:
+            x = self.splice_vision(params, tokens, extras["vision_embeds"], cache_len)
+        else:
+            x = self.embed_tokens(params, tokens)
+        x = self.add_positions(params, x, cache_len.long()[:, None]
+                               + torch.arange(C, device=x.device))
         tables, ids = _layer_lora(lora)
         out = []
         for p, spec, c, lt in zip(params["layers"], self.specs, cache, tables):
@@ -408,7 +535,8 @@ class Model:
         (logits (B, 1, V), pages, writes) with one {"k", "v"} (B, KV, D)
         entry per layer: the new token's K/V for the host-authoritative
         store."""
-        x = self.embed_tokens(params, tokens)
+        x = self.add_positions(params, self.embed_tokens(params, tokens),
+                               lengths.long()[:, None])
         writes = []
         tables, ids = _layer_lora(lora)
         for p, spec, pg, lt in zip(params["layers"], self.specs, pages, tables):
@@ -429,7 +557,9 @@ class Model:
         writes; logits of padded positions are garbage the caller ignores.
         Returns (logits (B, C, V), pages, writes) with write leaves
         (B, C, KV, D)."""
-        x = self.embed_tokens(params, tokens)
+        x = self.add_positions(params, self.embed_tokens(params, tokens),
+                               lengths.long()[:, None]
+                               + torch.arange(tokens.shape[1], device=tokens.device))
         writes = []
         tables, ids = _layer_lora(lora)
         for p, spec, pg, lt in zip(params["layers"], self.specs, pages, tables):

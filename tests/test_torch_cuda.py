@@ -1348,3 +1348,50 @@ def test_recycled_state_slot_on_card_equals_fresh_engine(cuda):
     reused.add_request(dataclasses.replace(reqs[1]))
     reused.run()
     assert reused.seqs["r1"].generated == fresh.seqs["r1"].generated
+
+
+# ---------------------------------------------------------------------------
+# modality families: whisper-base's audio frames, internvl2-2b's image rows
+# ---------------------------------------------------------------------------
+
+def _extras_serve(arch, params, device):
+    """The smoke config of ``arch`` in f32 on ``device`` with the given CPU
+    weights: 4 greedy requests with random extras over 6-token chunks (an
+    image straddles a chunk boundary). Returns the engine."""
+    from repro_torch.core import SchedulerConfig
+    model = build_model(configs.smoke_config(arch), device=device)
+    cfg = model.cfg
+    eng = LLMEngine(model, _tree_to(params, device), EngineConfig(
+        block_size=8, num_blocks=128, max_model_len=128, device=device,
+        scheduler=SchedulerConfig(max_batch_slots=8, max_batched_tokens=64,
+                                  prefill_chunk=6)))
+    rng = np.random.default_rng(4)
+    key, rows = (("audio_frames", cfg.n_audio_ctx) if cfg.family == "audio"
+                 else ("vision_embeds", cfg.num_image_tokens))
+    for i in range(4):
+        eng.add_request(Request(
+            request_id=f"r{i}", prompt=[int(t) for t in rng.integers(
+                2, cfg.vocab_size, int(rng.integers(12, 40)))],
+            extras={key: rng.normal(size=(rows, cfg.d_model)).astype(np.float32)},
+            sampling=SamplingParams(max_new_tokens=12)))
+    eng.run()
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
+def test_modality_smoke_streams_on_card_equal_cpu(cuda, arch):
+    """The same f32 smoke weights and extras served on the CPU and on the
+    card give the same greedy streams: whisper's encoder and cross K/V in
+    state slots (flash_prefill on the decoder's fresh rows, D = 64),
+    internvl's image chunks gathered and the rest paged (paged_attention
+    at G = 2)."""
+    params = build_model(configs.smoke_config(arch), device="cpu").init(0)
+    cpu = _extras_serve(arch, params, "cpu")
+    flash = fmod.flash_prefill.launches
+    gpu = _extras_serve(arch, params, "cuda")
+    got = {rid: s.generated for rid, s in gpu.seqs.items()}
+    assert got == {rid: s.generated for rid, s in cpu.seqs.items()}
+    assert fmod.flash_prefill.launches > flash
+    if arch == "internvl2-2b":
+        assert gpu.paged_steps > 0 and gpu.runner.steps > 0
