@@ -170,7 +170,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                shape the serves gave them, the serves' most common fresh
                shapes timed, a decode step of each profiled; the f32 smoke
                twins of both families with extras (card streams equal the
-               CPU's).
+               CPU's);
+ 10. train   — olmo-1b at published width (bf16) trained by
+               launch/train.py's ``train``: 20 steps of SyntheticLM(seed=0)
+               at B=8, S=128, lr 3e-4 after 10 warmup steps; each step's
+               ce and grad norm, the median step time, tokens/s, peak
+               memory, the model FLOP utilisation against the card's bf16
+               rate (remat's recompute apart), one step profiled (busy
+               share, AdamW's share of the busy time); ce must fall; the
+               f32 smoke train steps of olmo-1b (5), deepseek-v3 (MLA, MoE
+               and MTP weights under grad), jamba, xlstm, whisper-base and
+               internvl2-2b (1 each) equal the CPU's; no kernel launches
+               (every counter 0, no kernel of the six in the profile); the
+               trained params saved under build/, restored onto the card
+               bit-equal, and phase 6's olmo-1b traffic served from the
+               restored params gives the streams of the params in memory.
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -218,6 +232,10 @@ from repro_torch.kernels.paged_attention import paged_attention_quant as qmod  #
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_chunked_quant_ref, paged_attention_chunked_ref,
     paged_attention_quant_ref, paged_attention_ref)
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.data import SyntheticLM, make_batches  # noqa: E402
+from repro_torch.launch import roofline as troofline  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.roofline import card_for  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -227,6 +245,8 @@ from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.model import cache_leaf_shapes  # noqa: E402
+from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm  # noqa: E402
+from repro_torch.train.loop import TrainState, grads_of, make_train_step  # noqa: E402
 
 # the kernels' wrappers and their launch counts, held here so that phase
 # 5's plain-attention patches of the module attributes do not hide them
@@ -2999,9 +3019,9 @@ def _to_f32_inplace(tree):
             tree[key] = tree[key].float()
 
 
-def busy_ms(fn, reps: int = 5) -> float:
-    """Device busy milliseconds of one ``fn`` call on the profiler's clock:
-    every kernel's time summed over ``reps`` calls, over ``reps``."""
+def kernel_times(fn, reps: int = 1):
+    """(launches, device microseconds) by kernel name over ``reps`` calls
+    of ``fn`` after a warm one, on the profiler's clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3010,11 +3030,20 @@ def busy_ms(fn, reps: int = 5) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if not us:
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not by_name:
         raise RuntimeError("the profiler recorded no kernel")
-    return us / reps / 1e3
+    return by_name
+
+
+def busy_ms(fn, reps: int = 5) -> float:
+    """Device busy milliseconds of one ``fn`` call on the profiler's clock:
+    every kernel's time summed over ``reps`` calls, over ``reps``."""
+    return sum(us for _, us in kernel_times(fn, reps).values()) / reps / 1e3
 
 
 def wall_ms(fn, reps: int = 10) -> float:
@@ -3338,8 +3367,10 @@ def deepseek_block():
     """deepseek-v3 at its published width, its depth cut to one dense and
     one MoE layer (of 3 and 58); the config and the published layer count."""
     cfg = configs.get_config(DEEPSEEK)
-    return dataclasses.replace(cfg, stages=((cfg.stages[0][0], 1), (cfg.stages[1][0], 1))), \
-        cfg.num_layers
+    # no MTP block: serving reads none, and at published width it is one
+    # more 11.5 B-parameter MoE layer
+    return dataclasses.replace(cfg, stages=((cfg.stages[0][0], 1), (cfg.stages[1][0], 1)),
+                               mtp_depth=0), cfg.num_layers
 
 
 def replay_busy(fn_mod, name, step):
@@ -4270,6 +4301,217 @@ def phase_modality_twins():
             raise AssertionError(f"{arch} smoke: the card's streams differ from the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training — olmo-1b trained at full width, its checkpoint served,
+# every family's f32 smoke train step against the CPU's
+# ---------------------------------------------------------------------------
+# launch/train.py's run: 20 steps of SyntheticLM(seed=0) at B=8, S=128, lr
+# 3e-4 after 10 warmup steps of a cosine schedule
+TRAIN = dict(steps=20, batch=8, seq=128, base_lr=3e-4, warmup_steps=10)
+# the six kernels' names in a profile: every __global__ of kernels/*/csrc
+# holds one of these (dequantize_pages holds quantize_pages)
+KERNEL_NAMES = ("paged_attention", "quantize_pages", "bgmv", "flash_prefill")
+# f32 smoke steps, the card against the CPU, TF32 off: summation order only;
+# over 5 AdamW steps of lr <= 1e-3 each weight moves ~1e-3, a wrong term O(1)
+TRAIN_RTOL_F32 = 1e-4
+# the smoke twins: arch, steps
+TRAIN_TWINS = (("olmo-1b", 5), (DEEPSEEK, 1), (JAMBA, 1), (XLSTM, 1), (WHISPER, 1),
+               (INTERNVL, 1))
+CKPT = os.path.join(ROOT, "build", "chip_smoke_train_ckpt.npz")
+
+
+def train_flops(cfg, B, S):
+    """(model FLOPs of one train step, remat's recompute FLOPs). Model: 6 x
+    launch/roofline.py's parameter count x tokens, plus the attention
+    matmuls (Q.K^T and P.V over the whole S x S square, as the plain
+    attention computes them: 4 L H D S a token forward, x 3 with the
+    backward). Recompute: each layer's forward once more under
+    torch.utils.checkpoint (2 x the layers' parameters x tokens plus the
+    forward attention); the embedding and the head run once."""
+    tokens = B * S
+    n = troofline.param_counts(cfg)["total"]
+    attn_fwd = 4 * cfg.num_layers * cfg.num_heads * cfg.head_dim * S * tokens
+    n_layers = n - cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return 6 * n * tokens + 3 * attn_fwd, 2 * n_layers * tokens + attn_fwd
+
+
+def serve_trained(model, params, label):
+    """Phase 6's olmo-1b traffic (8 requests, seed 7) on the paged engine
+    over ``params``: the greedy streams."""
+    engine = LLMEngine(model, params, EngineConfig(
+        block_size=16, num_blocks=640, num_state_slots=64, max_model_len=1024,
+        device="cuda", seed=0, scheduler=SchedulerConfig(
+            max_batch_slots=8, max_batched_tokens=256, prefill_chunk=64)))
+    add_traffic(engine, np.random.default_rng(7), "r")
+    metrics, dt, counts = run_served(engine, COUNTERS)
+    gen = sum(m.num_generated for m in metrics)
+    assert counts["paged_attention"] == model.cfg.num_layers * engine.paged_steps, counts
+    log(f"[10 train] served from the {label}: {gen} generated tokens in {dt:.2f} s = "
+        f"{gen / dt:.1f} tok/s, {engine.paged_steps} paged steps")
+    streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
+    del engine
+    return streams
+
+
+def phase_train(card):
+    """olmo-1b at its published width (16 layers, d_model 2048, bf16 weights
+    and activations) trained by launch/train.py's ``train`` for TRAIN's 20
+    steps: each step's ce and grad norm, the median step time, tokens/s,
+    peak memory, the model FLOP utilisation against the card's bf16 rate
+    (remat's recompute apart), then one step profiled: its device busy
+    share and the optimizer's share of the busy time (AdamW profiled alone
+    on the step's gradients). ce must fall. No kernel launches: each
+    counter is set to 0 here (``main`` reads them after the smoke twins),
+    and no kernel of the six shows in the profile. Returns (model, trained
+    params)."""
+    cfg = configs.get_config("olmo-1b")
+    free_device("olmo-1b training")
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    for k in COUNTERS.values():
+        k.launches = 0  # the train path's count starts here
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, records = train_mod.train(cfg, device="cuda", log=lambda m: log(f"  {m}"),
+                                     **TRAIN)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for i, r in enumerate(records):
+        log(f"[10 train] step {i:2d}: ce={r['ce']:.4f} grad_norm={r['grad_norm']:.4f} "
+            f"lr={r['lr']:.3e} {r['seconds'] * 1e3:.1f} ms")
+    ces = [r["ce"] for r in records]
+    assert all(math.isfinite(r["ce"]) and math.isfinite(r["grad_norm"]) for r in records)
+    assert ces[-1] < ces[0], ces
+    step_s = statistics.median(r["seconds"] for r in records)
+    model_flops, recompute = train_flops(cfg, B, S)
+    nparam = sum(x.numel() for x in _leaves(state.params))
+    log(f"[10 train] {cfg.name} full width ({nparam} params, {cfg.param_dtype}; AdamW "
+        f"moments f32 "
+        f"{2 * 4 * nparam / 1e9:.2f} GB): {len(records)} steps of B={B} x S={S} in "
+        f"{total_s:.1f} s (build and init included); median step {step_s * 1e3:.1f} ms = "
+        f"{B * S / step_s:.0f} tokens/s; peak device memory {peak / 1e9:.2f} GB; "
+        f"ce {ces[0]:.4f} -> {ces[-1]:.4f}; MFU {model_flops / step_s / card.bf16_flops:.2%} "
+        f"({model_flops / 1e12:.2f} TFLOP a step against {card.bf16_flops / 1e12:g} "
+        f"TFLOP/s bf16), with remat's recompute ({recompute / 1e12:.2f} TFLOP) "
+        f"{(model_flops + recompute) / step_s / card.bf16_flops:.2%}")
+    model = build_model(cfg, device="cuda")
+    step_fn = make_train_step(model, base_lr=TRAIN["base_lr"],
+                              warmup_steps=TRAIN["warmup_steps"], total_steps=TRAIN["steps"])
+    batch = train_mod.to_device(SyntheticLM(cfg.vocab_size, S, seed=1).batch(B), "cuda")
+    wall = wall_ms(lambda: step_fn(state, batch), reps=3)
+    times = kernel_times(lambda: step_fn(state, batch))
+    busy = sum(us for _, us in times.values()) / 1e3
+    grads, _ = clip_by_global_norm(grads_of(model, state.params, batch)[0], 1.0)
+    opt_times = kernel_times(lambda: adamw_update(state.params, grads, state.opt,
+                                                  lr=TRAIN["base_lr"]))
+    opt_busy = sum(us for _, us in opt_times.values()) / 1e3
+    del grads
+    top = sorted(times.items(), key=lambda kv: -kv[1][1])[:4]
+    log(f"  one step profiled: wall {wall:.1f} ms, "
+        f"{sum(n for n, _ in times.values())} device kernels, busy {busy:.2f} ms = "
+        f"{busy / wall:.1%} of wall; AdamW alone {sum(n for n, _ in opt_times.values())} "
+        f"kernels, busy {opt_busy:.2f} ms = {opt_busy / busy:.1%} of the step's busy; top: "
+        + "; ".join(f"{n[:48]} x{c} {us / 1e3:.2f} ms" for n, (c, us) in top))
+    mine = sorted(n for n in times if any(k in n for k in KERNEL_NAMES))
+    assert not mine, mine
+    params = state.params
+    del state, step_fn
+    return model, params
+
+
+def phase_train_checkpoint(model, params):
+    """The trained params saved under build/ (checkpoint/ckpt.py), reloaded
+    onto the card and held bit-equal; phase 6's olmo-1b traffic served from
+    the restored params and from those in memory: the greedy streams are
+    equal. The file is deleted."""
+    t0 = time.perf_counter()
+    save_checkpoint(CKPT, params, step=TRAIN["steps"])
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(CKPT)
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    t0 = time.perf_counter()
+    restored, step = load_checkpoint(CKPT, params, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    os.remove(CKPT)
+    assert step == TRAIN["steps"], step
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for a, b in zip(_leaves(restored), _leaves(params)))
+    log(f"[10 train] checkpoint: {size} B on disk for {nbytes} B of params, saved in "
+        f"{save_s:.1f} s, restored onto the card in {load_s:.1f} s (warm file cache), "
+        f"step {step}: {'bit-equal' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the restored checkpoint differs from the trained params")
+    want = serve_trained(model, params, "trained params in memory")
+    got = serve_trained(model, restored, "restored checkpoint")
+    same, total = equal_share(got, want)
+    log(f"[10 train] restored vs in-memory streams: {same} of {total} tokens equal: "
+        f"{'ok' if got == want else 'FAIL'}")
+    if got != want:
+        raise AssertionError("streams served from the checkpoint differ")
+
+
+def twin_extras(cfg, B):
+    """Random f32 extras for one smoke batch: image rows or audio frames."""
+    rng = np.random.default_rng(5)
+    if cfg.family == "vlm":
+        return {"vision_embeds": (0.1 * rng.normal(
+            size=(B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"audio_frames": (0.1 * rng.normal(
+            size=(B, cfg.n_audio_ctx, cfg.d_model))).astype(np.float32)}
+    return {}
+
+
+def train_twin(arch, steps, params, device):
+    """``steps`` f32 smoke train steps of ``arch`` on ``device`` from the
+    CPU weights ``params``, B=2, S=16 batches of SyntheticLM(seed=0) with
+    the family's extras: the per-step metrics, and the model and first
+    batch for a gradient check."""
+    cfg = configs.smoke_config(arch)
+    model = build_model(cfg, device=device)
+    p = _to_device(params, device)
+    state = TrainState(p, adamw_init(p), 0)
+    step_fn = make_train_step(model, base_lr=1e-3, warmup_steps=1, total_steps=10)
+    batches = [train_mod.to_device(b, device) for b in make_batches(
+        SyntheticLM(cfg.vocab_size, 16, seed=0), 2, steps, extras=twin_extras(cfg, 2))]
+    recs = []
+    for b in batches:
+        state, m = step_fn(state, b)
+        recs.append({k: float(v) for k, v in m.items()})
+    return recs, model, batches[0]
+
+
+def phase_train_twins():
+    """Every family's f32 smoke train step (olmo-1b for 5 steps): the card's
+    ce, loss and grad norm (and moe_aux, mtp) equal the CPU's within
+    TRAIN_RTOL_F32; deepseek-v3's MLA, MoE and MTP weights all get a
+    nonzero finite gradient on the card."""
+    for arch, steps in TRAIN_TWINS:
+        params = build_model(configs.smoke_config(arch), device="cpu").init(0)
+        cpu, _, _ = train_twin(arch, steps, params, "cpu")
+        gpu, model, batch = train_twin(arch, steps, params, "cuda")
+        err = max(abs(g[k] - c[k]) / max(abs(c[k]), 1e-6)
+                  for g, c in zip(gpu, cpu) for k in c if k != "lr")
+        ok = err <= TRAIN_RTOL_F32 and all(math.isfinite(v) for r in gpu for v in r.values())
+        extra = ""
+        if arch == DEEPSEEK:
+            grads, _ = grads_of(model, _to_device(params, "cuda"), batch)
+            leaves = {"MLA wkv_b": grads["layers"][0]["mixer"]["wkv_b"]["w"],
+                      "MoE w1": grads["layers"][1]["ff"]["w1"],
+                      "MTP proj": grads["mtp"]["proj"]["w"],
+                      "MTP layer's MoE w1": grads["mtp"]["layer"]["ff"]["w1"]}
+            norms = {n: g.float().norm().item() for n, g in leaves.items()}
+            ok = ok and all(math.isfinite(v) and v > 0 for v in norms.values())
+            extra = (f"; moe_aux {gpu[0]['moe_aux']:.4f}, mtp {gpu[0]['mtp']:.4f}; grad "
+                     "norms " + ", ".join(f"{n} {v:.3g}" for n, v in norms.items()))
+        log(f"[10 train] {arch} smoke f32, {steps} step{'s' * (steps > 1)}: card vs CPU "
+            f"ce {gpu[-1]['ce']:.6f} / {cpu[-1]['ce']:.6f}, grad_norm "
+            f"{gpu[-1]['grad_norm']:.6f} / {cpu[-1]['grad_norm']:.6f}, largest relative "
+            f"difference {err:.2e} (rtol {TRAIN_RTOL_F32:g}){extra}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{arch} smoke train step: the card differs from the CPU")
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
@@ -4363,6 +4605,15 @@ def main() -> None:
     v_counts, _ = phase_serve_internvl(card)
     torch.cuda.empty_cache()
     phase_modality_twins()
+    torch.cuda.empty_cache()
+    model, params = phase_train(card)
+    phase_train_twins()
+    # the train path's count runs from before the full-width run to after
+    # the smoke twins: both ran no kernel
+    train_counts = {name: k.launches for name, k in COUNTERS.items()}
+    assert not any(train_counts.values()), train_counts
+    phase_train_checkpoint(model, params)
+    del model, params
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for paged_attention_quant and
     # quantize_pages, the gathered KIVI starcoder2-3b serve for
@@ -4374,7 +4625,8 @@ def main() -> None:
     sources = {"paged_attention": kmod.SOURCE, "paged_attention_quant": qmod.SOURCE,
                "quantize_pages": kvmod.SOURCE, "dequantize_pages": kvmod.SOURCE,
                "bgmv": bgmod.SOURCE, "flash_prefill": fmod.SOURCE}
-    # and each path's own count (set to 0 just before it, read just after)
+    # and each path's own count (set to 0 just before it, read just after;
+    # the train path's, phase 10's, is 0 for every kernel)
     paths = {"olmo-1b paged fp": fp_counts, "olmo-1b paged KIVI": q_counts,
              "olmo-1b paged LoRA": lora_counts, "starcoder2-3b gathered": sc_counts,
              "starcoder2-3b gathered KIVI": scq_counts, "jamba block gathered": jamba[0],
@@ -4384,7 +4636,8 @@ def main() -> None:
                     max_abs_err=timing[k]["max_abs_err"], ms=timing[k]["ms"],
                     plain_ms=timing[k]["plain_ms"], bound_ms=timing[k]["bound_ms"],
                     bound_by=timing[k]["bound_by"], library_ms=timing[k]["library_ms"],
-                    launches_by_path={p: c[k] for p, c in paths.items() if c.get(k)})
+                    launches_by_path={**{p: c[k] for p, c in paths.items() if c.get(k)},
+                                      "train": train_counts[k]})
                for k in REPLACES]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,11 +29,15 @@ takes the kernel only while its chunk lies inside the first attention
 chunk, where the chunk mask is plain causal (``fresh_rows_take_kernel``).
 Tensor parallelism comes with its own slice.
 
-whisper's encoder self-attention (``attn_bidir``) and its decoder's
-cross-attention over the encoder states (``cross_attend``) are not causal,
-so ``flash_prefill`` cannot take them: both are the plain
-``flash_attention`` with ``causal=False``, as the reference computes them
-outside Pallas.
+whisper's encoder self-attention (``attn_forward`` with ``causal=False``)
+and its decoder's cross-attention over the encoder states
+(``cross_attend``) are not causal, so ``flash_prefill`` cannot take them:
+both are the plain ``flash_attention`` with ``causal=False``, as the
+reference computes them outside Pallas. The training forward
+(``attn_forward``) also runs the plain ``flash_attention``, causal, under
+autograd: the reference's ``value_and_grad`` differentiates its plain
+blockwise attention, never a Pallas kernel, and no kernel here has a
+backward.
 """
 from __future__ import annotations
 
@@ -413,21 +417,24 @@ def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
 
 
 # ---------------------------------------------------------------------------
-# non-causal attention: whisper's encoder and its decoder's cross-attention
+# whole sequences (training, whisper's encoder) and cross-attention
 # ---------------------------------------------------------------------------
 
-def attn_bidir(p, cfg, spec, x):
-    """Bidirectional self-attention over a whole sequence (whisper's
-    encoder, the twin of the reference's ``attn_forward(causal=False)``):
-    x (B, S, d) -> (B, S, d), every position attending to every other."""
-    S = x.shape[1]
+def attn_forward(p, cfg, spec, x, positions, *, causal=True):
+    """Self-attention over a whole sequence, the twin of the reference's
+    ``attn_forward``: the training forward (causal, every kind) and
+    whisper's encoder (``causal=False``, every position attending to every
+    other). x: (B, S, d); positions: (S,). Through the plain
+    ``flash_attention`` under autograd, as the reference's training forward
+    runs its plain blockwise attention, not the Pallas kernel. Returns
+    (B, S, d)."""
     q, k, v = _qkv(p, cfg, x)
-    pos = torch.arange(S, device=x.device)
     if _uses_rope(cfg, spec):
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-    out = flash_attention(q, k, v, q_pos=pos, k_pos=pos, kind="global",
-                          scale=_scale(cfg), causal=False)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, q_pos=positions, k_pos=positions, kind=spec.attn_kind,
+                          window=cfg.sliding_window, chunk=cfg.chunk_size,
+                          scale=_scale(cfg), causal=causal)
     return proj_out(p["wo"], out)
 
 

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -143,3 +144,27 @@ def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
                                                   device=device))
     scaled = torch.arange(length, dtype=torch.float32, device=device)[:, None] * inv[None, :]
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# chunked (sqrt-remat) time loop
+# ---------------------------------------------------------------------------
+
+def chunked_scan(run, xs, carry, *, chunk: int = 64):
+    """``run(xs, carry) -> (ys, carry)``: a Python loop over the time axis
+    (dim 1) of every tensor in the tuple ``xs``, ``ys`` stacked along it.
+    Under a gradient, with S > ``chunk`` and S a multiple of it, the loop
+    runs chunk by chunk, each under ``torch.utils.checkpoint``: the
+    backward pass keeps one carry per chunk and recomputes the steps inside
+    (the reference's ``chunked_scan``: sqrt-remat over time instead of
+    depth). It changes memory only: every step computes what it computes
+    in one pass."""
+    S = xs[0].shape[1]
+    if not torch.is_grad_enabled() or S <= chunk or S % chunk:
+        return run(xs, carry)
+    ys = []
+    for c0 in range(0, S, chunk):
+        y, carry = checkpoint(run, tuple(a[:, c0:c0 + chunk] for a in xs), carry,
+                              use_reentrant=False, preserve_rng_state=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), carry

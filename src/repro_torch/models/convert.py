@@ -15,7 +15,10 @@ other, and a layer without a feed-forward (xLSTM's) has no ``norm2`` and
 no ``ff``. A whisper tree's learned ``pos_embed`` comes over as it is,
 each decoder layer's ``cross_norm`` and ``cross`` with the layer, and its
 encoder (one stacked stage of ``{"l0": layer}``) becomes ``{"layers":
-[...], "final_norm"}``. ``convert_adapter`` unstacks a LoRA adapter's stage tree the
+[...], "final_norm"}``. DeepSeek-V3's multi-token prediction block
+``mtp`` (one unstacked layer and its projections and norms) comes over as
+it is. The same function converts a gradient tree of the same structure
+(``jax.grad`` of the value tree). ``convert_adapter`` unstacks a LoRA adapter's stage tree the
 same way. Imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
@@ -43,12 +46,9 @@ def convert_params(cfg: ModelConfig, jax_values: Dict[str, Any]) -> Dict[str, An
             return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
         return torch.tensor(a)
 
-    # jax_values["mtp"] (DeepSeek-V3's multi-token prediction block) is
-    # skipped: the reference reads it only in its training forward, which
-    # the port does not have yet (ROADMAP A.2)
     out: Dict[str, Any] = {"embed": leaf(jax_values["embed"]),
                            "final_norm": _map(jax_values["final_norm"], leaf)}
-    for name in ("lm_head", "pos_embed"):
+    for name in ("lm_head", "pos_embed", "mtp"):
         if name in jax_values:
             out[name] = _map(jax_values[name], leaf)
     layers = []

@@ -10,14 +10,16 @@ reference's tree: ``in_proj`` (d, 2 d_inner), ``conv_w`` (K, d_inner) and
 d_inner) with a bias, ``A_log`` (d_inner, N) and ``D`` (d_inner,) in f32,
 ``out_proj`` (d_inner, d).
 
-The selective scan is a plain loop over time under ``torch.no_grad()``:
-``dA`` and ``dBx`` are formed inside each step, never as a (B, S, d_inner,
-N) tensor, with the state in f32. The reference scans with
-``lax.scan`` outside any Pallas kernel (its ``chunked_scan`` only changes
-memory under a gradient), so no kernel is ported here; each step is a
-handful of launches (ROADMAP: a fused selective-scan kernel). Every call
-goes through that loop, one decode token included: the reference's
-single-step branch only spares ``lax.scan`` a trace.
+The selective scan is a plain loop over time: ``dA`` and ``dBx`` are
+formed inside each step, never as a (B, S, d_inner, N) tensor, with the
+state in f32. The reference scans with ``lax.scan`` outside any Pallas
+kernel, so no kernel is ported here; each step is a handful of launches
+(ROADMAP: a fused selective-scan kernel). Under a gradient (training) the
+loop runs through ``common.chunked_scan``, 64-step chunks recomputed in the
+backward pass, as the reference's ``chunked_scan``; serving calls it under
+``torch.no_grad()`` (``Model.extend``). Every call goes through that loop,
+one decode token included: the reference's single-step branch only spares
+``lax.scan`` a trace.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense, make_dense, normal_init
+from repro_torch.models.common import chunked_scan, dense, make_dense, normal_init
 
 
 def d_inner_of(cfg) -> int:
@@ -69,16 +71,18 @@ def causal_conv(w, b, x, state=None):
 def ssm_scan(A, Bc, Cc, dt, x, h):
     """A: (di, N) f32; Bc, Cc: (B, S, N); dt, x: (B, S, di) f32; h: (B, di,
     N) f32. Returns (y (B, S, di) f32, h after the last step)."""
-    Bc, Cc = Bc.float(), Cc.float()
-    ys = []
-    for t in range(x.shape[1]):
-        dt_t = dt[:, t, :, None]
-        h = torch.exp(dt_t * A) * h + dt_t * Bc[:, t, None, :] * x[:, t, :, None]
-        ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t]))
-    return torch.stack(ys, dim=1), h
+    def run(xs, h):
+        Bc, Cc, dt, x = xs
+        ys = []
+        for t in range(x.shape[1]):
+            dt_t = dt[:, t, :, None]
+            h = torch.exp(dt_t * A) * h + dt_t * Bc[:, t, None, :] * x[:, t, :, None]
+            ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t]))
+        return torch.stack(ys, dim=1), h
+
+    return chunked_scan(run, (Bc.float(), Cc.float(), dt, x), h)
 
 
-@torch.no_grad()
 def mamba_forward(p, cfg, x, *, conv_state=None, ssm_state=None):
     """x: (B, S, d); ``conv_state`` (B, K-1, di) and ``ssm_state`` (B, di,
     N) f32, or None for an empty history. Returns (y (B, S, d), (conv, ssm))

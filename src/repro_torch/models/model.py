@@ -4,8 +4,10 @@ the paged and gathered serving paths, stacks with state mixers (Mamba:
 jamba-v0.1-52b; mLSTM and sLSTM: xlstm-1.3b) and whisper's
 encoder-decoder on the gathered path, and internvl's image splice.
 
-The twin of the attention, MLA, state-mixer, MLP and MoE part of
-``repro.models.model.build_model``:
+The twin of ``repro.models.model.build_model`` (every part but the
+contiguous ``decode``): ``forward`` (the full-sequence training forward,
+with DeepSeek-V3's multi-token prediction head ``mtp_head`` and the MoE
+layers' aux loss; each layer under ``torch.utils.checkpoint``),
 ``embed_tokens``, ``head``, ``init_cache`` / ``extend`` (a chunk appended to
 a gathered ``(B, W, KV, D)`` cache window: prefill, chunked prefill, mixed
 batches, decode as chunks of one), and, where ``paged_decode_supported``
@@ -16,7 +18,8 @@ catch-up); on other stacks (sliding-window attention: starcoder2-3b;
 chunked attention: llama4-scout; MLA: deepseek-v3; state mixers) those
 three are None, as in the reference.
 A MoE layer's feed-forward is ``moe.moe_apply`` at capacity factor 2.0, as
-the reference serves it, with its aux loss dropped. Parameters are plain
+the reference serves it, with its aux loss dropped (1.25 and the aux loss
+kept in ``forward``, as the reference trains it). Parameters are plain
 dicts: ``{"embed": (V, d), "final_norm": {...}, ["lm_head": {"w": (d, V)}],
 "layers": [layer, ...]}`` with one dict
 per layer in ``cfg.layer_specs()`` order — the JAX package stacks repeats
@@ -62,6 +65,7 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.lora.ops import bgmv_add
@@ -143,17 +147,19 @@ def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, *,
     return p
 
 
-def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None):
-    """The feed-forward residual; none where ``spec.ff`` is "none". A MoE
-    layer serves at capacity factor 2.0 (the reference's serving value:
-    over-provision rather than drop) and takes no LoRA: its adapter sites
-    are the attention projections only."""
+def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None, cf: float = 2.0):
+    """The feed-forward residual and the MoE's aux loss (0.0 for an MLP or
+    none); no residual where ``spec.ff`` is "none". A MoE layer serves at
+    capacity factor 2.0 (the reference's serving value: over-provision
+    rather than drop; its training forward passes 1.25) and takes no LoRA:
+    its adapter sites are the attention projections only."""
     if spec.ff == "none":
-        return x
+        return x, 0.0
     h = apply_norm(cfg.norm, p["norm2"], x)
     if spec.ff == "moe":
-        return x + moe.moe_apply(p["ff"], cfg, h, capacity_factor=2.0)[0]
-    return x + mlp_apply(p["ff"], cfg, h, lora, lora_ids)
+        y, aux = moe.moe_apply(p["ff"], cfg, h, capacity_factor=cf)
+        return x + y, aux
+    return x + mlp_apply(p["ff"], cfg, h, lora, lora_ids), 0.0
 
 
 def _layer_decode_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
@@ -162,7 +168,7 @@ def _layer_decode_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
     h = apply_norm(cfg.norm, p["norm1"], x)
     y, pages, kv_new = attn.attn_decode_paged(p["mixer"], cfg, spec, h, pages,
                                               block_tables, lengths, lora, lora_ids)
-    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), pages, kv_new
+    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids)[0], pages, kv_new
 
 
 def _layer_extend_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
@@ -174,7 +180,7 @@ def _layer_extend_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
         p["mixer"], cfg, spec, h, pages, block_tables, lengths,
         chunk_lens=chunk_lens, scratch_block=scratch_block, lora=lora,
         lora_ids=lora_ids)
-    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids), pages, kv_new
+    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids)[0], pages, kv_new
 
 
 def _state_extend(p, spec, cfg, h, state):
@@ -208,7 +214,35 @@ def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
     if "cross" in p:
         hc = apply_norm(cfg.norm, p["cross_norm"], x)
         x = x + attn.cross_attend(p["cross"], cfg, hc, cache["cross_k"], cache["cross_v"])
-    return _ff_branch(p, spec, cfg, x, lora, lora_ids), cache
+    return _ff_branch(p, spec, cfg, x, lora, lora_ids)[0], cache
+
+
+def _mixer_forward(p, spec, cfg, h, positions):
+    """A layer's mixer over a whole sequence from an empty history."""
+    if spec.mixer == "attn":
+        return attn.attn_forward(p, cfg, spec, h, positions)
+    if spec.mixer == "mla":
+        return mla.mla_forward(p, cfg, spec, h, positions)[0]
+    fwd = {"mamba": mamba.mamba_forward, "mlstm": xlstm.mlstm_forward,
+           "slstm": xlstm.slstm_forward}[spec.mixer]
+    return fwd(p, cfg, h)[0]
+
+
+def _layer_forward(p, spec, cfg, x, positions, enc=None):
+    """The training path of one layer over a whole sequence (the twin of
+    the reference's ``_layer_forward``): the mixer, causal, from an empty
+    history; for a whisper decoder layer, cross-attention over the K/V it
+    projects from the encoder states ``enc`` (B, T, d) in the activation
+    dtype (the reference's ``cross_kv_stage``); the feed-forward, a MoE at
+    the reference's training capacity factor 1.25. Returns (x, the MoE's
+    aux loss or 0.0)."""
+    x = x + _mixer_forward(p["mixer"], spec, cfg, apply_norm(cfg.norm, p["norm1"], x),
+                           positions)
+    if enc is not None:
+        hc = apply_norm(cfg.norm, p["cross_norm"], x)
+        x = x + attn.cross_attend(p["cross"], cfg, hc, *attn.cross_kv(p["cross"], enc,
+                                                                       x.dtype))
+    return _ff_branch(p, spec, cfg, x, cf=1.25)
 
 
 def _layer_lora(lora):
@@ -355,8 +389,10 @@ class Model:
         the model's device (JAX's init draws other bits for the same seed;
         parity tests convert the JAX weights instead). Learned positions
         draw ``max(learned_positions, max_seq)`` rows, as the reference's.
-        No multi-token prediction block: the reference reads it only in its
-        training forward, which the port does not have yet (ROADMAP A.2)."""
+        With ``cfg.mtp_depth`` (DeepSeek-V3), the multi-token prediction
+        block ``mtp``: ``proj`` (2d, d), ``norm_h``, ``norm_e``, a
+        ``layer`` of the last stage's last spec and ``final_norm``; only
+        ``forward`` reads it."""
         cfg, dev, pdt = self.cfg, self.device, self.pdtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         d = cfg.d_model
@@ -377,6 +413,13 @@ class Model:
             params["encoder"] = {
                 "layers": [_layer_init(gen, ENC_SPEC, cfg, pdt, dev)
                            for _ in range(cfg.encoder_layers)],
+                "final_norm": make_norm(cfg.norm, d, pdt, dev)}
+        if cfg.mtp_depth:
+            params["mtp"] = {
+                "proj": make_dense(gen, 2 * d, d, pdt, dev),
+                "norm_h": make_norm(cfg.norm, d, pdt, dev),
+                "norm_e": make_norm(cfg.norm, d, pdt, dev),
+                "layer": _layer_init(gen, cfg.stages[-1][0][-1], cfg, pdt, dev),
                 "final_norm": make_norm(cfg.norm, d, pdt, dev)}
         return params
 
@@ -447,10 +490,11 @@ class Model:
         T = frames.shape[1]
         x = frames.to(self.dtype) + sinusoidal_positions(
             T, cfg.d_model, frames.device).to(self.dtype)
+        pos = torch.arange(T, device=x.device)
         for p in params["encoder"]["layers"]:
             h = apply_norm(cfg.norm, p["norm1"], x)
-            x = _ff_branch(p, ENC_SPEC, cfg, x + attn.attn_bidir(p["mixer"], cfg,
-                                                                 ENC_SPEC, h))
+            y = attn.attn_forward(p["mixer"], cfg, ENC_SPEC, h, pos, causal=False)
+            x, _ = _ff_branch(p, ENC_SPEC, cfg, x + y)
         return apply_norm(cfg.norm, params["encoder"]["final_norm"], x)
 
     def cross_kv_all(self, params, enc):
@@ -474,6 +518,59 @@ class Model:
         rows = vision_embeds.to(x.dtype).gather(
             1, pos.clamp(max=N - 1)[..., None].expand(B, C, d))
         return torch.where((pos < N)[..., None], rows, x)
+
+    # ---------------- forward (training) ----------------------------------------
+    def forward(self, params, batch):
+        """The full-sequence training forward (the twin of the reference's
+        ``forward``). ``batch``: ``tokens`` (B, S) on the model's device,
+        and the family's extras: ``audio_frames`` (B, T, d) (whisper: the
+        encoder runs, and each decoder layer attends over its cross K/V),
+        ``vision_embeds`` (B, N, d) (internvl: the image rows at positions
+        [0, N), the text after them, so the logits cover N + S positions).
+        Learned positions are added for positions [0, S). Each layer runs
+        under ``torch.utils.checkpoint`` (under a gradient its activations
+        are recomputed in the backward pass: the reference's
+        ``jax.checkpoint`` over its scan body), and the state mixers' time
+        loops in 64-step chunks. Attention is the plain ``flash_attention``: no kernel runs.
+        Returns (logits (B, S', V), aux): ``aux["moe_aux"]``, the MoE
+        layers' load-balance losses summed (0.0 without MoE), and with an
+        MTP block ``aux["mtp_logits"]`` (B, S - 1, V)."""
+        cfg, dev = self.cfg, self.device
+        tokens = batch["tokens"]
+        enc = self.run_encoder(params, batch["audio_frames"]) if has_cross(cfg) else None
+        x = self.embed_tokens(params, tokens)
+        if cfg.family == "vlm":
+            x = torch.cat([batch["vision_embeds"].to(self.dtype), x], dim=1)
+        S = x.shape[1]
+        positions = torch.arange(S, device=dev)
+        if cfg.learned_positions:
+            x = x + params["pos_embed"][:S][None].to(self.dtype)
+        moe_total = 0.0
+        for p, spec in zip(params["layers"], self.specs):
+            x, a = checkpoint(_layer_forward, p, spec, cfg, x, positions, enc,
+                              use_reentrant=False, preserve_rng_state=False)
+            moe_total = moe_total + a
+        aux = {"moe_aux": moe_total}
+        logits = self.head(params, x)
+        if cfg.mtp_depth and "mtp" in params:
+            aux["mtp_logits"] = self.mtp_head(params, x, tokens)
+        return logits, aux
+
+    def mtp_head(self, params, h_main, tokens):
+        """DeepSeek-V3's multi-token prediction at depth 1: from the last
+        layer's states h_t (before the final norm) and the embedding of
+        token t + 1, one more layer of the last stage's last spec predicts
+        token t + 2 through the shared head. Returns (B, S - 1, V)."""
+        cfg = self.cfg
+        m = params["mtp"]
+        h = apply_norm(cfg.norm, m["norm_h"], h_main[:, :-1])
+        e = apply_norm(cfg.norm, m["norm_e"], self.embed_tokens(params, tokens[:, 1:]))
+        x = dense(m["proj"], torch.cat([h, e], dim=-1))
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = _layer_forward(m["layer"], cfg.stages[-1][0][-1], cfg, x, positions)
+        x = apply_norm(cfg.norm, m["final_norm"], x)
+        w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]["w"]
+        return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
     # ---------------- extend (gathered cache windows) -------------------------
     @torch.no_grad()

@@ -9,8 +9,11 @@ and ``C`` (H, dh, dh), ``n`` (H, dh), ``m`` (H,) in f32; sLSTM ``c``,
 -1e30`` (the exponential gates' stabilizer), the rest zeros
 (``init_mlstm_cache``, ``init_slstm_cache``).
 
-The recurrences are plain loops over time under ``torch.no_grad()``, as
-the reference's are ``lax.scan`` bodies outside any Pallas kernel. The
+The recurrences are plain loops over time, as the reference's are
+``lax.scan`` bodies outside any Pallas kernel; under a gradient (training)
+each step-by-step loop runs through ``common.chunked_scan`` (64-step chunks
+recomputed in the backward pass, the reference's ``chunked_scan``), and
+serving calls them under ``torch.no_grad()`` (``Model.extend``). The
 mLSTM takes the reference's branch: the chunkwise-parallel form (64-step
 chunks: masked (L, L) score matmuls inside a chunk, (C, n, m) carried
 between chunks) when S >= 128 and S % 64 == 0, the step-by-step
@@ -26,8 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (act_fn, apply_norm, dense, make_dense,
-                                       make_norm, normal_init)
+from repro_torch.models.common import (act_fn, apply_norm, chunked_scan, dense,
+                                       make_dense, make_norm, normal_init)
 from repro_torch.models.mamba import causal_conv
 
 NEG_INF = -1e30
@@ -60,22 +63,25 @@ def mlstm_recurrence(q, k, v, ig, fg, state):
     """q, k, v: (B, S, H, dh); ig, fg: (B, S, H) (fg a log-sigmoid);
     state: (C (B, H, dh, dh), n (B, H, dh), m (B, H)) f32. Returns (h (B, S,
     H, dh) f32, the state after the last step)."""
-    C, n, m = state
-    q, k, v, ig, fg = (a.float() for a in (q, k, v, ig, fg))
-    hs = []
-    for t in range(q.shape[1]):
-        q_t, k_t, v_t, i_t, f_t = q[:, t], k[:, t], v[:, t], ig[:, t], fg[:, t]
-        m_new = torch.maximum(f_t + m, i_t)
-        i_p = torch.exp(i_t - m_new)
-        f_p = torch.exp(f_t + m - m_new)
-        C = f_p[..., None, None] * C + i_p[..., None, None] * (
-            v_t[..., :, None] * k_t[..., None, :])  # (B, H, dh_v, dh_k)
-        n = f_p[..., None] * n + i_p[..., None] * k_t
-        num = torch.einsum("bhvk,bhk->bhv", C, q_t)
-        den = torch.clamp_min(torch.abs(torch.einsum("bhk,bhk->bh", n, q_t)), 1.0)
-        hs.append(num / den[..., None])
-        m = m_new
-    return torch.stack(hs, dim=1), (C, n, m)
+    def run(xs, state):
+        q, k, v, ig, fg = xs
+        C, n, m = state
+        hs = []
+        for t in range(q.shape[1]):
+            q_t, k_t, v_t, i_t, f_t = q[:, t], k[:, t], v[:, t], ig[:, t], fg[:, t]
+            m_new = torch.maximum(f_t + m, i_t)
+            i_p = torch.exp(i_t - m_new)
+            f_p = torch.exp(f_t + m - m_new)
+            C = f_p[..., None, None] * C + i_p[..., None, None] * (
+                v_t[..., :, None] * k_t[..., None, :])  # (B, H, dh_v, dh_k)
+            n = f_p[..., None] * n + i_p[..., None] * k_t
+            num = torch.einsum("bhvk,bhk->bhv", C, q_t)
+            den = torch.clamp_min(torch.abs(torch.einsum("bhk,bhk->bh", n, q_t)), 1.0)
+            hs.append(num / den[..., None])
+            m = m_new
+        return torch.stack(hs, dim=1), (C, n, m)
+
+    return chunked_scan(run, tuple(a.float() for a in (q, k, v, ig, fg)), tuple(state))
 
 
 def mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int = 64):
@@ -124,7 +130,6 @@ def mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int = 64):
     return torch.cat(hs, dim=1), (C_p, n_p, m_p)
 
 
-@torch.no_grad()
 def mlstm_forward(p, cfg, x, *, state=None):
     """x: (B, S, d); state: {"conv", "C", "n", "m"} or None (an empty
     history). Returns (y (B, S, d), the new state dict)."""
@@ -186,30 +191,34 @@ def make_slstm_params(gen, cfg, dtype, device):
 def slstm_recurrence(gx, r, state, H, dh):
     """gx: (B, S, 4d) input pre-activations; r: (H, dh, 4 dh); state: (c, n,
     h (B, d), m (B, H)) f32. Returns (h (B, S, d) f32, the new state)."""
-    c, n, h, m = state
-    gx, r = gx.float(), r.float()
+    r = r.float()
     B = gx.shape[0]
-    hs = []
-    for t in range(gx.shape[1]):
-        rec = torch.einsum("bhd,hdk->bhk", h.reshape(B, H, dh), r)  # (B, H, 4dh)
-        # head-major (H, 4, dh) -> gate-major (4, H, dh), wx's layout
-        rec = rec.reshape(B, H, 4, dh).transpose(1, 2).reshape(B, 4 * H * dh)
-        gi, gf, gz, go = torch.chunk(gx[:, t] + rec, 4, dim=-1)  # (B, d) each
-        gih = gi.reshape(B, H, dh)
-        gfh = F.logsigmoid(gf).reshape(B, H, dh)
-        # per-head scalar stabilizer from the head-mean pre-activations
-        m_new = torch.maximum(gfh.mean(-1) + m, gih.mean(-1))
-        i_p = torch.exp(gih - m_new[..., None]).reshape(gi.shape)
-        f_p = torch.exp(gfh + (m - m_new)[..., None]).reshape(gf.shape)
-        c = f_p * c + i_p * torch.tanh(gz)
-        n = f_p * n + i_p
-        h = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
-        m = m_new
-        hs.append(h)
-    return torch.stack(hs, dim=1), (c, n, h, m)
+
+    def run(xs, state):
+        gx, = xs
+        c, n, h, m = state
+        hs = []
+        for t in range(gx.shape[1]):
+            rec = torch.einsum("bhd,hdk->bhk", h.reshape(B, H, dh), r)  # (B, H, 4dh)
+            # head-major (H, 4, dh) -> gate-major (4, H, dh), wx's layout
+            rec = rec.reshape(B, H, 4, dh).transpose(1, 2).reshape(B, 4 * H * dh)
+            gi, gf, gz, go = torch.chunk(gx[:, t] + rec, 4, dim=-1)  # (B, d) each
+            gih = gi.reshape(B, H, dh)
+            gfh = F.logsigmoid(gf).reshape(B, H, dh)
+            # per-head scalar stabilizer from the head-mean pre-activations
+            m_new = torch.maximum(gfh.mean(-1) + m, gih.mean(-1))
+            i_p = torch.exp(gih - m_new[..., None]).reshape(gi.shape)
+            f_p = torch.exp(gfh + (m - m_new)[..., None]).reshape(gf.shape)
+            c = f_p * c + i_p * torch.tanh(gz)
+            n = f_p * n + i_p
+            h = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
+            m = m_new
+            hs.append(h)
+        return torch.stack(hs, dim=1), (c, n, h, m)
+
+    return chunked_scan(run, (gx.float(),), tuple(state))
 
 
-@torch.no_grad()
 def slstm_forward(p, cfg, x, *, state=None):
     """x: (B, S, d); state: {"c", "n", "h", "m"} or None. Returns (y (B, S,
     d), the new state dict)."""

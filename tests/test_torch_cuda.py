@@ -1395,3 +1395,76 @@ def test_modality_smoke_streams_on_card_equal_cpu(cuda, arch):
     assert fmod.flash_prefill.launches > flash
     if arch == "internvl2-2b":
         assert gpu.paged_steps > 0 and gpu.runner.steps > 0
+
+
+# ---------------------------------------------------------------------------
+# training: a train step on the card against the CPU's; checkpoints on the card
+# ---------------------------------------------------------------------------
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.kernels.kv_quant import kv_quant as kvq_mod  # noqa: E402
+from repro_torch.kernels.lora import bgmv as bgmv_mod  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention_quant as pq_mod  # noqa: E402
+from repro_torch.train.loop import grads_of, init_train_state, make_train_step  # noqa: E402
+from repro_torch.tree import tree_paths  # noqa: E402
+
+# f32 on both devices with TF32 off: the CPU and the card differ in
+# summation order only. Gradients per leaf against the larger of its largest
+# entry and 1e-3 of the tree's (tests/test_torch_train_families.py's rule)
+TRAIN_RTOL = 1e-4
+
+
+def _launch_counts():
+    return (kmod.paged_attention.launches, pq_mod.paged_attention_quant.launches,
+            kvq_mod.quantize_pages.launches, kvq_mod.dequantize_pages.launches,
+            bgmv_mod.bgmv_add.launches, fmod.flash_prefill.launches)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 smoke train step of olmo-1b from the same weights and batch:
+    the card's gradients, loss and grad norm equal the CPU's, and no
+    hand-written kernel launches (training attention is the plain
+    version). The new params differ by at most 2 x lr an element: AdamW's
+    first step is g / (|g| + eps), about sign(g), so an entry whose
+    gradient lies within the devices' rounding of 0 may step either way."""
+    cfg = configs.smoke_config("olmo-1b")
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(cfg.vocab_size, 32, seed=0).batch(4).items()}
+    lr = 1e-3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        state = init_train_state(build_model(cfg, device="cpu"), 0)
+        state = state._replace(params=_tree_to(state.params, dev),
+                                opt=_tree_to(state.opt, dev))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        step = make_train_step(model, base_lr=lr, warmup_steps=0, total_steps=10)
+        before = _launch_counts()
+        out[dev] = grads_of(model, state.params, b)[0], step(state, b)
+        assert _launch_counts() == before
+    (cpu_g, (cpu_state, cpu_m)), (gpu_g, (gpu_state, gpu_m)) = out["cpu"], out["cuda"]
+    top = max(g.abs().max() for _, g in tree_paths(cpu_g))
+    for (p, g), (_, c) in zip(tree_paths(gpu_g), tree_paths(cpu_g)):
+        err = (g.cpu() - c).abs().max() / max(c.abs().max(), 1e-3 * top)
+        assert err <= TRAIN_RTOL, (p, float(err))
+    for k in ("ce", "loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(gpu_m[k]), float(cpu_m[k]), rtol=TRAIN_RTOL,
+                                   err_msg=k)
+    for (p, g), (_, c) in zip(tree_paths(gpu_state.params), tree_paths(cpu_state.params)):
+        assert (g.cpu() - c).abs().max() <= 2 * lr * (1 + 1e-3), p
+
+
+@pytest.mark.gpu
+def test_checkpoint_on_card_round_trip_bit_exact(cuda, tmp_path):
+    """bf16 params written from the card and restored onto it are bit-equal,
+    with the step kept."""
+    cfg = dataclasses.replace(configs.smoke_config("olmo-1b"), param_dtype="bfloat16")
+    params = build_model(cfg, device="cuda").init(0)
+    path = str(tmp_path / "ckpt.npz")
+    save_checkpoint(path, params, step=5)
+    restored, step = load_checkpoint(path, params, device="cuda")
+    assert step == 5
+    for (p, a), (_, b) in zip(tree_paths(restored), tree_paths(params)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16, p
+        assert torch.equal(a, b), p

@@ -15,8 +15,8 @@ blocks that preempts; ``host_copy_bytes`` is equal. Under ``kv_quant``
 the latents take the reference's quantize–dequantize round trip: streams
 equal and stores within a code step of JAX's. An ``export_seq`` /
 ``import_seq`` round trip of latent blocks keeps the streams of an
-unmigrated engine. ``convert_params`` skips the ``mtp`` block, which the
-port does not build.
+unmigrated engine. ``convert_params`` carries the ``mtp`` block, which
+only the training forward reads.
 """
 import dataclasses
 import os
@@ -243,7 +243,19 @@ def test_export_import_round_trip_keeps_streams(models):
 
 
 def test_convert_skips_mtp(models):
+    """The multi-token prediction block is no longer skipped: since the
+    port trains, ``convert_params`` carries ``mtp`` across leaf for leaf
+    and ``Model.init`` draws one of the same shapes. Serving reads it
+    nowhere."""
     _, _, values, tm, params = models
-    assert "mtp" in values and "mtp" not in params
-    assert "mtp" not in tm.init(0)
-    assert set(params) == {"embed", "final_norm", "lm_head", "layers"}
+    assert set(params) == {"embed", "final_norm", "lm_head", "layers", "mtp"}
+    mtp = params["mtp"]
+    assert set(mtp) == set(values["mtp"]) == {"proj", "norm_h", "norm_e", "layer",
+                                               "final_norm"}
+    np.testing.assert_array_equal(mtp["proj"]["w"].numpy(),
+                                  np.asarray(values["mtp"]["proj"]["w"]))
+    np.testing.assert_array_equal(mtp["layer"]["ff"]["w1"].numpy(),
+                                  np.asarray(values["mtp"]["layer"]["ff"]["w1"]))
+    drawn = tm.init(0)["mtp"]
+    assert drawn["proj"]["w"].shape == mtp["proj"]["w"].shape
+    assert drawn["layer"]["ff"]["w1"].shape == mtp["layer"]["ff"]["w1"].shape

@@ -5,7 +5,9 @@ walk must reach the KIVI, LoRA, gathered-backend and MoE modules, and the
 migration (disaggregation, fleet), telemetry config / export and roofline
 modules, MLA (deepseek-v3) with the page store and gathered runner
 that hold its latents and KIVI windows, and the state mixers (Mamba,
-xLSTM) with the jamba-v0.1-52b and xlstm-1.3b configs."""
+xLSTM) with the jamba-v0.1-52b and xlstm-1.3b configs, and the training
+path: optimizer, train loop, synthetic data, checkpoints and the train
+driver."""
 import os
 import subprocess
 import sys
@@ -50,6 +52,11 @@ assert mla <= set(mods), mla - set(mods)
 state = {"repro_torch.configs.jamba_v0_1_52b", "repro_torch.configs.xlstm_1_3b",
          "repro_torch.models.mamba", "repro_torch.models.xlstm"}
 assert state <= set(mods), state - set(mods)
+train = {"repro_torch.optim.adamw", "repro_torch.optim.schedule", "repro_torch.train.loop",
+         "repro_torch.data.synthetic", "repro_torch.data.tokenizer",
+         "repro_torch.checkpoint.ckpt", "repro_torch.checkpoint.serving_state",
+         "repro_torch.launch.train", "repro_torch.tree"}
+assert train <= set(mods), train - set(mods)
 """
 
 
