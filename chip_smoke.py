@@ -184,12 +184,42 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                (every counter 0, no kernel of the six in the profile); the
                trained params saved under build/, restored onto the card
                bit-equal, and phase 6's olmo-1b traffic served from the
-               restored params gives the streams of the params in memory.
+               restored params gives the streams of the params in memory;
+ 11. tp      — tensor-parallel paged serving: two ranks spawned on this one
+               card (launch/mesh.py's spawn_ranks), joined over gloo, which
+               stages each all-reduce through the host (so this measures
+               the port's code path and its shard-local kernels, not NVLink
+               tensor parallelism); each rank's backend, device and model
+               group, and a gloo all-reduce of a CUDA tensor. qwen2.5-32b at
+               published width cut to 4 of its 64 layers (bf16, random qkv
+               biases) at model axis 2 (KV heads and GLU hidden units
+               sharded, w1's columns permuted), each rank drawing its
+               slices layer by layer: its allocated device bytes after the
+               draw and after an engine is built equal its slices plus
+               the replicated leaves (nothing of the whole tree stays);
+               a probe decode step's logits
+               against one process at tp=1 with the same weights (within
+               2^-4 of the largest logit), its wall time and the all-
+               reduces' share of it; phase 6's 8-request greedy traffic
+               over fp pages, KIVI 8-bit pages and LoRA rank 8 x 4 adapters
+               over 2 slots, each rank's launches held to their formulas
+               (paged_attention / paged_attention_quant = 4 x paged steps,
+               bgmv = 4 x 4 x steps, quantize_pages = tp=1's launches over
+               half its pages), 2 x 4 all-reduces a step, device KV bytes
+               per block half of tp=1's; on rank 0 every kernel against its
+               plain version at every shape the serves gave it, and
+               paged_attention and bgmv timed at local decode shapes; the
+               f32 smoke twins at model axis 2 (olmo-1b over fp, KIVI 8-bit,
+               mixed LoRA and speculative k = 3; gemma-2b's replicated MQA
+               KV; olmo-1b at 6 heads over 3 KV heads, the permuted
+               fallback): both ranks' streams equal each other and the
+               CPU's single-device streams.
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -217,6 +247,8 @@ from repro_torch.core.disagg import DisaggregatedServer  # noqa: E402
 from repro_torch.core.fleet import ServingFleet  # noqa: E402
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  # noqa: E402
 from repro_torch.core.executor import state as state_mod  # noqa: E402
+from repro_torch.core.executor.base import marshal_batch  # noqa: E402
+from repro_torch.core.scheduler import ChunkWork  # noqa: E402
 from repro_torch.core.executor.gathered import dequantize_window  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fmod  # noqa: E402
@@ -237,6 +269,9 @@ from repro_torch.data import SyntheticLM, make_batches  # noqa: E402
 from repro_torch.launch import roofline as troofline  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.roofline import card_for  # noqa: E402
+from repro_torch.core.executor.sharded import (rank_slicer, shard_params,  # noqa: E402
+                                               tp_layout)
+from repro_torch.launch.mesh import make_serving_mesh, spawn_ranks  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -244,8 +279,10 @@ from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
-from repro_torch.models.model import cache_leaf_shapes  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models.model import cache_leaf_shapes, param_axes  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm  # noqa: E402
+from repro_torch.sharding import ShardingConfig, serving_tp_rules  # noqa: E402
 from repro_torch.train.loop import TrainState, grads_of, make_train_step  # noqa: E402
 
 # the kernels' wrappers and their launch counts, held here so that phase
@@ -4512,6 +4549,568 @@ def phase_train_twins():
             raise AssertionError(f"{arch} smoke train step: the card differs from the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor-parallel paged serving, two ranks sharing the card
+# ---------------------------------------------------------------------------
+QWEN = "qwen2.5-32b"
+TP = 2
+TP_LAYERS = 4
+# one decode step's logits, 2 ranks against one process with the same
+# weights, both bf16 end to end. Each all-reduce rounds every rank's partial
+# sum to bf16 and adds them in bf16, where one device rounds its f32 sum
+# once: a hidden state may move by a bf16 step (2^-8 relative) at each of
+# the 8 all-reduces, and the logits by a few such steps of their scale. A
+# wrong shard (a head missing, a GLU column of another unit, a bias counted
+# on both ranks) moves them by O(1) of their scale. Held: max |difference|
+# <= 2^-4 of the largest |logit| (16 bf16 steps).
+TP_LOGITS_RTOL = 2 ** -4
+# the probe's prompts (no length a multiple of the 16-slot page, so the
+# decode position's block is already allocated) and the tokens it feeds
+PROBE_LENS = (77, 100, 130, 45)
+PROBE_TOKENS = (11, 22, 33, 44)
+PROBE_REPS = 5
+TP_LORA = dict(rank=8, alpha=16.0, max_loaded_adapters=2)
+# the f32 smoke twins at model axis 2: label, arch, config changes, KIVI
+# bits, LoRA, speculative k
+TP_TWINS = (
+    ("olmo-1b fp", "olmo-1b", {}, None, False, None),
+    ("olmo-1b KIVI 8-bit", "olmo-1b", {}, 8, False, None),
+    ("olmo-1b mixed LoRA", "olmo-1b", {}, None, True, None),
+    ("olmo-1b speculative k=3", "olmo-1b", {}, None, False, 3),
+    ("gemma-2b (MQA: KV replicated)", "gemma-2b", {}, None, False, None),
+    ("olmo-1b 6 heads / 3 KV heads (permuted fallback)", "olmo-1b",
+     dict(num_heads=6, num_kv_heads=3), None, False, None),
+)
+
+
+def qwen_block():
+    """qwen2.5-32b at its published width (d 5120, 40 heads over 8 KV heads,
+    d_ff 27648, qkv biases, vocab 152064), its depth cut to TP_LAYERS of
+    its 64 layers: the config and the published layer count."""
+    cfg = configs.get_config(QWEN)
+    return dataclasses.replace(cfg, stages=((cfg.stages[0][0], TP_LAYERS),)), cfg.num_layers
+
+
+def qwen_params(model, place=None):
+    """Seed-0 weights, with the qkv biases drawn (N(0, 0.5^2), seed 5) where
+    the init leaves zeros, so their split across ranks shows in the logits;
+    the same bits in every process on the card. ``place`` (a rank's
+    ``rank_slicer``) cuts each layer, biases drawn, as soon as it is drawn:
+    the rank's slices of the whole tree, which never exists on the rank."""
+    g = torch.Generator(device=model.device).manual_seed(5)
+
+    def layer(tree, axes):
+        for name in ("wq", "wk", "wv"):
+            b = tree["mixer"][name]["b"]
+            b.copy_(torch.randn(b.shape, generator=g, device=b.device) * 0.5)
+        return tree if place is None else place(tree, axes)
+    return model.init(0, place=layer)
+
+
+def device_bytes():
+    """(requested, allocated) device bytes of this process's live tensors:
+    what the tensors asked for, and the caching allocator's blocks, which
+    may round a large request up by an unsplit remainder of up to 1 MiB."""
+    stats = torch.cuda.memory_stats()
+    return stats["requested_bytes.all.current"], stats["allocated_bytes.all.current"]
+
+
+def peak_device_bytes():
+    """(requested, allocated) peaks since the last reset of the peaks."""
+    stats = torch.cuda.memory_stats()
+    return stats["requested_bytes.all.peak"], stats["allocated_bytes.all.peak"]
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def rank_weight_bytes(cfg, params, mp: int) -> int:
+    """What a rank of a model axis of ``mp`` must hold of ``params``: each
+    leaf that ``serving_tp_rules`` splits over 1/mp of its bytes, each
+    replicated leaf (embedding, head, norms) whole."""
+    lay = tp_layout(cfg, mp)
+    rules = serving_tp_rules({"data": 1, "model": mp}, kv_sharded=lay.kv_sharded,
+                             ff_sharded=lay.ff_sharded)
+
+    def walk(tree, axes):
+        if isinstance(tree, dict):
+            return sum(walk(v, axes[k]) for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(walk(v, a) for v, a in zip(tree, axes, strict=True))
+        split = any(part is not None for part in rules.pspec(axes, tuple(tree.shape)))
+        return tree.numel() * tree.element_size() // (mp if split else 1)
+    return walk(params, param_axes(cfg))
+
+
+def qwen_engine(model, params, sharding=None, **kw):
+    """Phase 6's serving settings on the qwen block."""
+    return LLMEngine(model, params, EngineConfig(
+        block_size=16, num_blocks=640, max_model_len=1024, device="cuda",
+        sharding=sharding, scheduler=SchedulerConfig(
+            max_batch_slots=8, max_batched_tokens=256, prefill_chunk=64), **kw))
+
+
+def probe_decode(model, params, sharding=None):
+    """One decode step at fixed inputs through the paged runner: 4 prompts
+    of PROBE_LENS random tokens prefilled in one step, then a decode batch
+    that feeds PROBE_TOKENS at each prompt's end, run 1 + PROBE_REPS times
+    (each writes the same K/V). Returns the logits (4, V) on the host, the
+    median host ms of a decode step (its logits reach the host), and on a
+    sharded runner the all-reduces' share of a step over PROBE_REPS more
+    steps with the model group's all-reduces timed (each synchronized),
+    and the process's allocated device bytes right after the engine is
+    built."""
+    eng = LLMEngine(model, params, EngineConfig(
+        block_size=16, num_blocks=64, max_model_len=1024, device="cuda",
+        sharding=sharding, enable_prefix_cache=False, scheduler=SchedulerConfig(
+            max_batch_slots=4, max_batched_tokens=1024, prefill_chunk=512)))
+    built = device_bytes()
+    rng = np.random.default_rng(21)
+    for i, n in enumerate(PROBE_LENS):
+        eng.add_request(Request(
+            request_id=f"p{i}", prompt=[int(t) for t in rng.integers(2, model.cfg.vocab_size, n)],
+            sampling=SamplingParams(temperature=0.0, max_new_tokens=8)))
+    eng.step()
+    seqs = [eng.seqs[f"p{i}"] for i in range(len(PROBE_LENS))]
+    assert [s.num_computed for s in seqs] == list(PROBE_LENS), [s.num_computed for s in seqs]
+    batch = marshal_batch([ChunkWork(s, n, 1) for s, n in zip(seqs, PROBE_LENS)], 16, 1024)
+    batch.tokens[:, 0] = PROBE_TOKENS
+    runner = eng.paged_runner
+    logits = runner.execute(batch)[:, 0]
+    walls = []
+    for _ in range(PROBE_REPS):
+        t0 = time.perf_counter()
+        runner.execute(batch)
+        walls.append(time.perf_counter() - t0)
+    share = None
+    if runner.tp is not None:
+        group = runner.tp
+        group.reset_counts()
+        group.timed = True
+        t0 = time.perf_counter()
+        for _ in range(PROBE_REPS):
+            runner.execute(batch)
+        dt = time.perf_counter() - t0
+        group.timed = False
+        share = (group.seconds / dt, group.all_reduces // PROBE_REPS, dt / PROBE_REPS * 1e3)
+    return logits, statistics.median(walls) * 1e3, share, built
+
+
+def record_served():
+    """Patch the kernels' entries on the serving path so that the first call
+    of every distinct shape keeps a copy of its arguments: the quantized
+    paged attention (``ops.paged_decode_attention_quant``), the page pack
+    (``state.quantize_kv_pages``: every call's pages are counted too) and
+    the LoRA launch (``bgmv_add`` as the attention and MLP modules call it);
+    the fp paged attention through ``record_paged_calls``. Returns (records,
+    one context manager for all the patches)."""
+    rec = {"quant": {}, "pack": {}, "bgmv": {}, "pack_calls": 0, "pack_pages": 0}
+    paged, paged_patch = record_paged_calls()
+    rec["paged"] = paged
+    quant_op, pack_op, add_op = ops.paged_decode_attention_quant, state_mod.quantize_kv_pages, \
+        attn_mod.bgmv_add
+
+    def clone(t):
+        return {k: v.clone() for k, v in t.items()} if isinstance(t, dict) else t.clone()
+
+    def quant(*args, **kw):
+        key = tuple(tuple(a["codes"].shape) if isinstance(a, dict) else tuple(a.shape)
+                    for a in args) + (kw.get("rows_per_seq", 1),)
+        rec["quant"].setdefault(key, ([clone(a) for a in args], dict(kw)))
+        return quant_op(*args, **kw)
+
+    def pack(x, *, axis, **kw):
+        rec["pack_calls"] += 1
+        rec["pack_pages"] += x.shape[0]
+        rec["pack"].setdefault((tuple(x.shape), x.dtype, axis), (x.clone(), axis, dict(kw)))
+        return pack_op(x, axis=axis, **kw)
+
+    def add(x, idx, sites):
+        key = (tuple(x.shape),) + tuple((tuple(a.shape), tuple(b.shape)) for a, b, _ in sites)
+        rec["bgmv"].setdefault(key, (x.clone(), idx.clone(), [
+            (a.clone(), b.clone(), base.clone()) for a, b, base in sites]))
+        return add_op(x, idx, sites)
+
+    stack = contextlib.ExitStack()
+    for p in (paged_patch, mock.patch.object(ops, "paged_decode_attention_quant", quant),
+              mock.patch.object(state_mod, "quantize_kv_pages", pack),
+              mock.patch.object(attn_mod, "bgmv_add", add),
+              mock.patch.object(model_mod, "bgmv_add", add)):
+        stack.enter_context(p)
+    return rec, stack
+
+
+def check_served(rec, label) -> None:
+    """Every kernel a serve launched held against its plain version at each
+    distinct shape the serve gave it, after the serve's counts were read:
+    paged_attention on random inputs (``check_paged_served``), the others on
+    the very arguments of the first call of each shape (the quantized
+    attention within ATOL, the pack byte-equal, the LoRA launch as
+    ``check_fused``)."""
+    if rec["paged"]:
+        check_paged_served(rec["paged"])
+    worst = 0.0
+    for (args, kw) in rec["quant"].values():
+        got = ops.paged_decode_attention_quant(*args, **kw)
+        with plain_quant_attention():
+            want = ops.paged_decode_attention_quant(*args, **kw)
+        worst = max(worst, check(f"{label}: paged_attention_quant served q {tuple(args[0].shape)}"
+                                 f" pages {tuple(args[1]['codes'].shape)} rows_per_seq "
+                                 f"{kw.get('rows_per_seq', 1)}", got, want,
+                                 ATOL[args[0].dtype]))
+    for x, axis, kw in rec["pack"].values():
+        check_equal(f"{label}: quantize_pages served ({tuple(x.shape)}, {axis}, "
+                    f"{str(x.dtype)[6:]})", PACK(x, axis=axis, **kw),
+                    plain_pack(x, kw["bits"], axis, kw["plane_dtype"]))
+    for x, idx, sites in rec["bgmv"].values():
+        # the served bases are partial sums that the delta may cancel, so
+        # each delta is held against the plain one on its own scale
+        # (``check_bgmv``), and the epilogue bit-equal to PyTorch's base +
+        # that delta
+        name = f"{label}: bgmv served x {tuple(x.shape)}"
+        bare = [(a, b, None) for a, b, _ in sites]
+        deltas = BGMV_ADD(x, idx, bare)
+        worst = max(worst, check_fused(name, x, idx, bare, deltas, [None] * len(sites)))
+        got = BGMV_ADD(x, idx, [(a, b, base.clone()) for a, b, base in sites])
+        for i, (g, (_, _, base), d) in enumerate(zip(got, sites, deltas)):
+            if not torch.equal(g, base + d):
+                raise AssertionError(f"{name} site {i}: the epilogue differs from "
+                                     "base + the kernel's delta")
+        log(f"  {name} Dout {[tuple(b.shape)[2] for _, b, _ in sites]}: deltas within "
+            "the plain version's tolerance, epilogue bit-equal to base + delta: ok")
+
+
+def tp_serve(model, params, sharding=None, adapters=(None,), **kw):
+    """Phase 6's 8-request traffic (prompts of 128-512 tokens, 32 greedy
+    tokens, rng 7) on a fresh qwen-block engine, every kernel count and, on a
+    sharded engine, the model group's all-reduce count set to 0 just before.
+    Returns (engine, result dict, records)."""
+    engine = qwen_engine(model, params, sharding, **kw)
+    if engine.adapters is not None:
+        for j, name in enumerate(a for a in adapters if a is not None):
+            engine.register_adapter(name, make_adapter(model.cfg, engine.cfg.lora, seed=j + 1))
+    add_traffic(engine, np.random.default_rng(7), "r", adapters=adapters)
+    r = engine.paged_runner
+    if r.tp is not None:
+        r.tp.reset_counts()
+    rec, patches = record_served()
+    with patches:
+        metrics, dt, counts = run_served(engine, COUNTERS)
+    gen = sum(m.num_generated for m in metrics)
+    res = dict(counts=counts, seconds=dt, gen=gen, steps=engine.steps,
+               paged_steps=engine.paged_steps, dev_kv=r.device_kv_bytes_per_block(),
+               ttft=statistics.median(m.ttft for m in metrics),
+               streams={rid: list(s.generated) for rid, s in engine.seqs.items()},
+               pack_calls=rec["pack_calls"], pack_pages=rec["pack_pages"],
+               all_reduces=r.tp.all_reduces if r.tp is not None else 0,
+               reduce_bytes=r.tp.all_reduce_bytes if r.tp is not None else 0)
+    return engine, res, rec
+
+
+def tp_twin(arch, heads, bits, lora, spec, values, device, sharding=None):
+    """The f32 smoke config of ``arch`` (with ``heads`` changed) on
+    ``device``, weights from the numpy tree ``values``: 4 greedy requests
+    of 12 tokens (``smoke_serve``'s), with KIVI pages, LoRA adapters a0 and
+    a1 (rank 4, 2 slots; requests a0, a1, none, a0) or speculative decoding
+    at k = ``spec``. Returns the streams."""
+    cfg = dataclasses.replace(configs.smoke_config(arch), **heads)
+    model = build_model(cfg, device=device)
+    lc = LoRAConfig(rank=4, alpha=8.0, max_loaded_adapters=2) if lora else None
+    params = _to_device(_from_numpy(values), device)
+    local, draft = params, {}
+    if sharding is not None:  # the rank's slices; a draft is the whole model
+        mesh = make_serving_mesh(sharding.data_axis, sharding.model_axis)
+        local, draft = shard_params(params, cfg, mesh), dict(draft_model=model,
+                                                             draft_params=params)
+    eng = LLMEngine(model, local, EngineConfig(
+        block_size=8, num_blocks=128, max_model_len=128, device=str(device),
+        sharding=sharding, kv_quant=QuantConfig(bits=bits) if bits else None, lora=lc,
+        speculative=SpeculativeConfig(num_draft_tokens=spec, **draft) if spec else None))
+    aids = [None] * 4
+    if lora:
+        for j in range(2):
+            eng.register_adapter(f"a{j}", make_adapter(cfg, lc, seed=j + 1))
+        aids = ["a0", "a1", None, "a0"]
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        eng.add_request(Request(
+            request_id=f"r{i}", prompt=[int(t) for t in rng.integers(
+                2, cfg.vocab_size, int(rng.integers(12, 40)))], adapter_id=aids[i],
+            sampling=SamplingParams(max_new_tokens=12)))
+    eng.run()
+    return {rid: list(s.generated) for rid, s in eng.seqs.items()}
+
+
+def _from_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _from_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_from_numpy(v) for v in tree]
+    return torch.from_numpy(tree)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return tree.cpu().numpy()
+
+
+def tp_local_timing(card):
+    """The kernels at the shard-local shapes of the qwen block's decode at
+    model axis 2, timed by ``cuda_ms`` while the other rank waits:
+    paged_attention at B=8, KV=4, G=5, D=128, every row L=1024 (bound as
+    phase 4's), and the wo LoRA site (Din 2560 = 20 local heads x 128 ->
+    Dout 5120, rank 8, 4 distinct slots) through ``bgmv``."""
+    out = {}
+    B, KV, G, D, P, L = 8, 4, 5, 128, 16, 1024
+    NP = L // P
+    q, k, v, t, ln = inputs(5, B, KV, G, D, P, B * NP, NP, torch.bfloat16, lengths=[L] * B)
+    scale = D ** -0.5
+    got = KERNEL(q, k, v, t, ln, scale=scale)
+    err = check("tp local decode shape vs plain", got,
+                paged_attention_ref(q, k, v, t, ln, scale=scale), ATOL[torch.bfloat16])
+    ms = cuda_ms(lambda: KERNEL(q, k, v, t, ln, scale=scale))
+    plain_ms = cuda_ms(lambda: paged_attention_ref(q, k, v, t, ln, scale=scale))
+    kg = k[:, t.long()].transpose(0, 1).reshape(B, KV, L, D)
+    vg = v[:, t.long()].transpose(0, 1).reshape(B, KV, L, D)
+    qs = q.reshape(B, KV * G, 1, D)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, scale=scale,
+                                                                enable_gqa=True))
+    isz = q.element_size()
+    nbytes = B * KV * L * D * 2 * isz + 2 * q.numel() * isz + t.numel() * 4 + ln.numel() * 4
+    bound_ms, bound_by = bound(card, nbytes, 4 * B * KV * G * L * D, tensor_cores=True)
+    out["paged_attention"] = dict(shape=f"B={B} KV={KV} G={G} D={D} L={L}", ms=ms,
+                                  plain_ms=plain_ms, library_ms=library_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                                  splits=kmod.planned_splits(q, t, k))
+    R, T, Din, Dout = 8, 3, 2560, 5120
+    idx = [1, 2, 0, 1, 2, 0, 1, 2]
+    x, a, b, ix = bgmv_inputs(11, B, 1, Din, R, Dout, T, torch.bfloat16, idx=idx)
+    err = check_bgmv("tp local wo site decode", x, a, b, ix)
+    ms = cuda_ms(lambda: BGMV(x, a, b, ix))
+    plain_ms = cuda_ms(lambda: bgmv_ref(x, a, b, ix))
+    slots = len(set(idx))
+    nbytes = slots * R * (Din + Dout) * 4 + x.numel() * 2 + B * Dout * 2 + B * 4
+    bound_ms, bound_by = bound(card, nbytes, 2 * B * R * (Din + Dout))
+    out["bgmv"] = dict(shape=f"B={B} C=1 Din={Din} R={R} Dout={Dout}", ms=ms,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                       bound_by=bound_by, max_abs_err=err)
+    return out
+
+
+def tp_rank(ref):
+    """One of the TP ranks of phase 11 (run by ``spawn_ranks``): its mesh over
+    gloo on the card, a gloo all-reduce of a CUDA tensor, the probe decode
+    step, the qwen block's fp, KIVI 8-bit and LoRA serves at model axis 2
+    (rank 0 then holds each kernel against its plain version at every shape
+    the serve gave it, and times two kernels at their local shapes, while
+    rank 1 waits), then the f32 smoke twins. Returns what the parent holds
+    and logs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(1, TP, backend="gloo")
+    lead = mesh.rank == 0
+    x = torch.full((4,), float(mesh.rank + 1), device=mesh.device, dtype=torch.bfloat16)
+    torch.distributed.all_reduce(x, group=mesh.model.group)
+    out = dict(rank=mesh.rank, device=str(mesh.device), backend=mesh.backend,
+               group=mesh.model.ranks, probe_sum=x.float().tolist())
+    cfg, _ = qwen_block()
+    model = build_model(cfg, device=mesh.device)
+    torch.cuda.synchronize()
+    base = np.array(device_bytes())
+    torch.cuda.reset_peak_memory_stats()
+    params = qwen_params(model, place=rank_slicer(cfg, mesh))
+    torch.cuda.synchronize()
+    out["memory"] = dict(params=np.array(device_bytes()) - base,
+                         init_peak=np.array(peak_device_bytes()) - base,
+                         held=tree_bytes(params))
+    sh = ShardingConfig(model_axis=TP)
+    *probe, built = probe_decode(model, params, sh)
+    out["probe"] = tuple(probe)
+    out["memory"]["engine_built"] = np.array(built) - base
+    torch.cuda.reset_peak_memory_stats()
+    lora = LoRAConfig(**TP_LORA)
+    for kind, kw in (("fp", {}), ("KIVI", dict(kv_quant=QuantConfig(bits=8))),
+                     ("LoRA", dict(lora=lora, adapters=("a0", "a1", "a2", "a3", None)))):
+        engine, res, rec = tp_serve(model, params, sh, **kw)
+        r = engine.paged_runner
+        res.update(kv_sharded=r.kv_sharded, ff_sharded=r.ff_sharded,
+                   glu=r.layout.glu_order is not None,
+                   local=(r.local_model.cfg.num_heads, r.local_model.cfg.num_kv_heads,
+                          r.local_model.cfg.d_ff))
+        out[kind] = res
+        del engine
+        if lead:
+            log(f"  [11 tp] rank 0, {kind} serve: each kernel at every served shape")
+            check_served(rec, f"rank 0 {kind}")
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    out["memory"]["serve_peak"] = np.array(peak_device_bytes()) - base
+    if lead:
+        out["timing"] = tp_local_timing(card_for(torch.cuda.get_device_name(0)))
+    mesh.barrier()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["twins"] = {label: tp_twin(arch, heads, bits, lo, spec, ref["twin_values"][label],
+                                   mesh.device, sh)
+                    for label, arch, heads, bits, lo, spec in TP_TWINS}
+    return out
+
+
+def phase_tp(card):
+    """Phase 11 (see the module docstring): the single-process references
+    first (the probe step's logits, the fp serve's streams and device bytes
+    per block, the KIVI serve's pack count, the twins' CPU streams), then
+    the two ranks, then every check against them. Returns rank 0's launch
+    counts of the three serves."""
+    free_device("phase 11")
+    cfg, published = qwen_block()
+    model = build_model(cfg, device="cuda")
+    params = qwen_params(model)
+    ref_logits, ref_wall, _, _ = probe_decode(model, params)
+    whole_bytes = tree_bytes(params)
+    want_rank_bytes = rank_weight_bytes(cfg, params, TP)
+    engine, fp1, _ = tp_serve(model, params)
+    del engine
+    engine, kivi1, _ = tp_serve(model, params, kv_quant=QuantConfig(bits=8))
+    del engine, model, params
+    free_device("the two ranks")
+    twin_values, twin_cpu = {}, {}
+    for label, arch, heads, bits, lora, spec in TP_TWINS:
+        tcfg = dataclasses.replace(configs.smoke_config(arch), **heads)
+        twin_values[label] = _to_numpy(build_model(tcfg, device="cpu").init(0))
+        twin_cpu[label] = tp_twin(arch, heads, bits, lora, spec, twin_values[label],
+                                  torch.device("cpu"))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank, TP, dict(twin_values=twin_values), timeout=900)
+    rank_s = time.perf_counter() - t0
+    L = cfg.num_layers
+    log(f"[11 tp] {QWEN} at published width, {L} of {published} layers, bf16, model axis "
+        f"{TP}: {TP} ranks spawned on this one card over gloo ({rank_s:.1f} s for the "
+        "ranks' whole run). Two ranks sharing one card over gloo measure the port's "
+        "tensor-parallel code path and its shard-local kernels, not NVLink "
+        "tensor parallelism: each all-reduce goes through the host")
+    for r in ranks:
+        log(f"  rank {r['rank']}: backend {r['backend']}, {r['device']}, model group "
+            f"{r['group']}; gloo all_reduce of a bf16 CUDA tensor: {r['probe_sum']} "
+            f"(want 3.0 each)")
+        assert r["probe_sum"] == [3.0] * 4, r["probe_sum"]
+    # each rank's device holds its slices of the weights and the replicated
+    # leaves, and nothing of the whole tree: the bytes its live tensors
+    # requested grow by those and at most 64 KiB (a leftover whole leaf is
+    # 10 KB for a bias, 10.5 MB for the smallest weight); the allocator's
+    # blocks are reported beside them
+    for r in ranks:
+        m = r["memory"]
+        ok = (m["held"] == want_rank_bytes
+              and want_rank_bytes <= m["params"][0] <= want_rank_bytes + 2 ** 16
+              and want_rank_bytes <= m["engine_built"][0] <= want_rank_bytes + 2 ** 16)
+        log(f"  rank {r['rank']} device memory: weights held {m['held']} bytes (= the "
+            f"rank's slices plus the replicated leaves, {want_rank_bytes}; the whole tree "
+            f"{whole_bytes}); requested (allocator blocks) after the draw "
+            f"{m['params'][0]} ({m['params'][1]}), after the probe engine is built "
+            f"{m['engine_built'][0]} ({m['engine_built'][1]}): no gathered runner, no "
+            f"whole copy; peak while drawing {m['init_peak'][0]} ({m['init_peak'][1]}), "
+            f"peak over the three serves {m['serve_peak'][0]} ({m['serve_peak'][1]}): "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rank {r['rank']} holds other weights than its slices")
+    r0 = ranks[0]
+    # (a) the fp serve
+    for r in ranks:
+        fp = r["fp"]
+        assert fp["kv_sharded"] and fp["ff_sharded"] and fp["glu"], fp
+        assert fp["local"] == (cfg.num_heads // TP, cfg.num_kv_heads // TP, cfg.d_ff // TP)
+        for kind in ("fp", "KIVI", "LoRA"):
+            res = r[kind]
+            assert res["all_reduces"] == 2 * L * res["paged_steps"], (kind, res["all_reduces"])
+            assert res["dev_kv"] * 2 == (fp1 if kind != "KIVI" else kivi1)["dev_kv"], \
+                (kind, res["dev_kv"])
+        assert fp["counts"]["paged_attention"] == L * fp["paged_steps"], fp["counts"]
+        assert r["KIVI"]["counts"]["paged_attention_quant"] == L * r["KIVI"]["paged_steps"]
+        assert r["KIVI"]["counts"]["quantize_pages"] == r["KIVI"]["pack_calls"] \
+            == kivi1["pack_calls"], (r["KIVI"]["pack_calls"], kivi1["pack_calls"])
+        assert 2 * r["KIVI"]["pack_pages"] == kivi1["pack_pages"], \
+            (r["KIVI"]["pack_pages"], kivi1["pack_pages"])
+        assert r["LoRA"]["counts"]["bgmv"] == 4 * L * r["LoRA"]["paged_steps"]
+        assert r["LoRA"]["counts"]["paged_attention"] == L * r["LoRA"]["paged_steps"]
+    for kind in ("fp", "KIVI", "LoRA"):
+        assert ranks[1][kind]["streams"] == r0[kind]["streams"], kind
+        assert ranks[1][kind]["counts"] == r0[kind]["counts"], kind
+    fp = r0["fp"]
+    same, total = equal_share(fp["streams"], fp1["streams"])
+    log(f"  fp serve: 8 requests, {fp['gen']} generated tokens in {fp['seconds']:.2f} s = "
+        f"{fp['gen'] / fp['seconds']:.1f} generated tok/s (one process, tp=1: "
+        f"{fp1['gen'] / fp1['seconds']:.1f}), TTFT p50 {fp['ttft'] * 1e3:.0f} ms, "
+        f"{fp['steps']} steps ({fp['paged_steps']} paged) on each rank; paged_attention "
+        f"{fp['counts']['paged_attention']} launches a rank (= {L} x steps) at the local "
+        f"{cfg.num_heads // TP} heads over {cfg.num_kv_heads // TP} KV heads; "
+        f"{fp['all_reduces']} all-reduces a rank (= 2 x {L} x steps, "
+        f"{fp['reduce_bytes'] / 1e6:.1f} MB); device KV bytes per block "
+        f"{fp['dev_kv']} a rank = half of tp=1's {fp1['dev_kv']}; the ranks' streams equal "
+        f"each other, and {same} of {total} greedy tokens equal tp=1's (reported, not "
+        "required: bf16 sums in another order)")
+    # the probe decode step
+    err_max = 0.0
+    for r in ranks:
+        logits, wall, (share, n_red, timed_ms) = r["probe"]
+        err = float(np.abs(logits - ref_logits).max())
+        err_max = max(err_max, err)
+        top = float(np.abs(ref_logits).max())
+        agree = int((logits.argmax(-1) == ref_logits.argmax(-1)).sum())
+        ok = math.isfinite(err) and err <= TP_LOGITS_RTOL * top
+        log(f"  rank {r['rank']} probe decode step (B=4, lengths {PROBE_LENS}): logits vs "
+            f"tp=1 max_abs_err {err:.4g} (limit {TP_LOGITS_RTOL:g} x max |logit| "
+            f"{top:.3f} = {TP_LOGITS_RTOL * top:.4g}) {'ok' if ok else 'FAIL'}, argmax "
+            f"equal in {agree} of 4 rows; a decode step {wall:.2f} ms median of "
+            f"{PROBE_REPS} (tp=1 {ref_wall:.2f} ms); with each all-reduce synchronized "
+            f"and timed: {n_red} all-reduces, {timed_ms:.2f} ms a step, {share:.1%} of it "
+            "in the all-reduces")
+        if not ok:
+            raise AssertionError("tp=2 decode logits disagree with tp=1's")
+    # (b) KIVI and LoRA
+    kv, lo = r0["KIVI"], r0["LoRA"]
+    log(f"  KIVI 8-bit serve: {kv['gen'] / kv['seconds']:.1f} generated tok/s, "
+        f"{kv['paged_steps']} paged steps; paged_attention_quant {kv['counts']['paged_attention_quant']}"
+        f" (= {L} x steps), quantize_pages {kv['counts']['quantize_pages']} launches a rank "
+        f"(= tp=1's {kivi1['pack_calls']}) over {kv['pack_pages']} pages (= half of tp=1's "
+        f"{kivi1['pack_pages']}: each rank packs its own {cfg.num_kv_heads // TP} KV heads); "
+        f"device KV bytes per "
+        f"block {kv['dev_kv']} (tp=1 {kivi1['dev_kv']}); streams of both ranks equal")
+    log(f"  LoRA serve (rank {TP_LORA['rank']} x 4 adapters over "
+        f"{TP_LORA['max_loaded_adapters']} slots): {lo['gen'] / lo['seconds']:.1f} generated "
+        f"tok/s, {lo['paged_steps']} paged steps; bgmv {lo['counts']['bgmv']} (= 4 x {L} x "
+        f"steps) at local widths; all-reduces {lo['all_reduces']} (= 2 x {L} x steps: the "
+        "deltas join the base's); streams of both ranks equal")
+    for name, t in r0["timing"].items():
+        log(f"  rank 0 {name} at the local {t['shape']} bf16: kernel {t['ms'] * 1e3:.1f} us, "
+            f"bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}), plain "
+            f"{t['plain_ms'] * 1e3:.1f} us"
+            + (f", SDPA(enable_gqa) {t['library_ms'] * 1e3:.1f} us, {t['splits']} splits"
+               if t["library_ms"] is not None else "")
+            + f"; {t['bound_ms'] / t['ms']:.1%} of bound")
+    # (c) the f32 twins
+    for label, *_ in TP_TWINS:
+        streams = [r["twins"][label] for r in ranks]
+        same, total = equal_share(streams[0], twin_cpu[label])
+        ok = all(s == twin_cpu[label] for s in streams)
+        log(f"  f32 smoke twin {label}: both ranks' streams equal each other and the CPU's "
+            f"single-device streams: {same} of {total} tokens, {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"tp=2 twin {label}: the ranks' streams differ from the CPU's")
+    return {kind: r0[kind]["counts"] for kind in ("fp", "KIVI", "LoRA")}, r0["timing"]
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
@@ -4614,6 +5213,7 @@ def main() -> None:
     assert not any(train_counts.values()), train_counts
     phase_train_checkpoint(model, params)
     del model, params
+    tp_counts, _ = phase_tp(card)
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for paged_attention_quant and
     # quantize_pages, the gathered KIVI starcoder2-3b serve for
@@ -4626,11 +5226,15 @@ def main() -> None:
                "quantize_pages": kvmod.SOURCE, "dequantize_pages": kvmod.SOURCE,
                "bgmv": bgmod.SOURCE, "flash_prefill": fmod.SOURCE}
     # and each path's own count (set to 0 just before it, read just after;
-    # the train path's, phase 10's, is 0 for every kernel)
+    # the train path's, phase 10's, is 0 for every kernel; the tensor-
+    # parallel serves', phase 11's, are rank 0's, equal to rank 1's)
     paths = {"olmo-1b paged fp": fp_counts, "olmo-1b paged KIVI": q_counts,
              "olmo-1b paged LoRA": lora_counts, "starcoder2-3b gathered": sc_counts,
              "starcoder2-3b gathered KIVI": scq_counts, "jamba block gathered": jamba[0],
-             "whisper-base gathered": w_counts, "internvl2-2b auto": v_counts}
+             "whisper-base gathered": w_counts, "internvl2-2b auto": v_counts,
+             "qwen2.5-32b tp=2 paged fp, per rank": tp_counts["fp"],
+             "qwen2.5-32b tp=2 paged KIVI, per rank": tp_counts["KIVI"],
+             "qwen2.5-32b tp=2 paged LoRA, per rank": tp_counts["LoRA"]}
     kernels = [dict(name=k, route="cuda", source=os.path.relpath(sources[k], ROOT),
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=timing[k]["max_abs_err"], ms=timing[k]["ms"],

@@ -75,6 +75,19 @@ dispatch spans carry the card's roofline bound (``launch/roofline.py``).
 (fp, or KIVI codes, planes and a still-filling page's staging) and its
 state slot between engines: the primitive of ``core.disagg`` and
 ``core.fleet``.
+
+With ``EngineConfig.sharding`` asking for more than one rank, the paged
+slot holds a ``ShardedPagedRunner`` (``executor/sharded.py``): the engine
+is one rank of a ``(data, model)`` mesh of processes, every rank runs the
+same engine on the same requests, and the paged calls run the shard-local
+model with one all-reduce per layer over the rank's model group. Its page
+store holds the rank's KV heads (all of them under the replicated-KV
+fallback), and ``host_copy_bytes`` stays 0 as on the single-device paged
+path. The gathered backend is single-device, so such an engine builds no
+gathered runner (``self.runner`` is None) and refuses a stack without a
+paged family and requests with modality extras. It takes the rank's
+parameters (``executor.sharded.rank_params`` / ``shard_params``), and
+speculation on it takes its whole draft from the ``SpeculativeConfig``.
 """
 from __future__ import annotations
 
@@ -89,6 +102,7 @@ import torch
 from repro_torch.core.block_manager import BlockManager, OutOfBlocks
 from repro_torch.core.executor import PagedModelState, make_runners, marshal_batch
 from repro_torch.core.executor.base import ModelRunner, chunk_carries_extras
+from repro_torch.core.executor.sharded import tp_layout
 from repro_torch.core.executor.speculative import SpeculativeRunner
 from repro_torch.core.kv_quant import QuantConfig
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore
@@ -102,6 +116,7 @@ from repro_torch.core.scheduler import ChunkWork, Scheduler, SchedulerConfig
 from repro_torch.core.telemetry import (NULL_TRACER, MetricsRegistry, StepTracer,
                                         TelemetryConfig)
 from repro_torch.models.model import STATE_MIXERS, resolve_device
+from repro_torch.sharding import ShardingConfig
 
 @dataclasses.dataclass
 class SpeculativeConfig:
@@ -110,7 +125,10 @@ class SpeculativeConfig:
     ``draft_model`` / ``draft_params``: a built ``Model`` on the engine's
     device and its params, sharing the target's vocabulary, with a paged
     decode path. None = self-speculation (the target drafts for itself:
-    the correctness harness, every draft accepted in exact arithmetic).
+    the correctness harness, every draft accepted in exact arithmetic); a
+    sharded engine holds only its rank's slices of the target, so it is
+    given the whole draft, the target's own model and tree for
+    self-speculation.
     ``num_draft_tokens``: k tokens proposed and verified per decode step.
     Auto-disable: once the rolling window holds >= ``window`` proposals and
     their acceptance rate is below ``min_acceptance``, the engine falls
@@ -140,6 +158,9 @@ class EngineConfig:
     # step tracing + roofline annotation; the metrics registry is on
     # regardless — None only disables the tracer
     telemetry: Optional[TelemetryConfig] = None
+    # tensor-parallel paged serving on a (data, model) mesh of ranks; None or
+    # a 1x1 config keeps every backend single-device
+    sharding: Optional[ShardingConfig] = None
 
 
 def _has_state_mixer(cfg) -> bool:
@@ -169,7 +190,22 @@ class LLMEngine:
         self.scheduler = Scheduler(self.cfg.scheduler, self.vtc)
         self.bm = BlockManager(self.cfg.num_blocks, self.cfg.block_size,
                                self.cfg.num_state_slots)
-        self.store = PagedModelState(model.cfg, self.cfg, device=self.device)
+        # a rank of a sharded engine stores the KV heads it serves: the page
+        # store takes the shard-local config (a stack without a paged family
+        # keeps its own, and make_runners refuses it)
+        sh = self.cfg.sharding
+        self.sharded = sh is not None and sh.num_devices > 1
+        if self.sharded and (backend == "speculative" or self.cfg.speculative is not None) \
+                and (self.cfg.speculative is None or self.cfg.speculative.draft_model is None):
+            raise ValueError(
+                "a sharded engine holds its rank's slices of the target: give "
+                "speculation its whole draft (SpeculativeConfig.draft_model and "
+                "draft_params; the target's model and whole tree to self-speculate)")
+        store_cfg, kv_div = model.cfg, 1
+        if self.sharded and model.decode_paged is not None:
+            layout = tp_layout(model.cfg, sh.model_axis)
+            store_cfg, kv_div = layout.local_cfg, sh.model_axis if layout.kv_sharded else 1
+        self.store = PagedModelState(store_cfg, self.cfg, device=self.device)
         self.runner, self.paged_runner = make_runners(model, params, self.cfg,
                                                       self.store)
         if self.paged_runner is not None:
@@ -184,9 +220,11 @@ class LLMEngine:
                 raise ValueError(
                     "EngineConfig.lora needs a pure global-attention stack "
                     "(the LoRA sites assume the paged-capable layer layout)")
+            # adapters rent pages at the whole block's bytes, every KV head
+            # counted, as on one device: every rank takes the same decisions
             self.adapters = PagedAdapterStore(
-                model.cfg, self.cfg.lora, self.bm, self.store.kv_bytes_per_block(),
-                device=self.device)
+                model.cfg, self.cfg.lora, self.bm,
+                self.store.kv_bytes_per_block() * kv_div, device=self.device)
             # one step can never reference more adapters than the device
             # table holds resident — or than the pool-page cap can rent at
             # once (a step's working set is protected from eviction, so an
@@ -245,6 +283,11 @@ class LLMEngine:
         self._dispatch_counters = {
             name: self.metrics.counter(f"engine.dispatch.{name}")
             for name in ("gathered", "paged", "speculative")}
+        if self.paged_runner is not None:
+            # the sharded runner reports under its own name
+            self._dispatch_counters.setdefault(
+                self.paged_runner.name,
+                self.metrics.counter(f"engine.dispatch.{self.paged_runner.name}"))
         self._preempt_counter = self.metrics.counter("engine.preemptions")
         self._bound_cache: Dict[Tuple[int, int], float] = {}
         self.last_import_bytes = 0
@@ -277,8 +320,9 @@ class LLMEngine:
             reg.gauge("prefix_cache.demoted_blocks", lambda: p.demoted_blocks)
             reg.gauge("prefix_cache.hit_rate", lambda: p.hit_rate)
         g = self.runner
-        reg.gauge("runner.gathered.steps", lambda: g.steps)
-        reg.gauge("runner.gathered.prefill_steps", lambda: g.prefill_steps)
+        if g is not None:
+            reg.gauge("runner.gathered.steps", lambda: g.steps)
+            reg.gauge("runner.gathered.prefill_steps", lambda: g.prefill_steps)
         if self.paged_runner is not None:
             r = self.paged_runner
             reg.gauge("runner.paged.steps", lambda: r.steps)
@@ -337,6 +381,10 @@ class LLMEngine:
                 f"adapter_id={req.adapter_id!r} but EngineConfig.lora is "
                 "not configured on this engine")
         if req.extras:
+            if self.sharded:
+                raise ValueError(f"request {req.request_id!r}: modality extras run on "
+                                 "the gathered backend, which is single-device; a "
+                                 "sharded engine cannot serve them")
             self._check_extras(req)
         if req.arrival_time == 0.0:
             req.arrival_time = time.time()
@@ -543,11 +591,16 @@ class LLMEngine:
         """Span args for one dispatch (tracing-on path only). Decode
         dispatches on the paged backends carry the analytic
         ``decode_step_bound`` tokens/s so ``tools/trace_summary.py`` can
-        report the live-vs-roofline fraction."""
+        report the live-vs-roofline fraction; sharded runners annotate their
+        mesh shape."""
         ntok = sum(c.length for c in chunks)
         phase = "decode" if ntok == len(chunks) else "prefill"
         args = {"backend": runner.name, "batch": len(chunks), "tokens": ntok,
                 "phase": phase}
+        mesh = getattr(runner, "mesh", None)
+        if mesh is not None:
+            args["mesh"] = "x".join(f"{ax}={n}" for ax, n in mesh.shape.items())
+            args["kv_sharded"] = bool(runner.kv_sharded)
         if phase == "decode" and runner is not self.runner:
             seq_len = max(c.start + c.length for c in chunks)
             bound = self._decode_bound(len(chunks), seq_len)
@@ -571,7 +624,11 @@ class LLMEngine:
             from repro_torch.launch.roofline import H100_SXM, card_for, decode_step_bound
             name = torch.cuda.get_device_name(self.device) \
                 if self.device.type == "cuda" else H100_SXM
+            sh, r = self.cfg.sharding, self.paged_runner
             out = decode_step_bound(self.model.cfg, batch=batch, seq_len=bucket,
+                                    model_shards=sh.model_axis if sh is not None else 1,
+                                    kv_sharded=bool(getattr(r, "kv_sharded", True)),
+                                    ff_sharded=bool(getattr(r, "ff_sharded", False)),
                                     card=card_for(name))
             self._bound_cache[key] = float(out["tokens_per_s"])
         return self._bound_cache[key]

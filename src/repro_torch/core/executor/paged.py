@@ -30,6 +30,11 @@ Multi-tenant LoRA: the engine attaches the step's adapter operand to the
 batch (``ExecBatch.lora``); both step kinds hand it to the model with the
 per-row table slots as one int32 tensor on the device (``lora_arg``),
 padding rows on the null slot 0.
+
+The model calls go through ``local_model`` with the group ``tp``: the
+model itself and None here; the sharded runner (``executor/sharded.py``)
+sets them to the shard-local model and its model group. Its store already
+holds only the rank's KV heads, so every upload copies them as they are.
 """
 from __future__ import annotations
 
@@ -52,6 +57,10 @@ class PagedRunner(ModelRunner):
         self.cfg = engine_cfg
         self.store = store
         self.device = model.device
+        # the model the paged calls run and the model group they all-reduce
+        # over: the model itself and None here (see the sharded runner)
+        self.local_model = model
+        self.tp = None
         self.leaves = store.attn_kv_leaves()
         # sacrificial page for ragged-chunk padding writes; the ENGINE
         # reserves it right after construction — never in a real table
@@ -78,9 +87,9 @@ class PagedRunner(ModelRunner):
         dirty = sorted(self.store.dirty_blocks)
         if self._pages is None:
             # zeros equal a fresh host store; every mutation since is dirty
-            self._pages = self.model.init_pages(self.cfg.num_blocks,
-                                                self.cfg.block_size,
-                                                quantized=self.store.quantized)
+            self._pages = self.local_model.init_pages(self.cfg.num_blocks,
+                                                      self.cfg.block_size,
+                                                      quantized=self.store.quantized)
         full = self._full_sync or len(dirty) > self.cfg.num_blocks // 2
         if full:
             for src, dst in self._mirror_pairs():
@@ -101,6 +110,18 @@ class PagedRunner(ModelRunner):
                               self.trace.now() - t0, full=bool(full),
                               dirty_blocks=len(dirty),
                               upload_bytes=self.mirror_upload_bytes - b0)
+
+    def device_kv_bytes_per_block(self) -> int:
+        """Device bytes one block occupies in the live mirror: the host
+        store's per-block footprint on one device; on a sharded runner the
+        rank's KV heads only, the capacity headroom of the mesh."""
+        self.sync()
+        total = sum(t.numel() * t.element_size() for _, t in self._mirror_pairs())
+        return total // self.cfg.num_blocks
+
+    def _lora_arg(self, batch_lora: Optional[dict], pad_rows: int = 0):
+        """The model's lora operand for a batch's adapter attachment."""
+        return lora_arg(batch_lora, pad_rows, device=self.device)
 
     def _mirror_pairs(self):
         """(host tensor, mirror tensor) for every tensor the mirror holds:
@@ -171,11 +192,11 @@ class PagedRunner(ModelRunner):
             raise
 
     def _execute_decode(self, batch: ExecBatch, lengths: np.ndarray) -> np.ndarray:
-        logits, pages, writes = self.model.decode_paged(
+        logits, pages, writes = self.local_model.decode_paged(
             self.params, self._dev(batch.tokens),
             self.call_pages(batch.tables, lengths, 1),
             self._dev(batch.tables), self._dev(lengths),
-            lora=lora_arg(batch.lora, device=self.device))
+            lora=self._lora_arg(batch.lora), tp=self.tp)
         self._pages = self.strip_tails(pages)
         # O(token) writeback keeps the host store authoritative; the device
         # mirror already holds the same write (quantized stores instead
@@ -212,11 +233,10 @@ class PagedRunner(ModelRunner):
                 (pad, tables.shape[1]), self.scratch_block, tables.dtype)])
             lengths = np.concatenate([lengths, np.repeat(lengths[:1], pad)])
             chunk_lens = np.concatenate([chunk_lens, np.zeros(pad, np.int32)])
-        logits, pages, writes = self.model.extend_paged(
+        logits, pages, writes = self.local_model.extend_paged(
             self.params, self._dev(tokens), self.call_pages(tables, lengths, C),
             self._dev(tables), self._dev(lengths), self._dev(chunk_lens),
-            self.scratch_block,
-            lora=lora_arg(batch.lora, pad_rows=Bp - B, device=self.device))
+            self.scratch_block, lora=self._lora_arg(batch.lora, Bp - B), tp=self.tp)
         self._pages = self.strip_tails(pages)
         self.writeback_bytes += self.writeback_tokens(
             batch.tables, batch.cache_lens, C, writes, B,
@@ -235,10 +255,10 @@ class PagedRunner(ModelRunner):
         store next step."""
         C = tokens.shape[1]
         try:
-            logits, pages, writes = self.model.verify_paged(
+            logits, pages, writes = self.local_model.verify_paged(
                 self.params, tokens, self.call_pages(tables, lengths, C),
                 self._dev(tables), self._dev(lengths),
-                lora=lora_arg(lora, device=self.device))
+                lora=self._lora_arg(lora), tp=self.tp)
         except Exception:
             self._full_sync = True
             self._synced_version = -1

@@ -1,0 +1,313 @@
+"""ShardedPagedRunner: tensor-parallel paged serving on a (data, model) mesh.
+
+The port of ``repro.core.executor.sharded``. Megatron-style TP applied to
+the paged hot paths (survey §IV.C): every attention head — and, where
+they divide, every KV head and MLP hidden unit — lives on exactly ONE rank
+of the mesh's model group. In the port a rank is a process
+(``launch/mesh.py``), and SPMD runs over the whole engine: every rank
+builds the same ``LLMEngine`` and receives the same requests, and runs the
+scheduler, block manager, prefix cache and sampler of its own engine. The
+three paged dispatches (``decode_paged`` / ``extend_paged`` /
+``verify_paged``) run a shard-LOCAL copy of the model (``num_heads`` etc.
+divided by the model-axis size), so on each rank the compute is the
+single-device computation at 1/mp width, every kernel at its shard-local
+shapes; the only collectives are one ``all_reduce`` over the model group
+per layer after the attention output projection, plus one after the MLP
+down-projection when the hidden axis is sharded
+(``models/attention.py:proj_out_lora`` / ``models/model.py:mlp_apply``).
+After the last one every rank holds the same hidden state, so the same
+logits, and takes the same scheduling and sampling decisions. The data
+axis replicates the batch: each model group serves all of it.
+
+What this buys the serving engine:
+
+  * KV pages are partitioned BY HEAD over the model axis: each rank's page
+    store (``PagedModelState``, built by the engine from the local config)
+    and device mirror hold its own KV heads, 1/mp of every block's bytes,
+    so KV capacity at a fixed per-device budget scales with the mesh
+    (``device_kv_bytes_per_block``). Under the replicated-KV fallback every
+    rank holds all of them. The reference's host store is global
+    (``jax.device_get`` gathers the sharded writes); a global store per
+    rank here would need an all-gather of each step's writes, which the
+    reference's device path does not have (ROADMAP C).
+  * The LoRA adapter tables shard over the same axis (the B factor of q/k/v
+    projections by output column, the A factor of o/down projections by
+    input row), so adapter deltas stay shard-local and join the SAME
+    all-reduce as the base projection: no extra collective for LoRA.
+  * Weights: a sharded engine takes the rank's parameters, never the whole
+    tree. ``rank_params`` draws them (``Model.init`` cutting each layer
+    as soon as it is drawn), ``shard_params`` cuts them from a whole tree
+    (converted weights); a rank's device holds its slices and the
+    replicated leaves (embedding, head, norms, the biases added after an
+    all-reduce), and no gathered runner is built.
+  * The speculative runner verifies through this runner's ``verify``; its
+    draft is a whole model, replicated on every rank, so a sharded engine
+    is given it (``SpeculativeConfig.draft_model`` / ``draft_params``).
+
+Head layout subtleties, decided ONCE at construction (``tp_layout``):
+
+  * ``num_heads % mp != 0`` is an error — there is no partial-head split
+    under the 3D (d, H, hd) param layout.
+  * GQA replicated-KV fallback: when ``num_kv_heads % mp != 0`` the KV
+    heads stay replicated. A CONTIGUOUS head split would then break group
+    assignment — the local model maps its head ``l`` to KV head
+    ``l // (G/mp)`` with G = H/KV, which only matches the global ``h // G``
+    if each rank holds one head from every group-chunk. So the q-side
+    params (wq, its bias, the LoRA wq-B / wo-A factors) and the wo rows
+    are PERMUTED so rank i's block is
+    ``[g*G + i*G/mp + t for g in range(KV) for t in range(G/mp)]``; the sum
+    over ranks is permutation-invariant, K/V and the pages are untouched.
+    When KV divides mp the contiguous split is exact and nothing permutes.
+  * GLU MLPs under a sharded hidden axis: ``w1`` emits 2*d_ff columns that
+    ``mlp_apply`` splits in half — a contiguous column split would hand a
+    rank half "up" and half "gate" columns of DIFFERENT units. ``w1``'s
+    columns (+ bias + LoRA w1-B) are permuted so each rank's local block
+    is ``[u_i ; g_i]``; the activated hidden slice then lands exactly on
+    ``w2``'s contiguous row slice.
+
+Which leaf splits where comes from the leaves' logical axes
+(``models.model.param_axes``: "heads", "kv_heads", "ff") through
+``serving_tp_rules``, never from their shapes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.executor.paged import PagedRunner
+from repro_torch.core.executor.state import PagedModelState
+from repro_torch.models.common import is_glu
+from repro_torch.models.model import build_model, param_axes
+from repro_torch.sharding import ShardingConfig, serving_tp_rules
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TPLayout:
+    """What a model axis of ``mp`` ranks does to one model: whether KV heads
+    and MLP hidden units shard, the shard-local config, and the head and
+    GLU column orders (None where the contiguous split is exact)."""
+    mp: int
+    kv_sharded: bool
+    ff_sharded: bool
+    local_cfg: ModelConfig
+    head_order: Optional[np.ndarray]
+    head_order_blocked: Optional[np.ndarray]  # head order over H * hd columns
+    glu_order: Optional[np.ndarray]
+
+
+def tp_layout(cfg: ModelConfig, mp: int) -> TPLayout:
+    """The reference's divisibility checks, permutations and local config
+    (``ShardedPagedRunner.__init__``) for a model axis of ``mp``."""
+    H, KV, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    if mp > 1 and H % mp != 0:
+        raise ValueError(
+            f"num_heads={H} is not divisible by the model axis ({mp}); "
+            "the 3D head-split param layout cannot shard inside a head")
+    kv_sharded = mp > 1 and KV % mp == 0
+    if mp > 1 and not kv_sharded and (H // mp) % KV != 0:
+        raise ValueError(
+            f"replicated-KV fallback needs the GQA group count "
+            f"({H // KV}) divisible by the model axis ({mp}): each "
+            f"shard's {H // mp} local heads must split evenly over the "
+            f"{KV} replicated KV heads")
+    ff_ok = all(s.ff in ("mlp", "none") for pattern, _ in cfg.stages for s in pattern)
+    ff_sharded = mp > 1 and f % mp == 0 and ff_ok
+
+    head_order = head_order_blocked = None
+    if mp > 1 and not kv_sharded:
+        G, Hl = H // KV, H // mp
+        Gl = G // mp
+        order = np.empty(H, np.int64)
+        for i in range(mp):
+            for g in range(KV):
+                for t in range(Gl):
+                    order[i * Hl + g * Gl + t] = g * G + i * Gl + t
+        if not np.array_equal(order, np.arange(H)):  # identity for MQA
+            head_order = order
+            head_order_blocked = (order[:, None] * hd + np.arange(hd)).reshape(-1)
+    glu_order = None
+    if ff_sharded and is_glu(cfg.activation):
+        fl = f // mp
+        glu_order = np.concatenate(
+            [np.concatenate([np.arange(i * fl, (i + 1) * fl),
+                             f + np.arange(i * fl, (i + 1) * fl)])
+             for i in range(mp)])
+    local_cfg = cfg
+    if mp > 1:
+        local_cfg = dataclasses.replace(
+            cfg, num_heads=H // mp, num_kv_heads=KV // mp if kv_sharded else KV,
+            d_ff=f // mp if ff_sharded else f, tp_axis="model",
+            tp_ff_sharded=ff_sharded)
+    return TPLayout(mp, kv_sharded, ff_sharded, local_cfg, head_order,
+                    head_order_blocked, glu_order)
+
+
+def _take(t: torch.Tensor, order: np.ndarray, dim: int) -> torch.Tensor:
+    return torch.index_select(t, dim, torch.from_numpy(order).to(t.device))
+
+
+def _local(t: torch.Tensor, spec, index: int, size: int) -> torch.Tensor:
+    """This rank's block of ``t`` under a partition spec whose sharded
+    entries all name the model axis (``serving_tp_rules`` binds nothing
+    else)."""
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        if part != "model":
+            raise ValueError(f"the serving rules shard only over 'model', not {part!r}")
+        n = t.shape[dim] // size
+        t = t.narrow(dim, index * n, n)
+    return t
+
+
+def rank_slicer(cfg: ModelConfig, mesh):
+    """``place(tree, axes)`` for one rank of ``mesh``: the rank's block of
+    every leaf of a parameter tree (or of one layer's), split by the leaf's
+    logical axes under ``serving_tp_rules`` after the fallback head order
+    (along "heads") and the GLU column order (along a 2*d_ff "ff" axis),
+    as a tensor of its own on the rank's device; replicated leaves move
+    whole."""
+    lay = tp_layout(cfg, mesh.model.size)
+    rules = serving_tp_rules(mesh.shape, kv_sharded=lay.kv_sharded,
+                             ff_sharded=lay.ff_sharded)
+    index, size = mesh.model.index, mesh.model.size
+
+    def leaf(t: torch.Tensor, axes) -> torch.Tensor:
+        spec = rules.pspec(axes, tuple(t.shape))
+        if all(part is None for part in spec):
+            return t.to(mesh.device)
+        for dim, name in enumerate(axes):
+            if name == "heads" and lay.head_order is not None:
+                t = _take(t, lay.head_order, dim)
+            if (name == "ff" and lay.glu_order is not None
+                    and t.shape[dim] == len(lay.glu_order)):
+                t = _take(t, lay.glu_order, dim)
+        # a copy, never a view: a view would keep the whole leaf alive
+        return _local(t, spec, index, size).to(mesh.device).clone()
+
+    def place(tree, axes):
+        if isinstance(tree, dict):
+            return {k: place(v, axes[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [place(v, a) for v, a in zip(tree, axes, strict=True)]
+        return leaf(tree, axes)
+    return place
+
+
+def shard_params(params, cfg: ModelConfig, mesh):
+    """The rank's slices of a whole parameter tree (converted weights, a
+    checkpoint): what a sharded engine takes."""
+    return rank_slicer(cfg, mesh)(params, param_axes(cfg))
+
+
+def rank_params(model, seed: int = 0, *, mesh, max_seq: int = 0):
+    """``model.init(seed)``'s values as the rank's slices, each layer cut as
+    soon as it is drawn on the rank's device: the device holds the rank's
+    layers, the replicated embedding and head, and at most one whole layer
+    on the way."""
+    return model.init(seed, max_seq, place=rank_slicer(model.cfg, mesh))
+
+
+class ShardedPagedRunner(PagedRunner):
+    name = "sharded"
+
+    def __init__(self, model, params, engine_cfg, store: PagedModelState, *, mesh=None):
+        from repro_torch.launch.mesh import make_serving_mesh, normalize_device
+
+        sh = engine_cfg.sharding or ShardingConfig()
+        self.layout = tp_layout(model.cfg, sh.model_axis)
+        lay = self.layout
+        want_kv = lay.local_cfg.num_kv_heads
+        if any(s.shape[0] != want_kv for s in store.stores):
+            raise ValueError(f"the page store holds {store.stores[0].shape[0]} KV heads "
+                             f"per rank, the model axis gives each rank {want_kv}: "
+                             "build it from tp_layout(...).local_cfg")
+        if lay.mp > 1:
+            heads = {layer["mixer"]["wq"]["w"].shape[1] for layer in params["layers"]}
+            if heads != {lay.local_cfg.num_heads}:
+                raise ValueError(f"the parameters hold {sorted(heads)} query heads a layer, "
+                                 f"a rank serves {lay.local_cfg.num_heads}: pass the rank's "
+                                 "slices (rank_params, or shard_params of a whole tree)")
+        super().__init__(model, params, engine_cfg, store)
+        if mesh is None:
+            mesh = make_serving_mesh(sh.data_axis, sh.model_axis, device=model.device)
+        if mesh.device != normalize_device(model.device):
+            raise ValueError(f"rank {mesh.rank} serves on {mesh.device} but the model "
+                             f"lives on {model.device}: build it on the rank's device")
+        self.mesh = mesh
+        self.mp = lay.mp
+        self.kv_sharded, self.ff_sharded = lay.kv_sharded, lay.ff_sharded
+        self._lora_cache = None
+        if lay.mp > 1:
+            # self.model stays the GLOBAL model (the draft comparison, the
+            # host-side shapes); the paged calls run the shard-local one
+            self.local_model = build_model(lay.local_cfg, device=mesh.device)
+            self.tp = mesh.model
+        self._build_kernels()
+
+    def _build_kernels(self) -> None:
+        """On the card, rank 0 builds the paged path's kernel libraries while
+        the other ranks wait, so no two ``nvcc`` race over one library in a
+        first serve; every rank then loads the built files."""
+        if self.device.type != "cuda":
+            return
+        if self.mesh.rank == 0:
+            from repro_torch.kernels import _build
+            from repro_torch.kernels.kv_quant import kv_quant
+            from repro_torch.kernels.lora import bgmv
+            from repro_torch.kernels.paged_attention import (paged_attention,
+                                                            paged_attention_quant)
+            _build.build_many([paged_attention.SOURCE, paged_attention_quant.SOURCE,
+                               kv_quant.SOURCE, bgmv.SOURCE])
+        self.mesh.barrier()
+
+    # ---- LoRA tables -------------------------------------------------
+    def _lora_dim(self, site: str, letter: str) -> Optional[int]:
+        """The dimension of a (T, Din, r) A or (T, r, Dout) B table that
+        shards: B by output column for wq, wk / wv (KV sharded) and w1 (ff
+        sharded); A by input row for wo and w2 (ff sharded)."""
+        if letter == "b" and (site == "wq" or (site in ("wk", "wv") and self.kv_sharded)
+                              or (site == "w1" and self.ff_sharded)):
+            return 2
+        if letter == "a" and (site == "wo" or (site == "w2" and self.ff_sharded)):
+            return 1
+        return None
+
+    def _fix_lora(self, layers):
+        """This rank's slices of the adapter tables: the fallback's head order
+        on wq-B's columns and wo-A's rows, the GLU order on w1-B's columns,
+        then the shard of each sharded factor. The store's tables are
+        rewritten in place and take a new list identity on every fault-in,
+        so the placed copy is cached by that identity."""
+        if self._lora_cache is not None and self._lora_cache[0] is layers:
+            return self._lora_cache[1]
+        lay = self.layout
+
+        def place(site, letter, t):
+            if lay.head_order_blocked is not None:
+                if site == "wq" and letter == "b":
+                    t = _take(t, lay.head_order_blocked, 2)
+                if site == "wo" and letter == "a":
+                    t = _take(t, lay.head_order_blocked, 1)
+            if lay.glu_order is not None and site == "w1" and letter == "b":
+                t = _take(t, lay.glu_order, 2)
+            dim = self._lora_dim(site, letter)
+            if dim is not None:
+                n = t.shape[dim] // self.tp.size
+                t = t.narrow(dim, self.tp.index * n, n).contiguous()
+            return t
+
+        placed = [{site: {letter: place(site, letter, t) for letter, t in ab.items()}
+                   for site, ab in layer.items()} for layer in layers]
+        self._lora_cache = (layers, placed)
+        return placed
+
+    def _lora_arg(self, batch_lora: Optional[dict], pad_rows: int = 0):
+        lora = super()._lora_arg(batch_lora, pad_rows)
+        if lora is None or self.mp == 1:
+            return lora
+        return {"ids": lora["ids"], "layers": self._fix_lora(lora["layers"])}

@@ -159,6 +159,10 @@ class PagedAdapterStore:
             for name, w in sites.items():
                 table[name]["a"][slot].copy_(torch.from_numpy(np.asarray(w["a"])))
                 table[name]["b"][slot].copy_(torch.from_numpy(np.asarray(w["b"] * scale)))
+        # a new list object on every fault-in, as the reference's store makes
+        # a new table tuple: a holder of a copy derived from the tables (the
+        # sharded runner's per-rank slices) tells by identity that it is stale
+        self.tables = list(self.tables)
 
     def evict_one(self, protected: Iterable[str] = ()) -> bool:
         """Drop the least-recently-used unprotected adapter and return its

@@ -29,6 +29,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 2 --trace-out build/t.json   # then:
     python tools/trace_summary.py build/t.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 2 --tp 2 --dist-backend gloo   # 2 tensor-parallel ranks
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 \
+        --dist-backend gloo   # 2 ranks sharing one card
 
 ``--debug`` (the default) serves the reduced smoke config, ``--no-debug``
 the published one. ``--device`` defaults to ``cuda``; there is no CPU
@@ -47,6 +51,20 @@ trace-event JSON (``otherData``: arch, backend, device name) that
 ``tools/trace_summary.py`` summarizes, decode roofline fraction included.
 ``build_engine`` is the construction path ``chip_smoke.py`` drives too.
 
+``--tp N`` / ``--dp M`` serve on a ``(data=M, model=N)`` mesh of N * M
+ranks (tensor-parallel paged serving, ``core/executor/sharded.py``): the
+command spawns its own ranks (``launch/mesh.spawn_ranks``), each one
+process running the same engine on the same requests over
+``--dist-backend``: ``nccl`` (the default) puts each rank on a card of
+its own and refuses more ranks than cards; ``gloo`` lets ranks share a
+card (or run on the CPU with ``--device cpu``), staging each all-reduce
+through the host. The data axis replicates: each of the M model groups
+serves the whole batch and computes the same streams, M times the cards
+for no added throughput. Rank 0 prints the report, with ``mesh=(data=…,
+model=…) kv_sharded=… dev_kv_bytes/block=…`` (one rank's device bytes of
+a KV block) and the per-rank all-reduce count, and writes the trace; the
+command exits 0 only when every rank generated the same streams.
+
 State-mixer stacks (jamba-v0.1-52b, xlstm-1.3b) hold one state slot per
 sequence in host memory, 64 slots as the reference serves them. At
 published width xLSTM's state is 706 511 616 bytes a sequence (the 42
@@ -58,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Optional, Sequence
 
@@ -68,8 +87,11 @@ from repro_torch import configs
 from repro_torch.core import (EngineConfig, LLMEngine, QuantConfig, Request,
                               SamplingParams, SchedulerConfig, SpeculativeConfig,
                               TelemetryConfig, write_chrome_trace)
+from repro_torch.core.executor.sharded import rank_params
 from repro_torch.core.lora import LoRAConfig, make_adapter
+from repro_torch.launch.mesh import BACKENDS, make_serving_mesh, spawn_ranks
 from repro_torch.models import build_model
+from repro_torch.sharding import ShardingConfig
 
 
 def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
@@ -87,10 +109,22 @@ def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
     as the draft when one is given (else the config's own draft, or the
     target itself); ``telemetry`` turns on step tracing; ``engine_kw``
     overrides the serving defaults below (EngineConfig fields, e.g.
-    ``max_model_len`` or a ``scheduler``)."""
+    ``max_model_len`` or a ``scheduler``). Under a ``sharding`` of more
+    than one rank the engine gets the rank's slices of the weights, drawn
+    layer by layer (``rank_params``), and a speculative draft is the whole
+    model, drawn apart and replicated on every rank."""
     cfg = configs.smoke_config(arch) if debug else configs.get_config(arch)
     model = build_model(cfg, device=device)
-    params = model.init(seed)
+    sh = engine_kw.get("sharding")
+    if sh is not None and sh.num_devices > 1:
+        mesh = make_serving_mesh(sh.data_axis, sh.model_axis, device=device)
+        params = rank_params(model, seed, mesh=mesh)
+        if (speculative is not None or backend == "speculative") and draft_seed is None:
+            draft_seed = seed  # self-speculation: the whole target as the draft
+        if backend == "speculative" and speculative is None:
+            speculative = SpeculativeConfig()
+    else:
+        params = model.init(seed)
     if speculative is not None and draft_seed is not None:
         speculative = dataclasses.replace(speculative, draft_model=model,
                                           draft_params=model.init(draft_seed))
@@ -104,7 +138,7 @@ def build_engine(arch: str, *, debug: bool = True, device: str = "cuda",
     return LLMEngine(model, params, EngineConfig(**kw))
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b", choices=list(configs.ARCHS))
     ap.add_argument("--requests", type=int, default=8)
@@ -142,8 +176,26 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "tools/trace_summary.py)")
     ap.add_argument("--debug", action=argparse.BooleanOptionalAction,
                     default=True, help="smoke config (--no-debug: published)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-axis size of the serving mesh: shard the "
+                         "attention heads (and KV heads and MLP hidden units "
+                         "where they divide) over this many ranks")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-axis size of the serving mesh: model groups that "
+                         "each serve the whole batch, so every group computes the "
+                         "same streams (the reference's replicated data axis): M "
+                         "times the cards for no added throughput or capacity")
+    ap.add_argument("--dist-backend", default="nccl", choices=list(BACKENDS),
+                    help="torch.distributed backend of the ranks (with --tp/--dp): "
+                         "nccl needs a card per rank; gloo lets ranks share a "
+                         "card or run on the CPU")
+    return ap.parse_args(argv)
 
+
+def serve(args: argparse.Namespace, device=None, sharding=None):
+    """Build the engine, serve ``args.requests`` requests, write the trace
+    (rank 0 only under ``sharding``); returns (report line, streams)."""
+    device = args.device if device is None else device
     kv_quant = QuantConfig(bits=args.kv_quant_bits) if args.kv_quant_bits else None
     lora = LoRAConfig(rank=args.lora_rank, pool_pages=args.adapter_pool_pages) \
         if args.num_adapters else None
@@ -153,11 +205,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         speculative = SpeculativeConfig(
             num_draft_tokens=args.spec_k if args.spec_k is not None else 4,
             min_acceptance=args.spec_min_acceptance)
-    engine = build_engine(args.arch, debug=args.debug, device=args.device,
+    engine = build_engine(args.arch, debug=args.debug, device=device,
                           backend=args.backend, policy=args.policy,
                           kv_quant=kv_quant, lora=lora, speculative=speculative,
                           draft_seed=args.spec_draft_seed,
-                          telemetry=TelemetryConfig() if args.trace_out else None)
+                          telemetry=TelemetryConfig() if args.trace_out else None,
+                          sharding=sharding)
     cfg = engine.model.cfg
     for a in range(args.num_adapters):
         engine.register_adapter(f"a{a}", make_adapter(cfg, lora, seed=a + 1))
@@ -196,25 +249,58 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 + (f" disabled@{st.disabled_at_step}"
                    if st.disabled_at_step is not None else ""))
     routes = ""
-    if engine.runner.steps:
+    if engine.runner is not None and engine.runner.steps:
         rr = engine.model.route_rows
         routes = (f", rows flash_prefill={rr['flash_prefill']} "
                   f"flash_attention={rr['flash_attention']}")
-    print(f"{cfg.name} on {engine.device}: {len(metrics)} requests, {gen} tokens, "
-          f"{gen/dt:.1f} tok/s, {engine.steps} steps "
-          f"({engine.paged_steps} paged), "
-          f"host_copy={snap['engine.host_copy_bytes']/1e6:.1f}MB, "
-          f"kv_util_peak={snap['block_manager.peak_used']/snap['block_manager.num_blocks']:.2f}, "
-          f"preempts={snap['engine.preemptions']}, "
-          f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{routes}{quant}"
-          f"{mlora}{spec}")
-    if args.trace_out:
+    tp = ""
+    if sharding is not None:
+        r = engine.paged_runner
+        tp = (f", mesh=(data={args.dp}, model={args.tp}) "
+              f"kv_sharded={r.kv_sharded} "
+              f"dev_kv_bytes/block={r.device_kv_bytes_per_block()} "
+              f"all_reduces/rank={r.mesh.model.all_reduces if r.tp else 0}")
+    report = (f"{cfg.name} on {engine.device}: {len(metrics)} requests, {gen} tokens, "
+              f"{gen/dt:.1f} tok/s, {engine.steps} steps "
+              f"({engine.paged_steps} paged), "
+              f"host_copy={snap['engine.host_copy_bytes']/1e6:.1f}MB, "
+              f"kv_util_peak={snap['block_manager.peak_used']/snap['block_manager.num_blocks']:.2f}, "
+              f"preempts={snap['engine.preemptions']}, "
+              f"TTFT p50={np.median([m.ttft for m in metrics])*1e3:.0f}ms{routes}{quant}"
+              f"{mlora}{spec}{tp}")
+    streams = {rid: list(s.generated) for rid, s in engine.seqs.items()}
+    if args.trace_out and (sharding is None or engine.paged_runner.mesh.rank == 0):
         device = torch.cuda.get_device_name(engine.device) \
             if engine.device.type == "cuda" else "cpu"
         path = write_chrome_trace(args.trace_out, engine.trace, metadata={
             "arch": args.arch, "backend": args.backend, "device": device})
-        print(f"trace: {len(engine.trace.events)} events -> {path} "
-              f"(summarize with tools/trace_summary.py)")
+        report += (f"\ntrace: {len(engine.trace.events)} events -> {path} "
+                   f"(summarize with tools/trace_summary.py)")
+    return report, streams
+
+
+def serve_rank(args: argparse.Namespace):
+    """One rank of ``--tp`` / ``--dp``: its mesh (the backend asked for, the
+    rank's card or ``--device cpu``), then ``serve`` on it."""
+    mesh = make_serving_mesh(args.dp, args.tp, backend=args.dist_backend,
+                             device=None if args.device == "cuda" else args.device)
+    if mesh.device.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // (args.tp * args.dp)))
+    return serve(args, device=mesh.device,
+                 sharding=ShardingConfig(model_axis=args.tp, data_axis=args.dp))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parse_args(argv)
+    if args.tp * args.dp == 1:
+        print(serve(args)[0])
+        return
+    ranks = spawn_ranks(serve_rank, args.tp * args.dp, args)
+    differ = [r for r, (_, streams) in enumerate(ranks) if streams != ranks[0][1]]
+    print(ranks[0][0])
+    if differ:
+        raise SystemExit(f"ranks {differ} generated other streams than rank 0")
+    print(f"{len(ranks)} ranks over {args.dist_backend}: every rank's streams equal")
 
 
 if __name__ == "__main__":

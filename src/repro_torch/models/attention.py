@@ -27,7 +27,10 @@ goes to ``flash_attention``, the plain twin of the reference's blockwise
 sliding-window and chunked (llama4) kinds; a chunked layer's fresh row
 takes the kernel only while its chunk lies inside the first attention
 chunk, where the chunk mask is plain causal (``fresh_rows_take_kernel``).
-Tensor parallelism comes with its own slice.
+Under tensor parallelism (the sharded paged runner) each rank runs these
+functions on its shard-local heads, and ``proj_out_lora`` takes the rank's
+model group ``tp``: the local output projection (and its ``wo`` LoRA
+delta) is a partial sum that one all-reduce completes before the bias.
 
 whisper's encoder self-attention (``attn_forward`` with ``causal=False``)
 and its decoder's cross-attention over the encoder states
@@ -77,6 +80,23 @@ def make_attention_params(gen, cfg, dtype, device):
     return p
 
 
+def attention_param_axes(cfg):
+    """The logical axes of ``make_attention_params``' leaves, as the
+    reference names them: q-side projections and ``wo``'s rows over
+    "heads", k and v over "kv_heads"."""
+    def proj(axis):
+        p = {"w": ("embed", axis, None)}
+        if cfg.qkv_bias:
+            p["b"] = (axis, None)
+        return p
+
+    p = {"wq": proj("heads"), "wk": proj("kv_heads"), "wv": proj("kv_heads"),
+         "wo": {"w": ("heads", None, "embed")}}
+    if cfg.attn_out_bias:
+        p["wo"]["b"] = ("embed",)
+    return p
+
+
 def proj_qkv(p, x):
     """x: (B, S, d) -> (B, S, heads, hd), contiguous (the LoRA epilogue
     writes into it as (B, S, heads * hd))."""
@@ -108,16 +128,31 @@ def _qkv(p, cfg, x, lora=None, lora_ids=None):
     return q, k, v
 
 
-def proj_out_lora(p_wo, x, lora=None, lora_ids=None):
+def proj_out_lora(p_wo, x, lora=None, lora_ids=None, tp=None):
     """``proj_out`` plus the per-row ``wo`` adapter delta, added after the
     bias (in place, by ``bgmv_add``); the adapter's input is the
-    pre-projection (B, C, H, hd) flattened to H * hd. The single-device case
-    of the JAX ``proj_out_lora``."""
-    out = proj_out(p_wo, x)
+    pre-projection (B, C, H, hd) flattened to H * hd.
+
+    With ``tp`` (a rank's model group, ``launch/mesh.AxisGroup``: the
+    sharded paged path) ``x`` holds this rank's heads and ``wo`` the
+    matching rows, so the product — and the ``wo`` delta, whose A factor is
+    sharded over the same flattened head axis — are PARTIAL sums: the
+    delta goes into the product with no bias, one all-reduce completes
+    both, and the replicated bias comes last (summed across ranks it would
+    count once per rank). The twin of the JAX ``proj_out_lora`` with
+    ``tp_axis``; without ``tp`` the single-device order is kept."""
+    if tp is None:
+        out = proj_out(p_wo, x)
+    else:
+        out = torch.einsum("bshk,hkd->bsd", x, p_wo["w"])
     if lora is not None:
         B, C, H, hd = x.shape
         out, = bgmv_add(x.reshape(B, C, H * hd), lora_ids,
                         [(lora["wo"]["a"], lora["wo"]["b"], out)])
+    if tp is not None:
+        out = tp.all_reduce(out)
+        if "b" in p_wo:
+            out = out + p_wo["b"]
     return out
 
 
@@ -136,7 +171,7 @@ def quantized_pages(pages) -> bool:
 
 
 def _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths,
-                      lora=None, lora_ids=None):
+                      lora=None, lora_ids=None, tp=None):
     """C-token attention against KIVI-quantized page stores.
 
     ``pages[name]`` holds uint8 ``codes`` and f16 ``scale``/``zero`` planes
@@ -176,11 +211,11 @@ def _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths,
     out = paged_attend_extend_quant(q, pages["k"], pages["v"], k_tail, v_tail,
                                     block_tables, lengths, tail_start,
                                     scale=_scale(cfg), deq_dtype=dt)
-    return proj_out_lora(p["wo"], out, lora, lora_ids), pages, (k_new, v_new)
+    return proj_out_lora(p["wo"], out, lora, lora_ids, tp), pages, (k_new, v_new)
 
 
 def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths,
-                      lora=None, lora_ids=None):
+                      lora=None, lora_ids=None, tp=None):
     """One-token decode directly against block-indexed page stores.
 
     x: (B, 1, d); pages: {"k", "v"}: (KV, NB, P, D); block_tables: (B, NP);
@@ -189,10 +224,11 @@ def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths,
     paged-attention op attends with ``lengths + 1`` valid tokens. Returns
     (out (B, 1, d), pages, (k_new, v_new)) with k_new/v_new (B, KV, D) for
     the host-store writeback. Quantized stores (``quantized_pages``) take
-    ``_attn_chunk_quant`` with C = 1."""
+    ``_attn_chunk_quant`` with C = 1. ``tp``: the rank's model group on
+    the sharded path (``proj_out_lora``)."""
     if quantized_pages(pages):
         out, pages, (k_new, v_new) = _attn_chunk_quant(
-            p, cfg, spec, x, pages, block_tables, lengths, lora, lora_ids)
+            p, cfg, spec, x, pages, block_tables, lengths, lora, lora_ids, tp)
         return out, pages, (k_new[:, 0], v_new[:, 0])
     B = x.shape[0]
     q, k, v = _qkv(p, cfg, x, lora, lora_ids)
@@ -209,12 +245,12 @@ def attn_decode_paged(p, cfg, spec, x, pages, block_tables, lengths,
     pages["v"][:, blk, off] = v_new.transpose(0, 1)
     out = paged_attend(q, pages["k"], pages["v"], block_tables, pos + 1,
                        scale=_scale(cfg))
-    return proj_out_lora(p["wo"], out, lora, lora_ids), pages, (k_new, v_new)
+    return proj_out_lora(p["wo"], out, lora, lora_ids, tp), pages, (k_new, v_new)
 
 
 def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
                       chunk_lens=None, scratch_block=None, lora=None,
-                      lora_ids=None):
+                      lora_ids=None, tp=None):
     """Multi-token extend directly against block-indexed page stores.
 
     x: (B, C, d) — C new tokens per sequence at positions [lengths,
@@ -230,7 +266,7 @@ def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
     page writes, no scratch needed)."""
     if quantized_pages(pages):
         return _attn_chunk_quant(p, cfg, spec, x, pages, block_tables, lengths,
-                                 lora, lora_ids)
+                                 lora, lora_ids, tp)
     B, C, _ = x.shape
     q, k, v = _qkv(p, cfg, x, lora, lora_ids)
     pos = lengths.long()[:, None] + torch.arange(C, device=x.device)
@@ -257,7 +293,7 @@ def attn_extend_paged(p, cfg, spec, x, pages, block_tables, lengths, *,
     pages["v"][:, blk, off] = v_new.reshape((B * C,) + v_new.shape[2:]).transpose(0, 1)
     out = paged_attend_extend(q, pages["k"], pages["v"], block_tables, lengths,
                               scale=_scale(cfg))
-    return proj_out_lora(p["wo"], out, lora, lora_ids), pages, (k_new, v_new)
+    return proj_out_lora(p["wo"], out, lora, lora_ids, tp), pages, (k_new, v_new)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 sinusoidal positions, initializers. Twins of ``repro.models.common`` with the JAX numerics:
 norms compute in fp32 with the population variance, ``gelu`` is the tanh
 approximation (``jax.nn.gelu``'s default), and RoPE rotates the two HALVES
-of the head in fp32. Parameters are plain nested dicts of tensors; the
-logical-axis annotations and ``lconstraint`` of the JAX package have no
-counterpart here (no sharding rules yet).
+of the head in fp32. Parameters are plain nested dicts of tensors. The
+logical axes the JAX package annotates each parameter with live apart, in
+a tree of the same structure (``models.model.param_axes``, built from
+``dense_axes`` / ``norm_axes`` here and the mixers' ``*_param_axes``): the
+sharded paged runner splits a parameter by those names, never by its shape.
+``lconstraint`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -38,6 +41,16 @@ def make_dense(gen, in_dim, out_dim, dtype, device, *, bias=False,
     return p
 
 
+def dense_axes(axes, *, bias=False, bias_axis=None):
+    """The logical axes of ``make_dense``'s leaves, as the reference's
+    ``make_dense`` names them: the bias takes ``bias_axis`` or the weight's
+    output axis."""
+    out = {"w": tuple(axes)}
+    if bias:
+        out["b"] = (bias_axis if bias_axis else axes[-1],)
+    return out
+
+
 def dense(p, x):
     y = x @ p["w"]
     if "b" in p:
@@ -60,6 +73,13 @@ def make_norm(kind: str, dim: int, dtype, device):
     if kind == "nonparam_ln":
         return {}
     raise ValueError(kind)
+
+
+def norm_axes(kind: str):
+    """``make_norm``'s leaves, replicated: one unnamed axis each."""
+    names = {"rmsnorm": ("scale",), "rmsnorm_p1": ("scale",),
+             "layernorm": ("scale", "bias"), "nonparam_ln": ()}[kind]
+    return {name: (None,) for name in names}
 
 
 def apply_norm(kind: str, p, x, eps: float = 1e-5):

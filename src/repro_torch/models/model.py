@@ -39,7 +39,11 @@ takes an optional multi-tenant LoRA operand whose per-row deltas go through
 ``bgmv_add`` at the six adapter sites of a layer (wq, wk, wv, wo, w1, w2),
 added in place to the projections' outputs in four launches: wq/wk/wv
 together, wo, w1, w2. A MoE layer has the attention sites only (its experts
-are not adapted), so two launches.
+are not adapted), so two launches. On a shard-local config
+(``cfg.tp_axis``: the sharded paged runner's) the paged steps take ``tp``,
+the rank's model group, and each layer all-reduces its attention output
+(and its MLP output when ``cfg.tp_ff_sharded``) over it; ``param_axes``
+names each parameter's logical axes, by which that runner splits them.
 ``build_model(cfg, device=...)`` runs on ``cuda`` unless asked for ``cpu``
 and raises when CUDA is asked for and absent.
 
@@ -71,8 +75,9 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.lora.ops import bgmv_add
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, mla, moe, xlstm
-from repro_torch.models.common import (apply_norm, dense, gated, is_glu, make_dense,
-                                       make_norm, normal_init, sinusoidal_positions)
+from repro_torch.models.common import (apply_norm, dense, dense_axes, gated, is_glu,
+                                       make_dense, make_norm, norm_axes, normal_init,
+                                       sinusoidal_positions)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -109,18 +114,36 @@ def make_mlp_params(gen, cfg, dtype, device):
                              scale=1.0 / math.sqrt(f))}
 
 
-def mlp_apply(p, cfg, x, lora=None, lora_ids=None):
+def mlp_param_axes(cfg):
+    """The logical axes of ``make_mlp_params``' leaves (the reference's)."""
+    return {"w1": dense_axes(("embed", "ff"), bias=cfg.mlp_bias, bias_axis="ff"),
+            "w2": dense_axes(("ff", "embed"), bias=cfg.mlp_bias, bias_axis="embed")}
+
+
+def mlp_apply(p, cfg, x, lora=None, lora_ids=None, tp=None):
     """The MLP; with ``lora``, each row's w1 delta joins ``dense(w1, x)``
     before the GLU split and its w2 delta (input: the activated hidden
     state, Din = d_ff) joins ``dense(w2, h)``, each added in place by one
-    ``bgmv_add`` launch."""
+    ``bgmv_add`` launch.
+
+    With ``tp`` (the rank's model group) and ``cfg.tp_ff_sharded`` the rank
+    holds a slice of the hidden units: the runner permuted a GLU ``w1``'s
+    columns so its local block is ``[u_i ; g_i]`` and the split stays local;
+    ``w2``'s local rows (and the w2 delta's A rows) give a partial sum that
+    one all-reduce completes before the replicated bias (the JAX
+    ``mlp_apply`` under ``cfg.tp_axis``)."""
     h = dense(p["w1"], x)
     if lora is not None and "w1" in lora:
         h, = bgmv_add(x, lora_ids, [(lora["w1"]["a"], lora["w1"]["b"], h)])
     h = gated(cfg.activation, h)
-    y = dense(p["w2"], h)
+    sharded = tp is not None and cfg.tp_ff_sharded
+    y = h @ p["w2"]["w"] if sharded else dense(p["w2"], h)
     if lora is not None and "w2" in lora:
         y, = bgmv_add(h, lora_ids, [(lora["w2"]["a"], lora["w2"]["b"], y)])
+    if sharded:
+        y = tp.all_reduce(y)
+        if "b" in p["w2"]:
+            y = y + p["w2"]["b"]
     return y
 
 
@@ -147,7 +170,7 @@ def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, *,
     return p
 
 
-def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None, cf: float = 2.0):
+def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None, cf: float = 2.0, tp=None):
     """The feed-forward residual and the MoE's aux loss (0.0 for an MLP or
     none); no residual where ``spec.ff`` is "none". A MoE layer serves at
     capacity factor 2.0 (the reference's serving value: over-provision
@@ -159,28 +182,28 @@ def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None, cf: float = 2.0):
     if spec.ff == "moe":
         y, aux = moe.moe_apply(p["ff"], cfg, h, capacity_factor=cf)
         return x + y, aux
-    return x + mlp_apply(p["ff"], cfg, h, lora, lora_ids), 0.0
+    return x + mlp_apply(p["ff"], cfg, h, lora, lora_ids, tp), 0.0
 
 
 def _layer_decode_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
-                        lora=None, lora_ids=None):
+                        lora=None, lora_ids=None, tp=None):
     """One-token decode with attention running directly on page stores."""
     h = apply_norm(cfg.norm, p["norm1"], x)
     y, pages, kv_new = attn.attn_decode_paged(p["mixer"], cfg, spec, h, pages,
-                                              block_tables, lengths, lora, lora_ids)
-    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids)[0], pages, kv_new
+                                              block_tables, lengths, lora, lora_ids, tp)
+    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids, tp=tp)[0], pages, kv_new
 
 
 def _layer_extend_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
                         chunk_lens=None, scratch_block=None, lora=None,
-                        lora_ids=None):
+                        lora_ids=None, tp=None):
     """C-token extend with attention running directly on page stores."""
     h = apply_norm(cfg.norm, p["norm1"], x)
     y, pages, kv_new = attn.attn_extend_paged(
         p["mixer"], cfg, spec, h, pages, block_tables, lengths,
         chunk_lens=chunk_lens, scratch_block=scratch_block, lora=lora,
-        lora_ids=lora_ids)
-    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids)[0], pages, kv_new
+        lora_ids=lora_ids, tp=tp)
+    return _ff_branch(p, spec, cfg, x + y, lora, lora_ids, tp=tp)[0], pages, kv_new
 
 
 def _state_extend(p, spec, cfg, h, state):
@@ -384,7 +407,7 @@ class Model:
             self.decode_paged = self.extend_paged = self.verify_paged = None
 
     # ---------------- init ---------------------------------------------------
-    def init(self, seed: int = 0, max_seq: int = 0) -> Dict[str, Any]:
+    def init(self, seed: int = 0, max_seq: int = 0, place=None) -> Dict[str, Any]:
         """Random weights from a ``torch.Generator`` seeded with ``seed`` on
         the model's device (JAX's init draws other bits for the same seed;
         parity tests convert the JAX weights instead). Learned positions
@@ -392,8 +415,15 @@ class Model:
         With ``cfg.mtp_depth`` (DeepSeek-V3), the multi-token prediction
         block ``mtp``: ``proj`` (2d, d), ``norm_h``, ``norm_e``, a
         ``layer`` of the last stage's last spec and ``final_norm``; only
-        ``forward`` reads it."""
+        ``forward`` reads it.
+
+        ``place(layer, axes)``, where given, maps each layer's tree with its
+        logical axes (``param_axes``) as soon as the layer is drawn, before
+        the next one: a rank of a sharded engine keeps only its slices that
+        way (``executor.sharded.rank_params``), so the whole stack never
+        lives on its device at once. The draws are those of ``place=None``."""
         cfg, dev, pdt = self.cfg, self.device, self.pdtype
+        axes = param_axes(cfg) if place is not None else None
         gen = torch.Generator(device=dev).manual_seed(seed)
         d = cfg.d_model
         params: Dict[str, Any] = {
@@ -407,8 +437,11 @@ class Model:
             params["lm_head"] = make_dense(gen, d, cfg.vocab_size, pdt, dev,
                                            scale=1.0 / math.sqrt(d))
         cross = has_cross(cfg)
-        params["layers"] = [_layer_init(gen, spec, cfg, pdt, dev, cross=cross)
-                            for spec in self.specs]
+        layers = []
+        for i, spec in enumerate(self.specs):
+            layer = _layer_init(gen, spec, cfg, pdt, dev, cross=cross)
+            layers.append(layer if place is None else place(layer, axes["layers"][i]))
+        params["layers"] = layers
         if cross:
             params["encoder"] = {
                 "layers": [_layer_init(gen, ENC_SPEC, cfg, pdt, dev)
@@ -620,9 +653,18 @@ class Model:
         return self.head(params, x), out
 
     # ---------------- decode_paged (one token) --------------------------------
+    def _check_tp(self, tp) -> None:
+        """A shard-local config (``cfg.tp_axis`` set) runs only with its
+        rank's model group, and a group only with a shard-local config."""
+        if (tp is None) != (self.cfg.tp_axis is None):
+            raise ValueError(
+                f"{self.cfg.name}: tp_axis={self.cfg.tp_axis!r} but the model group "
+                f"is {'missing' if tp is None else 'given'}; the sharded paged runner "
+                "passes its group to a shard-local model")
+
     @torch.no_grad()
     def decode_paged(self, params, tokens, pages, block_tables, lengths,
-                     lora=None):
+                     lora=None, tp=None):
         """tokens: (B, 1); pages: list over layers of {"k", "v"} (KV, NB, P,
         D), or quantized dicts with a per-step ``tail``; block_tables:
         (B, NP) shared by every layer; lengths: (B,) valid tokens before
@@ -631,7 +673,10 @@ class Model:
         {"a", "b"}} tables]}`` (``core/lora/store.py``), or None. Returns
         (logits (B, 1, V), pages, writes) with one {"k", "v"} (B, KV, D)
         entry per layer: the new token's K/V for the host-authoritative
-        store."""
+        store. ``tp``: on a shard-local model (``cfg.tp_axis``), the rank's
+        model group, which every layer all-reduces over (``proj_out_lora``,
+        and ``mlp_apply`` under ``cfg.tp_ff_sharded``)."""
+        self._check_tp(tp)
         x = self.add_positions(params, self.embed_tokens(params, tokens),
                                lengths.long()[:, None])
         writes = []
@@ -639,7 +684,7 @@ class Model:
         for p, spec, pg, lt in zip(params["layers"], self.specs, pages, tables):
             x, _, (k_new, v_new) = _layer_decode_paged(
                 p, spec, self.cfg, x, pg, block_tables, lengths, lora=lt,
-                lora_ids=ids)
+                lora_ids=ids, tp=tp)
             writes.append({"k": k_new, "v": v_new})
         return self.head(params, x), pages, writes
 
@@ -647,13 +692,14 @@ class Model:
     @torch.no_grad()
     def extend_paged(self, params, tokens, pages, block_tables, lengths,
                      chunk_lens=None, scratch_block: Optional[int] = None,
-                     lora=None):
+                     lora=None, tp=None):
         """tokens: (B, C) at positions [lengths, lengths + C); pages /
-        tables / lengths / lora as in ``decode_paged``. Ragged batches pass
+        tables / lengths / lora / tp as in ``decode_paged``. Ragged batches pass
         ``chunk_lens`` (B,) and a ``scratch_block`` for padded positions'
         writes; logits of padded positions are garbage the caller ignores.
         Returns (logits (B, C, V), pages, writes) with write leaves
         (B, C, KV, D)."""
+        self._check_tp(tp)
         x = self.add_positions(params, self.embed_tokens(params, tokens),
                                lengths.long()[:, None]
                                + torch.arange(tokens.shape[1], device=tokens.device))
@@ -663,13 +709,13 @@ class Model:
             x, _, (k_new, v_new) = _layer_extend_paged(
                 p, spec, self.cfg, x, pg, block_tables, lengths,
                 chunk_lens=chunk_lens, scratch_block=scratch_block, lora=lt,
-                lora_ids=ids)
+                lora_ids=ids, tp=tp)
             writes.append({"k": k_new, "v": v_new})
         return self.head(params, x), pages, writes
 
     # ---------------- verify_paged (C tokens, every position real) ------------
     def verify_paged(self, params, tokens, pages, block_tables, lengths,
-                     lora=None):
+                     lora=None, tp=None):
         """Score C tokens per sequence straight off the page stores: the
         speculative verify (the target scores k drafts + 1 bonus position in
         one forward) and the draft's paged catch-up. ``extend_paged`` with
@@ -678,7 +724,37 @@ class Model:
         path at ``rows_per_seq = C`` (fp32 folds). ``decode_paged`` is the
         C == 1 case. Returns (logits (B, C, V), pages, writes)."""
         return self.extend_paged(params, tokens, pages, block_tables, lengths,
-                                 lora=lora)
+                                 lora=lora, tp=tp)
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of every leaf of ``Model.init``'s tree, in the same
+    structure, as the reference's ``param_axes_tree`` names them (less its
+    stacked "layers" axis): "heads", "kv_heads" and "ff" are what the
+    sharded paged runner splits, and nothing else. Covers the stacks that
+    runner serves (attention with an MLP or none, no encoder or
+    multi-token head); others raise, a MoE too: expert parallelism is not
+    ported."""
+    if has_cross(cfg) or cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}: no parameter axes for an encoder "
+                                  "or a multi-token prediction head")
+    out: Dict[str, Any] = {"embed": ("vocab", "embed"), "final_norm": norm_axes(cfg.norm)}
+    if cfg.learned_positions:
+        out["pos_embed"] = (None, "embed")
+    if not cfg.tie_embeddings:
+        out["lm_head"] = dense_axes(("embed", "vocab"))
+    layers = []
+    for spec in cfg.layer_specs():
+        if spec.mixer != "attn" or spec.ff == "moe":
+            raise NotImplementedError(f"{cfg.name}: no parameter axes for a "
+                                      f"{spec.mixer!r} layer with {spec.ff!r}")
+        layer = {"norm1": norm_axes(cfg.norm), "mixer": attn.attention_param_axes(cfg)}
+        if spec.ff != "none":
+            layer["norm2"] = norm_axes(cfg.norm)
+            layer["ff"] = mlp_param_axes(cfg)
+        layers.append(layer)
+    out["layers"] = layers
+    return out
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

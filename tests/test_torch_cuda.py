@@ -1468,3 +1468,29 @@ def test_checkpoint_on_card_round_trip_bit_exact(cuda, tmp_path):
     for (p, a), (_, b) in zip(tree_paths(restored), tree_paths(params)):
         assert a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16, p
         assert torch.equal(a, b), p
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel paged serving: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_tp2_smoke_serve_on_card_equals_cpu(cuda):
+    """olmo-1b's f32 smoke config at model axis 2, both ranks on the one card
+    (gloo stages each all-reduce through the host): every rank's greedy
+    streams equal the CPU's single-device ones, and each rank launches
+    paged_attention once a layer a paged step at its 2 local heads."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_sharded_ranks as ranks
+    from repro_torch.launch.mesh import spawn_ranks
+
+    params = build_model(configs.smoke_config("olmo-1b"), device="cpu").init(0)
+    cpu = _smoke_serve("olmo-1b", params, "cpu")
+    want = {rid: list(s.generated) for rid, s in cpu.seqs.items()}
+    values = ranks.tree_map(lambda t: t.numpy(), params)
+    for streams, launches, steps, layers in spawn_ranks(ranks.serve_smoke_on_card, 2,
+                                                        values, timeout=600):
+        assert streams == want
+        assert launches == layers * steps > 0

@@ -7,7 +7,8 @@ modules, MLA (deepseek-v3) with the page store and gathered runner
 that hold its latents and KIVI windows, and the state mixers (Mamba,
 xLSTM) with the jamba-v0.1-52b and xlstm-1.3b configs, and the training
 path: optimizer, train loop, synthetic data, checkpoints and the train
-driver."""
+driver, and tensor-parallel serving: the sharding rules, the mesh of
+ranks and the sharded runner."""
 import os
 import subprocess
 import sys
@@ -57,6 +58,9 @@ train = {"repro_torch.optim.adamw", "repro_torch.optim.schedule", "repro_torch.t
          "repro_torch.checkpoint.ckpt", "repro_torch.checkpoint.serving_state",
          "repro_torch.launch.train", "repro_torch.tree"}
 assert train <= set(mods), train - set(mods)
+tp = {"repro_torch.sharding.config", "repro_torch.sharding.rules",
+      "repro_torch.launch.mesh", "repro_torch.core.executor.sharded"}
+assert tp <= set(mods), tp - set(mods)
 """
 
 
