@@ -214,6 +214,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                KV; olmo-1b at 6 heads over 3 KV heads, the permuted
                fallback): both ranks' streams equal each other and the
                CPU's single-device streams.
+ 12. train mesh — the sharded train step (launch/mesh.py, train/sharding.py):
+               ranks spawned on this one card over gloo (the port's code
+               path and memory layout, not NVLink); each rank checks gloo's
+               all-gather and reduce-scatter of bf16 CUDA tensors. 12a:
+               olmo-1b at published width on 4 ranks of the (data 2,
+               model 2) mesh with onehot_ce, phase 10's first 5 steps
+               (SyntheticLM(seed=0), B=8, S=128, lr 3e-4, 10 warmup):
+               each step's ce and grad norm against phase 10's one
+               process, each rank's requested device bytes after its
+               slices and AdamW moments are drawn equal to the count from
+               the train rules, the peaks, the median step, one more step
+               with every collective timed (their share, the bytes
+               gathered, reduce-scattered and all-reduced), no kernel
+               launches. 12b: llama4-scout at published width cut to its
+               first layer (4.271 B params) on 2 ranks of (data 1, model
+               2) with sharded_moe + onehot_ce, one grads_of at B=4,
+               S=128: loss and global grad norm against one process's,
+               rank 0's eight experts' gradients against the one
+               process's, each rank's bytes (slices, then slices and
+               gradients) against the count. 12c: f32 smoke twins on the
+               card against the same mesh on the CPU (olmo-1b 3 steps
+               and llama4-scout with sharded_moe 1 step on (2, 2), jamba
+               1 step on (2, 1)).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -271,7 +294,7 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.roofline import card_for  # noqa: E402
 from repro_torch.core.executor.sharded import (rank_slicer, shard_params,  # noqa: E402
                                                tp_layout)
-from repro_torch.launch.mesh import make_serving_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, make_serving_mesh, spawn_ranks  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -282,8 +305,11 @@ from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.model import cache_leaf_shapes, param_axes  # noqa: E402
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm  # noqa: E402
-from repro_torch.sharding import ShardingConfig, serving_tp_rules  # noqa: E402
-from repro_torch.train.loop import TrainState, grads_of, make_train_step  # noqa: E402
+from repro_torch.sharding import (Rules, ShardingConfig, mode_rules,  # noqa: E402
+                                  serving_tp_rules, use_rules)
+from repro_torch.train.loop import (TrainState, grads_of, init_train_state,  # noqa: E402
+                                    make_train_step)
+from repro_torch.train.sharding import TrainSharding  # noqa: E402
 
 # the kernels' wrappers and their launch counts, held here so that phase
 # 5's plain-attention patches of the module attributes do not hide them
@@ -4400,7 +4426,7 @@ def phase_train(card):
     on the step's gradients). ce must fall. No kernel launches: each
     counter is set to 0 here (``main`` reads them after the smoke twins),
     and no kernel of the six shows in the profile. Returns (model, trained
-    params)."""
+    params, the per-step records)."""
     cfg = configs.get_config("olmo-1b")
     free_device("olmo-1b training")
     B, S = TRAIN["batch"], TRAIN["seq"]
@@ -4452,7 +4478,7 @@ def phase_train(card):
     assert not mine, mine
     params = state.params
     del state, step_fn
-    return model, params
+    return model, params, records
 
 
 def phase_train_checkpoint(model, params):
@@ -5111,6 +5137,418 @@ def phase_tp(card):
     return {kind: r0[kind]["counts"] for kind in ("fp", "KIVI", "LoRA")}, r0["timing"]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the training mesh — FSDP, tensor and expert parallelism, ranks
+# sharing the one card over gloo
+# ---------------------------------------------------------------------------
+OLMO_ARCH = "olmo-1b"
+MESH_A = {"data": 2, "model": 2}
+MESH_B = {"data": 1, "model": 2}
+MESH_FSDP = {"data": 2, "model": 1}
+MESH_STEPS = 5
+# 12a: each step's ce on the (2, 2) mesh against phase 10's one process on
+# the same step's batch (seed-0 weights, SyntheticLM(seed=0) at B=8, S=128,
+# lr 3e-4 in warmup), bf16 end to end. ce moves from batch to batch (between
+# ~9.7 and ~11.7 over the five steps), and both runs move with it: what is
+# held is their difference on each batch. The mesh adds its partial sums in
+# bf16 in another order (the model group's all-reduces, the data group's
+# reduce-scatters), and at lr <= 1.2e-4 the two runs' weights part by that
+# rounding only, so the difference stays near one forward's rounding: within
+# 0.02. A wrong shard would still leave ce near ln 50304 = 10.83 on these
+# random weights, so the grad norm is held as well, within 3%.
+MESH_CE_ATOL = 0.02
+MESH_GNORM_RTOL = 0.03
+# 12b: llama4-scout cut to its first layer (chunked attention + MoE), one
+# forward/backward at B=4, S=128 on (data 1, model 2) against one process,
+# bf16: the loss within 0.02, the global grad norm within 3%, and each of
+# rank 0's eight experts' gradients (w1's and w2's first EP_ROWS rows, and
+# each expert's whole gradient norm) within 5% (relative Frobenius)
+EP_BATCH, EP_SEQ, EP_ROWS = 4, 128, 64
+EP_OPTIONS = {"sharded_moe": True, "onehot_ce": True}
+EP_LOSS_ATOL = 0.02
+EP_GNORM_RTOL = 0.03
+EP_GRAD_RTOL = 0.05
+# 12c: the f32 smoke twins, card against CPU on the same mesh: label, arch,
+# mesh, rules options, steps
+MESH_TWINS = (("olmo-1b", OLMO_ARCH, MESH_A, {}, 3),
+              ("llama4-scout sharded_moe", LLAMA4, MESH_A, {"sharded_moe": True}, 1),
+              ("jamba FSDP", JAMBA, MESH_FSDP, {}, 1))
+
+
+def llama4_first_layer():
+    """llama4-scout at its published width cut to its first layer: the
+    config and the published layer count."""
+    cfg = configs.get_config(LLAMA4)
+    return dataclasses.replace(cfg, stages=((cfg.stages[0][0][:1], 1),)), cfg.num_layers
+
+
+def rank_train_bytes(cfg, shape, max_seq=0):
+    """(bytes, elements) of what a rank of ``shape`` must hold of ``cfg``'s
+    parameters: each leaf's slice under ``mode_rules(shape, "train")``, its
+    elements over the product of the axes its spec cuts, in the leaf's
+    dtype (read off a meta-device init)."""
+    rules = mode_rules(shape, "train", 1)
+    meta = model_mod.Model(cfg, device="meta").init(0, max_seq)
+
+    def walk(tree, axes):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in walk(v, axes[k])]
+        if isinstance(tree, list):
+            return [x for v, a in zip(tree, axes, strict=True) for x in walk(v, a)]
+        spec = rules.pspec(axes, tuple(tree.shape))
+        cut = math.prod(shape[a] for p in spec if p is not None
+                        for a in ((p,) if isinstance(p, str) else p))
+        return [(tree.numel() // cut, tree.element_size())]
+    leaves = walk(meta, param_axes(cfg))
+    return sum(n * e for n, e in leaves), sum(n for n, _ in leaves)
+
+
+def collective_probe(mesh):
+    """A bf16 all-gather and reduce-scatter of CUDA tensors over the world
+    through the mesh's groups (gloo on the card): whether each gives the
+    exact result."""
+    w, r = mesh.world, mesh.rank
+    x = torch.full((3, 4), float(r + 1), device=mesh.device, dtype=torch.bfloat16)
+    gathered = w.all_gather(x, 0)
+    want = torch.cat([torch.full((3, 4), float(i + 1)) for i in range(w.size)])
+    y = torch.arange(4 * w.size, device=mesh.device, dtype=torch.bfloat16)[None].repeat(2, 1)
+    scattered = w.reduce_scatter(y, 1)
+    want_s = (torch.arange(4 * w.size, dtype=torch.bfloat16)[None].repeat(2, 1)
+              * w.size)[:, 4 * r:4 * (r + 1)]
+    ok = torch.equal(gathered.cpu(), want.to(torch.bfloat16)) and \
+        torch.equal(scattered.cpu(), want_s)
+    w.reset_counts()
+    return ok
+
+
+def mesh_twin(arch, shape, options, steps, device):
+    """``steps`` f32 smoke steps of ``arch`` on this rank of ``shape`` with
+    its tensors on ``device`` (the weights drawn on the CPU, so the card's
+    and the CPU's runs start from the same bits): per-step metrics."""
+    cfg = configs.smoke_config(arch)
+    mesh = make_mesh(shape, backend="gloo")
+    shard = TrainSharding(cfg, mesh, 4, options, device=device)
+    params = shard.params(build_model(cfg, device="cpu"), 0)
+    model = build_model(cfg, device=device)
+    state = TrainState(params, adamw_init(params), 0)
+    step = make_train_step(model, base_lr=1e-3, warmup_steps=1, total_steps=10, shard=shard)
+    recs = []
+    for b in make_batches(SyntheticLM(cfg.vocab_size, 16, seed=0), 4, steps):
+        state, m = step(state, train_mod.to_device(shard.rows(b), device))
+        recs.append({k: float(v) for k, v in m.items()})
+    return recs
+
+
+def twins_on(shape):
+    """Every ``MESH_TWINS`` entry of mesh ``shape``, on the card and on the
+    CPU (two intra-op threads a rank there): label -> (card, CPU) records."""
+    torch.set_num_threads(2)
+    return {label: (mesh_twin(arch, shape, opts, steps, "cuda"),
+                    mesh_twin(arch, shape, opts, steps, "cpu"))
+            for label, arch, tshape, opts, steps in MESH_TWINS if tshape == shape}
+
+
+def group_counts(mesh):
+    """Collectives counted on the mesh's groups since their last reset,
+    summed over the distinct groups by kind, with their timed seconds."""
+    out = dict(all_gathers=0, all_gather_bytes=0, reduce_scatters=0, reduce_scatter_bytes=0,
+               all_reduces=0, all_reduce_bytes=0, seconds=0.0)
+    for g in mesh.groups.values():
+        for k in out:
+            out[k] += getattr(g, k)
+    return out
+
+
+def olmo_mesh_rank(_):
+    """Phase 12a (and 12c's (2, 2) twins) on one of 4 ranks sharing the card
+    over gloo: the collective probe; olmo-1b's slices and AdamW moments
+    drawn (device bytes against the count); MESH_STEPS steps with
+    onehot_ce; one more step with every collective synchronized and timed;
+    the kernel counters; then the twins. Returns what the parent holds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MESH_A, backend="gloo")
+    out = dict(rank=mesh.rank, coords=mesh.coords(), device=str(mesh.device),
+               probe=collective_probe(mesh))
+    for k in COUNTERS.values():
+        k.launches = 0  # the mesh path's count starts here
+    cfg = configs.get_config(OLMO_ARCH)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    shard = TrainSharding(cfg, mesh, B, {"onehot_ce": True}, max_seq=S)
+    model = build_model(cfg, device=mesh.device)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = np.array(device_bytes())
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, 0, max_seq=S, shard=shard)
+    torch.cuda.synchronize()
+    out["memory"] = dict(drawn=np.array(device_bytes()) - base,
+                         draw_peak=np.array(peak_device_bytes()) - base,
+                         held=tree_bytes(state.params) + tree_bytes(state.opt))
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(model, base_lr=TRAIN["base_lr"], warmup_steps=TRAIN["warmup_steps"],
+                           total_steps=TRAIN["steps"], shard=shard)
+    recs = []
+    for b in make_batches(SyntheticLM(cfg.vocab_size, S, seed=0), B, MESH_STEPS):
+        batch = train_mod.to_device(shard.rows(b), mesh.device)
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        rec = {k: float(v) for k, v in m.items()}
+        rec["seconds"] = time.perf_counter() - t
+        recs.append(rec)
+    # one more step on the last batch, each collective synchronized and
+    # timed (its result dropped): the collectives' share of a step
+    for g in mesh.groups.values():
+        g.reset_counts()
+        g.timed = True
+    t = time.perf_counter()
+    float(step(state, batch)[1]["ce"])
+    timed_s = time.perf_counter() - t
+    for g in mesh.groups.values():
+        g.timed = False
+    out["steps"] = recs
+    out["timed"] = dict(group_counts(mesh), step_s=timed_s)
+    out["memory"]["step_peak"] = np.array(peak_device_bytes()) - base
+    out["launches"] = {n: k.launches for n, k in COUNTERS.items()}
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    out["twins"] = twins_on(MESH_A)
+    return out
+
+
+def relative(diff: float, scale: float) -> float:
+    """``diff`` over ``scale``; where the scale is 0 (an expert no token
+    reached has a zero gradient), 0 for no difference, else infinity."""
+    return diff / scale if scale else (0.0 if diff == 0 else math.inf)
+
+
+def ep_mesh_rank(ref):
+    """Phase 12b (and 12c's FSDP twin) on one of 2 ranks sharing the card:
+    the llama4-scout first layer's slices drawn (device bytes against the
+    count), one ``grads_of`` with sharded_moe + onehot_ce and the global
+    grad norm, rank 0's expert gradients against the one process's (``ref``),
+    the kernel counters; then the (2, 1) twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MESH_B, backend="gloo")
+    out = dict(rank=mesh.rank)
+    for k in COUNTERS.values():
+        k.launches = 0
+    cfg, _ = llama4_first_layer()
+    shard = TrainSharding(cfg, mesh, EP_BATCH, EP_OPTIONS, max_seq=EP_SEQ)
+    model = build_model(cfg, device=mesh.device)
+    # cuBLAS takes a workspace (32 MiB) from the caching allocator at a
+    # handle's first GEMM and keeps it, one for this thread and one for
+    # autograd's device thread: take both before the count starts
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.ones((8, 8), device=mesh.device, dtype=dt, requires_grad=True)
+        (a @ torch.ones((8, 8), device=mesh.device, dtype=dt)).sum().backward()
+    del a
+    gc.collect()
+    torch.cuda.synchronize()
+    base = np.array(device_bytes())
+    torch.cuda.reset_peak_memory_stats()
+    params = shard.params(model, 0, EP_SEQ)
+    torch.cuda.synchronize()
+    out["memory"] = dict(drawn=np.array(device_bytes()) - base,
+                         draw_peak=np.array(peak_device_bytes()) - base,
+                         held=tree_bytes(params))
+    torch.cuda.reset_peak_memory_stats()
+    batch = train_mod.to_device(shard.rows(
+        SyntheticLM(cfg.vocab_size, EP_SEQ, seed=0).batch(EP_BATCH)), mesh.device)
+    t = time.perf_counter()
+    grads, m = grads_of(model, params, batch, shard)
+    gnorm = float(torch.sqrt(shard.norm_sq(grads)))
+    out["seconds"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    out["memory"].update(with_grads=np.array(device_bytes()) - base,
+                         grads=tree_bytes(grads),
+                         step_peak=np.array(peak_device_bytes()) - base)
+    out["metrics"] = dict({k: float(v) for k, v in m.items()}, grad_norm=gnorm)
+    out["launches"] = {n: k.launches for n, k in COUNTERS.items()}
+    if mesh.rank == 0:  # experts 0 .. E_l - 1
+        ff = grads["layers"][0]["ff"]
+        errs = []
+        for e in range(ff["w1"].shape[0]):
+            row = []
+            for name in ("w1", "w2"):
+                g = ff[name][e].float()
+                want_rows = torch.from_numpy(ref[name][e]).to(g.device)
+                row.append(relative(float((g[:EP_ROWS] - want_rows).norm()),
+                                    float(want_rows.norm())))
+                row.append(relative(abs(float(g.norm()) - ref[name + "_norm"][e]),
+                                    ref[name + "_norm"][e]))
+            errs.append(row)
+        out["expert_errs"] = errs
+    del grads, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    out["twins"] = twins_on(MESH_FSDP)
+    return out
+
+
+def hold_twins(ranks) -> None:
+    """12c: each twin's card records against its CPU records on every rank,
+    within TRAIN_RTOL_F32."""
+    for label, arch, shape, _, steps in MESH_TWINS:
+        runs = [r["twins"][label] for r in ranks if label in r["twins"]]
+        if not runs:
+            continue
+        err = max(abs(g[k] - c[k]) / max(abs(c[k]), 1e-6)
+                  for card, cpu in runs for g, c in zip(card, cpu) for k in c if k != "lr")
+        same = all(card == runs[0][0] for card, _ in runs)
+        ok = err <= TRAIN_RTOL_F32 and same and len(runs[0][0]) == steps
+        c = runs[0][0][-1]
+        log(f"[12 mesh] 12c f32 twin {label} on {shape}, {steps} step{'s' * (steps > 1)}: "
+            f"card vs CPU on every rank, largest relative difference {err:.2e} (rtol "
+            f"{TRAIN_RTOL_F32:g}), ce {c['ce']:.6f}, grad_norm {c['grad_norm']:.6f}; the "
+            f"ranks agree: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mesh twin {label}: the card differs from the CPU")
+
+
+def phase_train_mesh(card, one_process):
+    """Phase 12 (see the module docstring). ``one_process``: phase 10's
+    records (olmo-1b on one process, the same first five steps). Returns
+    each kernel's launches on the mesh path (the most of any rank)."""
+    t_phase = time.perf_counter()
+    free_device("phase 12a")
+    cfg = configs.get_config(OLMO_ARCH)
+    want_params, n_local = rank_train_bytes(cfg, MESH_A, TRAIN["seq"])
+    want = want_params + 8 * n_local + 4  # f32 mu and nu, the int32 count
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(olmo_mesh_rank, 4, None, timeout=900)
+    rank_s = time.perf_counter() - t0
+    log(f"[12 mesh] 12a {OLMO_ARCH} at published width ({cfg.num_layers} layers, bf16) on the "
+        f"(data 2, model 2) mesh: 4 ranks spawned on this one card over gloo ({rank_s:.1f} s "
+        "for the ranks' whole run, 12c's twins included). Ranks sharing one card over gloo "
+        "measure the port's code path and its memory layout, not NVLink or NCCL")
+    for r in ranks:
+        assert r["probe"], f"rank {r['rank']}: gloo's all-gather / reduce-scatter of a CUDA " \
+            "tensor is wrong"
+    log("  every rank: gloo's all-gather and reduce-scatter of bf16 CUDA tensors exact, "
+        "through the backend (no host staging by the port)")
+    # each rank holds exactly its slices and moments (the tree's bytes), and
+    # the bytes its live tensors requested grow by them to within 64 KiB (a
+    # leftover whole leaf would be 8.4 MB at least); the allocator's blocks
+    # are reported beside them
+    bad = []
+    for r in ranks:
+        m = r["memory"]
+        ok = m["held"] == want and abs(int(m["drawn"][0]) - want) <= 2 ** 16
+        bad += [] if ok else [r["rank"]]
+        log(f"  rank {r['rank']} {r['coords']}: slices + AdamW moments held {m['held']} bytes "
+            f"(count: {want_params} of bf16 slices + 8 x {n_local} moments + 4 = {want}); "
+            f"requested (allocator blocks) after the draw {m['drawn'][0]} ({m['drawn'][1]}), "
+            f"draw peak {m['draw_peak'][0]} ({m['draw_peak'][1]}), step peak "
+            f"{m['step_peak'][0]} ({m['step_peak'][1]}): {'ok' if ok else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"ranks {bad} hold other bytes than their slices")
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        assert [x["ce"] for x in r["steps"]] == [x["ce"] for x in r0["steps"]], "ranks differ"
+    worst_ce = worst_gn = 0.0
+    for i, (mine, one) in enumerate(zip(r0["steps"], one_process)):
+        d_ce = abs(mine["ce"] - one["ce"])
+        d_gn = abs(mine["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+        worst_ce, worst_gn = max(worst_ce, d_ce), max(worst_gn, d_gn)
+        log(f"  step {i}: ce {mine['ce']:.4f} (one process {one['ce']:.4f}, |diff| "
+            f"{d_ce:.4f}), grad_norm {mine['grad_norm']:.4f} ({one['grad_norm']:.4f}, "
+            f"{d_gn:.2%}), lr {mine['lr']:.3e}, {mine['seconds'] * 1e3:.1f} ms")
+    ok = worst_ce <= MESH_CE_ATOL and worst_gn <= MESH_GNORM_RTOL
+    step_s = statistics.median(x["seconds"] for x in r0["steps"])
+    tm = r0["timed"]
+    log(f"  ce against one process: largest |diff| {worst_ce:.4f} (limit {MESH_CE_ATOL}), grad "
+        f"norm {worst_gn:.2%} (limit {MESH_GNORM_RTOL:.0%}): {'ok' if ok else 'FAIL'}; median "
+        f"step {step_s * 1e3:.1f} ms on rank 0 (one process: "
+        f"{statistics.median(x['seconds'] for x in one_process[:MESH_STEPS]) * 1e3:.1f} ms)")
+    log(f"  one step with each collective synchronized and timed (rank 0): "
+        f"{tm['step_s'] * 1e3:.1f} ms, {tm['seconds'] / tm['step_s']:.1%} of it in "
+        f"{tm['all_gathers']} all-gathers ({tm['all_gather_bytes'] / 1e6:.1f} MB gathered), "
+        f"{tm['reduce_scatters']} reduce-scatters ({tm['reduce_scatter_bytes'] / 1e6:.1f} MB "
+        f"reduced) and {tm['all_reduces']} all-reduces ({tm['all_reduce_bytes'] / 1e6:.1f} MB)")
+    if not ok:
+        raise AssertionError("12a: the mesh's steps differ from one process's")
+    launches = {n: max(r["launches"][n] for r in ranks) for n in COUNTERS}
+    log(f"  kernel launches on every rank: {launches} (the train path runs none)")
+    assert not any(launches.values()), launches
+    hold_twins(ranks)
+    del ranks
+    # 12b
+    free_device("phase 12b")
+    cfg, published = llama4_first_layer()
+    counts = troofline.param_counts(cfg)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0, EP_SEQ)
+    batch = train_mod.to_device(SyntheticLM(cfg.vocab_size, EP_SEQ, seed=0).batch(EP_BATCH),
+                                "cuda")
+    with use_rules(Rules({}, options=EP_OPTIONS)):
+        t0 = time.perf_counter()
+        grads, m = grads_of(model, params, batch)
+        gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                     for g in _leaves(grads))))
+        one_s = time.perf_counter() - t0
+    ff = grads["layers"][0]["ff"]
+    E_l = cfg.num_experts // MESH_B["model"]
+    ref = {name: [ff[name][e][:EP_ROWS].float().cpu().numpy() for e in range(E_l)]
+           for name in ("w1", "w2")}
+    ref.update({name + "_norm": [float(ff[name][e].float().norm()) for e in range(E_l)]
+                for name in ("w1", "w2")})
+    one = dict({k: float(v) for k, v in m.items()}, grad_norm=gnorm)
+    whole = tree_bytes(params)
+    del model, params, grads, ff, batch
+    free_device("the two ranks")
+    want_params, _ = rank_train_bytes(cfg, MESH_B, EP_SEQ)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ep_mesh_rank, 2, ref, timeout=900)
+    rank_s = time.perf_counter() - t0
+    log(f"[12 mesh] 12b {LLAMA4} at published width cut to its first layer of {published} "
+        f"({counts.get('total', 0) / 1e9:.3f} B params by launch/roofline.py; "
+        f"{whole / 1e9:.2f} GB bf16 whole) on (data 1, model 2) with sharded_moe + onehot_ce: "
+        f"one grads_of at B={EP_BATCH}, S={EP_SEQ}; 2 ranks on this card over gloo "
+        f"({rank_s:.1f} s for the ranks' run, 12c's FSDP twin included)")
+    bad = []
+    for r in ranks:
+        m = r["memory"]
+        ok = (m["held"] == want_params and m["grads"] == want_params
+              and abs(int(m["drawn"][0]) - want_params) <= 2 ** 16
+              and abs(int(m["with_grads"][0]) - 2 * want_params) <= 2 ** 16)
+        bad += [] if ok else [r["rank"]]
+        log(f"  rank {r['rank']}: slices held {m['held']} bytes (count {want_params}: 8 of 16 "
+            f"experts, half the vocab, heads and shared expert); requested after the draw "
+            f"{m['drawn'][0]} ({m['drawn'][1]}), with its gradient slices {m['with_grads'][0]} "
+            f"({m['with_grads'][1]}; the count x 2 = {2 * want_params}); draw peak "
+            f"{m['draw_peak'][0]}, step peak {m['step_peak'][0]}: {'ok' if ok else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"12b ranks {bad} hold other bytes than their slices")
+    rm = ranks[0]["metrics"]
+    d_loss = abs(rm["loss"] - one["loss"])
+    d_gn = abs(rm["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    errs = ranks[0]["expert_errs"]
+    worst = max(max(e) for e in errs)
+    touched = sum(1 for n in ref["w1_norm"] if n)
+    ok = d_loss <= EP_LOSS_ATOL and d_gn <= EP_GNORM_RTOL and worst <= EP_GRAD_RTOL
+    log(f"  loss {rm['loss']:.4f} (one process {one['loss']:.4f}, |diff| {d_loss:.4f}, limit "
+        f"{EP_LOSS_ATOL}), ce {rm['ce']:.4f}, moe_aux {rm['moe_aux']:.4f} "
+        f"({one['moe_aux']:.4f}); global grad norm {rm['grad_norm']:.4f} ({one['grad_norm']:.4f}"
+        f", {d_gn:.2%}, limit {EP_GNORM_RTOL:.0%}); rank 0's experts 0-{E_l - 1} ({touched} "
+        f"of them reached by a token; the others' gradients must be 0 on both sides) against "
+        f"the one process's: w1 / w2 first {EP_ROWS} rows and whole-gradient norms, largest "
+        f"relative difference {worst:.2%} (limit {EP_GRAD_RTOL:.0%}): {'ok' if ok else 'FAIL'}; "
+        f"grads_of {ranks[0]['seconds']:.2f} s a rank (one process {one_s:.2f} s)")
+    if not ok:
+        raise AssertionError("12b: the expert-parallel gradient differs from one process's")
+    for r in ranks:
+        launches = {n: max(launches[n], r["launches"][n]) for n in COUNTERS}
+    assert not any(launches.values()), launches
+    hold_twins(ranks)
+    log(f"[12 mesh] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
@@ -5205,7 +5643,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_modality_twins()
     torch.cuda.empty_cache()
-    model, params = phase_train(card)
+    model, params, train_records = phase_train(card)
     phase_train_twins()
     # the train path's count runs from before the full-width run to after
     # the smoke twins: both ran no kernel
@@ -5214,6 +5652,7 @@ def main() -> None:
     phase_train_checkpoint(model, params)
     del model, params
     tp_counts, _ = phase_tp(card)
+    mesh_counts = phase_train_mesh(card, train_records)
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for paged_attention_quant and
     # quantize_pages, the gathered KIVI starcoder2-3b serve for
@@ -5241,7 +5680,8 @@ def main() -> None:
                     plain_ms=timing[k]["plain_ms"], bound_ms=timing[k]["bound_ms"],
                     bound_by=timing[k]["bound_by"], library_ms=timing[k]["library_ms"],
                     launches_by_path={**{p: c[k] for p, c in paths.items() if c.get(k)},
-                                      "train": train_counts[k]})
+                                      "train": train_counts[k],
+                                      "train mesh, per rank": mesh_counts[k]})
                for k in REPLACES]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,13 @@ no f32 copy. ``load_checkpoint`` restores into the structure of ``like``,
 casting each leaf to ``like``'s dtype and placing it on ``device`` (on the
 card by default): the reference's "load into the layout you will serve
 in" (survey §V.A).
+
+Under the sharded train step (``shard``: a rank's ``TrainSharding``) every
+rank calls both: ``save_checkpoint`` gathers the rank's slices into the
+whole tree (the GQA head and GLU column orders undone) and rank 0 writes
+it in the same format, as the reference's save of a jit-sharded tree
+writes the whole tree; ``load_checkpoint`` reads the whole tree and cuts
+the rank's slices again (``train_slicer``).
 """
 from __future__ import annotations
 
@@ -26,7 +33,11 @@ BF16_KEY = "__bf16__"
 STEP_KEY = "__step__"
 
 
-def save_checkpoint(path: str, tree, step: Optional[int] = None) -> None:
+def save_checkpoint(path: str, tree, step: Optional[int] = None, shard=None) -> None:
+    if shard is not None:
+        tree = shard.unshard(tree)
+        if shard.mesh.rank != 0:
+            return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat, bf16 = {}, []
     for key, leaf in tree_paths(tree):
@@ -42,10 +53,20 @@ def save_checkpoint(path: str, tree, step: Optional[int] = None) -> None:
     np.savez(path, **flat)
 
 
-def load_checkpoint(path: str, like, device="cuda"):
+def load_checkpoint(path: str, like, device="cuda", shard=None):
     """Restore into the structure of ``like`` (a tree of tensors, meta
     tensors included, whose shapes must match). Returns (tree, step or
-    None); raises KeyError for a leaf the file does not hold."""
+    None); raises KeyError for a leaf the file does not hold. With
+    ``shard``, ``like`` is the rank's slices: the whole tree is read on the
+    host and cut to them on ``shard.device``."""
+    if shard is not None:
+        whole, step = load_checkpoint(path, shard.unshard_shapes(like), "cpu")
+        got = shard.shard(whole)
+        for (key, a), (_, b) in zip(tree_paths(got), tree_paths(like)):
+            if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+                raise ValueError(f"checkpoint {key}: slice {tuple(a.shape)} {a.dtype}, want "
+                                 f"{tuple(b.shape)} {b.dtype}")
+        return got, step
     dev = resolve_device(device)
     with np.load(path) as data:
         bf16 = set(data[BF16_KEY].tolist()) if BF16_KEY in data.files else set()

@@ -99,6 +99,20 @@ class TPLayout:
     glu_order: Optional[np.ndarray]
 
 
+def glu_order(width: int, mp: int) -> np.ndarray:
+    """The column order of a GLU up-projection ``width`` = 2 * f wide over
+    a model axis of ``mp``: rank i's block is its units' up columns, then
+    their gate columns (``[u_i ; g_i]``), so the split after it stays local.
+    A contiguous split would give one rank every up column and the other
+    every gate column: XLA's partitioner survives that by moving data,
+    shard-local code does not."""
+    f = width // 2
+    fl = f // mp
+    return np.concatenate([np.concatenate([np.arange(i * fl, (i + 1) * fl),
+                                           f + np.arange(i * fl, (i + 1) * fl)])
+                           for i in range(mp)])
+
+
 def tp_layout(cfg: ModelConfig, mp: int) -> TPLayout:
     """The reference's divisibility checks, permutations and local config
     (``ShardedPagedRunner.__init__``) for a model axis of ``mp``."""
@@ -129,13 +143,7 @@ def tp_layout(cfg: ModelConfig, mp: int) -> TPLayout:
         if not np.array_equal(order, np.arange(H)):  # identity for MQA
             head_order = order
             head_order_blocked = (order[:, None] * hd + np.arange(hd)).reshape(-1)
-    glu_order = None
-    if ff_sharded and is_glu(cfg.activation):
-        fl = f // mp
-        glu_order = np.concatenate(
-            [np.concatenate([np.arange(i * fl, (i + 1) * fl),
-                             f + np.arange(i * fl, (i + 1) * fl)])
-             for i in range(mp)])
+    glu = glu_order(2 * f, mp) if ff_sharded and is_glu(cfg.activation) else None
     local_cfg = cfg
     if mp > 1:
         local_cfg = dataclasses.replace(
@@ -143,7 +151,7 @@ def tp_layout(cfg: ModelConfig, mp: int) -> TPLayout:
             d_ff=f // mp if ff_sharded else f, tp_axis="model",
             tp_ff_sharded=ff_sharded)
     return TPLayout(mp, kv_sharded, ff_sharded, local_cfg, head_order,
-                    head_order_blocked, glu_order)
+                    head_order_blocked, glu)
 
 
 def _take(t: torch.Tensor, order: np.ndarray, dim: int) -> torch.Tensor:
@@ -210,6 +218,70 @@ def rank_params(model, seed: int = 0, *, mesh, max_seq: int = 0):
     layers, the replicated embedding and head, and at most one whole layer
     on the way."""
     return model.init(seed, max_seq, place=rank_slicer(model.cfg, mesh))
+
+
+def _glu_leaf(cfg: ModelConfig, path) -> bool:
+    """Whether a leaf is a GLU up-projection's weight or bias (an MLP's
+    ``w1``, a MoE's ``shared_w1``), whose "ff" axis holds [up ; gate]."""
+    return is_glu(cfg.activation) and len(path) >= 2 and path[-2] in ("w1", "shared_w1")
+
+
+def train_slicer(cfg: ModelConfig, mesh, rules, device=None):
+    """``place(tree, axes)`` for one rank of a training mesh: the rank's
+    block of every leaf, cut by ``rules.pspec`` of the leaf's logical axes
+    (``mode_rules(mesh.shape, "train", ...)``: "embed" over data, heads,
+    KV heads, ff, vocab and experts over model), as a tensor of its own on
+    the rank's device. Along a dimension cut over model, the replicated-KV
+    fallback's head order (``tp_layout``) comes first on "heads", and the
+    GLU order (``glu_order``) on a GLU up-projection's "ff" (an MLP's
+    ``w1``, a MoE's ``shared_w1``). A dimension cut over several axes takes
+    the block of the rank's row-major index over them. ``device``: where
+    the slices go (the mesh's device by default)."""
+    mp = mesh.shape.get("model", 1)
+    device = mesh.device if device is None else device
+    head_order = tp_layout(cfg, mp).head_order if mp > 1 else None
+    coords = mesh.coords()
+
+    def leaf(t: torch.Tensor, axes, path) -> torch.Tensor:
+        spec = rules.pspec(axes, tuple(t.shape))
+        if all(part is None for part in spec):
+            return t.to(device)
+        for dim, (name, part) in enumerate(zip(axes, spec)):
+            if part is None:
+                continue
+            parts = (part,) if isinstance(part, str) else tuple(part)
+            if "model" in parts and mp > 1:
+                if name == "heads" and head_order is not None:
+                    t = _take(t, head_order, dim)
+                if name == "ff" and _glu_leaf(cfg, path):
+                    t = _take(t, glu_order(t.shape[dim], mp), dim)
+            index, size = 0, 1
+            for a in parts:
+                index, size = index * mesh.shape[a] + coords[a], size * mesh.shape[a]
+            n = t.shape[dim] // size
+            t = t.narrow(dim, index * n, n)
+        # a copy, never a view: a view would keep the whole leaf alive
+        return t.to(device).clone()
+
+    def place(tree, axes, path=()):
+        if isinstance(tree, dict):
+            return {k: place(v, axes[k], path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [place(v, a, path + (str(i),))
+                    for i, (v, a) in enumerate(zip(tree, axes, strict=True))]
+        return leaf(tree, axes, path)
+    return place
+
+
+def train_params(model, seed: int = 0, *, mesh, rules, max_seq: int = 0, device=None):
+    """``model.init(seed)``'s values as the rank's training slices
+    (``train_slicer``): each layer cut as soon as it is drawn, then the
+    embedding, head, norms, encoder and MTP block, so the rank's device
+    holds its slices and at most one whole layer or leaf on the way."""
+    place = train_slicer(model.cfg, mesh, rules, device)
+    params = model.init(seed, max_seq, place=place)
+    axes = param_axes(model.cfg)
+    return {k: v if k == "layers" else place(v, axes[k]) for k, v in params.items()}
 
 
 class ShardedPagedRunner(PagedRunner):

@@ -1,52 +1,74 @@
-"""The serving mesh on ``torch.distributed``: one process per rank.
+"""The mesh on ``torch.distributed``: one process per rank.
 
-The port's twin of ``repro.launch.mesh.make_serving_mesh``. The reference
-is one JAX controller that lays a ``(data, model)`` mesh over its devices;
-here each point of the mesh is a process (a rank), and the mesh is the
-grid of process groups over the ranks: rank ``d * model + m`` sits at data
-index ``d`` and model index ``m``. Its model group (the ranks sharing
-``d``) is one tensor-parallel group: the collective the sharded paged path
-pays is one ``all_reduce`` over it (``AxisGroup.all_reduce``). Its data
-group (the ranks sharing ``m``) replicates the batch and runs no
-collective on the serving path.
+The port's twin of ``repro.launch.mesh``. The reference is one JAX
+controller that lays a mesh over its devices; here each point of the mesh
+is a process (a rank), and the mesh is the grid of process groups over the
+ranks. Its axes come in the reference's order, ``("data", "model")`` or
+``("pod", "data", "model")``, and rank ``((p * D) + d) * M + m`` sits at
+pod index ``p``, data index ``d`` and model index ``m``. Each axis gives
+the rank one ``AxisGroup`` (the ranks that differ from it along that axis
+alone), and the batch axes (pod, data) together give one more, ``batch``:
+the ranks that hold the other rows of a batch. ``world`` is every rank.
 
-``make_serving_mesh`` initializes the default process group from the
-environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``;
-``spawn_ranks`` sets them) unless the caller already did, with the backend
-the caller names: ``nccl`` (the default: one card per rank) or ``gloo``
-(ranks may share a card, or run on the CPU; gloo all-reduces CUDA tensors
-by staging them through the host). It switches nothing on its own: a
-backend that cannot place the ranks raises and says what to ask for
-instead. Each rank serves on ``cuda:{local rank % cards}`` unless the
-caller gives a device (``cpu`` in the tests).
+Serving (``make_serving_mesh``, the reference's twin): the model group is
+one tensor-parallel group, whose one collective is an ``all_reduce`` per
+layer; the data group replicates the batch. Training (``make_debug_mesh``,
+``make_production_mesh``, ``launch/train.py --dp/--tp``): weights are cut
+over data (FSDP) and model (tensor and expert parallelism), the batch over
+(pod, data) (``train/sharding.py``).
+
+``make_mesh`` initializes the default process group from the environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``spawn_ranks``
+sets them) unless the caller already did, with the backend the caller
+names: ``nccl`` (the default: one card per rank) or ``gloo`` (ranks may
+share a card, or run on the CPU). It switches nothing on its own: a backend
+that cannot place the ranks raises and says what to ask for instead. Gloo
+all-reduces, all-gathers and reduce-scatters CUDA tensors itself, through
+the host (``chip_smoke.py`` phases 11 and 12 check each on the card). Each rank
+runs on ``cuda:{local rank % cards}`` unless the caller gives a device
+(``cpu`` in the tests). A world may hold several meshes of its size (their
+groups are made collectively by every rank, as the world was).
 
 ``spawn_ranks`` runs a function on every rank of a fresh world of
-processes on this host (``launch/serve.py --tp``, ``chip_smoke.py``'s
-phase 11, the CPU tests) and returns each rank's result.
+processes on this host (``launch/serve.py --tp``, ``launch/train.py --dp
+--tp``, ``chip_smoke.py``'s phases 11 and 12, the CPU tests) and returns
+each rank's result.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 import multiprocessing
 import os
 import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo")
+# the reference's mesh axes, in its order
+AXES = ("pod", "data", "model")
+# the axes a batch's rows are split over (the rules' "batch")
+BATCH_AXES = ("pod", "data")
 
 
 class AxisGroup:
-    """This rank's process group along one mesh axis: ``ranks`` in axis
-    order, this rank at ``index``. ``all_reduce`` sums a tensor over the
-    group in place and counts the calls and their bytes; with ``timed`` set
-    it also synchronizes the device around each call and adds the wall time
-    to ``seconds`` (the measurement of the collectives' share of a step)."""
+    """This rank's process group along one mesh axis (or the batch axes
+    together, or the world): ``ranks`` in axis order, this rank at
+    ``index``. ``all_reduce`` sums a tensor over the group in place (or
+    takes its maximum); ``all_gather`` concatenates every rank's tensor
+    along a dimension, in group order; ``reduce_scatter`` sums the group's
+    tensors and keeps this rank's block of a dimension. Each call is
+    counted with its bytes: the tensor for an all-reduce, the gathered
+    result for an all-gather, the summed input for a reduce-scatter. A
+    group of one rank runs and counts nothing. With ``timed`` set each call
+    synchronizes the device around it and adds its wall time to
+    ``seconds`` (the collectives' share of a step)."""
 
     def __init__(self, name: str, ranks: Sequence[int], rank: int, group):
         self.name = name
@@ -54,41 +76,99 @@ class AxisGroup:
         self.size = len(self.ranks)
         self.index = self.ranks.index(rank)
         self.group = group
-        self.all_reduces = 0
-        self.all_reduce_bytes = 0
-        self.seconds = 0.0
         self.timed = False
+        self.reset_counts()
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        self.all_reduces += 1
-        self.all_reduce_bytes += x.numel() * x.element_size()
+    def reset_counts(self) -> None:
+        self.all_reduces = self.all_reduce_bytes = 0
+        self.all_gathers = self.all_gather_bytes = 0
+        self.reduce_scatters = self.reduce_scatter_bytes = 0
+        self.seconds = 0.0
+
+    def _call(self, fn, x: torch.Tensor):
         if not self.timed:
-            dist.all_reduce(x, group=self.group)
-            return x
+            return fn()
         cuda = x.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(x.device)
         t0 = time.perf_counter()
-        dist.all_reduce(x, group=self.group)
+        out = fn()
         if cuda:
             torch.cuda.synchronize(x.device)
         self.seconds += time.perf_counter() - t0
+        return out
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        if self.size == 1:
+            return x
+        self.all_reduces += 1
+        self.all_reduce_bytes += x.numel() * x.element_size()
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        self._call(lambda: dist.all_reduce(x, op=red, group=self.group), x)
         return x
 
-    def reset_counts(self) -> None:
-        self.all_reduces = self.all_reduce_bytes = 0
-        self.seconds = 0.0
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        src = x.movedim(dim, 0).contiguous()
+        out_shape = (self.size * src.shape[0],) + tuple(src.shape[1:])
+        self.all_gathers += 1
+        self.all_gather_bytes += math.prod(out_shape) * x.element_size()
+
+        out = src.new_empty(out_shape)
+        self._call(lambda: dist.all_gather_into_tensor(out, src, group=self.group), x)
+        return out.movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        src = x.movedim(dim, 0).contiguous()
+        if src.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter over {self.size} ranks: dimension {dim} of "
+                             f"{tuple(x.shape)} does not divide")
+        out_shape = (src.shape[0] // self.size,) + tuple(src.shape[1:])
+        self.reduce_scatters += 1
+        self.reduce_scatter_bytes += src.numel() * src.element_size()
+
+        out = src.new_empty(out_shape)
+        self._call(lambda: dist.reduce_scatter_tensor(out, src, group=self.group), x)
+        return out.movedim(0, dim)
 
 
 @dataclasses.dataclass
-class ServingMesh:
-    """One rank's view of the ``(data, model)`` mesh."""
+class Mesh:
+    """One rank's view of the mesh. ``shape``: axis name -> size, in axis
+    order; ``groups``: this rank's ``AxisGroup`` per axis, and ``batch``
+    (the batch axes together) and ``world``."""
     shape: Dict[str, int]
     rank: int
     backend: str
     device: torch.device
-    data: AxisGroup
-    model: AxisGroup
+    groups: Dict[str, AxisGroup]
+
+    @property
+    def data(self) -> AxisGroup:
+        return self.groups["data"]
+
+    @property
+    def model(self) -> AxisGroup:
+        return self.groups["model"]
+
+    @property
+    def batch(self) -> AxisGroup:
+        return self.groups["batch"]
+
+    @property
+    def world(self) -> AxisGroup:
+        return self.groups["world"]
+
+    def axis(self, name: str) -> Optional[AxisGroup]:
+        """The group along one axis; None where the mesh has no such axis."""
+        return self.groups.get(name)
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along each axis."""
+        return {name: self.groups[name].index for name in self.shape}
 
     def barrier(self) -> None:
         """Every rank of the world waits here for the others."""
@@ -97,7 +177,7 @@ class ServingMesh:
 
 # one mesh per shape in this process: its groups were made collectively by
 # every rank, as the process group they live in was
-_MESHES: Dict[Tuple[int, int], ServingMesh] = {}
+_MESHES: Dict[Tuple[Tuple[str, int], ...], Mesh] = {}
 
 
 def _env_int(name: str) -> int:
@@ -145,26 +225,39 @@ def _rank_device(device, backend: str, local_rank: int, local_world: int) -> tor
     return device
 
 
-def make_serving_mesh(data_axis: int = 1, model_axis: int = 1, *,
-                      backend: Optional[str] = None, device=None) -> ServingMesh:
-    """This rank's ``(data, model)`` mesh over the world of processes.
+def _describe(shape: Mapping[str, int]) -> str:
+    return ", ".join(f"{k}={v}" for k, v in shape.items())
+
+
+def make_mesh(shape: Mapping[str, int], *, backend: Optional[str] = None, device=None,
+              kind: str = "mesh") -> Mesh:
+    """This rank's mesh of axis sizes ``shape`` (axis name -> size; the
+    axes a subsequence of ("pod", "data", "model"), in that order) over
+    the world of processes.
 
     ``backend``: "nccl" or "gloo"; None takes the backend of the process
     group the caller initialized, or "nccl" where none is. The world size
-    must be ``data_axis * model_axis``. ``device``: where this rank serves
+    must be the product of the sizes. ``device``: where this rank runs
     (None: ``cuda:{local rank % cards}``). A mesh of the same shape made
     earlier in this process is returned as it is (its device and backend
-    must match what is asked)."""
+    must match what is asked). ``kind`` names the mesh in errors."""
+    shape = dict(shape)
+    names = tuple(shape)
+    if names != tuple(a for a in AXES if a in shape):
+        raise ValueError(f"mesh axes {names}: a subsequence of {AXES}, in that order")
+    if any(n < 1 for n in shape.values()):
+        raise ValueError(f"mesh axes must be >= 1, got {shape}")
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: one of {BACKENDS}")
-    cached = _MESHES.get((data_axis, model_axis))
+    key = tuple(shape.items())
+    cached = _MESHES.get(key)
     if cached is not None:
         if backend is not None and backend != cached.backend:
             raise ValueError(f"the mesh runs {cached.backend}, not {backend}")
         if device is not None and normalize_device(device) != cached.device:
-            raise ValueError(f"the mesh serves on {cached.device}, not {device}")
+            raise ValueError(f"the mesh runs on {cached.device}, not {device}")
         return cached
-    need = data_axis * model_axis
+    need = math.prod(shape.values())
     if dist.is_initialized():
         actual = dist.get_backend()
         if backend is not None and backend != actual:
@@ -175,8 +268,8 @@ def make_serving_mesh(data_axis: int = 1, model_axis: int = 1, *,
         backend = backend or "nccl"
         rank, world = _env_int("RANK"), _env_int("WORLD_SIZE")
     if world != need:
-        raise ValueError(f"serving mesh (data={data_axis}, model={model_axis}) needs "
-                         f"{need} ranks but the world has {world}")
+        raise ValueError(f"{kind} ({_describe(shape)}) needs {need} ranks but the "
+                         f"world has {world}")
     # placement is checked before the rendezvous: nccl with two ranks on one
     # card fails there, or hangs
     dev = _rank_device(device, backend, int(os.environ.get("LOCAL_RANK", rank)),
@@ -189,22 +282,67 @@ def make_serving_mesh(data_axis: int = 1, model_axis: int = 1, *,
         dist.init_process_group(backend, init_method=f"tcp://{addr}:{_env_int('MASTER_PORT')}",
                                 rank=rank, world_size=world, **kw)
 
-    def groups(name, members):
-        """Every rank makes every group, in one order; returns this rank's."""
+    # each rank's coordinates, in rank order: row-major over the axes
+    coords = list(itertools.product(*(range(n) for n in shape.values())))
+
+    def members(axes):
+        """The groups of ranks that differ only along ``axes``, each in
+        row-major order over those axes; groups in order of their first rank."""
+        out: Dict[tuple, List[int]] = {}
+        for r, c in enumerate(coords):
+            fixed = tuple(v for n, v in zip(names, c) if n not in axes)
+            out.setdefault(fixed, []).append(r)
+        return list(out.values())
+
+    made: Dict[tuple, Any] = {}
+
+    def group_of(name, axes):
+        """Every rank makes every group, in one order; returns this rank's.
+        Groups over the same ranks are made once."""
         mine = None
-        for ranks in members:
-            group = dist.new_group(ranks) if len(ranks) > 1 else None
+        for ranks in members(axes):
+            key = tuple(ranks)
+            if key not in made:
+                made[key] = dist.new_group(ranks) if len(ranks) > 1 else None
             if rank in ranks:
-                mine = AxisGroup(name, ranks, rank, group)
+                mine = AxisGroup(name, ranks, rank, made[key])
         return mine
 
-    model_groups = [[d * model_axis + m for m in range(model_axis)] for d in range(data_axis)]
-    data_groups = [[d * model_axis + m for d in range(data_axis)] for m in range(model_axis)]
-    mesh = ServingMesh(shape={"data": data_axis, "model": model_axis}, rank=rank,
-                       backend=backend, device=dev, model=groups("model", model_groups),
-                       data=groups("data", data_groups))
-    _MESHES[(data_axis, model_axis)] = mesh
+    groups = {name: group_of(name, (name,)) for name in names}
+    groups["batch"] = group_of("batch", tuple(a for a in BATCH_AXES if a in shape))
+    groups["world"] = AxisGroup("world", range(world), rank, dist.group.WORLD)
+    mesh = Mesh(shape=shape, rank=rank, backend=backend, device=dev, groups=groups)
+    _MESHES[key] = mesh
     return mesh
+
+
+def make_serving_mesh(data_axis: int = 1, model_axis: int = 1, *,
+                      backend: Optional[str] = None, device=None) -> Mesh:
+    """This rank's ``(data, model)`` serving mesh (``make_mesh``): rank
+    ``d * model + m``; its model group is the tensor-parallel group."""
+    return make_mesh({"data": data_axis, "model": model_axis}, backend=backend,
+                     device=device, kind="serving mesh")
+
+
+def make_debug_mesh(n_data: int = 1, n_model: int = 1, *, backend: Optional[str] = None,
+                    device=None) -> Mesh:
+    """A small ``(data, model)`` mesh for tests and ``launch/train.py --debug``."""
+    return make_mesh({"data": n_data, "model": n_model}, backend=backend, device=device,
+                     kind="debug mesh")
+
+
+def production_shape(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The reference's production mesh: (data 16, model 16) = 256 ranks, or
+    with ``multi_pod`` (pod 2, data 16, model 16) = 512."""
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+
+
+def make_production_mesh(*, multi_pod: bool = False, backend: Optional[str] = None,
+                         device=None) -> Mesh:
+    """The reference's production mesh (``production_shape``); raises with
+    the world size it needs when the world is another."""
+    return make_mesh(production_shape(multi_pod=multi_pod), backend=backend, device=device,
+                     kind="production mesh")
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,7 @@ from repro_torch.kernels.lora.ops import bgmv_add
 from repro_torch.kernels.paged_attention import (paged_attend, paged_attend_extend,
                                                 paged_attend_extend_quant)
 from repro_torch.models.common import apply_rope, normal_init
+from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
 
 NEG_INF = -1e30
 
@@ -134,12 +135,12 @@ def proj_out_lora(p_wo, x, lora=None, lora_ids=None, tp=None):
     pre-projection (B, C, H, hd) flattened to H * hd.
 
     With ``tp`` (a rank's model group, ``launch/mesh.AxisGroup``: the
-    sharded paged path) ``x`` holds this rank's heads and ``wo`` the
-    matching rows, so the product — and the ``wo`` delta, whose A factor is
-    sharded over the same flattened head axis — are PARTIAL sums: the
-    delta goes into the product with no bias, one all-reduce completes
-    both, and the replicated bias comes last (summed across ranks it would
-    count once per rank). The twin of the JAX ``proj_out_lora`` with
+    sharded paged path and the sharded train step) ``x`` holds this rank's
+    heads and ``wo`` the matching rows, so the product — and the ``wo``
+    delta, whose A factor is sharded over the same flattened head axis —
+    are PARTIAL sums: the delta goes into the product with no bias, one
+    all-reduce (``reduce_from_model``) completes both, and the replicated
+    bias comes last (summed across ranks it would count once per rank). The twin of the JAX ``proj_out_lora`` with
     ``tp_axis``; without ``tp`` the single-device order is kept."""
     if tp is None:
         out = proj_out(p_wo, x)
@@ -150,7 +151,7 @@ def proj_out_lora(p_wo, x, lora=None, lora_ids=None, tp=None):
         out, = bgmv_add(x.reshape(B, C, H * hd), lora_ids,
                         [(lora["wo"]["a"], lora["wo"]["b"], out)])
     if tp is not None:
-        out = tp.all_reduce(out)
+        out = reduce_from_model(out, tp)
         if "b" in p_wo:
             out = out + p_wo["b"]
     return out
@@ -456,22 +457,40 @@ def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
 # whole sequences (training, whisper's encoder) and cross-attention
 # ---------------------------------------------------------------------------
 
-def attn_forward(p, cfg, spec, x, positions, *, causal=True):
+def attn_forward(p, cfg, spec, x, positions, *, causal=True, tp=None):
     """Self-attention over a whole sequence, the twin of the reference's
     ``attn_forward``: the training forward (causal, every kind) and
     whisper's encoder (``causal=False``, every position attending to every
     other). x: (B, S, d); positions: (S,). Through the plain
     ``flash_attention`` under autograd, as the reference's training forward
     runs its plain blockwise attention, not the Pallas kernel. Returns
-    (B, S, d)."""
-    q, k, v = _qkv(p, cfg, x)
+    (B, S, d).
+
+    ``tp``: the rank's model group in the sharded train step; ``p`` holds
+    the rank's query heads (in ``tp_layout``'s order) and ``wo`` rows, and
+    its KV heads where they divide the group. x enters the rank's
+    projections through ``copy_to_model``; K/V heads kept whole are
+    projected from x on every rank and enter through ``copy_to_model``
+    themselves, so their weights' gradients are whole on every rank; the
+    local output projection is summed as the sharded paged path sums it
+    (``proj_out_lora``'s ``tp``)."""
+    if tp is not None:
+        xm = copy_to_model(x, tp)
+        q = proj_qkv(p["wq"], xm)
+        if p["wk"]["w"].shape[1] < cfg.num_kv_heads:  # the KV heads are cut
+            k, v = proj_qkv(p["wk"], xm), proj_qkv(p["wv"], xm)
+        else:
+            k = copy_to_model(proj_qkv(p["wk"], x), tp)
+            v = copy_to_model(proj_qkv(p["wv"], x), tp)
+    else:
+        q, k, v = _qkv(p, cfg, x)
     if _uses_rope(cfg, spec):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = flash_attention(q, k, v, q_pos=positions, k_pos=positions, kind=spec.attn_kind,
                           window=cfg.sliding_window, chunk=cfg.chunk_size,
                           scale=_scale(cfg), causal=causal)
-    return proj_out(p["wo"], out)
+    return proj_out_lora(p["wo"], out, tp=tp)
 
 
 def cross_kv(p, enc, dtype):

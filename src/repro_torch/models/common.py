@@ -26,7 +26,11 @@ from torch.utils.checkpoint import checkpoint
 def normal_init(gen: torch.Generator, shape, dtype, scale, device):
     """``scale * N(0, 1)`` drawn in fp32 from ``gen``, cast to ``dtype``;
     scaled in place, so a large bf16 leaf (a 256-expert ``w1``) costs one
-    fp32 copy on the way, not two."""
+    fp32 copy on the way, not two. On the meta device only the shape is
+    made (a meta draw would go through torch's reference kernels, seconds
+    of imports in a fresh process)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return x.mul_(scale).to(dtype)
 

@@ -28,7 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import chunked_scan, dense, make_dense, normal_init
+from repro_torch.models.common import (chunked_scan, dense, dense_axes, make_dense,
+                                       normal_init)
 
 
 def d_inner_of(cfg) -> int:
@@ -53,6 +54,16 @@ def make_mamba_params(gen, cfg, dtype, device):
         "D": torch.ones((di,), dtype=torch.float32, device=device),
         "out_proj": make_dense(gen, di, d, dtype, device, scale=1.0 / math.sqrt(di)),
     }
+
+
+def mamba_param_axes(cfg):
+    """The logical axes of ``make_mamba_params``' leaves (the reference's)."""
+    return {"in_proj": dense_axes(("embed", "ssm_inner")),
+            "conv_w": ("conv", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "x_proj": dense_axes(("ssm_inner", None)),
+            "dt_proj": dense_axes((None, "ssm_inner"), bias=True, bias_axis="ssm_inner"),
+            "A_log": ("ssm_inner", "state"), "D": ("ssm_inner",),
+            "out_proj": dense_axes(("ssm_inner", "embed"))}
 
 
 def causal_conv(w, b, x, state=None):

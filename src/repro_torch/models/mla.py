@@ -32,8 +32,8 @@ import math
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_norm, apply_rope, dense, make_dense,
-                                       make_norm, normal_init)
+from repro_torch.models.common import (apply_norm, apply_rope, dense, dense_axes,
+                                       make_dense, make_norm, norm_axes, normal_init)
 
 NEG_INF = -1e30
 
@@ -59,6 +59,24 @@ def make_mla_params(gen, cfg, dtype, device):
         1.0 / math.sqrt(cfg.kv_lora_rank), device)}
     p["wo"] = {"w": normal_init(gen, (H, cfg.v_head_dim, d), dtype,
                                 1.0 / math.sqrt(H * cfg.v_head_dim), device)}
+    return p
+
+
+def mla_param_axes(cfg):
+    """The logical axes of ``make_mla_params``' leaves, as the reference
+    names them: the low-rank factors over "rank", the per-head ones over
+    "heads"."""
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = dense_axes(("embed", "rank"))
+        p["q_norm"] = norm_axes("rmsnorm")
+        p["wq_b"] = {"w": ("rank", "heads", None)}
+    else:
+        p["wq"] = {"w": ("embed", "heads", None)}
+    p["wkv_a"] = dense_axes(("embed", "rank"))
+    p["kv_norm"] = norm_axes("rmsnorm")
+    p["wkv_b"] = {"w": ("rank", "heads", None)}
+    p["wo"] = {"w": ("heads", None, "embed")}
     return p
 
 

@@ -43,7 +43,10 @@ are not adapted), so two launches. On a shard-local config
 (``cfg.tp_axis``: the sharded paged runner's) the paged steps take ``tp``,
 the rank's model group, and each layer all-reduces its attention output
 (and its MLP output when ``cfg.tp_ff_sharded``) over it; ``param_axes``
-names each parameter's logical axes, by which that runner splits them.
+names each parameter's logical axes, by which that runner splits them and
+the sharded train step cuts them (``forward``'s ``shard``: a rank's
+``train/sharding.py`` plan, FSDP slices gathered per layer, heads, hidden
+units, experts and vocab over the model group).
 ``build_model(cfg, device=...)`` runs on ``cuda`` unless asked for ``cpu``
 and raises when CUDA is asked for and absent.
 
@@ -78,6 +81,7 @@ from repro_torch.models import mamba, mla, moe, xlstm
 from repro_torch.models.common import (apply_norm, dense, dense_axes, gated, is_glu,
                                        make_dense, make_norm, norm_axes, normal_init,
                                        sinusoidal_positions)
+from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -92,12 +96,13 @@ ENC_SPEC = LayerSpec(mixer="attn", ff="mlp", attn_kind="global")
 
 def resolve_device(device) -> torch.device:
     """The port's entry points take an explicit device: ``cuda`` (the
-    default everywhere) must exist — there is no silent CPU fallback."""
+    default everywhere) must exist — there is no silent CPU fallback.
+    ``meta`` builds shapes without data (``param_shapes``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
 
@@ -127,21 +132,25 @@ def mlp_apply(p, cfg, x, lora=None, lora_ids=None, tp=None):
     ``bgmv_add`` launch.
 
     With ``tp`` (the rank's model group) and ``cfg.tp_ff_sharded`` the rank
-    holds a slice of the hidden units: the runner permuted a GLU ``w1``'s
+    holds a slice of the hidden units: its slicer permuted a GLU ``w1``'s
     columns so its local block is ``[u_i ; g_i]`` and the split stays local;
-    ``w2``'s local rows (and the w2 delta's A rows) give a partial sum that
-    one all-reduce completes before the replicated bias (the JAX
-    ``mlp_apply`` under ``cfg.tp_axis``)."""
+    x enters through ``copy_to_model`` (its gradient completed over the
+    group), ``w2``'s local rows (and the w2 delta's A rows) give a partial
+    sum that one ``reduce_from_model`` completes before the replicated bias
+    (the JAX ``mlp_apply`` under ``cfg.tp_axis``). The sharded paged path
+    and the sharded train step both run it so."""
+    sharded = tp is not None and cfg.tp_ff_sharded
+    if sharded:
+        x = copy_to_model(x, tp)
     h = dense(p["w1"], x)
     if lora is not None and "w1" in lora:
         h, = bgmv_add(x, lora_ids, [(lora["w1"]["a"], lora["w1"]["b"], h)])
     h = gated(cfg.activation, h)
-    sharded = tp is not None and cfg.tp_ff_sharded
     y = h @ p["w2"]["w"] if sharded else dense(p["w2"], h)
     if lora is not None and "w2" in lora:
         y, = bgmv_add(h, lora_ids, [(lora["w2"]["a"], lora["w2"]["b"], y)])
     if sharded:
-        y = tp.all_reduce(y)
+        y = reduce_from_model(y, tp)
         if "b" in p["w2"]:
             y = y + p["w2"]["b"]
     return y
@@ -170,17 +179,25 @@ def _layer_init(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device, *,
     return p
 
 
-def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None, cf: float = 2.0, tp=None):
+def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None, cf: float = 2.0, tp=None,
+               shard=None):
     """The feed-forward residual and the MoE's aux loss (0.0 for an MLP or
     none); no residual where ``spec.ff`` is "none". A MoE layer serves at
     capacity factor 2.0 (the reference's serving value: over-provision
     rather than drop; its training forward passes 1.25) and takes no LoRA:
-    its adapter sites are the attention projections only."""
+    its adapter sites are the attention projections only. ``tp``: the
+    rank's model group, over which an MLP splits its hidden units (under
+    ``cfg.tp_ff_sharded``). ``shard``: a rank's training plan
+    (``train/sharding.py``): a MoE runs the rank's experts over ``tp`` and
+    dispatches over the plan's batch group as its rules' "sharded_moe"
+    option says."""
     if spec.ff == "none":
         return x, 0.0
     h = apply_norm(cfg.norm, p["norm2"], x)
     if spec.ff == "moe":
-        y, aux = moe.moe_apply(p["ff"], cfg, h, capacity_factor=cf)
+        mesh = {} if shard is None else dict(
+            tp=tp, dp=shard.batch, sharded_moe=shard.rules.opt("sharded_moe"))
+        y, aux = moe.moe_apply(p["ff"], cfg, h, capacity_factor=cf, **mesh)
         return x + y, aux
     return x + mlp_apply(p["ff"], cfg, h, lora, lora_ids, tp), 0.0
 
@@ -240,10 +257,11 @@ def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
     return _ff_branch(p, spec, cfg, x, lora, lora_ids)[0], cache
 
 
-def _mixer_forward(p, spec, cfg, h, positions):
-    """A layer's mixer over a whole sequence from an empty history."""
+def _mixer_forward(p, spec, cfg, h, positions, tp=None):
+    """A layer's mixer over a whole sequence from an empty history; ``tp``:
+    an attention layer's heads are the rank's (``attn.attn_forward``)."""
     if spec.mixer == "attn":
-        return attn.attn_forward(p, cfg, spec, h, positions)
+        return attn.attn_forward(p, cfg, spec, h, positions, tp=tp)
     if spec.mixer == "mla":
         return mla.mla_forward(p, cfg, spec, h, positions)[0]
     fwd = {"mamba": mamba.mamba_forward, "mlstm": xlstm.mlstm_forward,
@@ -251,21 +269,34 @@ def _mixer_forward(p, spec, cfg, h, positions):
     return fwd(p, cfg, h)[0]
 
 
-def _layer_forward(p, spec, cfg, x, positions, enc=None):
+def _layer_forward(p, spec, cfg, x, positions, enc=None, shard=None):
     """The training path of one layer over a whole sequence (the twin of
     the reference's ``_layer_forward``): the mixer, causal, from an empty
     history; for a whisper decoder layer, cross-attention over the K/V it
     projects from the encoder states ``enc`` (B, T, d) in the activation
     dtype (the reference's ``cross_kv_stage``); the feed-forward, a MoE at
-    the reference's training capacity factor 1.25. Returns (x, the MoE's
-    aux loss or 0.0)."""
+    the reference's training capacity factor 1.25. ``shard``: the rank's
+    training plan, whose model group (``shard.tp``) the mixer and
+    feed-forward split their heads, hidden units and experts over (``cfg``
+    is then the plan's ``layer_cfg``). Returns (x, the MoE's aux loss or
+    0.0)."""
+    tp = shard.tp if shard is not None else None
     x = x + _mixer_forward(p["mixer"], spec, cfg, apply_norm(cfg.norm, p["norm1"], x),
-                           positions)
+                           positions, tp)
     if enc is not None:
         hc = apply_norm(cfg.norm, p["cross_norm"], x)
         x = x + attn.cross_attend(p["cross"], cfg, hc, *attn.cross_kv(p["cross"], enc,
                                                                        x.dtype))
-    return _ff_branch(p, spec, cfg, x, cf=1.25)
+    return _ff_branch(p, spec, cfg, x, cf=1.25, tp=tp, shard=shard)
+
+
+def _layer_forward_sharded(p, axes_specs, spec, cfg, x, positions, enc, shard):
+    """``_layer_forward`` on a rank's slices of the layer: the slices cut
+    over data are gathered first (``shard.gather``), inside the layer's
+    checkpoint, so the backward pass's recompute gathers them again (as
+    ZeRO-3 does) and the gathered weights live only while the layer runs."""
+    return _layer_forward(shard.gather(p, axes_specs), spec, shard.layer_cfg, x, positions,
+                          enc, shard)
 
 
 def _layer_lora(lora):
@@ -424,7 +455,8 @@ class Model:
         lives on its device at once. The draws are those of ``place=None``."""
         cfg, dev, pdt = self.cfg, self.device, self.pdtype
         axes = param_axes(cfg) if place is not None else None
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # meta tensors take a host generator (no bits are drawn)
+        gen = torch.Generator(device=dev if dev.type != "meta" else "cpu").manual_seed(seed)
         d = cfg.d_model
         params: Dict[str, Any] = {
             "embed": normal_init(gen, (cfg.vocab_size, d), pdt, d ** -0.5, dev),
@@ -494,8 +526,20 @@ class Model:
         return out
 
     # ---------------- shared helpers ----------------------------------------
-    def embed_tokens(self, params, tokens):
-        e = params["embed"][tokens.long()].to(self.dtype)
+    def embed_tokens(self, params, tokens, tp=None):
+        """The token embeddings; with ``tp`` the table holds the model
+        group's vocab slice, rank i rows [i * V_l, (i + 1) * V_l): each
+        rank looks up the tokens in its rows, zeros the others, and one
+        ``reduce_from_model`` sums them (the vocab-parallel embedding)."""
+        table = params["embed"]
+        if tp is None:
+            e = table[tokens.long()].to(self.dtype)
+        else:
+            rows = table.shape[0]
+            idx = tokens.long() - tp.index * rows
+            inside = (idx >= 0) & (idx < rows)
+            e = table[idx.clamp(0, rows - 1)].to(self.dtype) * inside[..., None]
+            e = reduce_from_model(e, tp)
         if self.cfg.embed_scale:
             e = e * math.sqrt(self.cfg.d_model)
         return e
@@ -509,26 +553,35 @@ class Model:
         table = params["pos_embed"]
         return x + table[pos.long().clamp(0, table.shape[0] - 1)].to(self.dtype)
 
-    def head(self, params, x):
+    def head(self, params, x, tp=None):
+        """The final norm and the logits; with ``tp`` the head (or the tied
+        embedding) holds the model group's vocab slice, x enters through
+        ``copy_to_model`` and the logits are the rank's (B, S, V_l) block,
+        for the vocab-parallel loss (``train.loop.cross_entropy``)."""
         x = apply_norm(self.cfg.norm, params["final_norm"], x)
         w = params["embed"].t() if self.cfg.tie_embeddings \
             else params["lm_head"]["w"]
-        return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+        return torch.einsum("bsd,dv->bsv", copy_to_model(x, tp), w.to(x.dtype))
 
-    def run_encoder(self, params, frames):
+    def run_encoder(self, params, frames, shard=None):
         """frames: (B, T, d) post-frontend embeddings (the stubbed audio
         frontend's output). Sinusoidal positions, then the bidirectional
-        encoder layers and its final norm. Returns (B, T, d)."""
+        encoder layers and its final norm. Returns (B, T, d). ``shard``: a
+        rank's training plan on a model axis of 1; each layer's slices are
+        gathered where the layer runs."""
         cfg = self.cfg
         T = frames.shape[1]
         x = frames.to(self.dtype) + sinusoidal_positions(
             T, cfg.d_model, frames.device).to(self.dtype)
         pos = torch.arange(T, device=x.device)
-        for p in params["encoder"]["layers"]:
+        enc = params["encoder"]
+        if shard is not None:
+            enc = shard.gather(enc, shard.specs["encoder"])
+        for p in enc["layers"]:
             h = apply_norm(cfg.norm, p["norm1"], x)
             y = attn.attn_forward(p["mixer"], cfg, ENC_SPEC, h, pos, causal=False)
             x, _ = _ff_branch(p, ENC_SPEC, cfg, x + y)
-        return apply_norm(cfg.norm, params["encoder"]["final_norm"], x)
+        return apply_norm(cfg.norm, enc["final_norm"], x)
 
     def cross_kv_all(self, params, enc):
         """Each decoder layer's cross K/V over the encoder states enc
@@ -553,7 +606,7 @@ class Model:
         return torch.where((pos < N)[..., None], rows, x)
 
     # ---------------- forward (training) ----------------------------------------
-    def forward(self, params, batch):
+    def forward(self, params, batch, shard=None):
         """The full-sequence training forward (the twin of the reference's
         ``forward``). ``batch``: ``tokens`` (B, S) on the model's device,
         and the family's extras: ``audio_frames`` (B, T, d) (whisper: the
@@ -567,42 +620,70 @@ class Model:
         loops in 64-step chunks. Attention is the plain ``flash_attention``: no kernel runs.
         Returns (logits (B, S', V), aux): ``aux["moe_aux"]``, the MoE
         layers' load-balance losses summed (0.0 without MoE), and with an
-        MTP block ``aux["mtp_logits"]`` (B, S - 1, V)."""
+        MTP block ``aux["mtp_logits"]`` (B, S - 1, V).
+
+        ``shard``: one rank's plan of the sharded train step
+        (``train/sharding.py``). ``params`` are then the rank's slices and
+        ``batch`` its rows. The slices cut over data are gathered where
+        they are used: a layer's inside its checkpoint, the embedding, head
+        and norms once before the first layer. With a model group
+        (``shard.tp``) each layer runs the rank's heads, hidden units and
+        experts, the embedding is vocab-parallel where the vocab is cut,
+        and the logits are then the rank's (B, S', V_l) block. The MoE aux
+        loss is the mesh's (``moe.moe_apply``)."""
         cfg, dev = self.cfg, self.device
         tokens = batch["tokens"]
-        enc = self.run_encoder(params, batch["audio_frames"]) if has_cross(cfg) else None
-        x = self.embed_tokens(params, tokens)
+        top, vtp = params, None
+        if shard is not None:
+            top = shard.gather({k: v for k, v in params.items()
+                                if k not in ("layers", "encoder", "mtp")}, shard.specs)
+            vtp = shard.vocab_tp
+        enc = self.run_encoder(params, batch["audio_frames"], shard) if has_cross(cfg) \
+            else None
+        x = self.embed_tokens(top, tokens, vtp)
         if cfg.family == "vlm":
             x = torch.cat([batch["vision_embeds"].to(self.dtype), x], dim=1)
         S = x.shape[1]
         positions = torch.arange(S, device=dev)
         if cfg.learned_positions:
-            x = x + params["pos_embed"][:S][None].to(self.dtype)
+            x = x + top["pos_embed"][:S][None].to(self.dtype)
         moe_total = 0.0
-        for p, spec in zip(params["layers"], self.specs):
-            x, a = checkpoint(_layer_forward, p, spec, cfg, x, positions, enc,
-                              use_reentrant=False, preserve_rng_state=False)
+        for i, (p, spec) in enumerate(zip(params["layers"], self.specs)):
+            if shard is None:
+                x, a = checkpoint(_layer_forward, p, spec, cfg, x, positions, enc,
+                                  use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, a = checkpoint(_layer_forward_sharded, p, shard.specs["layers"][i], spec,
+                                  cfg, x, positions, enc, shard, use_reentrant=False,
+                                  preserve_rng_state=False)
             moe_total = moe_total + a
         aux = {"moe_aux": moe_total}
-        logits = self.head(params, x)
+        logits = self.head(top, x, vtp)
         if cfg.mtp_depth and "mtp" in params:
-            aux["mtp_logits"] = self.mtp_head(params, x, tokens)
+            aux["mtp_logits"] = self.mtp_head(params, x, tokens, shard, top)
         return logits, aux
 
-    def mtp_head(self, params, h_main, tokens):
+    def mtp_head(self, params, h_main, tokens, shard=None, top=None):
         """DeepSeek-V3's multi-token prediction at depth 1: from the last
         layer's states h_t (before the final norm) and the embedding of
         token t + 1, one more layer of the last stage's last spec predicts
-        token t + 2 through the shared head. Returns (B, S - 1, V)."""
+        token t + 2 through the shared head. Returns (B, S - 1, V).
+        ``shard`` and ``top`` (the gathered embedding and head): as in
+        ``forward``, on a model axis of 1."""
         cfg = self.cfg
         m = params["mtp"]
+        if shard is not None:
+            m = shard.gather(m, shard.specs["mtp"])
+        top = params if top is None else top
         h = apply_norm(cfg.norm, m["norm_h"], h_main[:, :-1])
-        e = apply_norm(cfg.norm, m["norm_e"], self.embed_tokens(params, tokens[:, 1:]))
+        e = apply_norm(cfg.norm, m["norm_e"], self.embed_tokens(top, tokens[:, 1:]))
         x = dense(m["proj"], torch.cat([h, e], dim=-1))
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = _layer_forward(m["layer"], cfg.stages[-1][0][-1], cfg, x, positions)
+        x, _ = _layer_forward(m["layer"], cfg.stages[-1][0][-1],
+                              cfg if shard is None else shard.layer_cfg, x, positions,
+                              shard=shard)
         x = apply_norm(cfg.norm, m["final_norm"], x)
-        w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]["w"]
+        w = top["embed"].t() if cfg.tie_embeddings else top["lm_head"]["w"]
         return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
     # ---------------- extend (gathered cache windows) -------------------------
@@ -727,34 +808,59 @@ class Model:
                                  lora=lora, tp=tp)
 
 
+def _layer_axes(spec: LayerSpec, cfg: ModelConfig, *, cross: bool = False):
+    """The logical axes of ``_layer_init``'s tree."""
+    mixer = {"attn": attn.attention_param_axes, "mla": mla.mla_param_axes,
+             "mamba": mamba.mamba_param_axes, "mlstm": xlstm.mlstm_param_axes,
+             "slstm": xlstm.slstm_param_axes}[spec.mixer]
+    out = {"norm1": norm_axes(cfg.norm), "mixer": mixer(cfg)}
+    if cross:
+        out["cross_norm"] = norm_axes(cfg.norm)
+        out["cross"] = attn.attention_param_axes(cfg)
+    if spec.ff != "none":
+        out["norm2"] = norm_axes(cfg.norm)
+        out["ff"] = moe.moe_param_axes(cfg) if spec.ff == "moe" else mlp_param_axes(cfg)
+    return out
+
+
 def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
     """The logical axes of every leaf of ``Model.init``'s tree, in the same
-    structure, as the reference's ``param_axes_tree`` names them (less its
-    stacked "layers" axis): "heads", "kv_heads" and "ff" are what the
-    sharded paged runner splits, and nothing else. Covers the stacks that
-    runner serves (attention with an MLP or none, no encoder or
-    multi-token head); others raise, a MoE too: expert parallelism is not
-    ported."""
-    if has_cross(cfg) or cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: no parameter axes for an encoder "
-                                  "or a multi-token prediction head")
-    out: Dict[str, Any] = {"embed": ("vocab", "embed"), "final_norm": norm_axes(cfg.norm)}
+    structure, as the reference's ``param_axes_tree`` names them, less its
+    stacked "layers" axis: every family's mixers (attention, MLA, Mamba,
+    mLSTM, sLSTM), MLP and MoE feed-forwards, whisper's encoder and
+    cross-attention, learned positions and DeepSeek-V3's MTP block. The
+    sharded paged runner splits "heads", "kv_heads" and "ff" by them
+    (``serving_tp_rules``); the sharded train step cuts every leaf by
+    ``mode_rules(..., "train")``."""
+    d_axes = norm_axes(cfg.norm)
+    out: Dict[str, Any] = {"embed": ("vocab", "embed"), "final_norm": d_axes}
     if cfg.learned_positions:
         out["pos_embed"] = (None, "embed")
     if not cfg.tie_embeddings:
         out["lm_head"] = dense_axes(("embed", "vocab"))
-    layers = []
-    for spec in cfg.layer_specs():
-        if spec.mixer != "attn" or spec.ff == "moe":
-            raise NotImplementedError(f"{cfg.name}: no parameter axes for a "
-                                      f"{spec.mixer!r} layer with {spec.ff!r}")
-        layer = {"norm1": norm_axes(cfg.norm), "mixer": attn.attention_param_axes(cfg)}
-        if spec.ff != "none":
-            layer["norm2"] = norm_axes(cfg.norm)
-            layer["ff"] = mlp_param_axes(cfg)
-        layers.append(layer)
-    out["layers"] = layers
+    cross = has_cross(cfg)
+    out["layers"] = [_layer_axes(spec, cfg, cross=cross) for spec in cfg.layer_specs()]
+    if cross:
+        out["encoder"] = {"layers": [_layer_axes(ENC_SPEC, cfg)
+                                     for _ in range(cfg.encoder_layers)],
+                          "final_norm": d_axes}
+    if cfg.mtp_depth:
+        out["mtp"] = {"proj": dense_axes((None, "embed")), "norm_h": d_axes,
+                      "norm_e": d_axes, "layer": _layer_axes(cfg.stages[-1][0][-1], cfg),
+                      "final_norm": d_axes}
     return out
+
+
+def param_shapes(cfg: ModelConfig, max_seq: int = 0) -> Dict[str, Any]:
+    """The shape of every leaf of ``Model.init``'s tree, in its structure
+    (drawn on the meta device: no memory, no bits)."""
+    def shapes(t):
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [shapes(v) for v in t]
+        return tuple(t.shape)
+    return shapes(Model(cfg, device="meta").init(0, max_seq))
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

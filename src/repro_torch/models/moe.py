@@ -1,7 +1,10 @@
 """Mixture-of-Experts feed-forward: routed experts plus shared experts.
 
-The twin of ``repro.models.moe`` on one device (expert parallelism, the
-reference's ``_routed_manual_ep``, comes with tensor parallelism). Routing
+The twin of ``repro.models.moe``: on one device and on a rank of the
+training mesh (``moe_apply``'s ``tp`` / ``dp``: expert parallelism over
+the model group with the reference's two dispatches, ``_routed_manual_ep``
+under the "sharded_moe" rules option and the global ``_routed_dense``
+without it). Routing
 follows the source models: softmax top-k (llama4, Mixtral) or sigmoid top-k
 with a selection bias and normalized weights (DeepSeek-V3); the router runs
 in f32 whatever the model dtype. Dispatch is the reference's capacity-bounded
@@ -11,10 +14,11 @@ expert's ``capacity`` is dropped. Below ``NO_DROP_THRESHOLD`` token-slots the
 capacity is T * k, so nothing is dropped.
 
 ``moe_apply`` computes only the routed rows: one host read of the experts'
-kept counts, then for each expert that holds tokens one ``torch.matmul``
-through ``w1`` and one through ``w2`` over its kept tokens, in dispatch
-order, scatter-added back to their token rows with their routing weights
-(``index_add_`` in x's dtype, as the reference's ``_combine``). The
+kept counts, then for each expert that holds tokens (on a mesh, each
+local expert) one ``torch.matmul`` through ``w1`` and one through ``w2``
+over its kept tokens, in dispatch order, scatter-added back to their
+token rows with their routing weights (``index_add_`` in x's dtype, as the
+reference's ``_combine``). The
 reference instead runs its einsum over every one of the E x capacity slots,
 the empty ones reading zeros (E times the routed work below the threshold);
 the gated activations map a zero row to a zero row, so both compute the same
@@ -32,7 +36,9 @@ import math
 
 import torch
 
-from repro_torch.models.common import dense, gated, is_glu, make_dense, normal_init
+from repro_torch.models.common import (dense, dense_axes, gated, is_glu, make_dense,
+                                       normal_init)
+from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
 
 NO_DROP_THRESHOLD = 8192  # token-slots; at or below it, capacity = T*k (no drops)
 
@@ -54,6 +60,20 @@ def make_moe_params(gen, cfg, dtype, device):
     return p
 
 
+def moe_param_axes(cfg):
+    """The logical axes of ``make_moe_params``' leaves (the reference's):
+    experts over "experts", the router's input over "embed", the shared
+    experts as a dense MLP ("ff")."""
+    p = {"router": {"w": ("embed", None)}, "w1": ("experts", "embed", "moe_ff"),
+         "w2": ("experts", "moe_ff", "embed")}
+    if cfg.moe_sigmoid_router:
+        p["router_bias"] = (None,)
+    if cfg.num_shared_experts:
+        p["shared_w1"] = dense_axes(("embed", "ff"))
+        p["shared_w2"] = dense_axes(("ff", "embed"))
+    return p
+
+
 def _top_k(scores, k):
     """(values, indices) of the k largest per row, the lower index first on
     ties (``jax.lax.top_k``'s order): a stable descending sort."""
@@ -61,9 +81,9 @@ def _top_k(scores, k):
     return vals[..., :k], idx[..., :k]
 
 
-def route(p, cfg, x_flat):
+def _route(p, cfg, x_flat):
     """x_flat: (T, d) -> (weights (T, k) in x's dtype, experts (T, k) int32,
-    switch-style load-balance loss, a scalar)."""
+    the router's probabilities (T, E) f32)."""
     logits = x_flat.float() @ p["router"]["w"].float()
     E, k = cfg.num_experts, cfg.top_k
     if cfg.moe_sigmoid_router:
@@ -77,12 +97,37 @@ def route(p, cfg, x_flat):
         probs = torch.softmax(logits, dim=-1)
         w, experts = _top_k(probs, k)
         w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
-    T = x_flat.shape[0]
-    flat = experts.reshape(-1)  # index_add_, not bincount: no host sync
-    f_e = torch.zeros(E, device=x_flat.device).index_add_(
-        0, flat, torch.ones(flat.shape, device=x_flat.device)) / (T * k)
-    aux = E * torch.sum(f_e * probs.mean(dim=0))
-    return w.to(x_flat.dtype), experts.to(torch.int32), aux
+    return w.to(x_flat.dtype), experts.to(torch.int32), probs
+
+
+def _expert_counts(experts, E: int):
+    """Pairs routed to each expert, f32 (E,); index_add_, not bincount: no
+    host sync."""
+    flat = experts.reshape(-1).long()
+    return torch.zeros(E, device=experts.device).index_add_(
+        0, flat, torch.ones(flat.shape, device=experts.device))
+
+
+def route(p, cfg, x_flat):
+    """x_flat: (T, d) -> (weights (T, k) in x's dtype, experts (T, k) int32,
+    switch-style load-balance loss E * sum_e f_e * P_e, a scalar)."""
+    w, experts, probs = _route(p, cfg, x_flat)
+    E, k = cfg.num_experts, cfg.top_k
+    f_e = _expert_counts(experts, E) / (x_flat.shape[0] * k)
+    return w, experts, E * torch.sum(f_e * probs.mean(dim=0))
+
+
+def positions_in_expert(flat_e):
+    """flat_e: (N,) expert of each (token, slot) pair in token order -> each
+    pair's position among its expert's pairs, in token order (a stable sort
+    by expert)."""
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    run = torch.arange(flat_e.shape[0], device=flat_e.device) \
+        - torch.searchsorted(sorted_e, sorted_e)
+    pos = torch.empty_like(run)
+    pos[order] = run
+    return pos
 
 
 def dispatch_indices(experts, E: int, capacity: int):
@@ -93,11 +138,7 @@ def dispatch_indices(experts, E: int, capacity: int):
     T, k = experts.shape
     dev = experts.device
     flat_e = experts.reshape(-1).long()
-    order = torch.sort(flat_e, stable=True).indices
-    sorted_e = flat_e[order]
-    run = torch.arange(T * k, device=dev) - torch.searchsorted(sorted_e, sorted_e)
-    pos_in_expert = torch.empty_like(run)
-    pos_in_expert[order] = run
+    pos_in_expert = positions_in_expert(flat_e)
     keep = pos_in_expert < capacity
     dest = torch.where(keep, flat_e * capacity + pos_in_expert, E * capacity)
     slot_src = torch.full((E * capacity + 1,), T * k, dtype=torch.int32, device=dev)
@@ -118,29 +159,78 @@ def _add_shared(p, cfg, x, y):
     return y
 
 
-def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25):
+def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25, tp=None, dp=None,
+              sharded_moe: bool = False):
     """x: (B, S, d) -> (y (B, S, d), aux loss). Capacity is per expert over
     all B * S positions (padded ones included, as in the reference). Each
-    expert's kept tokens go through its FFN in one matmul per weight."""
+    expert's kept tokens go through its FFN in one matmul per weight, in
+    token order, scatter-added back in expert order.
+
+    On a rank of the training mesh ``dp`` is its batch group (x holds its
+    batch shard's rows) and ``tp`` its model group: ``p`` holds the rank's
+    experts ``[m E_l, (m + 1) E_l)`` (expert parallelism, index m) and its
+    slice of the shared expert's hidden units, and one
+    ``reduce_from_model`` over ``tp`` sums the ranks' partial outputs.
+    Routing runs on every rank in full. Which pairs are kept follows the
+    reference's two paths. With ``sharded_moe`` (the rules option;
+    ``_routed_manual_ep``) capacity and positions come from this batch
+    shard's tokens alone and the aux loss is the mean of the shards'
+    (``pmean``): the single-device result of each shard on its own (a
+    stable sort restricted to the local experts keeps every pair's
+    position in its expert). Without it (the SPMD ``_routed_dense`` over
+    the global batch) every shard's expert ids are all-gathered over
+    ``dp`` (small: (T_l, k) int32), capacity is the global batch's and each
+    pair's position counts the pairs of the shards before it in rank
+    order, which is global token order; the aux loss takes the global
+    expert counts and the router probabilities summed over ``dp``. On a
+    mesh every local expert runs its matmuls, with no rows where it has no
+    tokens, so each rank's graph (and the collectives of its backward
+    pass) is the same whatever its tokens route to; on one device an
+    expert without tokens is skipped."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.top_k
     x_flat = x.reshape(T, d)
-    weights, experts, aux = route(p, cfg, x_flat)
-    cap = capacity(T, k, E, capacity_factor)
-    slot_src, keep = dispatch_indices(experts, E, cap)
-    # the kept pairs of expert e fill its first min(count_e, cap) slots
-    counts = torch.bincount(experts.reshape(-1), minlength=E).clamp_max(cap).tolist()
-    w_flat = (weights * keep.to(weights.dtype)).reshape(T * k)
+    weights, experts, probs = _route(p, cfg, x_flat)
+    flat_e = experts.reshape(-1).long()
+    shards = 1 if dp is None else dp.size
+    if shards == 1 or sharded_moe:
+        cap = capacity(T, k, E, capacity_factor)
+        pos = positions_in_expert(flat_e)
+        f_e = _expert_counts(experts, E) / (T * k)
+        aux = reduce_from_model(E * torch.sum(f_e * probs.mean(dim=0)), dp) / shards
+    else:
+        every = dp.all_gather(experts, 0).reshape(-1).long()  # global token order
+        Tg = shards * T
+        cap = capacity(Tg, k, E, capacity_factor)
+        pos = positions_in_expert(every)[dp.index * T * k:(dp.index + 1) * T * k]
+        f_e = _expert_counts(every, E) / (Tg * k)
+        aux = E * torch.sum(f_e * reduce_from_model(probs.sum(dim=0), dp) / Tg)
+    E_l = p["w1"].shape[0]
+    lo = 0 if tp is None else tp.index * E_l
+    local = (pos < cap) & (flat_e >= lo) & (flat_e < lo + E_l)
+    key = torch.where(local, flat_e - lo, E_l)
+    order = torch.sort(key, stable=True).indices  # each local expert's pairs in token order
+    counts = torch.bincount(key, minlength=E_l + 1)[:E_l].tolist()
+    mesh = tp is not None or dp is not None
+    xm = copy_to_model(x_flat, tp)
+    w_flat = copy_to_model(weights, tp).reshape(T * k)
     y = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+    start = 0
     for e, n in enumerate(counts):
-        if not n:
+        src = order[start:start + n]
+        start += n
+        if not n and not mesh:
             continue
-        src = slot_src[e * cap:e * cap + n].long()
         tok = src // k
-        ye = gated(cfg.activation, x_flat[tok] @ p["w1"][e]) @ p["w2"][e]
+        ye = gated(cfg.activation, xm[tok] @ p["w1"][e]) @ p["w2"][e]
         y.index_add_(0, tok, ye * w_flat[src][:, None])
-    return _add_shared(p, cfg, x, y.reshape(B, S, d)), aux
+    if cfg.num_shared_experts:
+        y = y + gated(cfg.activation, dense(p["shared_w1"], xm)) @ p["shared_w2"]["w"]
+    y = reduce_from_model(y, tp)
+    if cfg.num_shared_experts and "b" in p["shared_w2"]:
+        y = y + p["shared_w2"]["b"]
+    return y.reshape(B, S, d), aux
 
 
 def moe_dense_ref(p, cfg, x, *, capacity_factor: float = 1.25):

@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (act_fn, apply_norm, chunked_scan, dense,
-                                       make_dense, make_norm, normal_init)
+                                       dense_axes, make_dense, make_norm, norm_axes,
+                                       normal_init)
 from repro_torch.models.mamba import causal_conv
 
 NEG_INF = -1e30
@@ -57,6 +58,17 @@ def make_mlstm_params(gen, cfg, dtype, device):
         "head_norm": make_norm("layernorm", di // H, dtype, device),
         "down_proj": make_dense(gen, di, d, dtype, device, scale=1.0 / math.sqrt(di)),
     }
+
+
+def mlstm_param_axes(cfg):
+    """The logical axes of ``make_mlstm_params``' leaves (the reference's)."""
+    return {"up_proj": dense_axes(("embed", "lstm_inner")),
+            "conv_w": ("conv", "lstm_inner"), "conv_b": ("lstm_inner",),
+            "wq": dense_axes(("lstm_inner", None)), "wk": dense_axes(("lstm_inner", None)),
+            "wv": dense_axes(("lstm_inner", "lstm_inner")),
+            "w_if": dense_axes(("lstm_inner", None), bias=True),
+            "head_norm": norm_axes("layernorm"),
+            "down_proj": dense_axes(("lstm_inner", "embed"))}
 
 
 def mlstm_recurrence(q, k, v, ig, fg, state):
@@ -186,6 +198,13 @@ def make_slstm_params(gen, cfg, dtype, device):
         "ffn_up": make_dense(gen, d, 2 * df, dtype, device),
         "ffn_down": make_dense(gen, df, d, dtype, device, scale=1.0 / math.sqrt(df)),
     }
+
+
+def slstm_param_axes(cfg):
+    """The logical axes of ``make_slstm_params``' leaves (the reference's)."""
+    return {"wx": dense_axes(("embed", "lstm_inner")), "r": (None, None, None),
+            "group_norm": norm_axes("layernorm"),
+            "ffn_up": dense_axes(("embed", "ff")), "ffn_down": dense_axes(("ff", "embed"))}
 
 
 def slstm_recurrence(gx, r, state, H, dh):

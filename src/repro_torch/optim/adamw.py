@@ -23,11 +23,17 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shard=None):
     """(grads scaled so that their global f32 norm is at most ``max_norm``,
-    each in its own dtype; that norm before scaling, a 0-d f32 tensor)."""
-    leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    each in its own dtype; that norm before scaling, a 0-d f32 tensor).
+    With ``shard`` (a rank's plan of the sharded train step) the grads are
+    the rank's slices and the norm is the whole tree's: the squares of
+    every rank's slices, each replicated copy counted once, all-reduced
+    over the world (``TrainSharding.norm_sq``)."""
+    if shard is not None:
+        gnorm = torch.sqrt(shard.norm_sq(grads))
+    else:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 

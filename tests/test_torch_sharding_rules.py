@@ -9,7 +9,8 @@
   a GLU MLP, and the properties they exist for.
 * Each parameter leaf's logical axes (``models.model.param_axes``) against
   JAX's ``param_axes_tree``, carried through the weight converter, for
-  the olmo-1b, qwen2.5-32b and gemma-2b smoke configs.
+  every smoke config (MoE, MLA, Mamba, xLSTM, whisper's encoder and
+  cross-attention, learned positions, the MTP block included).
 * ``proj_out_lora`` and ``mlp_apply`` over 2 gloo ranks on the CPU (each
   rank its heads / hidden units, bias and LoRA deltas included) against
   the single-device result, within 1e-5 in f32 (summation order only).
@@ -169,7 +170,7 @@ def test_indivisible_heads_raise():
 # ---------------------------------------------------------------------------
 
 AXIS_NAMES = [None, "layers", "vocab", "embed", "heads", "kv_heads", "ff", "experts",
-              "moe_ff"]
+              "moe_ff", "rank", "ssm_inner", "lstm_inner", "conv", "state"]
 
 
 def _encode(p):
@@ -190,9 +191,11 @@ def _decode(tree):
     return tuple(AXIS_NAMES[i] for i in tree.tolist())
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2.5-32b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2.5-32b", "gemma-2b"] + [
+    a for a in jconfigs.ARCHS if a not in ("olmo-1b", "qwen2.5-32b", "gemma-2b")])
 def test_param_axes_match_jax(arch):
-    jparams = jbuild(jconfigs.smoke_config(arch)).init(jax.random.PRNGKey(0), max_seq=64)
+    jparams = jax.eval_shape(lambda: jbuild(jconfigs.smoke_config(arch)).init(
+        jax.random.PRNGKey(0), max_seq=64))
     codes = jax.tree.map(_encode, jparams, is_leaf=is_param)
     cfg = tconfigs.smoke_config(arch)
     assert param_axes(cfg) == _decode(convert_params(cfg, codes))
@@ -270,7 +273,15 @@ def test_roofline_collective_uses_nvlink(ff_sharded):
 
 
 def test_param_axes_refuse_moe():
-    """No axes for a MoE layer: expert parallelism is not ported, and no
-    stack the sharded runner serves has experts."""
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        param_axes(tconfigs.smoke_config("llama4-scout-17b-a16e"))
+    """``param_axes`` no longer refuses a MoE layer (expert parallelism is
+    ported): its leaves take the reference's axes (``repro/models/moe.py``:
+    the router's input over "embed", the experts over "experts", the
+    shared expert as a dense MLP), and the serving runner's rules split
+    none of the routed leaves."""
+    cfg = tconfigs.smoke_config("llama4-scout-17b-a16e")
+    ff = param_axes(cfg)["layers"][0]["ff"]
+    assert ff == {"router": {"w": ("embed", None)}, "w1": ("experts", "embed", "moe_ff"),
+                  "w2": ("experts", "moe_ff", "embed"), "shared_w1": {"w": ("embed", "ff")},
+                  "shared_w2": {"w": ("ff", "embed")}}
+    rules = serving_tp_rules({"data": 1, "model": 2}, kv_sharded=True, ff_sharded=False)
+    assert rules.pspec(ff["w1"], (4, 256, 512)) == (None, None, None)

@@ -11,17 +11,29 @@ batch of B=2 and S=16 drawn as ``tests/test_archs.py::_batch`` draws it
 equal JAX's; and the gradients, JAX's passed through ``convert_params``
 like the params, equal leaf by leaf. One JAX ``value_and_grad`` per
 config gives all three; it is computed once and shared by the three tests.
-One intra-op thread; this file takes ~65 s, nearly all of it the compile
-of JAX's gradient.
+One intra-op thread; this file takes ~60 s, nearly all of it the compile
+of JAX's gradient (at XLA's backend optimization level 0).
+
+The sharded train step's pure FSDP (data 2, model 1) is held against the
+same JAX gradients: a world of 2 ranks (``launch/mesh.py::spawn_ranks``,
+gloo; the rank-side work, ``tests/_torch_sharded_train_ranks.py::fsdp_grads``,
+imports no JAX) runs ``grads_of`` on each rank's row of the same batch from
+the same weights, every leaf cut over data gathered where it is used (the
+encoder, the MTP block, the embedding and head included), while this
+process compiles JAX's gradients; both ranks' metrics, the step's clip
+norm and the gradient slices gathered into one tree are held at the
+tolerances below (the norm at ``GRAD_RTOL``).
 
 Tolerances (f32 throughout, XLA vs PyTorch summation order):
   * ``ATOL`` 1e-4 on logits and ``mtp_logits`` (measured <= 2.1e-5);
   * ``LOSS_RTOL`` 1e-5 on the loss and each metric (measured <= 1.6e-7);
   * ``GRAD_RTOL`` 2e-4 on each gradient leaf, against the larger of the
     leaf's largest JAX entry and 1e-3 of the tree's largest (measured <=
-    3e-5, Jamba's Mamba scan; a key bias, whose true gradient is 0 since
-    softmax ignores a shift shared by a row, reads ~1e-9 on both sides).
+    3e-5, Jamba's Mamba scan; a key bias's entries on its slowest RoPE
+    pairs, where a shift shared by a row barely changes the logits, are
+    near 0 on both sides).
 """
+import concurrent.futures
 import os
 import sys
 import types
@@ -33,13 +45,17 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import build_model as jbuild_model  # noqa: E402
 from repro.models.common import split_params  # noqa: E402
 from repro.train.loop import loss_fn as jloss_fn  # noqa: E402
+
+import _torch_sharded_train_ranks as ranks  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.models.convert import convert_params  # noqa: E402
 from repro_torch.train.loop import grads_of, loss_fn  # noqa: E402
 from repro_torch.tree import tree_paths  # noqa: E402
@@ -56,6 +72,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fsdp_world():
+    """The FSDP ranks' results (a future), started with the module so they
+    run while JAX compiles."""
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        yield ex.submit(spawn_ranks, ranks.fsdp_grads, 2, jconfigs.ARCHS, timeout=600)
 
 
 def _batch(cfg, rng, B=2, S=16):
@@ -126,8 +150,11 @@ def _run(arch):
                                      p, jb)
             return loss, (metrics, outs[0])
 
+        # compiled at XLA's backend optimization level 0: one run, whose
+        # compile the optimizer's passes would lengthen by half
         (_, (jmetrics, (jlogits, jaux))), jgrads = jax.jit(
-            jax.value_and_grad(loss_with_outputs, has_aux=True))(values)
+            jax.value_and_grad(loss_with_outputs, has_aux=True)).lower(values).compile(
+                compiler_options={"xla_backend_optimization_level": 0})(values)
         tb = {k: torch.from_numpy(v) for k, v in batch.items()}
         with torch.no_grad():
             logits, aux = tm.forward(params, tb)
@@ -170,21 +197,49 @@ def test_loss_matches_jax(arch):
                                    rtol=LOSS_RTOL, err_msg=k)
 
 
+def _hold_grads(leaves, jleaves):
+    """Each gradient leaf against JAX's, at ``GRAD_RTOL`` of the larger of
+    the leaf's largest JAX entry and 1e-3 of the tree's largest."""
+    assert sorted(leaves) == sorted(jleaves)
+    top = max(np.abs(g.numpy()).max() for g in jleaves.values())
+    assert top > 0
+    for path, g in leaves.items():
+        g = g.numpy() if isinstance(g, torch.Tensor) else g
+        jg = jleaves[path].numpy()
+        assert g.shape == jg.shape and g.dtype == np.float32, path
+        floor = max(np.abs(jg).max(), 1e-3 * top)
+        err = np.abs(g - jg).max() / floor
+        assert err <= GRAD_RTOL, (path, err)
+
+
 @pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_grads_match_jax(arch):
     r = _run(arch)
     jgrads, grads = r["jax"][3], r["port"][3]
     # by path: jax.tree rebuilds its dicts in sorted key order
-    jleaves, leaves = dict(tree_paths(jgrads)), dict(tree_paths(grads))
-    assert sorted(leaves) == sorted(jleaves)
-    top = max(np.abs(g.numpy()).max() for g in jleaves.values())
-    assert top > 0
-    for path, g in leaves.items():
-        jg = jleaves[path].numpy()
-        assert g.shape == jg.shape and g.dtype == torch.float32, path
-        floor = max(np.abs(jg).max(), 1e-3 * top)
-        err = np.abs(g.numpy() - jg).max() / floor
-        assert err <= GRAD_RTOL, (path, err)
+    _hold_grads(dict(tree_paths(grads)), dict(tree_paths(jgrads)))
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_fsdp_grads_match_jax(fsdp_world, arch):
+    """Pure FSDP on (data 2, model 1): on both ranks the loss and metrics
+    equal JAX's, the train step's clip norm equals the norm of JAX's
+    gradient, and the gradient slices, gathered into one tree, equal
+    JAX's leaf by leaf."""
+    r = _run(arch)
+    want = _batch(r["cfg"], np.random.default_rng(0))
+    assert all(np.array_equal(v, want[k]) for k, v in ranks.smoke_batch(r["cfg"]).items())
+    jmetrics, jgrads = r["jax"][2], dict(tree_paths(r["jax"][3]))
+    norm = np.sqrt(sum(np.sum(np.square(g.numpy().astype(np.float64)))
+                       for g in jgrads.values()))
+    for rank in fsdp_world.result():
+        got = rank[arch]
+        assert sorted(got["metrics"]) == sorted(jmetrics)
+        for k in jmetrics:
+            np.testing.assert_allclose(got["metrics"][k], float(jmetrics[k]),
+                                       rtol=LOSS_RTOL, err_msg=k)
+        np.testing.assert_allclose(got["grad_norm"], norm, rtol=GRAD_RTOL)
+        _hold_grads(dict(tree_paths(got["grads"])), jgrads)
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCHS)
