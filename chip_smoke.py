@@ -237,6 +237,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                card against the same mesh on the CPU (olmo-1b 3 steps
                and llama4-scout with sharded_moe 1 step on (2, 2), jamba
                1 step on (2, 1)).
+ 13. decode  — the contiguous decode path (``Model.decode``, the window
+               ring, context-parallel decode, ``launch/steps.py``) on
+               starcoder2-3b whole (bf16, 30 window layers). 13a: a fresh
+               8192-token prompt through ``extend`` into an 8704-slot cache
+               (flash_prefill = 30 launches, held against its plain version
+               at that shape), then 32 greedy decode steps on the cache and
+               32 on a 4608-slot ring filled from it at slots p % 4608
+               (wrapped by then): both streams, where they part, the
+               largest logit difference, each median step beside its bytes
+               bound. 13b: ``build_step``'s decode at long_500k (B=1, L =
+               524 288) on one process: the 524 800-slot cache (16 121 856
+               000 B) and the ring (141 557 760 B), filled layer by layer
+               from seeded generators, 8 greedy steps each. 13c: the same
+               with "cp_decode" on two ranks sharing the card over gloo:
+               each rank's half of the sequence (8 060 928 000 B) and whole
+               weights against its requested device bytes, its logits
+               against 13b's, 60 all-reduces a step (2 x 30 layers) with
+               their bytes and timed share. 13d: f32 smoke twins: every
+               config's decode on the card equals the CPU's, the ring its
+               whole cache over 40 steps, CP over 2 ranks one process.
+               13a's and 13b's steps (whole and ring) are profiled once.
+               Model.decode launches none of the six kernels (plain
+               PyTorch, as the reference decodes outside Pallas).
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -294,7 +317,10 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.roofline import card_for  # noqa: E402
 from repro_torch.core.executor.sharded import (rank_slicer, shard_params,  # noqa: E402
                                                tp_layout)
-from repro_torch.launch.mesh import make_mesh, make_serving_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import (make_local_mesh, make_mesh,  # noqa: E402
+                                     make_serving_mesh, spawn_ranks)
+from repro_torch.launch.specs import DECODE_PAD, cache_axes_tree, shard_cache  # noqa: E402
+from repro_torch.launch.steps import build_step  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -5549,6 +5575,409 @@ def phase_train_mesh(card, one_process):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the contiguous decode path on starcoder2-3b whole
+# ---------------------------------------------------------------------------
+STARCODER = "starcoder2-3b"
+PROMPT = 8192  # 13a's fresh prompt, one extend
+DECODE_STEPS = 32  # 13a's greedy decode steps, on the whole cache and on a ring
+LONG = configs.get_shape("long_500k")  # 13b and 13c: B=1 at 524 288 tokens
+LONG_STEPS = 8
+LONG_SEED = 13  # 13b / 13c cache contents: layer i from a generator at LONG_SEED + i
+CP_RANKS = 2
+RING = {"window_ring": True}
+# bf16 logits of two decode paths (the ring's sums run over fewer slots; CP
+# merges f32 partials): within 2^-4 of the largest logit, phase 11's bound
+DECODE_LOGITS_RTOL = 2 ** -4
+DECODE_SMOKE_ATOL = 1e-4  # f32 smoke twins, card vs CPU, no TF32
+CP_SMOKE_ATOL = 2e-4  # tests/test_distributed.py's bound for CP decode
+
+
+def greedy_decode(fn, params, cache, first, start, steps):
+    """``steps`` greedy tokens of one row from token ``first`` at position
+    ``start`` through ``fn(params, tokens, cache, cache_len)``: (tokens, the
+    f32 logits of each step on the host, each step's seconds: host clock
+    from a synchronized start to the argmax's read)."""
+    tok = torch.tensor([[first]], device="cuda")
+    tokens, logits, secs = [], [], []
+    for t in range(steps):
+        cl = torch.full((1,), start + t, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = fn(params, tok, cache, cl)
+        nxt = int(lg[0, -1].argmax())
+        secs.append(time.perf_counter() - t0)
+        tokens.append(nxt)
+        logits.append(lg[0, -1].float().cpu())
+        tok = torch.tensor([[nxt]], device="cuda")
+    return tokens, torch.stack(logits), secs
+
+
+def part_stream(a, b):
+    """(first step where two greedy runs' tokens part, or None; the largest
+    |logit diff| over the steps up to it, both fed the same tokens there;
+    the largest |logit| of ``a`` over them)."""
+    part = next((i for i, (x, y) in enumerate(zip(a[0], b[0])) if x != y), None)
+    n = len(a[0]) if part is None else part + 1
+    return part, float((a[1][:n] - b[1][:n]).abs().max()), float(a[1][:n].abs().max())
+
+
+def ring_decode(model):
+    """``model.decode`` under the rules' "window_ring" option."""
+    def fn(params, tok, cache, cl):
+        with use_rules(Rules({}, options=RING)):
+            return model.decode(params, tok, cache, cl)
+    return fn
+
+
+def fill_long(i, layer):
+    """13b / 13c's cache contents: layer i's K and V at positions [0, L)
+    drawn (bf16 normals) from a generator on the card seeded with
+    LONG_SEED + i; the same on every process."""
+    gen = torch.Generator(device="cuda").manual_seed(LONG_SEED + i)
+    for name in ("k", "v"):
+        t = layer[name][:, :LONG.seq_len]
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda", dtype=t.dtype))
+
+
+def zero_counts():
+    for k in COUNTERS.values():
+        k.launches = 0
+
+
+def read_counts():
+    return {n: k.launches for n, k in COUNTERS.items()}
+
+
+def cache_slot_bytes(cfg, slots: int) -> int:
+    """Bytes of K and V over every attention layer at ``slots`` slots, B=1."""
+    return (2 * cfg.num_layers * slots * cfg.num_kv_heads * cfg.head_dim
+            * model_mod.DTYPES[cfg.dtype].itemsize)
+
+
+def phase_decode_prompt(card):
+    """13a: a fresh 8192-token prompt through ``extend`` into an 8704-slot
+    cache (flash_prefill once a layer, held against its plain version at
+    that shape), then 32 greedy ``Model.decode`` steps on the cache and 32
+    on a 4608-slot ring filled from it (wrapped by then). Returns (the
+    prefill's counts, the decode steps' counts)."""
+    free_device("phase 13a")
+    cfg = configs.get_config(STARCODER)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    weights = tree_bytes(params)
+    W = PROMPT + DECODE_PAD
+    rng = np.random.default_rng(13)
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, PROMPT))).to("cuda")
+    full = model.init_cache(1, W)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, full = model.extend(params, prompt, full, torch.zeros(1, dtype=torch.long,
+                                                                device="cuda"))
+    first = int(lg[0, -1].argmax())
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = read_counts()
+    del lg
+    want = dict.fromkeys(COUNTERS, 0)
+    want["flash_prefill"] = cfg.num_layers
+    log(f"[13 decode] 13a {STARCODER} whole ({cfg.num_layers} layers, "
+        f"{troofline.param_counts(cfg)['total']} params, {weights / 1e9:.2f} GB bf16): a fresh "
+        f"{PROMPT}-token prompt through extend into a {W}-slot cache in {prefill_s * 1e3:.1f} ms "
+        f"(host clock, first call), launches {prefill_counts}: "
+        f"{'ok' if prefill_counts == want else 'FAIL'}")
+    if prefill_counts != want:
+        raise AssertionError(f"13a prefill launches {prefill_counts}, want {want}")
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = flash_inputs(2, 1, H, KV, PROMPT, D, torch.bfloat16)
+    check(f"flash_prefill at 13a's prefill (B, H, KV, S, D, window) = "
+          f"{(1, H, KV, PROMPT, D, cfg.sliding_window)} bf16",
+          FLASH(q, k, v, scale=D ** -0.5, window=cfg.sliding_window),
+          flash_prefill_ref(q, k, v, scale=D ** -0.5, window=cfg.sliding_window),
+          FLASH_ATOL[torch.bfloat16])
+    del q, k, v
+    ring = model_mod.fill_ring(model.init_cache(1, W, window_ring=True), full, PROMPT)
+    widths = {c["k"].shape[1] for c in ring}
+    assert widths == {cfg.sliding_window + 512}, widths
+    zero_counts()
+    a = greedy_decode(model.decode, params, full, first, PROMPT, DECODE_STEPS)
+    b = greedy_decode(ring_decode(model), params, ring, first, PROMPT, DECODE_STEPS)
+    counts = read_counts()
+    part, diff, top = part_stream(a, b)
+    ok = diff <= DECODE_LOGITS_RTOL * top and not any(counts.values())
+    for label, run, nbytes in (("whole cache", a, tree_bytes(full)),
+                               ("ring", b, tree_bytes(ring))):
+        log(f"  {label} ({nbytes} B of K/V): tokens {run[0]}; median step "
+            f"{statistics.median(run[2]) * 1e3:.2f} ms (first {run[2][0] * 1e3:.1f}), bytes "
+            f"bound (weights + cache) {(weights + nbytes) / card[1] * 1e3:.3f} ms")
+    log(f"  ring vs whole: {'equal streams' if part is None else f'part at step {part}'}; "
+        f"largest |logit diff| {diff:.4g} against the largest logit {top:.4g} "
+        f"({diff / top:.3%}, limit {DECODE_LOGITS_RTOL:.2%}); the decode steps' launches "
+        f"{counts}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("13a: the ring's decode differs from the whole cache's, or "
+                             "Model.decode launched a kernel")
+    profile_steps("13a", [("whole cache", model.decode, full), ("ring", ring_decode(model), ring)],
+                  params, b[0][-1], PROMPT + DECODE_STEPS)
+    return prefill_counts, counts
+
+
+def profile_steps(tag, runs, params, token, pos):
+    """One more decode step of each (label, fn, cache) at ``pos`` from
+    ``token``, profiled (``device_profile``: wall, busy share, the largest
+    kernels); the step rewrites the same slot each call."""
+    tok = torch.tensor([[token]], device="cuda")
+    cl = torch.full((1,), pos, device="cuda")
+    for label, fn, cache in runs:
+        device_profile(f"{tag} {label}: one decode step profiled",
+                       lambda fn=fn, cache=cache: fn(params, tok, cache, cl))
+
+
+def phase_decode_long(card):
+    """13b: ``build_step``'s decode at ``long_500k`` (B=1, L = 524 288) on
+    one process: the whole 524 800-slot cache and a 4608-slot ring, both
+    filled from the seeded generator (the ring from the cache), 8 greedy
+    steps each. Returns (the first token, the whole cache's run, the decode
+    steps' counts)."""
+    free_device("phase 13b")
+    cfg = configs.get_config(STARCODER)
+    mesh = make_local_mesh()
+    whole_step = build_step(cfg, LONG, mesh)
+    ring_step = build_step(cfg, LONG, mesh, options=RING)
+    params = whole_step.params(0)
+    weights = tree_bytes(params)
+    L = LONG.seq_len
+    t0 = time.perf_counter()
+    full = whole_step.init_cache(fill=fill_long)
+    ring = model_mod.fill_ring(ring_step.init_cache(), full, L)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    sizes = (tree_bytes(full), tree_bytes(ring))
+    want = (cache_slot_bytes(cfg, whole_step.max_seq),
+            cache_slot_bytes(cfg, cfg.sliding_window + 512))
+    first = int(np.random.default_rng(14).integers(2, cfg.vocab_size))
+    zero_counts()
+    a = greedy_decode(whole_step.fn, params, full, first, L, LONG_STEPS)
+    b = greedy_decode(ring_step.fn, params, ring, first, L, LONG_STEPS)
+    counts = read_counts()
+    part, diff, top = part_stream(a, b)
+    log(f"[13 decode] 13b {STARCODER} at long_500k (B=1, L={L}) through build_step's decode "
+        f"(max_seq {whole_step.max_seq}; the ring's {ring_step.window_ring}), caches filled "
+        f"layer by layer from generators at seed {LONG_SEED} + layer in {fill_s:.1f} s: whole "
+        f"{sizes[0]} B, ring {sizes[1]} B (counts {want[0]}, {want[1]})")
+    for label, run, nbytes in (("whole cache", a, sizes[0]), ("ring", b, sizes[1])):
+        log(f"  {label}: tokens {run[0]}; median step {statistics.median(run[2]) * 1e3:.2f} ms "
+            f"(first {run[2][0] * 1e3:.1f}), bytes bound (weights {weights} + cache) "
+            f"{(weights + nbytes) / card[1] * 1e3:.3f} ms")
+    ok = sizes == want and diff <= DECODE_LOGITS_RTOL * top and not any(counts.values())
+    log(f"  ring vs whole: {'equal streams' if part is None else f'part at step {part}'}; "
+        f"largest |logit diff| {diff:.4g} against {top:.4g} ({diff / top:.3%}); launches "
+        f"{counts}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("13b: cache bytes, the ring's logits or the launches are off")
+    profile_steps("13b", [("whole cache", whole_step.fn, full), ("ring", ring_step.fn, ring)],
+                  params, b[0][-1], L + LONG_STEPS)
+    del full, ring, params, whole_step, ring_step
+    return first, a, counts
+
+
+def cp_twin(device):
+    """llama4-scout's smoke config in f32 (chunked + global layers) from the
+    CPU's seed-0 weights: an S=40 prefill into a 64-slot cache at B=2, then
+    one decode step with each rank holding its slice over the batch group
+    (``cp``), and one process's decode of the whole cache on the same card.
+    Returns (the CP logits, one process's)."""
+    cfg = configs.smoke_config("llama4-scout-17b-a16e")
+    mesh = make_mesh({"data": CP_RANKS, "model": 1}, backend="gloo")
+    model = build_model(cfg, device=device)
+    params = _to_device(build_model(cfg, device="cpu").init(0), device)
+    rng = np.random.default_rng(15)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 41))).to(device)
+    S, W = 40, 64
+    whole = model.init_cache(2, W)
+    model.extend(params, toks[:, :S], whole, torch.zeros(2, dtype=torch.long, device=device))
+    rules = Rules(mesh.shape, {"batch": None, "kv_seq": "data"}, {"cp_decode": True})
+    axes, _ = cache_axes_tree(model, 2, W)
+    mine = shard_cache(model, whole, mesh, rules, axes)
+    lens = torch.full((2,), S, device=device)
+    with use_rules(rules):
+        cp_lg, _ = model.decode(params, toks[:, S:], mine, lens, cp=mesh.batch)
+    one, _ = model.decode(params, toks[:, S:], whole, lens)
+    return cp_lg.cpu(), one.cpu()
+
+
+def cp_rank(first):
+    """One of 13c's ranks (run by ``spawn_ranks``): ``build_step``'s decode
+    at long_500k with "cp_decode" on (data 2) over gloo on this card, its
+    weights whole and its half of the sequence of 13b's cache contents;
+    8 greedy steps from 13b's first token, each step's all-reduces, one more
+    step with them timed; then 13d's CP smoke twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(STARCODER)
+    mesh = make_mesh({"data": CP_RANKS, "model": 1}, backend="gloo")
+    step = build_step(cfg, LONG, mesh, options={"cp_decode": True})
+    assert step.cp is mesh.batch and step.cp.size == CP_RANKS
+    torch.cuda.synchronize()
+    base = np.array(device_bytes())
+    torch.cuda.reset_peak_memory_stats()
+    params = step.params(0)
+    cache = step.init_cache(fill=fill_long)
+    torch.cuda.synchronize()
+    out = dict(rank=mesh.rank, index=mesh.batch.index, weights=tree_bytes(params),
+               cache=tree_bytes(cache), width=cache[0]["k"].shape[1],
+               drawn=np.array(device_bytes()) - base,
+               draw_peak=np.array(peak_device_bytes()) - base)
+    group = mesh.batch
+    counts = []
+
+    def counted(params, tok, cache, cl):
+        group.reset_counts()
+        res = step.fn(params, tok, cache, cl)
+        counts.append((group.all_reduces, group.all_reduce_bytes))
+        return res
+    zero_counts()
+    run = greedy_decode(counted, params, cache, first, LONG.seq_len, LONG_STEPS)
+    out.update(tokens=run[0], logits=run[1].numpy(), secs=run[2], all_reduces=counts,
+               launches=read_counts())
+    group.reset_counts()
+    group.timed = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = step.fn(params, torch.tensor([[run[0][-1]]], device="cuda"), cache,
+                        torch.full((1,), LONG.seq_len + LONG_STEPS, device="cuda"))
+    lg.float().cpu()
+    out["timed"] = dict(step_s=time.perf_counter() - t0, seconds=group.seconds,
+                        all_reduces=group.all_reduces, bytes=group.all_reduce_bytes)
+    group.timed = False
+    del params, cache, lg
+    torch.cuda.empty_cache()
+    cp_lg, one = cp_twin(mesh.device)
+    out["twin"] = float((cp_lg - one).abs().max())
+    return out
+
+
+def phase_decode_cp(card, first, whole_run):
+    """13c: CP at 13b's shape on two ranks sharing the card over gloo; each
+    rank's bytes against the count, its logits against 13b's one process,
+    60 all-reduces a step with their bytes and timed share."""
+    free_device("phase 13c")
+    cfg = configs.get_config(STARCODER)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(cp_rank, CP_RANKS, first, timeout=600)
+    rank_s = time.perf_counter() - t0
+    slots = (LONG.seq_len + DECODE_PAD) // CP_RANKS
+    want_cache = cache_slot_bytes(cfg, slots)
+    n_attn = sum(s.mixer == "attn" for s in cfg.layer_specs())
+    G = cfg.num_heads // cfg.num_kv_heads
+    want_ar = (2 * n_attn, n_attn * cfg.num_kv_heads * G * 4 * (2 + cfg.head_dim))
+    log(f"[13 decode] 13c context-parallel decode at long_500k: {CP_RANKS} ranks of (data "
+        f"{CP_RANKS}) spawned on this one card over gloo ({rank_s:.1f} s for the ranks' whole "
+        f"run, 13d's CP twin included); gloo stages each all-reduce through the host, so this "
+        f"measures the port's code path and memory layout, not NVLink")
+    bad = []
+    for r in sorted(ranks, key=lambda r: r["index"]):
+        part, diff, top = part_stream((whole_run[0], whole_run[1]),
+                                      (r["tokens"], torch.from_numpy(r["logits"])))
+        drawn = int(r["drawn"][0])
+        ok = (r["cache"] == want_cache and r["width"] == slots
+              and abs(drawn - (r["weights"] + want_cache)) <= 2 ** 16
+              and diff <= DECODE_LOGITS_RTOL * top
+              and all(c == want_ar for c in r["all_reduces"])
+              and not any(r["launches"].values()) and r["twin"] <= CP_SMOKE_ATOL)
+        bad += [] if ok else [r["rank"]]
+        tm = r["timed"]
+        log(f"  rank {r['rank']} (slots [{r['index'] * slots}, {(r['index'] + 1) * slots})): "
+            f"cache {r['cache']} B (count {want_cache}), weights {r['weights']} B whole; "
+            f"requested after the draw {drawn} ({int(r['drawn'][1])} allocated), draw peak "
+            f"{int(r['draw_peak'][0])}; tokens {r['tokens']} "
+            f"({'equal to 13b' if part is None else f'part from 13b at step {part}'}), largest "
+            f"|logit diff| against 13b {diff:.4g} of {top:.4g} ({diff / top:.3%}); "
+            f"all-reduces per step {sorted(set(r['all_reduces']))} (want {want_ar}); median "
+            f"step {statistics.median(r['secs']) * 1e3:.2f} ms; timed step "
+            f"{tm['step_s'] * 1e3:.2f} ms, {tm['seconds'] / tm['step_s']:.1%} of it in "
+            f"{tm['all_reduces']} all-reduces of {tm['bytes']} B; launches {r['launches']}; "
+            f"13d CP smoke twin |diff| {r['twin']:.3g}: {'ok' if ok else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"13c ranks {bad}: bytes, logits, all-reduces or the twin off")
+    return {n: max(r["launches"][n] for r in ranks) for n in COUNTERS}
+
+
+def decode_twin(arch, params, device):
+    """The f32 smoke config of ``arch`` on ``device``: an 11-token prompt at
+    B=2 through ``extend`` (whisper with audio frames, internvl with an
+    image over placeholder tokens), then 3 ``decode`` steps with row 1
+    three positions behind; returns the decode logits on the host."""
+    cfg = configs.smoke_config(arch)
+    model = build_model(cfg, device=device)
+    p = _to_device(params, device)
+    rng = np.random.default_rng(16)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 14))).to(device)
+    extras, n_img = {}, 0
+    if cfg.family == "audio":
+        extras["audio_frames"] = torch.from_numpy(
+            (0.1 * rng.normal(size=(2, cfg.n_audio_ctx, cfg.d_model))).astype(np.float32))
+    if cfg.family == "vlm":
+        n_img = cfg.num_image_tokens
+        extras["vision_embeds"] = torch.from_numpy(
+            (0.1 * rng.normal(size=(2, n_img, cfg.d_model))).astype(np.float32))
+    extras = {k: v.to(device) for k, v in extras.items()}
+    prompt = torch.cat([toks.new_zeros((2, n_img)), toks[:, :11]], dim=1)
+    cache = model.init_cache(2, 32)
+    model.extend(p, prompt, cache, torch.zeros(2, dtype=torch.long, device=device),
+                 batch=extras or None)
+    out = []
+    for t in range(3):
+        lens = torch.tensor([n_img + 11 + t, n_img + 8 + t], device=device)
+        lg, cache = model.decode(p, toks[:, 11 + t:12 + t], cache, lens)
+        out.append(lg.cpu())
+    return torch.stack(out)
+
+
+def phase_decode_twins():
+    """13d: every config's f32 smoke decode on the card equals the CPU's,
+    and starcoder2-3b's smoke ring equals its whole cache over 40 steps."""
+    worst = {}
+    for arch in configs.ARCHS:
+        params = build_model(configs.smoke_config(arch), device="cpu").init(0)
+        worst[arch] = float((decode_twin(arch, params, "cuda")
+                             - decode_twin(arch, params, "cpu")).abs().max())
+    cfg = configs.smoke_config(STARCODER)
+    model = build_model(cfg, device="cuda")
+    params = _to_device(build_model(cfg, device="cpu").init(0), "cuda")
+    toks = torch.from_numpy(np.random.default_rng(17).integers(2, cfg.vocab_size, (2, 40)))
+    whole, ring = model.init_cache(2, 128), model.init_cache(2, 24, window_ring=True)
+    ring_fn, ring_diff = ring_decode(model), 0.0
+    for t in range(40):
+        tok, cl = toks[:, t:t + 1].to("cuda"), torch.full((2,), t, device="cuda")
+        a, whole = model.decode(params, tok, whole, cl)
+        b, ring = ring_fn(params, tok, ring, cl)
+        ring_diff = max(ring_diff, float((a - b).abs().max()))
+    ok = max(worst.values()) <= DECODE_SMOKE_ATOL and ring_diff <= DECODE_SMOKE_ATOL
+    log(f"[13 decode] 13d f32 smoke twins: decode on the card vs the CPU, largest |logit "
+        f"diff| per config {{{', '.join(f'{a}: {d:.3g}' for a, d in worst.items())}}}; "
+        f"starcoder2-3b smoke over a 24-slot ring vs a 128-slot cache, 40 steps (wrapped at "
+        f"24): {ring_diff:.3g} (limit {DECODE_SMOKE_ATOL}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("13d: a smoke decode on the card differs from the CPU's or the "
+                             "ring from the whole cache")
+
+
+def phase_decode(card):
+    """Phase 13 (see the module docstring). Returns (13a's prefill counts,
+    the decode path's counts: 13a, 13b and every 13c rank)."""
+    t_phase = time.perf_counter()
+    prefill_counts, a_counts = phase_decode_prompt(card)
+    first, whole_run, b_counts = phase_decode_long(card)
+    free_device("13c's ranks")
+    c_counts = phase_decode_cp(card, first, whole_run)
+    phase_decode_twins()
+    counts = {n: a_counts[n] + b_counts[n] + c_counts[n] for n in COUNTERS}
+    assert not any(counts.values()), counts
+    log(f"[13 decode] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return prefill_counts, counts
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
@@ -5653,6 +6082,7 @@ def main() -> None:
     del model, params
     tp_counts, _ = phase_tp(card)
     mesh_counts = phase_train_mesh(card, train_records)
+    prompt_counts, decode_counts = phase_decode(card)
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for paged_attention_quant and
     # quantize_pages, the gathered KIVI starcoder2-3b serve for
@@ -5673,7 +6103,8 @@ def main() -> None:
              "whisper-base gathered": w_counts, "internvl2-2b auto": v_counts,
              "qwen2.5-32b tp=2 paged fp, per rank": tp_counts["fp"],
              "qwen2.5-32b tp=2 paged KIVI, per rank": tp_counts["KIVI"],
-             "qwen2.5-32b tp=2 paged LoRA, per rank": tp_counts["LoRA"]}
+             "qwen2.5-32b tp=2 paged LoRA, per rank": tp_counts["LoRA"],
+             "starcoder2-3b extend of an 8192-token prompt": prompt_counts}
     kernels = [dict(name=k, route="cuda", source=os.path.relpath(sources[k], ROOT),
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=timing[k]["max_abs_err"], ms=timing[k]["ms"],
@@ -5681,7 +6112,8 @@ def main() -> None:
                     bound_by=timing[k]["bound_by"], library_ms=timing[k]["library_ms"],
                     launches_by_path={**{p: c[k] for p, c in paths.items() if c.get(k)},
                                       "train": train_counts[k],
-                                      "train mesh, per rank": mesh_counts[k]})
+                                      "train mesh, per rank": mesh_counts[k],
+                                      "Model.decode (13a-13c)": decode_counts[k]})
                for k in REPLACES]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,13 +19,15 @@ no separate feed-forward) and whisper-base run on the gathered backend
 only.
 ``get_config("<arch-id>")`` returns the exact published config;
 ``smoke_config("<arch-id>")`` the reduced variant the CPU tests use (2
-layers, d_model <= 256, f32).
+layers, d_model <= 256, f32). ``SHAPES`` / ``get_shape`` are the assigned
+input shapes (``configs/shapes.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, dense_stages  # noqa: F401
+from repro_torch.configs.shapes import SHAPES, InputShape, get_shape  # noqa: F401
 
 from repro_torch.configs import (deepseek_v3_671b, gemma_2b,  # noqa: E402
                                 internvl2_2b, jamba_v0_1_52b, llama4_scout_17b_a16e,

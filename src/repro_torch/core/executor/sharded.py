@@ -226,6 +226,16 @@ def _glu_leaf(cfg: ModelConfig, path) -> bool:
     return is_glu(cfg.activation) and len(path) >= 2 and path[-2] in ("w1", "shared_w1")
 
 
+def rank_block(t: torch.Tensor, dim: int, parts, shape, coords) -> torch.Tensor:
+    """The rank's block of ``t`` along ``dim`` cut over the mesh axes
+    ``parts``: the block of its row-major index over them (a view)."""
+    index, size = 0, 1
+    for a in parts:
+        index, size = index * shape[a] + coords[a], size * shape[a]
+    n = t.shape[dim] // size
+    return t.narrow(dim, index * n, n)
+
+
 def train_slicer(cfg: ModelConfig, mesh, rules, device=None):
     """``place(tree, axes)`` for one rank of a training mesh: the rank's
     block of every leaf, cut by ``rules.pspec`` of the leaf's logical axes
@@ -255,11 +265,7 @@ def train_slicer(cfg: ModelConfig, mesh, rules, device=None):
                     t = _take(t, head_order, dim)
                 if name == "ff" and _glu_leaf(cfg, path):
                     t = _take(t, glu_order(t.shape[dim], mp), dim)
-            index, size = 0, 1
-            for a in parts:
-                index, size = index * mesh.shape[a] + coords[a], size * mesh.shape[a]
-            n = t.shape[dim] // size
-            t = t.narrow(dim, index * n, n)
+            t = rank_block(t, dim, parts, mesh.shape, coords)
         # a copy, never a view: a view would keep the whole leaf alive
         return t.to(device).clone()
 

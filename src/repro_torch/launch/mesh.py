@@ -172,7 +172,8 @@ class Mesh:
 
     def barrier(self) -> None:
         """Every rank of the world waits here for the others."""
-        dist.barrier()
+        if self.world.size > 1:
+            dist.barrier()
 
 
 # one mesh per shape in this process: its groups were made collectively by
@@ -314,6 +315,18 @@ def make_mesh(shape: Mapping[str, int], *, backend: Optional[str] = None, device
     mesh = Mesh(shape=shape, rank=rank, backend=backend, device=dev, groups=groups)
     _MESHES[key] = mesh
     return mesh
+
+
+def make_local_mesh(device="cuda") -> Mesh:
+    """A mesh of one rank, (data 1, model 1), in this process and with no
+    process group: each of its groups holds this rank alone, so it runs
+    and counts no collective (``launch/steps.py::build_step`` on one
+    process). ``device``: where the rank runs (raises for CUDA where CUDA
+    is not available)."""
+    shape = {"data": 1, "model": 1}
+    groups = {n: AxisGroup(n, (0,), 0, None) for n in (*shape, "batch", "world")}
+    return Mesh(shape=shape, rank=0, backend="local", device=normalize_device(device),
+                groups=groups)
 
 
 def make_serving_mesh(data_axis: int = 1, model_axis: int = 1, *,

@@ -32,6 +32,20 @@ functions on its shard-local heads, and ``proj_out_lora`` takes the rank's
 model group ``tp``: the local output projection (and its ``wo`` LoRA
 delta) is a partial sum that one all-reduce completes before the bias.
 
+The contiguous decode path (the twin of the reference's ``attn_decode``,
+which only ``Model.decode`` calls): ``attn_decode`` writes one token's K/V
+into a ``(B, Smax, KV, D)`` cache in place and attends through
+``decode_attention`` (global, window and chunked masks, or a given
+validity), in the reference's rounding: f32 products of the cache in its
+own dtype, the normalized probabilities cast to the V cache's dtype before
+the PV product. Under the rules' "window_ring" option a window layer whose
+cache is at most ``sliding_window + 1024`` wide holds a RING over absolute
+positions (``window_ring_applies``): slot ``pos % W``. Handed a ``cp``
+group (context parallelism, ``decode_attention_cp``), each rank holds its
+slice of the cache's sequence and the shards' (m, l, o) merge in two
+all-reduces. Plain PyTorch, as the reference computes all three outside
+Pallas.
+
 whisper's encoder self-attention (``attn_forward`` with ``causal=False``)
 and its decoder's cross-attention over the encoder states
 (``cross_attend``) are not causal, so ``flash_prefill`` cannot take them:
@@ -56,6 +70,7 @@ from repro_torch.kernels.paged_attention import (paged_attend, paged_attend_exte
                                                 paged_attend_extend_quant)
 from repro_torch.models.common import apply_rope, normal_init
 from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
+from repro_torch.sharding.rules import current_rules
 
 NEG_INF = -1e30
 
@@ -451,6 +466,157 @@ def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
             full.index_copy_(0, pi, oc)
             out = full
     return proj_out_lora(p["wo"], out, lora, lora_ids), cache
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache: one-token decode, the window ring, context parallelism
+# ---------------------------------------------------------------------------
+
+def _decode_valid(pos, L, kind: str, window: int, chunk: int):
+    """Which cache positions ``pos`` (1, S) a row with ``L`` (B, 1) valid
+    entries (the decoded token's included) attends to: (B, S) bool."""
+    valid = pos < L
+    if kind == "window" and window:
+        valid = valid & (pos > L - 1 - window)
+    elif kind == "chunked" and chunk:
+        valid = valid & ((pos // chunk) == ((L - 1) // chunk))
+    return valid
+
+
+def decode_attention(q, k_cache, v_cache, total_len, *, kind: str = "global",
+                     window: int = 0, chunk: int = 0, scale: float,
+                     valid_override=None):
+    """q: (B, 1, H, D); caches: (B, Smax, KV, D); total_len: (B,) valid
+    cache entries including the token being decoded; ``valid_override``
+    (B, Smax) bool replaces the mask. The twin of the reference's
+    ``decode_attention``: scores are f32 products of q and the cache in
+    their own dtypes, and ``p / max(l, 1e-30)`` is cast to the V cache's
+    dtype before the PV product (f32 accumulation); the result is in q's
+    dtype."""
+    B, _, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G, Dv = H // KV, v_cache.shape[-1]
+    if valid_override is not None:
+        valid = valid_override
+    else:
+        valid = _decode_valid(torch.arange(S, device=q.device)[None, :],
+                              total_len.long()[:, None], kind, window, chunk)
+    valid = valid[:, None, None, :]
+    s = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KV, G, D).float(),
+                     k_cache.float()) * scale
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    p = (p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)).to(v_cache.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", p.float(), v_cache.float())
+    return o.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def decode_attention_cp(q, k_cache, v_cache, total_len, *, cp, kind: str = "global",
+                        window: int = 0, chunk: int = 0, scale: float):
+    """Context-parallel decode attention (the twin of the reference's
+    ``decode_attention_cp``): this rank of the group ``cp``
+    (``launch/mesh.AxisGroup``) holds cache slots [index * S_loc, (index +
+    1) * S_loc) of every row, k_cache / v_cache (B, S_loc, KV, D). Each rank
+    takes its flash-decode partial (m, l, o) in f32 (q, k and v upcast, as
+    the reference does) and the shards merge by exactly two all-reduces:
+    the max of m, then one sum of l * alpha and o * alpha packed into one
+    tensor (the reference: one pmax and two psums of the same values).
+    Returns (B, 1, H, Dv) in q's dtype, equal on every rank."""
+    B, _, H, D = q.shape
+    S_loc, KV = k_cache.shape[1], k_cache.shape[2]
+    G, Dv = H // KV, v_cache.shape[-1]
+    pos = cp.index * S_loc + torch.arange(S_loc, device=q.device)[None, :]
+    valid = _decode_valid(pos, total_len.long()[:, None], kind, window, chunk)
+    valid = valid[:, None, None, :]
+    s = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KV, G, D).float(),
+                     k_cache.float()) * scale
+    s = torch.where(valid, s, NEG_INF)
+    m_loc = s.amax(dim=-1)  # (B, KV, G)
+    p = torch.where(valid, torch.exp(s - m_loc[..., None]), 0.0)
+    o_loc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    m_g = cp.all_reduce(m_loc.clone(), op="max")
+    alpha = torch.exp(m_loc - m_g)[..., None]
+    lo = cp.all_reduce(torch.cat([p.sum(dim=-1)[..., None] * alpha, o_loc * alpha], dim=-1))
+    o = lo[..., 1:] / torch.clamp_min(lo[..., :1], 1e-30)
+    return o.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def window_ring_applies(cfg, spec, width: int, rules=None) -> bool:
+    """Whether a layer's ``width``-slot cache is a ring over its sliding
+    window (the reference's condition): the rules in force (``rules``, or
+    ``current_rules()``) carry the "window_ring" option, the layer is
+    window attention and the cache is at most ``sliding_window + 1024``
+    wide."""
+    rules = current_rules() if rules is None else rules
+    return bool(rules is not None and rules.opt("window_ring") and spec.attn_kind == "window"
+                and cfg.sliding_window and width <= cfg.sliding_window + 1024)
+
+
+def attn_decode(p, cfg, spec, x, cache, cache_len, cp=None):
+    """One-token decode over a contiguous cache (the twin of the
+    reference's ``attn_decode``). x: (B, 1, d); cache: {"k", "v"} (B, Smax,
+    KV, D), written IN PLACE; cache_len: (B,) entries before this token,
+    each row's new position (``Model.decode`` has checked that it lies in
+    the cache). RoPE at that position where the layer uses it.
+
+    * A ring (``window_ring_applies``): the token goes to slot ``pos % W``;
+      slot j holds absolute position ``p_abs = L - ((L - j) % W)`` (the
+      largest p <= L with p % W == j), valid where ``p_abs >= 0`` and
+      ``p_abs > L - sliding_window``; global ``decode_attention`` over
+      that mask. Keys are stored roped at their absolute positions, so a
+      slot is reused without recomputation. Under ``cp`` every rank holds
+      the whole ring and runs it so.
+    * ``cp`` (a rank's ``AxisGroup``; the cache is its slice of the
+      sequence): only the rank owning slot ``pos`` writes the token, then
+      ``decode_attention_cp``.
+    * Otherwise the token goes to slot ``pos`` and ``decode_attention``
+      masks the layer's kind.
+
+    Returns (out (B, 1, d), cache)."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, cfg, x)
+    pos = cache_len.long()
+    if _uses_rope(cfg, spec):
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    k_new = k[:, 0].to(cache["k"].dtype)  # (B, KV, D)
+    v_new = v[:, 0].to(cache["v"].dtype)
+    bidx = torch.arange(B, device=x.device)
+    W = cache["k"].shape[1]
+    scale = _scale(cfg)
+    if window_ring_applies(cfg, spec, W):
+        slot = pos % W
+        cache["k"][bidx, slot] = k_new
+        cache["v"][bidx, slot] = v_new
+        L = pos[:, None]
+        p_abs = L - ((L - torch.arange(W, device=x.device)[None, :]) % W)
+        valid = (p_abs >= 0) & (p_abs > L - cfg.sliding_window)
+        out = decode_attention(q, cache["k"], cache["v"], pos + 1, kind="global",
+                               scale=scale, valid_override=valid)
+    elif cp is not None:
+        local = pos - cp.index * W
+        mine = ((local >= 0) & (local < W))[:, None, None]
+        at = local.clamp(0, W - 1)
+        # rows another rank owns write back what the slot holds
+        cache["k"][bidx, at] = torch.where(mine, k_new, cache["k"][bidx, at])
+        cache["v"][bidx, at] = torch.where(mine, v_new, cache["v"][bidx, at])
+        out = decode_attention_cp(q, cache["k"], cache["v"], pos + 1, cp=cp,
+                                  kind=spec.attn_kind, window=cfg.sliding_window,
+                                  chunk=cfg.chunk_size, scale=scale)
+    else:
+        cache["k"][bidx, pos] = k_new
+        cache["v"][bidx, pos] = v_new
+        out = decode_attention(q, cache["k"], cache["v"], pos + 1, kind=spec.attn_kind,
+                               window=cfg.sliding_window, chunk=cfg.chunk_size,
+                               scale=scale)
+    return proj_out(p["wo"], out), cache
+
+
+def init_attn_cache(cfg, batch, max_seq, dtype, device):
+    """An empty contiguous cache {"k", "v"} (batch, max_seq, KV, D)."""
+    kv = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------

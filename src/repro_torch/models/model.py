@@ -4,8 +4,8 @@ the paged and gathered serving paths, stacks with state mixers (Mamba:
 jamba-v0.1-52b; mLSTM and sLSTM: xlstm-1.3b) and whisper's
 encoder-decoder on the gathered path, and internvl's image splice.
 
-The twin of ``repro.models.model.build_model`` (every part but the
-contiguous ``decode``): ``forward`` (the full-sequence training forward,
+The twin of ``repro.models.model.build_model``: ``forward`` (the
+full-sequence training forward,
 with DeepSeek-V3's multi-token prediction head ``mtp_head`` and the MoE
 layers' aux loss; each layer under ``torch.utils.checkpoint``),
 ``embed_tokens``, ``head``, ``init_cache`` / ``extend`` (a chunk appended to
@@ -16,7 +16,14 @@ token) and ``extend_paged`` (chunked prefill / ragged mixed batches) and
 ``verify_paged`` (C real positions per row: speculative verify and draft
 catch-up); on other stacks (sliding-window attention: starcoder2-3b;
 chunked attention: llama4-scout; MLA: deepseek-v3; state mixers) those
-three are None, as in the reference.
+three are None, as in the reference. ``decode`` (one token over the
+contiguous cache of ``init_cache``, every family: the reference's only
+caller is its ``build_step``, ``launch/steps.py`` here) writes each
+attention layer's K/V in place, runs MLA's absorbed form and the state
+mixers' one-token step; ``init_cache(..., window_ring=True)`` gives a
+window layer a ring of ``sliding_window + 512`` slots (a ``RingCache``),
+and ``decode``'s ``cp`` cuts each attention layer's cache over a group of
+ranks (context parallelism, ``attention.attn_decode``).
 A MoE layer's feed-forward is ``moe.moe_apply`` at capacity factor 2.0, as
 the reference serves it, with its aux loss dropped (1.25 and the aux loss
 kept in ``forward``, as the reference trains it). Parameters are plain
@@ -82,6 +89,7 @@ from repro_torch.models.common import (apply_norm, dense, dense_axes, gated, is_
                                        make_dense, make_norm, norm_axes, normal_init,
                                        sinusoidal_positions)
 from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
+from repro_torch.sharding.rules import current_rules
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -257,6 +265,33 @@ def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
     return _ff_branch(p, spec, cfg, x, lora, lora_ids)[0], cache
 
 
+def _layer_decode(p, spec, cfg, x, cache, cache_len, cp=None):
+    """One token through one layer over its contiguous cache (the twin of
+    the reference's ``_layer_decode``): ``attn_decode`` (K/V written in
+    place; ``cp``: the rank's slice of the sequence), ``mla_decode`` (the
+    absorbed form), or a state mixer's step from its
+    state; a whisper decoder layer then attends over every row of its
+    ``cross_k`` / ``cross_v`` through ``decode_attention`` at
+    1/sqrt(head_dim); the feed-forward at capacity factor 2.0. Returns (x,
+    the layer's cache)."""
+    h = apply_norm(cfg.norm, p["norm1"], x)
+    if spec.mixer in STATE_MIXERS:
+        y, cache = _state_extend(p["mixer"], spec, cfg, h, cache)
+    elif spec.mixer == "mla":
+        y, cache = mla.mla_decode(p["mixer"], cfg, spec, h, cache, cache_len)
+    else:
+        y, cache = attn.attn_decode(p["mixer"], cfg, spec, h, cache, cache_len, cp)
+    x = x + y
+    if "cross" in p:
+        hc = apply_norm(cfg.norm, p["cross_norm"], x)
+        ek, ev = cache["cross_k"], cache["cross_v"]
+        q = attn.proj_qkv(p["cross"]["wq"], hc)
+        total = torch.full((x.shape[0],), ek.shape[1], dtype=torch.long, device=x.device)
+        out = attn.decode_attention(q, ek, ev, total, scale=1.0 / math.sqrt(cfg.head_dim))
+        x = x + attn.proj_out(p["cross"]["wo"], out)
+    return _ff_branch(p, spec, cfg, x)[0], cache
+
+
 def _mixer_forward(p, spec, cfg, h, positions, tp=None):
     """A layer's mixer over a whole sequence from an empty history; ``tp``:
     an attention layer's heads are the rank's (``attn.attn_forward``)."""
@@ -399,6 +434,30 @@ def cache_leaf_shapes(cfg: ModelConfig) -> List[Dict[str, CacheLeaf]]:
     return out
 
 
+class RingCache(list):
+    """The cache list of ``init_cache(..., window_ring=True)``: its window
+    layers hold rings of ``min(max_seq, sliding_window + 512)`` slots.
+    ``decode`` runs it only under the rules' "window_ring" option and
+    ``extend`` refuses it (the reference has no ring-aware extend)."""
+
+
+def fill_ring(ring: "RingCache", cache: list, length: int) -> "RingCache":
+    """Fill ``ring`` (``init_cache(..., window_ring=True)``) from a whole
+    cache of the same model whose rows hold ``length`` tokens: a leaf
+    narrower than its whole twin (a window layer's ring of W slots) takes
+    positions [length - W, length) at slots ``p % W``, every other leaf is
+    copied whole. Returns ``ring``, written in place."""
+    for r_layer, c_layer in zip(ring, cache, strict=True):
+        for name, t in r_layer.items():
+            src = c_layer[name]
+            if t.shape == src.shape:
+                t.copy_(src)
+                continue
+            pos = torch.arange(max(0, length - t.shape[1]), length, device=t.device)
+            t[:, pos % t.shape[1]] = src[:, pos]
+    return ring
+
+
 def _window(c, spec):
     """The layer's window of the gathered cache (an attention layer's
     ``k``, an MLA layer's ``c_kv``), whose width is the window's; None for
@@ -509,20 +568,33 @@ class Model:
                                             device=dev)}
                  for name in ("k", "v")} for _ in self.specs]
 
-    def init_cache(self, batch: int, max_seq: int) -> List[Dict[str, torch.Tensor]]:
-        """An empty gathered cache on the model's device, per layer: for
-        each page leaf of ``cache_leaf_shapes`` a zeroed (batch, max_seq) +
-        per-token shape window, {"k", "v"} (B, W, KV, D) for attention,
-        {"c_kv": (B, W, r), "k_pe": (B, W, rope)} for MLA, in the
+    def init_cache(self, batch: int, max_seq: int, *, window_ring: bool = False,
+                   place=None) -> List[Dict[str, torch.Tensor]]:
+        """An empty gathered (or contiguous) cache on the model's device, per
+        layer: for each page leaf of ``cache_leaf_shapes`` a zeroed (batch,
+        max_seq) + per-token shape window, {"k", "v"} (B, W, KV, D) for
+        attention, {"c_kv": (B, W, r), "k_pe": (B, W, rope)} for MLA, in the
         activation dtype; then the layer's empty states (``init_state``: a
-        state mixer's history, a whisper layer's cross K/V)."""
-        out = []
-        for spec, leaves in zip(self.specs, cache_leaf_shapes(self.cfg)):
-            layer = {name: torch.zeros((batch, max_seq) + leaf.shape, dtype=leaf.dtype,
+        state mixer's history, a whisper layer's cross K/V).
+
+        ``window_ring``: a window attention layer takes ``min(max_seq,
+        sliding_window + 512)`` slots, a ring for ``decode`` under the
+        "window_ring" option (the reference's ``_layer_cache``); the list is
+        then a ``RingCache``. ``place(i, layer)``, where given, maps each
+        layer's dict as soon as it is made, before the next one (a rank
+        keeps its slice of each: ``launch/specs.py::rank_cache``)."""
+        cfg = self.cfg
+        out = RingCache() if window_ring else []
+        for i, (spec, leaves) in enumerate(zip(self.specs, cache_leaf_shapes(cfg))):
+            width = max_seq
+            if window_ring and spec.mixer == "attn" and spec.attn_kind == "window" \
+                    and cfg.sliding_window:
+                width = min(max_seq, cfg.sliding_window + 512)
+            layer = {name: torch.zeros((batch, width) + leaf.shape, dtype=leaf.dtype,
                                        device=self.device)
                      for name, leaf in leaves.items() if not leaf.state}
-            layer.update(init_state(self.cfg, spec, batch, self.device))
-            out.append(layer)
+            layer.update(init_state(cfg, spec, batch, self.device))
+            out.append(layer if place is None else place(i, layer))
         return out
 
     # ---------------- shared helpers ----------------------------------------
@@ -703,6 +775,9 @@ class Model:
         cache list with each state layer's entry replaced by its state
         after the chunk)."""
         cfg = self.cfg
+        if isinstance(cache, RingCache):
+            raise ValueError(f"{cfg.name}: extend takes no window ring (the reference has no "
+                             "ring-aware extend); fill a ring from a whole cache")
         extras = batch or {}
         C = tokens.shape[1]
         if has_cross(cfg) and "audio_frames" in extras:
@@ -732,6 +807,63 @@ class Model:
                                  lora_ids=ids)
             out.append(c)
         return self.head(params, x), out
+
+    # ---------------- decode (one token, contiguous cache) ---------------------
+    def _check_positions(self, cache, cache_len, cp) -> None:
+        """Every row's new position must lie inside each layer's cache (a
+        ring's takes any): the reference's scatter drops a write past the
+        cache and attends without it, the port raises (one host read of
+        cache_len a step). Under ``cp`` an attention cache is the rank's
+        1/cp.size of the sequence, and an MLA layer is refused before any
+        rank starts a collective."""
+        if cp is not None and any(s.mixer == "mla" for s in self.specs):
+            raise NotImplementedError(
+                f"{self.cfg.name}: context-parallel decode of MLA latents is not ported "
+                "(no long-context config has MLA)")
+        rules = current_rules()
+        if isinstance(cache, RingCache) and not (rules is not None
+                                                 and rules.opt("window_ring")):
+            raise ValueError(f"{self.cfg.name}: a window ring decodes only under the "
+                             "rules' \"window_ring\" option (use_rules)")
+        top = int(cache_len.max()) if cache_len.numel() else 0
+        for i, (spec, c) in enumerate(zip(self.specs, cache)):
+            w = _window(c, spec)
+            if w is None:
+                continue
+            width = w.shape[1]
+            if spec.mixer == "attn":
+                if attn.window_ring_applies(self.cfg, spec, width):
+                    continue
+                width *= 1 if cp is None else cp.size
+            if top >= width:
+                raise IndexError(f"{self.cfg.name} layer {i}: a row decodes position {top} "
+                                 f"past its {width}-slot cache")
+
+    @torch.no_grad()
+    def decode(self, params, tokens, cache, cache_len, *, cp=None):
+        """tokens: (B, 1) at positions ``cache_len`` (B,); cache: the list of
+        ``init_cache`` (attention K/V written in place, a state layer's
+        entry replaced by its state after the token). The twin of the
+        reference's ``decode`` over its unstacked cache: learned positions
+        at ``clip(cache_len, 0, size - 1)``, each layer through
+        ``_layer_decode``, the head. A window ring (``RingCache``) needs
+        the rules' "window_ring" option in force (``use_rules``).
+
+        ``cp``: a rank's group of a context-parallel decode (``launch/
+        mesh.AxisGroup``): each attention layer's cache holds the rank's
+        1/cp.size of the sequence, slots [index * S_loc, (index + 1) *
+        S_loc), and merges over the group (two all-reduces a layer); a
+        ring, the state mixers' states and whisper's cross K/V stay whole
+        on every rank, and an MLA layer raises ``NotImplementedError``.
+        Returns (logits (B, 1, V), the cache list)."""
+        self._check_positions(cache, cache_len, cp)
+        x = self.add_positions(params, self.embed_tokens(params, tokens),
+                               cache_len.long()[:, None])
+        out = []
+        for p, spec, c in zip(params["layers"], self.specs, cache):
+            x, c = _layer_decode(p, spec, self.cfg, x, c, cache_len, cp)
+            out.append(c)
+        return self.head(params, x), (RingCache(out) if isinstance(cache, RingCache) else out)
 
     # ---------------- decode_paged (one token) --------------------------------
     def _check_tp(self, tp) -> None:

@@ -5,7 +5,9 @@ extend), paged attention over KIVI pages, the
 per-page pack and unpack, the batched grouped LoRA matmul (``bgmv``: one
 site, and up to three sites in one launch with each delta added to its base
 in place), and the causal flash prefill (``flash_prefill``) with the
-gathered extend's row split.
+gathered extend's row split; then model paths on the card against the
+CPU (the last: one contiguous decode step over a window ring and over
+the whole cache).
 Every test here is marked ``gpu`` and skips without CUDA.
 
 This file imports neither JAX nor ``repro``, so it runs on a machine with
@@ -1494,3 +1496,36 @@ def test_tp2_smoke_serve_on_card_equals_cpu(cuda):
                                                         values, timeout=600):
         assert streams == want
         assert launches == layers * steps > 0
+
+
+from repro_torch.models.model import fill_ring  # noqa: E402
+from repro_torch.sharding.rules import Rules, use_rules  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
+
+
+@pytest.mark.gpu
+def test_ring_decode_step_on_card_equals_full(cuda):
+    """One contiguous decode step of starcoder2-3b's smoke config in f32 on
+    the card after a 40-token prefill (window 16): over a 24-slot ring
+    filled from the whole cache at slots p % 24 (under the "window_ring"
+    option), over the whole 64-slot cache, and on the CPU from the same
+    weights; logits within 1e-4 (f32 sums in other orders, no TF32)."""
+    cfg = configs.smoke_config("starcoder2-3b")
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(0)
+    model = build_model(cfg, device="cuda")
+    gparams = tree_map(lambda t: t.to("cuda"), params)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(2, cfg.vocab_size, (2, 41)))
+    S = 40
+    out = {}
+    for dev, m, p in (("cpu", cpu, params), ("cuda", model, gparams)):
+        whole = m.init_cache(2, 64)
+        m.extend(p, toks[:, :S].to(dev), whole, torch.zeros(2, dtype=torch.long, device=dev))
+        ring = fill_ring(m.init_cache(2, 24, window_ring=True), whole, S)
+        lens = torch.full((2,), S, device=dev)
+        out[dev], _ = m.decode(p, toks[:, S:].to(dev), whole, lens)
+        with use_rules(Rules({}, options={"window_ring": True})):
+            out[dev + " ring"], _ = m.decode(p, toks[:, S:].to(dev), ring, lens)
+    torch.testing.assert_close(out["cuda ring"], out["cuda"], atol=1e-4, rtol=0)
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], atol=1e-4, rtol=0)
+    torch.testing.assert_close(out["cpu ring"], out["cpu"], atol=1e-4, rtol=0)

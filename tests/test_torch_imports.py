@@ -8,7 +8,8 @@ that hold its latents and KIVI windows, and the state mixers (Mamba,
 xLSTM) with the jamba-v0.1-52b and xlstm-1.3b configs, and the training
 path: optimizer, train loop, synthetic data, checkpoints and the train
 driver, and tensor-parallel serving: the sharding rules, the mesh of
-ranks and the sharded runner."""
+ranks and the sharded runner, and the contiguous decode's ``build_step``:
+the input shapes, the input and cache specs and the steps."""
 import os
 import subprocess
 import sys
@@ -61,6 +62,8 @@ assert train <= set(mods), train - set(mods)
 tp = {"repro_torch.sharding.config", "repro_torch.sharding.rules",
       "repro_torch.launch.mesh", "repro_torch.core.executor.sharded"}
 assert tp <= set(mods), tp - set(mods)
+steps = {"repro_torch.configs.shapes", "repro_torch.launch.specs", "repro_torch.launch.steps"}
+assert steps <= set(mods), steps - set(mods)
 """
 
 
