@@ -260,6 +260,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                13a's and 13b's steps (whole and ring) are profiled once.
                Model.decode launches none of the six kernels (plain
                PyTorch, as the reference decodes outside Pallas).
+ 14. examples — the six example twins (``examples/<name>_torch.py``). 14a:
+               each command line as a user runs it (no ``--device``, so on
+               the card; ``train_small`` at ``--steps 40``), all six at
+               once, each in a process of its own with TMPDIR under build/:
+               each must exit 0; its report lines and wall time echoed.
+               14b: each twin's ``run(cfg, "cuda", ...)`` at published
+               width: quickstart and serve_batch (16 requests, fcfs) on
+               gemma-2b whole (18 layers, MQA: G = 8, D = 256, vocab 256
+               000; the bytes of every dispatch's (B, C, V) f32 logits
+               copied to the host), serve_batch on phase 11's qwen2.5-32b
+               block, disagg_demo on starcoder2-3b whole (gathered),
+               fleet_demo on olmo-1b whole (2 instances), moe_serving on
+               phase 5's deepseek-v3 block (the router's load over 256
+               experts top-8 on 512 probes), train_small's olmo-100m for
+               40 steps (ce must fall); each run's dict as one JSON line,
+               its launches held to their formulas (paged_attention =
+               layers x paged dispatches, flash_prefill = layers x gathered
+               dispatches with a fresh row, MLA's plain; 0 elsewhere), then
+               paged_attention held against its plain version at every
+               served shape, flash_prefill likewise. 14c: the greedy twins
+               (disagg_demo, fleet_demo, moe_serving) at smoke width in f32
+               from the CPU's seed-0 weights: the card's streams and
+               counters equal the CPU's.
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -268,6 +291,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
@@ -276,6 +301,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -295,6 +321,7 @@ from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  #
 from repro_torch.core.executor import state as state_mod  # noqa: E402
 from repro_torch.core.executor.base import marshal_batch  # noqa: E402
 from repro_torch.core.scheduler import ChunkWork  # noqa: E402
+from repro_torch.core.executor import GatheredRunner, PagedRunner  # noqa: E402
 from repro_torch.core.executor.gathered import dequantize_window  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fmod  # noqa: E402
@@ -3383,16 +3410,30 @@ def phase_serve_llama4():
 # ---------------------------------------------------------------------------
 # quantized stores on the gathered backend; deepseek-v3 (MLA + 256 experts)
 # ---------------------------------------------------------------------------
-def record_chunks(runner):
-    """Wrap ``runner.execute`` so each step's (start, length) of every chunk
-    is appended to the returned list (for the byte and launch formulas)."""
-    steps, execute = [], runner.execute
+def record_dispatches(target, kind=None, out=None):
+    """Wrap ``target.execute`` (one runner's, or a runner class's: then every
+    instance's until the caller restores it) so each dispatch appends a dict
+    to ``out`` (a new list unless given; returned): ``kind``, ``chunks`` (the
+    (start, length) of each chunk, for the byte and launch formulas),
+    ``logits_bytes`` (the f32 logits copied to the host) and ``seconds`` (host
+    time: a dispatch ends with its logits on the host, so the host clock
+    covers its device work)."""
+    out = [] if out is None else out
+    execute = target.execute
 
-    def run(batch):
-        steps.append([(c.start, c.length) for c in batch.chunks])
-        return execute(batch)
-    runner.execute = run
-    return steps
+    def run(*args):  # (batch) on a runner, (self, batch) on a runner class
+        batch, t0 = args[-1], time.perf_counter()
+        logits = execute(*args)
+        out.append(dict(kind=kind, chunks=[(c.start, c.length) for c in batch.chunks],
+                        logits_bytes=logits.nbytes, seconds=time.perf_counter() - t0))
+        return logits
+    target.execute = run
+    return out
+
+
+def chunks_of(disp):
+    """Each recorded dispatch's (start, length) of every chunk."""
+    return [d["chunks"] for d in disp]
 
 
 def phase_serve_starcoder_quant(fp_rate, fp_ttft):
@@ -3411,10 +3452,11 @@ def phase_serve_starcoder_quant(fp_rate, fp_ttft):
                                   prefill_chunk=512))
     cfg, runner, store = engine.model.cfg, engine.runner, engine.store
     assert engine.paged_runner is None and store.quantized
-    steps = record_chunks(runner)
+    disp = record_dispatches(runner)
     rng = np.random.default_rng(7)
     add_traffic(engine, rng, "r")
     metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    steps = chunks_of(disp)
     gen = sum(m.num_generated for m in metrics)
     P = engine.cfg.block_size
     fills = sum((st + ln) // P > st // P for step in steps for st, ln in step)
@@ -3558,10 +3600,11 @@ def phase_serve_deepseek(model, params, kv_quant=None, ref=None):
             max_batch_slots=8, max_batched_tokens=512, prefill_chunk=256)))
     runner = engine.runner
     assert engine.paged_runner is None and not engine.store.quantized
-    steps = record_chunks(runner)
+    disp = record_dispatches(runner)
     add_traffic(engine, np.random.default_rng(7), "r")
     model.route_rows = dict.fromkeys(model.route_rows, 0)
     metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    steps = chunks_of(disp)
     assert all(n == 0 for n in counts.values()), counts
     rows = dict(model.route_rows)
     assert rows == {"flash_prefill": 0, "flash_attention": sum(map(len, steps))}, rows
@@ -3873,10 +3916,11 @@ def phase_serve_jamba(model, params, kv_quant=None, fp=None):
     runner, store = engine.runner, engine.store
     assert engine.paged_runner is None and store.quantized == (kv_quant is not None)
     assert engine.scheduler.cfg.exact_chunks and engine.prefix_cache is None
-    steps = record_chunks(runner)
+    disp = record_dispatches(runner)
     add_traffic(engine, np.random.default_rng(7), "r")
     model.route_rows = dict.fromkeys(model.route_rows, 0)
     metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    steps = chunks_of(disp)
     assert all(len({ln for _, ln in s}) == 1 for s in steps), "a ragged state dispatch"
     fresh = sum(any(st == 0 for st, _ in s) for s in steps)
     assert counts["flash_prefill"] == fresh == runner.prefill_steps > 0, (counts, fresh)
@@ -3992,9 +4036,10 @@ def phase_serve_xlstm(model, params):
     assert len(store.state_leaves) == 4 * cfg.num_layers, len(store.state_leaves)
     slot = store.state_bytes_per_slot()
     assert slot == 706_511_616, slot
-    steps = record_chunks(runner)
+    disp = record_dispatches(runner)
     add_traffic(engine, np.random.default_rng(7), "r", n=4, prompt=(128, 256), gen=16)
     metrics, dt, counts = run_served(engine, COUNTERS, paged=False, n=4, gen=16)
+    steps = chunks_of(disp)
     assert all(n == 0 for n in counts.values()), counts
     rows = sum(len(s) for s in steps)
     assert engine.host_copy_bytes == 2 * rows * slot == state_host_bytes(engine, steps)
@@ -4111,30 +4156,14 @@ def check_paged_served(calls) -> None:
         f"(atol {ATOL[torch.bfloat16]:g}) ok")
 
 
-def timed_dispatches(runner):
-    """Wrap ``runner.execute`` so each dispatch's (rows, longest chunk, host
-    seconds) is appended to the returned list; a dispatch ends with its
-    logits on the host, so the host clock covers its device work."""
-    out, execute = [], runner.execute
-
-    def run(batch):
-        t0 = time.perf_counter()
-        logits = execute(batch)
-        out.append((len(batch.chunks), max(c.length for c in batch.chunks),
-                    time.perf_counter() - t0))
-        return logits
-    runner.execute = run
-    return out
-
-
-def dispatch_walls(label, walls) -> str:
-    """The median host time of ``walls``' prefill and decode dispatches."""
+def dispatch_walls(label, disp) -> str:
+    """The median host time of the recorded prefill and decode dispatches."""
     parts = []
-    for kind, sel in (("prefill", [w for w in walls if w[1] > 1]),
-                      ("decode", [w for w in walls if w[1] == 1])):
+    for kind, decode in (("prefill", False), ("decode", True)):
+        sel = [d["seconds"] for d in disp if (max(ln for _, ln in d["chunks"]) == 1) == decode]
         if sel:
-            parts.append(f"{len(sel)} {kind} {statistics.median(w[2] for w in sel) * 1e3:.1f}"
-                         f" ms median (max {max(w[2] for w in sel) * 1e3:.1f})")
+            parts.append(f"{len(sel)} {kind} {statistics.median(sel) * 1e3:.1f}"
+                         f" ms median (max {max(sel) * 1e3:.1f})")
     return f"{label} dispatches: " + ", ".join(parts)
 
 
@@ -4226,13 +4255,13 @@ def phase_serve_whisper(card):
         f"{nparam} params, {nparam * 2 / 1e6:.1f} MB bf16, built in "
         f"{time.perf_counter() - t0:.1f} s; cross K/V {slot} B a state slot "
         f"({len(store.state_leaves)} leaves)")
-    steps = record_chunks(runner)
-    walls = timed_dispatches(runner)
+    disp = record_dispatches(runner)
     rng = np.random.default_rng(7)
     frames = [bf16_rows(rng, (cfg.n_audio_ctx, cfg.d_model), 1.0) for _ in range(8)]
     modality_traffic(engine, rng, 8, (16, 64), 32,
                      lambda i: {"audio_frames": frames[i]})
     metrics, dt, counts = run_served(engine, COUNTERS, paged=False)
+    steps = chunks_of(disp)
     fresh = sum(any(st == 0 for st, _ in s) for s in steps)
     assert counts["flash_prefill"] == cfg.num_layers * fresh > 0, (counts, fresh)
     assert all(n == 0 for k, n in counts.items() if k != "flash_prefill"), counts
@@ -4250,7 +4279,7 @@ def phase_serve_whisper(card):
         f"host_copy_bytes {engine.host_copy_bytes} (= formula; "
         f"{engine.host_copy_bytes / engine.steps / 1e6:.1f} MB a step); window upload "
         f"{runner.window_upload_bytes} B")
-    log("  " + dispatch_walls("gathered", walls))
+    log("  " + dispatch_walls("gathered", disp))
     check_flash_served(model, steps)
     B, S = most_common_fresh(steps)
     timing = time_flash_shape(card, f"{cfg.name} fresh rows (the serve's most common)",
@@ -4296,8 +4325,7 @@ def phase_serve_internvl(card):
                                   prefill_chunk=256)))
     runner, paged = engine.runner, engine.paged_runner
     assert paged is not None and engine.prefix_cache is not None
-    gsteps = record_chunks(runner)
-    gwalls, pwalls = timed_dispatches(runner), timed_dispatches(paged)
+    gdisp, pdisp = record_dispatches(runner), record_dispatches(paged)
     rng = np.random.default_rng(7)
     images = [bf16_rows(rng, (cfg.num_image_tokens, cfg.d_model), 0.02) for _ in range(8)]
     modality_traffic(engine, rng, 8, (128, 512), 32,
@@ -4305,6 +4333,7 @@ def phase_serve_internvl(card):
     calls, patch = record_paged_calls()
     with patch:
         metrics, dt, counts = run_served(engine, COUNTERS, paged=None)
+    gsteps = chunks_of(gdisp)
     fresh = sum(any(st == 0 for st, _ in s) for s in gsteps)
     assert all(st < cfg.num_image_tokens for s in gsteps for st, _ in s), gsteps
     assert counts["flash_prefill"] == cfg.num_layers * fresh > 0, (counts, fresh)
@@ -4329,8 +4358,8 @@ def phase_serve_internvl(card):
         f"{snap['engine.dispatch.gathered']} paged {snap['engine.dispatch.paged']}; "
         f"host_copy_bytes {engine.host_copy_bytes} (the image dispatches' windows); "
         f"prefix cache: 0 lookups, 0 blocks registered")
-    log("  " + dispatch_walls("gathered (image)", gwalls) + "; "
-        + dispatch_walls("paged", pwalls))
+    log("  " + dispatch_walls("gathered (image)", gdisp) + "; "
+        + dispatch_walls("paged", pdisp))
     check_flash_served(model, gsteps)
     check_paged_served(calls)
     B, S = most_common_fresh(gsteps)
@@ -5978,6 +6007,244 @@ def phase_decode(card):
     return prefill_counts, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the six example twins (examples/<name>_torch.py)
+# ---------------------------------------------------------------------------
+EXAMPLES = ("quickstart", "serve_batch", "moe_serving", "disagg_demo", "fleet_demo",
+            "train_small")
+TRAIN_SMALL_STEPS = 40  # 14a's command line and 14b's run
+EXAMPLE_CLI_ARGS = {"train_small": ["--steps", str(TRAIN_SMALL_STEPS)]}
+# the CLIs' TMPDIR, so their default state log and checkpoint land here
+EXAMPLE_DIR = os.path.join(ROOT, "build", "chip_smoke_examples")
+EXAMPLE_CLI_TIMEOUT = 300
+GEMMA = "gemma-2b"
+# 14c: the twins whose requests decode greedily, and the arch each serves
+GREEDY_TWINS = (("disagg_demo", STARCODER), ("fleet_demo", OLMO_ARCH),
+                ("moe_serving", DEEPSEEK))
+
+
+def example(name):
+    """``examples/<name>_torch.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", os.path.join(ROOT, "examples", f"{name}_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_example_clis():
+    """14a: each twin's command line as a user runs it, at its defaults
+    with no ``--device`` (so on the card), ``train_small`` at ``--steps
+    40``; all six at once, each in a process of its own. Fails unless each
+    exits 0."""
+    os.makedirs(EXAMPLE_DIR, exist_ok=True)
+    env = dict(os.environ, TMPDIR=EXAMPLE_DIR)
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            cmd = [sys.executable, os.path.join(ROOT, "examples", f"{name}_torch.py"),
+                   *EXAMPLE_CLI_ARGS.get(name, [])]
+            with open(os.path.join(EXAMPLE_DIR, f"{name}.log"), "w") as f:
+                procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                                stderr=subprocess.STDOUT),
+                               time.perf_counter(), " ".join(cmd[1:]))
+        ends = {}
+        deadline = time.perf_counter() + EXAMPLE_CLI_TIMEOUT
+        while len(ends) < len(procs) and time.perf_counter() < deadline:
+            for name, (p, _, _) in procs.items():
+                if name not in ends and p.poll() is not None:
+                    ends[name] = time.perf_counter()
+            time.sleep(0.05)
+    finally:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = []
+    for name, (p, t0, cmd) in procs.items():
+        rc = p.returncode if name in ends else f"killed after {EXAMPLE_CLI_TIMEOUT} s"
+        with open(os.path.join(EXAMPLE_DIR, f"{name}.log")) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+        wall = ends.get(name, deadline) - t0
+        log(f"[14 examples] 14a {cmd}: exit {rc} in {wall:.1f} s (six at once on the card)")
+        for ln in lines if rc == 0 else lines[-30:]:
+            log(f"    | {ln}")
+        bad += [] if rc == 0 else [name]
+    if bad:
+        raise AssertionError(f"14a: the command lines of {bad} did not exit 0")
+
+
+def example_run(label, name, cfg, **kw):
+    """One published-width run of twin ``name`` through its ``run(cfg,
+    "cuda", **kw)``, every kernel count set to 0 just before and read just
+    after, the paged-attention calls and the dispatches recorded (class-wide:
+    the twins build their engines inside ``run``). Returns (run's dict, the
+    counts, the paged calls, the dispatches, host seconds)."""
+    free_device(label)
+    calls, paged_patch = record_paged_calls()
+    disp = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with paged_patch, mock.patch.object(PagedRunner, "execute", PagedRunner.execute), \
+            mock.patch.object(GatheredRunner, "execute", GatheredRunner.execute):
+        record_dispatches(PagedRunner, "paged", disp)
+        record_dispatches(GatheredRunner, "gathered", disp)
+        out = example(name).run(cfg, "cuda", **kw)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    shown = {k: v for k, v in out.items() if k not in ("params", "streams")}
+    log(f"[14 examples] 14b {label}: run returned {json.dumps(shown, default=str)}")
+    return out, counts, calls, disp, seconds
+
+
+def hold_launches(label, cfg, counts, calls, disp):
+    """The run's launches against their formulas: paged_attention = layers x
+    paged dispatches (one call a layer, each recorded), flash_prefill =
+    layers x gathered dispatches holding a fresh row (phase 6's), every
+    other kernel 0; then each kernel held against its plain version at
+    every shape the run gave it (after the counts were read)."""
+    L = cfg.num_layers
+    paged = sum(d["kind"] == "paged" for d in disp)
+    gsteps = [d["chunks"] for d in disp if d["kind"] == "gathered"]
+    fresh = sum(any(st == 0 for st, _ in s) for s in gsteps)
+    # MLA's attention is the plain flash_attention (Dqk != Dv), fresh rows too
+    flash = 0 if cfg.use_mla else fresh
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(paged_attention=L * paged, flash_prefill=L * flash)
+    ok = counts == want and len(calls) == counts["paged_attention"]
+    log(f"  launches {counts}: paged_attention = {L} layers x {paged} paged dispatches, "
+        f"flash_prefill = {L} x {flash} ({len(gsteps)} gathered dispatches, {fresh} with a "
+        f"fresh row{', MLA: plain' if cfg.use_mla else ''}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"14b {label}: launches {counts}, want {want}")
+    if calls:
+        check_paged_served(calls)
+    if flash:
+        check_flash_served(types.SimpleNamespace(cfg=cfg, dtype=model_mod.DTYPES[cfg.dtype]),
+                           gsteps)
+
+
+def logits_line(disp, vocab) -> str:
+    """Each dispatch's (B, C) and the bytes of its (B, C, V) f32 logits
+    copied to the host, with the dispatches' host walls."""
+    rows = [(len(d["chunks"]), max(ln for _, ln in d["chunks"])) for d in disp]
+    assert all(d["logits_bytes"] == B * C * vocab * 4 for d, (B, C) in zip(disp, rows))
+    per = ", ".join(f"{B}x{C}: {d['logits_bytes'] / 1e6:.1f}" for d, (B, C) in zip(disp, rows))
+    walls = [d["seconds"] for d in disp]
+    return (f"  logits to the host per dispatch, (B, C): MB at V = {vocab}: [{per}]; total "
+            f"{sum(d['logits_bytes'] for d in disp) / 1e6:.1f} MB, largest "
+            f"{max(d['logits_bytes'] for d in disp) / 1e6:.1f} MB; dispatch host walls: "
+            f"median {statistics.median(walls) * 1e3:.1f} ms, largest "
+            f"{max(walls) * 1e3:.1f} ms")
+
+
+def phase_example_widths():
+    """14b: each twin's ``run`` at published width on the card (see the
+    module docstring). Returns each run's counts by path label."""
+    paths = {}
+    gemma = configs.get_config(GEMMA)
+    qwen, qwen_layers = qwen_block()
+    deepseek, deepseek_layers = deepseek_block()
+    runs = (
+        (f"quickstart {GEMMA} whole", "quickstart", gemma, {}),
+        (f"serve_batch {GEMMA} whole, 16 requests, fcfs", "serve_batch", gemma,
+         dict(state_log=os.path.join(EXAMPLE_DIR, "state_gemma.jsonl"))),
+        (f"serve_batch {QWEN} ({TP_LAYERS} of {qwen_layers} layers), 16 requests, fcfs",
+         "serve_batch", qwen, dict(state_log=os.path.join(EXAMPLE_DIR, "state_qwen.jsonl"))),
+        (f"disagg_demo {STARCODER} whole", "disagg_demo", configs.get_config(STARCODER), {}),
+        (f"fleet_demo {OLMO_ARCH} whole, 2 instances", "fleet_demo",
+         configs.get_config(OLMO_ARCH), {}),
+        (f"moe_serving {DEEPSEEK} (2 of {deepseek_layers} layers)", "moe_serving",
+         deepseek, {}),
+        ("train_small olmo-100m, 40 steps", "train_small", example("train_small").make_100m(),
+         dict(steps=TRAIN_SMALL_STEPS, ckpt=os.path.join(EXAMPLE_DIR, "olmo100m.npz"))),
+    )
+    for label, name, cfg, kw in runs:
+        for path in (kw.get("state_log"), kw.get("ckpt")):
+            if path and os.path.exists(path):
+                os.remove(path)
+        nparam = troofline.param_counts(cfg)["total"]
+        log(f"[14 examples] 14b {label}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads x {cfg.head_dim}, vocab "
+            f"{cfg.vocab_size}, {nparam} params ({cfg.dtype})")
+        out, counts, calls, disp, seconds = example_run(label, name, cfg, **kw)
+        hold_launches(label, cfg, counts, calls, disp)
+        if name == "quickstart":
+            n = len(out["generated"])
+            e2e = out["ttft"] + out["tpot"] * (n - 1)
+            log(f"  {n} tokens: TTFT {out['ttft'] * 1e3:.1f} ms, then {out['tpot'] * 1e3:.1f} "
+                f"ms a token: {n / e2e:.1f} generated tok/s over the request; run() "
+                f"{seconds:.1f} s with the build and the weights' draw")
+        elif name == "serve_batch":
+            log(f"  {out['tokens']} tokens in {out['seconds']:.2f} s = {out['tok_s']:.1f} "
+                f"generated tok/s, {out['steps']} engine steps; run() {seconds:.1f} s")
+        else:
+            log(f"  run() {seconds:.1f} s with the build and the weights' draw")
+        if cfg.name == GEMMA:
+            log(logits_line(disp, cfg.vocab_size))
+        if name == "train_small":
+            ce = [r["ce"] for r in out["records"]]
+            ok = all(map(math.isfinite, ce)) and ce[-1] < ce[0]
+            log(f"  ce {ce[0]:.3f} -> {ce[-1]:.3f} over {TRAIN_SMALL_STEPS} steps, "
+                f"{out['records'][-1]['tok_s']:.0f} tok/s: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("14b train_small: ce not finite or not falling")
+        paths[f"example {label}"] = counts
+        del out, calls, disp
+    return paths
+
+
+def cpu_drawn_init():
+    """A ``Model.init`` that draws with the CPU's generator and moves the
+    tree to the model's device: a card's run then holds the CPU's seed-0
+    weights."""
+    init = model_mod.Model.init
+
+    def cpu_init(self, seed=0, max_seq=0, place=None):
+        return _to_device(init(build_model(self.cfg, device="cpu"), seed, max_seq, place),
+                          self.device)
+    return cpu_init
+
+
+def phase_example_twins():
+    """14c: the greedy twins at smoke width (f32) on the card and on the
+    CPU from the same seed-0 weights (the CPU's draw): equal streams."""
+    for name, arch in GREEDY_TWINS:
+        cfg = configs.smoke_config(arch)
+        mod = example(name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = mod.run(cfg, "cpu")
+            with mock.patch.object(model_mod.Model, "init", cpu_drawn_init()):
+                gpu = mod.run(cfg, "cuda")
+        same, total = equal_share(gpu["streams"], cpu["streams"])
+        # the counters must agree; the clock's and the router probe's
+        # numbers (f32 sums in another order: a near tie may flip) are shown
+        shown = ("streams", "ttft_p50", "router_load", "aux")
+        rest = {k: (gpu[k], cpu[k]) for k in gpu if k not in shown and gpu[k] != cpu[k]}
+        probe = ""
+        if name == "moe_serving":
+            moved = sum(abs(a - b) for a, b in zip(gpu["router_load"], cpu["router_load"]))
+            probe = (f"; router probe: {moved} expert slots moved, aux |diff| "
+                     f"{abs(gpu['aux'] - cpu['aux']):.3g}")
+        ok = gpu["streams"] == cpu["streams"] and not rest
+        log(f"[14 examples] 14c {name} {cfg.name} f32: card vs CPU streams {same} of {total} "
+            f"tokens equal, counters that differ {rest}{probe}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"14c {name}: the card's run differs from the CPU's")
+
+
+def phase_examples():
+    """Phase 14 (see the module docstring). Returns 14b's counts by path."""
+    t_phase = time.perf_counter()
+    free_device("14a's command lines")
+    phase_example_clis()
+    paths = phase_example_widths()
+    free_device("14c's twins")
+    phase_example_twins()
+    log(f"[14 examples] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:73",
     "paged_attention_quant": "src/repro/kernels/paged_attention/paged_attention.py:183",
@@ -6083,6 +6350,7 @@ def main() -> None:
     tp_counts, _ = phase_tp(card)
     mesh_counts = phase_train_mesh(card, train_records)
     prompt_counts, decode_counts = phase_decode(card)
+    example_counts = phase_examples()
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for paged_attention_quant and
     # quantize_pages, the gathered KIVI starcoder2-3b serve for
@@ -6104,7 +6372,8 @@ def main() -> None:
              "qwen2.5-32b tp=2 paged fp, per rank": tp_counts["fp"],
              "qwen2.5-32b tp=2 paged KIVI, per rank": tp_counts["KIVI"],
              "qwen2.5-32b tp=2 paged LoRA, per rank": tp_counts["LoRA"],
-             "starcoder2-3b extend of an 8192-token prompt": prompt_counts}
+             "starcoder2-3b extend of an 8192-token prompt": prompt_counts,
+             **example_counts}
     kernels = [dict(name=k, route="cuda", source=os.path.relpath(sources[k], ROOT),
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=timing[k]["max_abs_err"], ms=timing[k]["ms"],

@@ -9,7 +9,9 @@ xLSTM) with the jamba-v0.1-52b and xlstm-1.3b configs, and the training
 path: optimizer, train loop, synthetic data, checkpoints and the train
 driver, and tensor-parallel serving: the sharding rules, the mesh of
 ranks and the sharded runner, and the contiguous decode's ``build_step``:
-the input shapes, the input and cache specs and the steps."""
+the input shapes, the input and cache specs and the steps. The six
+example twins (``examples/<name>_torch.py``) are imported too, their
+``main`` not run."""
 import os
 import subprocess
 import sys
@@ -23,6 +25,10 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch
 for name in mods:
     importlib.import_module(name)
 import chip_smoke  # its phases run only under __main__
+assert len(chip_smoke.EXAMPLES) == 6, chip_smoke.EXAMPLES
+for name in chip_smoke.EXAMPLES:
+    twin = chip_smoke.example(name)  # main runs only under __main__
+    assert callable(twin.run) and callable(twin.main), name
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(mods), "modules;", "leaked:", bad)
