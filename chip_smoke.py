@@ -236,7 +236,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                gradients) against the count. 12c: f32 smoke twins on the
                card against the same mesh on the CPU (olmo-1b 3 steps
                and llama4-scout with sharded_moe 1 step on (2, 2), jamba
-               1 step on (2, 1)).
+               1 step on (2, 1); deepseek-v3, jamba, xlstm-1.3b,
+               whisper-base and internvl2-2b 1 step each on (1, 2)).
+               12d: the families tensor parallelism reaches
+               through their own mixers, at published width on the same
+               2 ranks of (data 1, model 2): deepseek-v3 cut to its first
+               (dense MLA) layer with its MTP block, jamba's first two
+               layers (Mamba + MLP, Mamba + 16-expert MoE), xlstm-1.3b's
+               first mLSTM and its sLSTM, whisper-base whole (1500 frames
+               a row), internvl2-2b whole (256 image rows), one grads_of
+               each at B=4, S=128 against one process on the card (bf16;
+               jamba and xlstm in f32, see TP_FAMILIES):
+               loss within 0.02, global grad norm within 3%, the leaves
+               this slice cuts or newly reduces within 5% (relative
+               Frobenius, gathered whole), each rank's bytes against the
+               count, the collectives of the step timed, no kernel
+               launches.
  13. decode  — the contiguous decode path (``Model.decode``, the window
                ring, context-parallel decode, ``launch/steps.py``) on
                starcoder2-3b whole (bf16, 30 window layers). 13a: a fresh
@@ -362,7 +377,7 @@ from repro_torch.sharding import (Rules, ShardingConfig, mode_rules,  # noqa: E4
                                   serving_tp_rules, use_rules)
 from repro_torch.train.loop import (TrainState, grads_of, init_train_state,  # noqa: E402
                                     make_train_step)
-from repro_torch.train.sharding import TrainSharding  # noqa: E402
+from repro_torch.train.sharding import TrainSharding, tree_at  # noqa: E402
 
 # the kernels' wrappers and their launch counts, held here so that phase
 # 5's plain-attention patches of the module attributes do not hide them
@@ -5227,7 +5242,169 @@ EP_GRAD_RTOL = 0.05
 # mesh, rules options, steps
 MESH_TWINS = (("olmo-1b", OLMO_ARCH, MESH_A, {}, 3),
               ("llama4-scout sharded_moe", LLAMA4, MESH_A, {"sharded_moe": True}, 1),
-              ("jamba FSDP", JAMBA, MESH_FSDP, {}, 1))
+              ("jamba FSDP", JAMBA, MESH_FSDP, {}, 1),
+              # the families tensor parallelism reaches through their
+              # own mixers, encoder and MTP block, on (data 1, model 2)
+              ("deepseek-v3 tp", DEEPSEEK, MESH_B, {}, 1),
+              ("jamba tp", JAMBA, MESH_B, {}, 1),
+              ("xlstm-1.3b tp", XLSTM, MESH_B, {}, 1),
+              ("whisper-base tp", WHISPER, MESH_B, {}, 1),
+              ("internvl2-2b tp", INTERNVL, MESH_B, {}, 1))
+# 12d: those families at published width, depth cut to fit the card, one
+# forward/backward at B=4, S=128 on (data 1, model 2) against one process
+# at 12b's bounds (loss, global grad norm, and the gradients of the leaves
+# this slice cuts or newly reduces, relative Frobenius): label, arch,
+# dtype, the leaves held (paths in the parameter tree). The state mixers
+# run in f32 (no TF32): in bf16 their held leaves' gradients are rounding
+# noise at the 5% bound (on the card, bf16 jamba's x_proj and in_proj
+# parted from one process by 11.5% and 10.7%; on the CPU at narrow widths
+# one bf16 process parts from an f32 one by 15.6% and 14.5% there and by
+# 14.1% on the mLSTM's wq: tools/rehearse_tp_train.py --dtype bfloat16);
+# in f32 only the sums' order parts them
+TP_FAMILY_BATCH, TP_FAMILY_SEQ = 4, 128
+TP_FAMILIES = (
+    ("deepseek-v3", DEEPSEEK, "bfloat16", (("layers", "0", "mixer", "wkv_b", "w"),
+                                           ("layers", "0", "mixer", "wq_a", "w"))),
+    ("jamba", JAMBA, "float32", (("layers", "0", "mixer", "x_proj", "w"),
+                                 ("layers", "0", "mixer", "in_proj", "w"))),
+    ("xlstm-1.3b", XLSTM, "float32", (("layers", "0", "mixer", "wq", "w"),
+                                      ("layers", "0", "mixer", "head_norm", "scale"),
+                                      ("layers", "0", "mixer", "head_norm", "bias"),
+                                      ("layers", "1", "mixer", "wx", "w"),
+                                      ("layers", "1", "mixer", "r"))),
+    ("whisper-base", WHISPER, "bfloat16", (("layers", "0", "cross", "wq", "w"),
+                                           ("encoder", "layers", "0", "mixer", "wo", "w"))),
+    ("internvl2-2b", INTERNVL, "bfloat16", (("layers", "0", "mixer", "wq", "w"),)),
+)
+TP_FAMILY_REF = os.path.join(ROOT, "build", "chip_smoke_12d_ref.pt")
+
+
+def tp_family_config(arch, dtype):
+    """12d's cut of ``arch`` at its published width in ``dtype``
+    (activations and parameters), and the cut in words: deepseek-v3 its
+    first (dense-MLP) MLA layer as the only stage, so the MTP block is
+    built from that stage's last spec; jamba the first two layers of its
+    block (Mamba + MLP, Mamba + MoE); xlstm-1.3b one stage of (mLSTM,
+    sLSTM), its block's first and last layers; whisper-base and
+    internvl2-2b whole."""
+    cfg = configs.get_config(arch)
+    pattern = cfg.stages[0][0]
+    keep = {DEEPSEEK: pattern[:1], JAMBA: pattern[:2], XLSTM: (pattern[0], pattern[-1])}
+    cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+    if arch not in keep:
+        return cfg, "whole"
+    cut = dataclasses.replace(cfg, stages=((tuple(keep[arch]), 1),))
+    return cut, f"{cut.num_layers} of {configs.get_config(arch).num_layers} layers"
+
+
+def pick(tree, paths):
+    """The part of a parameter-shaped tree on ``paths``: dicts keep the
+    keys on a path, lists every position (empty dicts off the paths), so
+    ``TrainSharding.unshard`` walks it beside the plan's specs."""
+    def walk(t, rest):
+        if isinstance(t, list):
+            return [walk(v, [r[1:] for r in rest if r[0] == str(i)]) if
+                    any(r[0] == str(i) for r in rest) else {} for i, v in enumerate(t)]
+        if isinstance(t, dict):
+            return {k: walk(t[k], [r[1:] for r in rest if r[0] == k])
+                    for k in t if any(r[0] == k for r in rest)}
+        return t
+    return walk(tree, [tuple(p) for p in paths])
+
+
+def tp_family_batch(cfg):
+    """12d's batch: SyntheticLM(seed=0) tokens and labels at B=4, S=128,
+    and the family's extras (1500 audio frames or 256 image rows a row,
+    N(0, 0.1^2) rounded to bf16, from a seeded generator)."""
+    batch = SyntheticLM(cfg.vocab_size, TP_FAMILY_SEQ, seed=0).batch(TP_FAMILY_BATCH)
+    rng = np.random.default_rng(12)
+    if cfg.family == "audio":
+        batch["audio_frames"] = bf16_rows(rng, (TP_FAMILY_BATCH, cfg.n_audio_ctx,
+                                                cfg.d_model), 0.1)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = bf16_rows(rng, (TP_FAMILY_BATCH, cfg.num_image_tokens,
+                                                 cfg.d_model), 0.1)
+    return batch
+
+
+def tp_family_refs():
+    """12d's one-process references on the card, one family at a time (the
+    device freed between them): per label the metrics, the global grad
+    norm, the held leaves' whole gradients (on the host), the batch and the
+    wall of one ``grads_of``. Written to ``TP_FAMILY_REF`` for the ranks."""
+    refs = {}
+    for label, arch, dtype, paths in TP_FAMILIES:
+        cfg, _ = tp_family_config(arch, dtype)
+        model = build_model(cfg, device="cuda")
+        params = model.init(0, TP_FAMILY_SEQ)
+        batch = tp_family_batch(cfg)
+        dev = train_mod.to_device(batch, "cuda")
+        grads_of(model, params, dev)  # cuBLAS handles, autotuning
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, m = grads_of(model, params, dev)
+        gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                     for g in _leaves(grads))))
+        one_s = time.perf_counter() - t0
+        refs[label] = dict(metrics={k: float(v) for k, v in m.items()}, grad_norm=gnorm,
+                           grads={"/".join(p): tree_at(grads, p).detach().cpu()
+                                  for p in paths},
+                           batch=batch, seconds=one_s, whole=tree_bytes(params))
+        del model, params, grads, dev
+        gc.collect()
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(TP_FAMILY_REF), exist_ok=True)
+    torch.save(refs, TP_FAMILY_REF)
+    return refs
+
+
+def tp_family_rank(mesh, label, arch, dtype, paths, ref):
+    """12d on one rank of (data 1, model 2): the slices drawn (device bytes
+    against the count), one ``grads_of`` with every collective synchronized
+    and timed, the global grad norm; the held leaves' gradients gathered
+    into whole ones against the one process's (relative Frobenius)."""
+    cfg, _ = tp_family_config(arch, dtype)
+    shard = TrainSharding(cfg, mesh, TP_FAMILY_BATCH, max_seq=TP_FAMILY_SEQ)
+    model = build_model(cfg, device=mesh.device)
+    # the rank's rows (whisper's frames are 12.3 MB) go first, outside the count
+    batch = train_mod.to_device(shard.rows(ref["batch"]), mesh.device)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = np.array(device_bytes())
+    torch.cuda.reset_peak_memory_stats()
+    params = shard.params(model, 0, TP_FAMILY_SEQ)
+    torch.cuda.synchronize()
+    out = dict(memory=dict(drawn=np.array(device_bytes()) - base,
+                           draw_peak=np.array(peak_device_bytes()) - base,
+                           held=tree_bytes(params)))
+    torch.cuda.reset_peak_memory_stats()
+    for g in mesh.groups.values():
+        g.reset_counts()
+        g.timed = True
+    t = time.perf_counter()
+    grads, m = grads_of(model, params, batch, shard)
+    gnorm = float(torch.sqrt(shard.norm_sq(grads)))
+    out["seconds"] = time.perf_counter() - t
+    for g in mesh.groups.values():
+        g.timed = False
+    out["timed"] = group_counts(mesh)
+    torch.cuda.synchronize()
+    out["memory"].update(with_grads=np.array(device_bytes()) - base, grads=tree_bytes(grads),
+                         step_peak=np.array(peak_device_bytes()) - base)
+    out["metrics"] = dict({k: float(v) for k, v in m.items()}, grad_norm=gnorm)
+    whole = shard.unshard(pick(grads, paths))
+    out["grad_errs"] = {}
+    for p in paths:
+        key = "/".join(p)
+        got, want = tree_at(whole, p).float(), ref["grads"][key].float()
+        out["grad_errs"][key] = relative(float((got - want).norm()), float(want.norm()))
+    del grads, params, model, whole, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    return out
+
+
 
 
 def llama4_first_layer():
@@ -5279,7 +5456,8 @@ def collective_probe(mesh):
 def mesh_twin(arch, shape, options, steps, device):
     """``steps`` f32 smoke steps of ``arch`` on this rank of ``shape`` with
     its tensors on ``device`` (the weights drawn on the CPU, so the card's
-    and the CPU's runs start from the same bits): per-step metrics."""
+    and the CPU's runs start from the same bits; batches with the family's
+    extras, ``launch/train.py::batch_extras``): per-step metrics."""
     cfg = configs.smoke_config(arch)
     mesh = make_mesh(shape, backend="gloo")
     shard = TrainSharding(cfg, mesh, 4, options, device=device)
@@ -5288,7 +5466,8 @@ def mesh_twin(arch, shape, options, steps, device):
     state = TrainState(params, adamw_init(params), 0)
     step = make_train_step(model, base_lr=1e-3, warmup_steps=1, total_steps=10, shard=shard)
     recs = []
-    for b in make_batches(SyntheticLM(cfg.vocab_size, 16, seed=0), 4, steps):
+    for b in make_batches(SyntheticLM(cfg.vocab_size, 16, seed=0), 4, steps,
+                          train_mod.batch_extras(cfg, 4)):
         state, m = step(state, train_mod.to_device(shard.rows(b), device))
         recs.append({k: float(v) for k, v in m.items()})
     return recs
@@ -5379,12 +5558,15 @@ def relative(diff: float, scale: float) -> float:
     return diff / scale if scale else (0.0 if diff == 0 else math.inf)
 
 
-def ep_mesh_rank(ref):
-    """Phase 12b (and 12c's FSDP twin) on one of 2 ranks sharing the card:
-    the llama4-scout first layer's slices drawn (device bytes against the
-    count), one ``grads_of`` with sharded_moe + onehot_ce and the global
-    grad norm, rank 0's expert gradients against the one process's (``ref``),
-    the kernel counters; then the (2, 1) twin."""
+def ep_mesh_rank(refs):
+    """Phases 12b and 12d (and 12c's twins on (2, 1) and (1, 2)) on one of 2
+    ranks sharing the card: the llama4-scout first layer's slices drawn
+    (device bytes against the count), one ``grads_of`` with sharded_moe +
+    onehot_ce and the global grad norm, rank 0's expert gradients against
+    the one process's (``refs["ep"]``), the kernel counters; then 12d's
+    families (``tp_family_rank`` against ``refs["tp"]``, the file of
+    ``tp_family_refs``), their kernel counters; then the twins."""
+    ref = refs["ep"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(MESH_B, backend="gloo")
@@ -5441,7 +5623,14 @@ def ep_mesh_rank(ref):
     gc.collect()
     torch.cuda.empty_cache()
     mesh.barrier()
-    out["twins"] = twins_on(MESH_FSDP)
+    for k in COUNTERS.values():
+        k.launches = 0  # 12d's count starts here
+    tp_refs = torch.load(refs["tp"], weights_only=False)
+    out["families"] = {label: tp_family_rank(mesh, label, *rest, tp_refs[label])
+                       for label, *rest in TP_FAMILIES}
+    out["tp_launches"] = {n: k.launches for n, k in COUNTERS.items()}
+    del tp_refs
+    out["twins"] = dict(twins_on(MESH_FSDP), **twins_on(MESH_B))
     return out
 
 
@@ -5555,16 +5744,21 @@ def phase_train_mesh(card, one_process):
     one = dict({k: float(v) for k, v in m.items()}, grad_norm=gnorm)
     whole = tree_bytes(params)
     del model, params, grads, ff, batch
+    free_device("12d's one-process references")
+    t0 = time.perf_counter()
+    tp_refs = tp_family_refs()
+    refs_s = time.perf_counter() - t0
     free_device("the two ranks")
     want_params, _ = rank_train_bytes(cfg, MESH_B, EP_SEQ)
     t0 = time.perf_counter()
-    ranks = spawn_ranks(ep_mesh_rank, 2, ref, timeout=900)
+    ranks = spawn_ranks(ep_mesh_rank, 2, dict(ep=ref, tp=TP_FAMILY_REF), timeout=900)
     rank_s = time.perf_counter() - t0
     log(f"[12 mesh] 12b {LLAMA4} at published width cut to its first layer of {published} "
         f"({counts.get('total', 0) / 1e9:.3f} B params by launch/roofline.py; "
         f"{whole / 1e9:.2f} GB bf16 whole) on (data 1, model 2) with sharded_moe + onehot_ce: "
         f"one grads_of at B={EP_BATCH}, S={EP_SEQ}; 2 ranks on this card over gloo "
-        f"({rank_s:.1f} s for the ranks' run, 12c's FSDP twin included)")
+        f"({rank_s:.1f} s for the ranks' run, 12d and 12c's twins on (2, 1) and (1, 2) "
+        f"included; 12d's one-process references {refs_s:.1f} s before it)")
     bad = []
     for r in ranks:
         m = r["memory"]
@@ -5599,9 +5793,72 @@ def phase_train_mesh(card, one_process):
     for r in ranks:
         launches = {n: max(launches[n], r["launches"][n]) for n in COUNTERS}
     assert not any(launches.values()), launches
+    tp_launches = hold_tp_families(ranks, tp_refs)
     hold_twins(ranks)
     log(f"[12 mesh] phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, tp_launches
+
+
+def hold_tp_families(ranks, refs):
+    """12d's checks and lines: per family each rank's bytes against
+    ``rank_train_bytes``, rank 0's loss, grad norm and held gradients
+    against the one process's, the collectives of the timed ``grads_of``;
+    then the kernel launches of every rank (none). Returns them."""
+    for label, arch, dtype, _ in TP_FAMILIES:
+        cfg, cut = tp_family_config(arch, dtype)
+        ref = refs[label]
+        want_params, _ = rank_train_bytes(cfg, MESH_B, TP_FAMILY_SEQ)
+        counts = troofline.param_counts(cfg)
+        log(f"[12 mesh] 12d {label} at published width ({cut}; "
+            f"{counts.get('total', 0) / 1e9:.3f} B params by launch/roofline.py, "
+            f"{ref['whole'] / 1e9:.2f} GB {dtype} whole; vocab {cfg.vocab_size} "
+            f"{'cut' if cfg.vocab_size % MESH_B['model'] == 0 else 'whole'}) on (data 1, "
+            f"model 2): one grads_of at B={TP_FAMILY_BATCH}, S={TP_FAMILY_SEQ}, {dtype}")
+        bad = []
+        for r in ranks:
+            m = r["families"][label]["memory"]
+            ok = (m["held"] == want_params and m["grads"] == want_params
+                  and abs(int(m["drawn"][0]) - want_params) <= 2 ** 16
+                  and abs(int(m["with_grads"][0]) - 2 * want_params) <= 2 ** 16)
+            bad += [] if ok else [r["rank"]]
+            log(f"  rank {r['rank']}: slices held {m['held']} bytes (rank_train_bytes "
+                f"{want_params}); requested after the draw {m['drawn'][0]} ({m['drawn'][1]}), "
+                f"with its gradient slices {m['with_grads'][0]} (the count x 2 = "
+                f"{2 * want_params}); draw peak {m['draw_peak'][0]}, step peak "
+                f"{m['step_peak'][0]}: {'ok' if ok else 'FAIL'}")
+        if bad:
+            raise AssertionError(f"12d {label}: ranks {bad} hold other bytes than their slices")
+        r0 = ranks[0]["families"][label]
+        for r in ranks[1:]:
+            assert r["families"][label]["metrics"] == r0["metrics"], "12d: the ranks differ"
+        rm, one = r0["metrics"], ref["metrics"]
+        d_loss = abs(rm["loss"] - one["loss"])
+        d_gn = abs(rm["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        errs = r0["grad_errs"]
+        worst = max(errs.values())
+        ok = d_loss <= EP_LOSS_ATOL and d_gn <= EP_GNORM_RTOL and worst <= EP_GRAD_RTOL
+        extra = "".join(f", {k} {rm[k]:.4f} ({one[k]:.4f})" for k in ("mtp", "moe_aux")
+                        if k in one)
+        log(f"  loss {rm['loss']:.4f} (one process {one['loss']:.4f}, |diff| {d_loss:.4f}, "
+            f"limit {EP_LOSS_ATOL}){extra}; global grad norm {rm['grad_norm']:.4f} "
+            f"({ref['grad_norm']:.4f}, {d_gn:.2%}, limit {EP_GNORM_RTOL:.0%}); gradients "
+            f"gathered against the one process's, relative Frobenius: "
+            + ", ".join(f"{k} {v:.2%}" for k, v in errs.items())
+            + f" (limit {EP_GRAD_RTOL:.0%}): {'ok' if ok else 'FAIL'}")
+        tm = r0["timed"]
+        log(f"  grads_of on rank 0 with each collective synchronized and timed: "
+            f"{r0['seconds'] * 1e3:.1f} ms (one process {ref['seconds'] * 1e3:.1f} ms), "
+            f"{tm['seconds'] / r0['seconds']:.1%} of it in {tm['all_reduces']} all-reduces "
+            f"({tm['all_reduce_bytes'] / 1e6:.1f} MB), {tm['all_gathers']} all-gathers "
+            f"({tm['all_gather_bytes'] / 1e6:.1f} MB) and {tm['reduce_scatters']} "
+            f"reduce-scatters ({tm['reduce_scatter_bytes'] / 1e6:.1f} MB)")
+        if not ok:
+            raise AssertionError(f"12d {label}: the tensor-parallel gradient differs from one "
+                                 "process's")
+    tp_launches = {n: max(r["tp_launches"][n] for r in ranks) for n in COUNTERS}
+    log(f"  12d kernel launches on every rank: {tp_launches} (the train path runs none)")
+    assert not any(tp_launches.values()), tp_launches
+    return tp_launches
 
 
 # ---------------------------------------------------------------------------
@@ -6348,7 +6605,7 @@ def main() -> None:
     phase_train_checkpoint(model, params)
     del model, params
     tp_counts, _ = phase_tp(card)
-    mesh_counts = phase_train_mesh(card, train_records)
+    mesh_counts, tp_train_counts = phase_train_mesh(card, train_records)
     prompt_counts, decode_counts = phase_decode(card)
     example_counts = phase_examples()
     # each kernel's launches on the path it serves: fp pages for
@@ -6382,6 +6639,8 @@ def main() -> None:
                     launches_by_path={**{p: c[k] for p, c in paths.items() if c.get(k)},
                                       "train": train_counts[k],
                                       "train mesh, per rank": mesh_counts[k],
+                                      "tensor-parallel train (12d), per rank":
+                                          tp_train_counts[k],
                                       "Model.decode (13a-13c)": decode_counts[k]})
                for k in REPLACES]
     log(json.dumps({"kernels": kernels}))

@@ -99,18 +99,24 @@ class TPLayout:
     glu_order: Optional[np.ndarray]
 
 
+def piece_order(width: int, pieces: int, mp: int) -> np.ndarray:
+    """The column order of an axis ``width`` wide that holds ``pieces``
+    equal pieces side by side, over a model axis of ``mp``: rank i's block
+    is its 1/mp of each piece, in piece order, so a split into the pieces
+    after it stays local. A contiguous split would give a rank whole pieces
+    and another rank the others: XLA's partitioner survives that by moving
+    data, shard-local code does not."""
+    n = width // pieces
+    nl = n // mp
+    return np.concatenate([p * n + np.arange(i * nl, (i + 1) * nl)
+                           for i in range(mp) for p in range(pieces)])
+
+
 def glu_order(width: int, mp: int) -> np.ndarray:
     """The column order of a GLU up-projection ``width`` = 2 * f wide over
     a model axis of ``mp``: rank i's block is its units' up columns, then
-    their gate columns (``[u_i ; g_i]``), so the split after it stays local.
-    A contiguous split would give one rank every up column and the other
-    every gate column: XLA's partitioner survives that by moving data,
-    shard-local code does not."""
-    f = width // 2
-    fl = f // mp
-    return np.concatenate([np.concatenate([np.arange(i * fl, (i + 1) * fl),
-                                           f + np.arange(i * fl, (i + 1) * fl)])
-                           for i in range(mp)])
+    their gate columns (``[u_i ; g_i]``), ``piece_order`` of two pieces."""
+    return piece_order(width, 2, mp)
 
 
 def tp_layout(cfg: ModelConfig, mp: int) -> TPLayout:
@@ -220,10 +226,33 @@ def rank_params(model, seed: int = 0, *, mesh, max_seq: int = 0):
     return model.init(seed, max_seq, place=rank_slicer(model.cfg, mesh))
 
 
-def _glu_leaf(cfg: ModelConfig, path) -> bool:
-    """Whether a leaf is a GLU up-projection's weight or bias (an MLP's
-    ``w1``, a MoE's ``shared_w1``), whose "ff" axis holds [up ; gate]."""
-    return is_glu(cfg.activation) and len(path) >= 2 and path[-2] in ("w1", "shared_w1")
+# (logical axis, the leaf's owner) -> pieces side by side on that axis,
+# whatever the activation: Mamba's in_proj [x ; z], the mLSTM's up_proj
+# [xin ; z], the sLSTM's ffn_up [a ; g] and its wx, gate-major (4, H, dh)
+_PIECES = {("ssm_inner", "in_proj"): 2, ("lstm_inner", "up_proj"): 2, ("ff", "ffn_up"): 2,
+           ("lstm_inner", "wx"): 4}
+
+
+def model_order(cfg: ModelConfig, path, axis, width: int, mp: int) -> Optional[np.ndarray]:
+    """The order a leaf's ``axis`` (``width`` wide, cut over a model axis of
+    ``mp``) takes before the cut, None for a contiguous cut: the
+    replicated-KV fallback's head order on "heads"; ``piece_order`` on an
+    axis of pieces side by side (a GLU up-projection's "ff": an MLP's
+    ``w1``, a MoE's ``shared_w1``, weight or bias; the fused projections of
+    ``_PIECES``) where each piece splits over the ranks. Where a piece does
+    not split (the sLSTM's ffn_up at 2 x 341 columns on 2 ranks, with
+    ffn_down's 341 rows whole) the cut stays contiguous and the model code
+    gathers the leaf where it uses it (``models/xlstm.py``)."""
+    if axis == "heads":
+        return tp_layout(cfg, mp).head_order
+    owner = path[-2] if len(path) > 1 else None
+    if axis == "ff" and owner in ("w1", "shared_w1"):
+        pieces = 2 if is_glu(cfg.activation) else 1
+    else:
+        pieces = _PIECES.get((axis, owner), 1)
+    if pieces > 1 and (width // pieces) % mp == 0:
+        return piece_order(width, pieces, mp)
+    return None
 
 
 def rank_block(t: torch.Tensor, dim: int, parts, shape, coords) -> torch.Tensor:
@@ -240,16 +269,17 @@ def train_slicer(cfg: ModelConfig, mesh, rules, device=None):
     """``place(tree, axes)`` for one rank of a training mesh: the rank's
     block of every leaf, cut by ``rules.pspec`` of the leaf's logical axes
     (``mode_rules(mesh.shape, "train", ...)``: "embed" over data, heads,
-    KV heads, ff, vocab and experts over model), as a tensor of its own on
-    the rank's device. Along a dimension cut over model, the replicated-KV
-    fallback's head order (``tp_layout``) comes first on "heads", and the
-    GLU order (``glu_order``) on a GLU up-projection's "ff" (an MLP's
-    ``w1``, a MoE's ``shared_w1``). A dimension cut over several axes takes
-    the block of the rank's row-major index over them. ``device``: where
-    the slices go (the mesh's device by default)."""
+    KV heads, ff, vocab, experts and the state mixers' inner widths over
+    model), as a tensor of its own on the rank's device. Along a dimension
+    cut over model the leaf first takes ``model_order``: the
+    replicated-KV fallback's head order on "heads", and on an axis of
+    pieces side by side (a GLU up-projection, Mamba's ``in_proj``, the
+    mLSTM's ``up_proj``, the sLSTM's ``ffn_up`` and ``wx``) the order that
+    gives each rank its share of every piece. A dimension cut over several
+    axes takes the block of the rank's row-major index over them.
+    ``device``: where the slices go (the mesh's device by default)."""
     mp = mesh.shape.get("model", 1)
     device = mesh.device if device is None else device
-    head_order = tp_layout(cfg, mp).head_order if mp > 1 else None
     coords = mesh.coords()
 
     def leaf(t: torch.Tensor, axes, path) -> torch.Tensor:
@@ -261,10 +291,9 @@ def train_slicer(cfg: ModelConfig, mesh, rules, device=None):
                 continue
             parts = (part,) if isinstance(part, str) else tuple(part)
             if "model" in parts and mp > 1:
-                if name == "heads" and head_order is not None:
-                    t = _take(t, head_order, dim)
-                if name == "ff" and _glu_leaf(cfg, path):
-                    t = _take(t, glu_order(t.shape[dim], mp), dim)
+                order = model_order(cfg, path, name, t.shape[dim], mp)
+                if order is not None:
+                    t = _take(t, order, dim)
             t = rank_block(t, dim, parts, mesh.shape, coords)
         # a copy, never a view: a view would keep the whole leaf alive
         return t.to(device).clone()

@@ -9,8 +9,9 @@ the rank needs to build its own arguments: its rows of a batch, its block
 of the cache, its parameters. There is no lowering.
 
 * ``train``: ``train.loop.grads_of`` under the rank's ``TrainSharding``
-  (FSDP over data, tensor and expert parallelism over model, the batch
-  over (pod, data)): ``fn(params, batch) -> (loss, grads)``.
+  (FSDP over data, tensor and expert parallelism over model for every
+  family at any model axis that divides its widths, the batch over (pod,
+  data)): ``fn(params, batch) -> (loss, grads)``.
 * ``prefill``: ``Model.extend`` of the rank's rows from an empty cache of
   ``seq_len`` slots, with the family's extras: ``fn(params, tokens, cache,
   cache_len, extras) -> (logits, cache)``; an internvl row's image rows
@@ -29,7 +30,7 @@ Rules come from ``mode_rules(mesh.shape, kind, global_batch)`` with
 ``rules_overrides`` and ``options`` on top, as in the reference. A model
 axis above 1 on prefill or decode raises ``NotImplementedError``: the
 tensor-parallel serving steps belong to the dry-run's tooling (ROADMAP
-A.7); tensor-parallel serving runs through the engine
+A.5); tensor-parallel serving runs through the engine
 (``core/executor/sharded.py``).
 """
 from __future__ import annotations
@@ -156,7 +157,7 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
             f"{shape.kind} on a model axis of {mesh.shape['model']}: tensor-parallel "
-            "prefill and decode steps come with the dry-run tooling (ROADMAP A.7); "
+            "prefill and decode steps come with the dry-run tooling (ROADMAP A.5); "
             "tensor-parallel serving runs through the engine")
     rules = mode_rules(mesh.shape, shape.kind, B, options)
     if rules_overrides:

@@ -11,10 +11,14 @@ warmup steps of a cosine schedule, on one card or on a mesh of ranks.
 ``cuda`` and raises where CUDA is absent (no CPU fallback). Prints
 ``step``, ``ce``, ``lr`` and tokens/s every 10 steps and at the last;
 ``--ckpt PATH`` saves the trained parameters (``checkpoint/ckpt.py``).
-Batches hold tokens and labels only, as the reference's driver makes
-them.
+Batches hold tokens and labels, as the reference's command makes them,
+and for whisper and internvl the stubbed frontends' outputs its forward
+reads (``batch_extras``: seeded random audio frames or image rows, the
+same in every batch; the reference's command makes none, so its forward
+finds no ``audio_frames`` / ``vision_embeds`` to read).
 
-``--dp N --tp M`` train on the mesh (data N, model M) (``--multi-pod``
+``--dp N --tp M`` train on the mesh (data N, model M), every architecture
+at any model axis that divides its widths (``--multi-pod``
 puts a pod axis of 2 in front, as the reference's flag does): the command
 spawns its ranks (``launch/mesh.py::spawn_ranks``), each drawing its
 slices of the weights (``train/sharding.py``) and taking its rows of every
@@ -32,6 +36,7 @@ import math
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -48,6 +53,20 @@ OPTIONS = ("sharded_moe", "onehot_ce")
 
 def to_device(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def batch_extras(cfg, batch: int, seed: int = 0) -> dict:
+    """The stubbed frontends' outputs a batch of ``batch`` rows carries:
+    audio frames (B, n_audio_ctx, d) for whisper, image rows (B,
+    num_image_tokens, d) for internvl, N(0, 0.1^2) f32 from a numpy
+    generator seeded with ``seed``; {} for the other families."""
+    rng = np.random.default_rng(seed)
+    rows = {"audio": ("audio_frames", cfg.n_audio_ctx),
+            "vlm": ("vision_embeds", cfg.num_image_tokens)}.get(cfg.family)
+    if rows is None:
+        return {}
+    name, n = rows
+    return {name: (0.1 * rng.standard_normal((batch, n, cfg.d_model))).astype(np.float32)}
 
 
 def train(cfg, *, steps: int, batch: int, seq: int, device="cuda", ckpt: str = "",
@@ -69,7 +88,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, device="cuda", ckpt: str = "
     records = []
     t0 = time.perf_counter()
     with use_rules(rules):
-        for i, b in enumerate(make_batches(ds, batch, steps)):
+        for i, b in enumerate(make_batches(ds, batch, steps, batch_extras(cfg, batch))):
             t = time.perf_counter()
             if shard is not None:
                 b = shard.rows(b)
@@ -140,7 +159,7 @@ def main(argv=None):
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--dp", type=int, default=None, help="data axis (FSDP, batch rows)")
     ap.add_argument("--tp", type=int, default=None,
-                    help="model axis (heads, hidden units, experts, vocab)")
+                    help="model axis (heads, inner channels, hidden units, experts, vocab)")
     ap.add_argument("--multi-pod", action="store_true", help="a pod axis of 2 in front")
     ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS)
     ap.add_argument("--options", default="", help=f"comma-separated: {', '.join(OPTIONS)}")

@@ -623,6 +623,12 @@ def init_attn_cache(cfg, batch, max_seq, dtype, device):
 # whole sequences (training, whisper's encoder) and cross-attention
 # ---------------------------------------------------------------------------
 
+def _kv_cut(p, cfg) -> bool:
+    """Whether ``p`` holds a cut of the KV heads (the rank's, where they
+    divide the model group) rather than all of them."""
+    return p["wk"]["w"].shape[1] < cfg.num_kv_heads
+
+
 def attn_forward(p, cfg, spec, x, positions, *, causal=True, tp=None):
     """Self-attention over a whole sequence, the twin of the reference's
     ``attn_forward``: the training forward (causal, every kind) and
@@ -643,7 +649,7 @@ def attn_forward(p, cfg, spec, x, positions, *, causal=True, tp=None):
     if tp is not None:
         xm = copy_to_model(x, tp)
         q = proj_qkv(p["wq"], xm)
-        if p["wk"]["w"].shape[1] < cfg.num_kv_heads:  # the KV heads are cut
+        if _kv_cut(p, cfg):
             k, v = proj_qkv(p["wk"], xm), proj_qkv(p["wv"], xm)
         else:
             k = copy_to_model(proj_qkv(p["wk"], x), tp)
@@ -659,20 +665,31 @@ def attn_forward(p, cfg, spec, x, positions, *, causal=True, tp=None):
     return proj_out_lora(p["wo"], out, tp=tp)
 
 
-def cross_kv(p, enc, dtype):
+def cross_kv(p, enc, dtype, cfg=None, tp=None):
     """A decoder layer's cross-attention keys and values over the encoder
-    states enc (B, T, d): two (B, T, KV, D) tensors in ``dtype``."""
-    return proj_qkv(p["wk"], enc).to(dtype), proj_qkv(p["wv"], enc).to(dtype)
+    states enc (B, T, d): two (B, T, KV, D) tensors in ``dtype``. ``tp``
+    (with ``cfg``): the sharded train step's model group, whose KV heads
+    ``p`` holds where they divide it; enc enters them through
+    ``copy_to_model`` (whole KV heads: their K/V enter the rank's query
+    heads so), so its gradient comes out whole on every rank."""
+    if tp is not None and _kv_cut(p, cfg):
+        enc = copy_to_model(enc, tp)
+    k, v = proj_qkv(p["wk"], enc).to(dtype), proj_qkv(p["wv"], enc).to(dtype)
+    if tp is not None and not _kv_cut(p, cfg):
+        k, v = copy_to_model(k, tp), copy_to_model(v, tp)
+    return k, v
 
 
-def cross_attend(p, cfg, x, enc_k, enc_v):
+def cross_attend(p, cfg, x, enc_k, enc_v, tp=None):
     """Cross-attention of x (B, S, d) over every encoder position of
     enc_k / enc_v (B, T, KV, D), at the scale 1/sqrt(head_dim) (the
     reference's ``_cross_attend``, which reads no ``softmax_scale``).
-    Returns (B, S, d)."""
+    ``tp``: the rank's query heads and ``wo`` rows, x entering through
+    ``copy_to_model``, one ``reduce_from_model`` after ``wo`` (before its
+    bias). Returns (B, S, d)."""
     S, T = x.shape[1], enc_k.shape[1]
-    q = proj_qkv(p["wq"], x)
+    q = proj_qkv(p["wq"], copy_to_model(x, tp))
     out = flash_attention(q, enc_k, enc_v, q_pos=torch.arange(S, device=x.device),
                           k_pos=torch.arange(T, device=x.device), kind="global",
                           scale=1.0 / math.sqrt(cfg.head_dim), causal=False)
-    return proj_out(p["wo"], out)
+    return proj_out_lora(p["wo"], out, tp=tp)

@@ -20,6 +20,16 @@ backward pass, as the reference's ``chunked_scan``; serving calls it under
 ``torch.no_grad()`` (``Model.extend``). Every call goes through that loop,
 one decode token included: the reference's single-step branch only spares
 ``lax.scan`` a trace.
+
+``mamba_forward``'s ``tp`` (the sharded train step's model group) cuts the
+inner channels: ``in_proj`` (its [x ; z] columns in ``piece_order``, so a
+rank holds both halves of its channels), ``conv_w`` / ``conv_b``,
+``dt_proj``, ``A_log``, ``D`` and ``out_proj``'s rows are the rank's, and
+the scan runs on its channels alone. x enters through ``copy_to_model``;
+``x_proj``'s rows give partial sums of (dt, B, C), which one
+``reduce_from_model`` completes and which enter the rank's channels
+through ``copy_to_model``; one ``reduce_from_model`` after ``out_proj``.
+Two all-reduces a layer forward, two backward.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import (chunked_scan, dense, dense_axes, make_dense,
                                        normal_init)
+from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
 
 
 def d_inner_of(cfg) -> int:
@@ -94,15 +105,19 @@ def ssm_scan(A, Bc, Cc, dt, x, h):
     return chunked_scan(run, (Bc.float(), Cc.float(), dt, x), h)
 
 
-def mamba_forward(p, cfg, x, *, conv_state=None, ssm_state=None):
+def mamba_forward(p, cfg, x, *, conv_state=None, ssm_state=None, tp=None):
     """x: (B, S, d); ``conv_state`` (B, K-1, di) and ``ssm_state`` (B, di,
-    N) f32, or None for an empty history. Returns (y (B, S, d), (conv, ssm))
-    with the states after the last position."""
+    N) f32, or None for an empty history. ``tp``: the rank's model group,
+    whose channels ``p`` holds (see the module docstring). Returns (y (B,
+    S, d), (conv, ssm)) with the states after the last position."""
     dr, N = dt_rank_of(cfg), cfg.ssm_d_state
-    xin, z = torch.chunk(dense(p["in_proj"], x), 2, dim=-1)
+    xin, z = torch.chunk(dense(p["in_proj"], copy_to_model(x, tp)), 2, dim=-1)
     xc, new_conv = causal_conv(p["conv_w"], p["conv_b"], xin, conv_state)
     xc = F.silu(xc)
-    dt, Bc, Cc = torch.split(dense(p["x_proj"], xc), [dr, N, N], dim=-1)
+    xdbc = dense(p["x_proj"], xc)
+    if tp is not None:
+        xdbc = copy_to_model(reduce_from_model(xdbc, tp), tp)
+    dt, Bc, Cc = torch.split(xdbc, [dr, N, N], dim=-1)
     dt = F.softplus(dense(p["dt_proj"], dt)).float()
     A = -torch.exp(p["A_log"])
     xf = xc.float()
@@ -110,7 +125,7 @@ def mamba_forward(p, cfg, x, *, conv_state=None, ssm_state=None):
     y, h = ssm_scan(A, Bc, Cc, dt, xf, h0)
     y = y + xf * p["D"]
     y = (y * F.silu(z.float())).to(x.dtype)
-    return dense(p["out_proj"], y), (new_conv, h.float())
+    return reduce_from_model(dense(p["out_proj"], y), tp), (new_conv, h.float())
 
 
 def init_mamba_cache(cfg, batch, dtype, device):

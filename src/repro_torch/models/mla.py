@@ -24,6 +24,15 @@ Three forms of the same attention:
     which no serving path calls; it checks ``mla_extend`` at C = 1.
 No kernel runs here: the reference's ``_mla_extend`` calls its plain
 blockwise attention too, and ``flash_prefill`` takes only Dqk == Dv.
+
+``mla_forward``'s ``tp`` (the sharded train step's model group) cuts the
+heads: ``wq_b`` (or ``wq``), ``wkv_b`` and ``wo`` hold the rank's, and
+``cfg.num_heads`` is its count (``TrainSharding.layer_cfg``). The
+down-projections, their norms and the shared rope key stay whole on every
+rank, each rank computing them alike; the latents (and x, without a query
+rank) enter the rank's heads through ``copy_to_model``, so the whole
+leaves' gradients come out whole on every rank, and one
+``reduce_from_model`` after ``wo`` completes the output.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, apply_rope, dense, dense_axes,
                                        make_dense, make_norm, norm_axes, normal_init)
+from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
 
 NEG_INF = -1e30
 
@@ -80,14 +90,15 @@ def mla_param_axes(cfg):
     return p
 
 
-def _project_q(p, cfg, x):
+def _project_q(p, cfg, x, tp=None):
     """x: (B, S, d) -> (q_nope (B, S, H, nope), q_pe (B, S, H, rope)),
-    q_pe not yet roped."""
+    q_pe not yet roped. ``tp``: the query latent (or x) enters the rank's
+    heads through ``copy_to_model``."""
     if cfg.q_lora_rank:
         q = apply_norm("rmsnorm", p["q_norm"], dense(p["wq_a"], x))
-        q = torch.einsum("bsr,rhk->bshk", q, p["wq_b"]["w"])
+        q = torch.einsum("bsr,rhk->bshk", copy_to_model(q, tp), p["wq_b"]["w"])
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"]["w"])
+        q = torch.einsum("bsd,dhk->bshk", copy_to_model(x, tp), p["wq"]["w"])
     return q[..., :cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
 
 
@@ -126,18 +137,21 @@ def _expand(p, cfg, q_nope, q_pe, c_kv, k_pe, dtype):
     return torch.cat([q_nope, q_pe], dim=-1), k, v
 
 
-def mla_forward(p, cfg, spec, x, positions, *, kv_valid=None, causal=True):
+def mla_forward(p, cfg, spec, x, positions, *, kv_valid=None, causal=True, tp=None):
     """Expanded form over a whole sequence. x: (B, S, d); positions: (S,).
-    Returns (out (B, S, d), (c_kv (B, S, r), k_pe (B, S, rope)))."""
-    q_nope, q_pe = _project_q(p, cfg, x)
+    ``tp``: the rank's model group, whose heads ``p`` holds (see the module
+    docstring). Returns (out (B, S, d), (c_kv (B, S, r), k_pe (B, S,
+    rope))), the latents whole."""
+    q_nope, q_pe = _project_q(p, cfg, x, tp)
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     c_kv, k_pe = _latent_kv(p, cfg, x, positions)
-    q, k, v = _expand(p, cfg, q_nope, q_pe, c_kv, k_pe[:, :, 0], x.dtype)
+    q, k, v = _expand(p, cfg, q_nope, q_pe, copy_to_model(c_kv, tp),
+                      copy_to_model(k_pe[:, :, 0], tp), x.dtype)
     out = attn.flash_attention(q, k, v, q_pos=positions, k_pos=positions,
                                kind=spec.attn_kind, window=cfg.sliding_window,
                                chunk=cfg.chunk_size, scale=_scale(cfg),
                                causal=causal, kv_valid=kv_valid)
-    out = torch.einsum("bshv,hvd->bsd", out, p["wo"]["w"])
+    out = reduce_from_model(torch.einsum("bshv,hvd->bsd", out, p["wo"]["w"]), tp)
     return out, (c_kv, k_pe[:, :, 0])
 
 

@@ -52,8 +52,9 @@ the rank's model group, and each layer all-reduces its attention output
 (and its MLP output when ``cfg.tp_ff_sharded``) over it; ``param_axes``
 names each parameter's logical axes, by which that runner splits them and
 the sharded train step cuts them (``forward``'s ``shard``: a rank's
-``train/sharding.py`` plan, FSDP slices gathered per layer, heads, hidden
-units, experts and vocab over the model group).
+``train/sharding.py`` plan, FSDP slices gathered per layer; heads, inner
+channels, hidden units, experts and vocab over the model group, for every
+family).
 ``build_model(cfg, device=...)`` runs on ``cuda`` unless asked for ``cpu``
 and raises when CUDA is asked for and absent.
 
@@ -294,14 +295,15 @@ def _layer_decode(p, spec, cfg, x, cache, cache_len, cp=None):
 
 def _mixer_forward(p, spec, cfg, h, positions, tp=None):
     """A layer's mixer over a whole sequence from an empty history; ``tp``:
-    an attention layer's heads are the rank's (``attn.attn_forward``)."""
+    the mixer runs the rank's heads or channels (``attn.attn_forward``,
+    ``mla.mla_forward``, ``mamba.mamba_forward``, the xLSTM's)."""
     if spec.mixer == "attn":
         return attn.attn_forward(p, cfg, spec, h, positions, tp=tp)
     if spec.mixer == "mla":
-        return mla.mla_forward(p, cfg, spec, h, positions)[0]
+        return mla.mla_forward(p, cfg, spec, h, positions, tp=tp)[0]
     fwd = {"mamba": mamba.mamba_forward, "mlstm": xlstm.mlstm_forward,
            "slstm": xlstm.slstm_forward}[spec.mixer]
-    return fwd(p, cfg, h)[0]
+    return fwd(p, cfg, h, tp=tp)[0]
 
 
 def _layer_forward(p, spec, cfg, x, positions, enc=None, shard=None):
@@ -311,17 +313,17 @@ def _layer_forward(p, spec, cfg, x, positions, enc=None, shard=None):
     projects from the encoder states ``enc`` (B, T, d) in the activation
     dtype (the reference's ``cross_kv_stage``); the feed-forward, a MoE at
     the reference's training capacity factor 1.25. ``shard``: the rank's
-    training plan, whose model group (``shard.tp``) the mixer and
-    feed-forward split their heads, hidden units and experts over (``cfg``
-    is then the plan's ``layer_cfg``). Returns (x, the MoE's aux loss or
-    0.0)."""
+    training plan, whose model group (``shard.tp``) the mixer,
+    cross-attention and feed-forward split their heads, channels, hidden
+    units and experts over (``cfg`` is then the plan's ``layer_cfg``).
+    Returns (x, the MoE's aux loss or 0.0)."""
     tp = shard.tp if shard is not None else None
     x = x + _mixer_forward(p["mixer"], spec, cfg, apply_norm(cfg.norm, p["norm1"], x),
                            positions, tp)
     if enc is not None:
         hc = apply_norm(cfg.norm, p["cross_norm"], x)
-        x = x + attn.cross_attend(p["cross"], cfg, hc, *attn.cross_kv(p["cross"], enc,
-                                                                       x.dtype))
+        k, v = attn.cross_kv(p["cross"], enc, x.dtype, cfg, tp)
+        x = x + attn.cross_attend(p["cross"], cfg, hc, k, v, tp)
     return _ff_branch(p, spec, cfg, x, cf=1.25, tp=tp, shard=shard)
 
 
@@ -630,7 +632,13 @@ class Model:
         embedding) holds the model group's vocab slice, x enters through
         ``copy_to_model`` and the logits are the rank's (B, S, V_l) block,
         for the vocab-parallel loss (``train.loop.cross_entropy``)."""
-        x = apply_norm(self.cfg.norm, params["final_norm"], x)
+        return self._vocab_logits(params, apply_norm(self.cfg.norm, params["final_norm"], x),
+                                  tp)
+
+    def _vocab_logits(self, params, x, tp=None):
+        """x (normalized) times the head (or the tied embedding's
+        transpose); with ``tp`` the rank's vocab block, x entering through
+        ``copy_to_model``."""
         w = params["embed"].t() if self.cfg.tie_embeddings \
             else params["lm_head"]["w"]
         return torch.einsum("bsd,dv->bsv", copy_to_model(x, tp), w.to(x.dtype))
@@ -639,20 +647,23 @@ class Model:
         """frames: (B, T, d) post-frontend embeddings (the stubbed audio
         frontend's output). Sinusoidal positions, then the bidirectional
         encoder layers and its final norm. Returns (B, T, d). ``shard``: a
-        rank's training plan on a model axis of 1; each layer's slices are
-        gathered where the layer runs."""
+        rank's training plan; each layer's slices are gathered over data
+        where the layer runs, and under a model group each layer runs the
+        rank's heads and hidden units (two all-reduces a layer)."""
         cfg = self.cfg
         T = frames.shape[1]
         x = frames.to(self.dtype) + sinusoidal_positions(
             T, cfg.d_model, frames.device).to(self.dtype)
         pos = torch.arange(T, device=x.device)
         enc = params["encoder"]
+        tp, lcfg = None, cfg
         if shard is not None:
             enc = shard.gather(enc, shard.specs["encoder"])
+            tp, lcfg = shard.tp, shard.layer_cfg
         for p in enc["layers"]:
             h = apply_norm(cfg.norm, p["norm1"], x)
-            y = attn.attn_forward(p["mixer"], cfg, ENC_SPEC, h, pos, causal=False)
-            x, _ = _ff_branch(p, ENC_SPEC, cfg, x + y)
+            y = attn.attn_forward(p["mixer"], lcfg, ENC_SPEC, h, pos, causal=False, tp=tp)
+            x, _ = _ff_branch(p, ENC_SPEC, lcfg, x + y, tp=tp)
         return apply_norm(cfg.norm, enc["final_norm"], x)
 
     def cross_kv_all(self, params, enc):
@@ -699,10 +710,15 @@ class Model:
         ``batch`` its rows. The slices cut over data are gathered where
         they are used: a layer's inside its checkpoint, the embedding, head
         and norms once before the first layer. With a model group
-        (``shard.tp``) each layer runs the rank's heads, hidden units and
-        experts, the embedding is vocab-parallel where the vocab is cut,
-        and the logits are then the rank's (B, S', V_l) block. The MoE aux
-        loss is the mesh's (``moe.moe_apply``)."""
+        (``shard.tp``) every family runs shard-locally: each layer (and
+        whisper's encoder layers and cross-attention, and the MTP block's
+        layer) runs the rank's heads (attention, MLA, the xLSTM's), inner
+        channels (Mamba, the mLSTM), hidden units and experts, the
+        embedding (the MTP block's too) is vocab-parallel where the vocab
+        is cut, and the logits (and ``aux["mtp_logits"]``) are then the
+        rank's (B, S', V_l) block; image rows join after the
+        vocab-parallel embedding. The MoE aux loss is the mesh's
+        (``moe.moe_apply``)."""
         cfg, dev = self.cfg, self.device
         tokens = batch["tokens"]
         top, vtp = params, None
@@ -741,22 +757,24 @@ class Model:
         token t + 1, one more layer of the last stage's last spec predicts
         token t + 2 through the shared head. Returns (B, S - 1, V).
         ``shard`` and ``top`` (the gathered embedding and head): as in
-        ``forward``, on a model axis of 1."""
+        ``forward``: the embedding is vocab-parallel where the vocab is
+        cut, the layer runs the rank's heads, hidden units and experts, and
+        the logits are then the rank's (B, S - 1, V_l) block."""
         cfg = self.cfg
         m = params["mtp"]
+        vtp = None
         if shard is not None:
             m = shard.gather(m, shard.specs["mtp"])
+            vtp = shard.vocab_tp
         top = params if top is None else top
         h = apply_norm(cfg.norm, m["norm_h"], h_main[:, :-1])
-        e = apply_norm(cfg.norm, m["norm_e"], self.embed_tokens(top, tokens[:, 1:]))
+        e = apply_norm(cfg.norm, m["norm_e"], self.embed_tokens(top, tokens[:, 1:], vtp))
         x = dense(m["proj"], torch.cat([h, e], dim=-1))
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = _layer_forward(m["layer"], cfg.stages[-1][0][-1],
                               cfg if shard is None else shard.layer_cfg, x, positions,
                               shard=shard)
-        x = apply_norm(cfg.norm, m["final_norm"], x)
-        w = top["embed"].t() if cfg.tie_embeddings else top["lm_head"]["w"]
-        return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+        return self._vocab_logits(top, apply_norm(cfg.norm, m["final_norm"], x), vtp)
 
     # ---------------- extend (gathered cache windows) -------------------------
     @torch.no_grad()

@@ -21,6 +21,27 @@ recurrence otherwise (decode, short chunks). The sLSTM's recurrent weights
 ``r`` are block-diagonal, one (dh, 4 dh) block per head; each step's
 recurrent pre-activations are reordered head-major -> gate-major to match
 ``wx``'s layout, and the stabilizer uses each head's mean pre-activation.
+
+Under ``tp`` (the sharded train step's model group; ``cfg.num_heads`` is
+then the rank's count, ``TrainSharding.layer_cfg``) each rank runs the
+recurrences of its own heads, x entering through ``copy_to_model``:
+
+* mLSTM: ``up_proj`` (its [xin ; z] columns in ``piece_order``), ``conv_w``
+  and ``conv_b`` are the rank's channels; ``wq``, ``wk``, ``wv`` and
+  ``w_if`` hold the rank's rows, so their products are partial sums of
+  every column, packed into one ``reduce_scatter_to_model`` that leaves
+  each rank its heads' q, k, v and gates (all-gather backward). The
+  replicated ``w_if`` bias and ``head_norm`` are used on the rank's heads
+  only and enter through ``copy_to_model`` (their gradients summed over the
+  group); one ``reduce_from_model`` after ``down_proj``'s rows.
+* sLSTM: ``wx`` holds the rank's heads' four gates (gate-major columns in
+  ``piece_order``), and the rank uses its heads' blocks of the replicated,
+  block-diagonal ``r`` (through ``copy_to_model``). The group norm spans
+  all of d, so the states are gathered over the group first
+  (``gather_from_model``), and the FFN runs as ``slstm_ffn_cut`` says:
+  "pairs" (``ffn_up``'s [a ; g] in ``piece_order``, ``ffn_down``'s rows,
+  one ``reduce_from_model``), "gather" (``ffn_up`` cut but its pieces do
+  not split: gathered where it is used, ``ffn_down`` whole), or whole.
 """
 from __future__ import annotations
 
@@ -33,6 +54,8 @@ from repro_torch.models.common import (act_fn, apply_norm, chunked_scan, dense,
                                        dense_axes, make_dense, make_norm, norm_axes,
                                        normal_init)
 from repro_torch.models.mamba import causal_conv
+from repro_torch.sharding.collectives import (copy_to_model, gather_from_model,
+                                              reduce_from_model, reduce_scatter_to_model)
 
 NEG_INF = -1e30
 
@@ -142,45 +165,74 @@ def mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int = 64):
     return torch.cat(hs, dim=1), (C_p, n_p, m_p)
 
 
-def mlstm_forward(p, cfg, x, *, state=None):
+def _mlstm_inputs_tp(p, xc, xin, H, tp):
+    """The rank's heads' q, k (unscaled), v and gates (bias added) under
+    ``tp``: the row-cut products' partial sums, laid out (B, S, ranks,
+    [q_i, k_i, v_i, ig_i, fg_i]) and reduce-scattered over the ranks."""
+    B, S, di = xin.shape
+    mp, i = tp.size, tp.index
+    parts = [(xc @ p["wq"]["w"]).reshape(B, S, mp, di),
+             (xc @ p["wk"]["w"]).reshape(B, S, mp, di),
+             (xin @ p["wv"]["w"]).reshape(B, S, mp, di),
+             (xin @ p["w_if"]["w"]).reshape(B, S, 2, mp, H).transpose(2, 3).reshape(
+                 B, S, mp, 2 * H)]
+    mine = reduce_scatter_to_model(torch.cat(parts, dim=-1), tp, 2)[:, :, 0]
+    q, k, v, gates = torch.split(mine, [di, di, di, 2 * H], dim=-1)
+    bias = copy_to_model(p["w_if"]["b"], tp).reshape(2, mp, H)[:, i].reshape(2 * H)
+    return q, k, v, gates + bias
+
+
+def mlstm_forward(p, cfg, x, *, state=None, tp=None):
     """x: (B, S, d); state: {"conv", "C", "n", "m"} or None (an empty
-    history). Returns (y (B, S, d), the new state dict)."""
+    history). ``tp``: the rank's model group, whose heads run here (see the
+    module docstring). Returns (y (B, S, d), the new state dict: the
+    rank's heads' states under ``tp``)."""
     B, S, _ = x.shape
-    di, H = mlstm_d_inner(cfg), cfg.num_heads
+    H = cfg.num_heads
+    xin, z = torch.chunk(dense(p["up_proj"], copy_to_model(x, tp)), 2, dim=-1)
+    di = xin.shape[-1]
     dh = di // H
-    xin, z = torch.chunk(dense(p["up_proj"], x), 2, dim=-1)
     xc, new_conv = causal_conv(p["conv_w"], p["conv_b"], xin,
                                None if state is None else state["conv"])
     xc = F.silu(xc)
-    q = dense(p["wq"], xc).reshape(B, S, H, dh)
-    k = (dense(p["wk"], xc) / math.sqrt(dh)).reshape(B, S, H, dh)
-    v = dense(p["wv"], xin).reshape(B, S, H, dh)
-    gates = dense(p["w_if"], xin).float()  # (B, S, 2H)
-    ig, fg = gates[..., :H], F.logsigmoid(gates[..., H:])
-    if state is None:
-        s = init_mlstm_cache(cfg, B, x.dtype, x.device)
-        s0 = (s["C"], s["n"], s["m"])
+    if tp is None:
+        q, k, v = dense(p["wq"], xc), dense(p["wk"], xc), dense(p["wv"], xin)
+        gates = dense(p["w_if"], xin)
     else:
-        s0 = (state["C"], state["n"], state["m"])
+        q, k, v, gates = _mlstm_inputs_tp(p, xc, xin, H, tp)
+    q = q.reshape(B, S, H, dh)
+    k = (k / math.sqrt(dh)).reshape(B, S, H, dh)
+    v = v.reshape(B, S, H, dh)
+    gates = gates.float()  # (B, S, 2H)
+    ig, fg = gates[..., :H], F.logsigmoid(gates[..., H:])
+    s = _mlstm_memory(B, H, dh, x.device) if state is None else state
+    s0 = (s["C"], s["n"], s["m"])
     # long chunks take the chunkwise-parallel form, short ones and decode
     # the recurrence (the same function, other summation order)
     if S >= 128 and S % 64 == 0:
         h, (C, n, m) = mlstm_chunkwise(q, k, v, ig, fg, s0, chunk=64)
     else:
         h, (C, n, m) = mlstm_recurrence(q, k, v, ig, fg, s0)
-    h = apply_norm("layernorm", p["head_norm"], h.to(x.dtype))
+    norm = {name: copy_to_model(t, tp) for name, t in p["head_norm"].items()}
+    h = apply_norm("layernorm", norm, h.to(x.dtype))
     h = h.reshape(B, S, di) * F.silu(z)
-    return dense(p["down_proj"], h), {"conv": new_conv, "C": C, "n": n, "m": m}
+    y = reduce_from_model(dense(p["down_proj"], h), tp)
+    return y, {"conv": new_conv, "C": C, "n": n, "m": m}
+
+
+def _mlstm_memory(batch, H, dh, device):
+    """An empty history of H heads of width dh: f32 ``C``, ``n`` zeros,
+    ``m`` at -1e30."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, H, dh, dh), **f32),
+            "n": torch.zeros((batch, H, dh), **f32),
+            "m": torch.full((batch, H), NEG_INF, **f32)}
 
 
 def init_mlstm_cache(cfg, batch, dtype, device):
     di, H = mlstm_d_inner(cfg), cfg.num_heads
-    dh = di // H
-    f32 = dict(dtype=torch.float32, device=device)
     return {"conv": torch.zeros((batch, 3, di), dtype=dtype, device=device),
-            "C": torch.zeros((batch, H, dh, dh), **f32),
-            "n": torch.zeros((batch, H, dh), **f32),
-            "m": torch.full((batch, H), NEG_INF, **f32)}
+            **_mlstm_memory(batch, H, di // H, device)}
 
 
 # ---------------------------------------------------------------------------
@@ -238,27 +290,62 @@ def slstm_recurrence(gx, r, state, H, dh):
     return chunked_scan(run, (gx.float(),), tuple(state))
 
 
-def slstm_forward(p, cfg, x, *, state=None):
-    """x: (B, S, d); state: {"c", "n", "h", "m"} or None. Returns (y (B, S,
-    d), the new state dict)."""
+def slstm_ffn_cut(cfg, mp: int):
+    """How the sLSTM's FFN runs on a model axis of ``mp``: "pairs" where its
+    df = int(slstm_proj_factor * d) units split over the ranks (``ffn_up``
+    in ``piece_order``, ``ffn_down``'s rows cut), "gather" where only
+    ``ffn_up``'s 2 df columns do (the rules cut it, ``ffn_down`` stays
+    whole: smoke width's df = 341 on 2 ranks), None where neither is cut."""
+    df = int(cfg.slstm_proj_factor * cfg.d_model)
+    if mp == 1 or (2 * df) % mp:
+        return None
+    return "pairs" if df % mp == 0 else "gather"
+
+
+def slstm_forward(p, cfg, x, *, state=None, tp=None):
+    """x: (B, S, d); state: {"c", "n", "h", "m"} or None. ``tp``: the rank's
+    model group, whose heads run here (see the module docstring). Returns
+    (y (B, S, d), the new state dict: the rank's heads' states under
+    ``tp``)."""
     B, S, d = x.shape
     H = cfg.num_heads
+    r = p["r"]
+    dh = r.shape[1]
+    if tp is not None:
+        r = copy_to_model(r, tp)[tp.index * H:(tp.index + 1) * H]
     if state is None:
-        state = init_slstm_cache(cfg, B, x.dtype, x.device)
+        state = _slstm_state(B, H, dh, x.device)
     hs, (c, n, h, m) = slstm_recurrence(
-        dense(p["wx"], x), p["r"], (state["c"], state["n"], state["h"], state["m"]),
-        H, d // H)
-    hs = apply_norm("layernorm", p["group_norm"], hs.to(x.dtype))
+        dense(p["wx"], copy_to_model(x, tp)), r,
+        (state["c"], state["n"], state["h"], state["m"]), H, dh)
+    hs = hs.to(x.dtype)
+    cut = None
+    if tp is not None:
+        hs = gather_from_model(hs, tp, -1)
+        cut = slstm_ffn_cut(cfg, tp.size)
+    hs = apply_norm("layernorm", p["group_norm"], hs)
     # post-up gated FFN (proj factor 4/3)
-    a, g = torch.chunk(dense(p["ffn_up"], hs), 2, dim=-1)
-    return dense(p["ffn_down"], act_fn("gelu")(g) * a), {"c": c, "n": n, "h": h, "m": m}
+    up = p["ffn_up"]
+    if cut == "gather":
+        up = {"w": gather_from_model(up["w"], tp, 1)}
+    elif cut == "pairs":
+        hs = copy_to_model(hs, tp)
+    a, g = torch.chunk(dense(up, hs), 2, dim=-1)
+    y = dense(p["ffn_down"], act_fn("gelu")(g) * a)
+    if cut == "pairs":
+        y = reduce_from_model(y, tp)
+    return y, {"c": c, "n": n, "h": h, "m": m}
+
+
+def _slstm_state(batch, H, dh, device):
+    """An empty history of H heads of width dh: f32 ``c``, ``n``, ``h``
+    zeros, ``m`` at -1e30."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros((batch, H * dh), **f32), "n": torch.zeros((batch, H * dh), **f32),
+            "h": torch.zeros((batch, H * dh), **f32), "m": torch.full((batch, H), NEG_INF, **f32)}
 
 
 def init_slstm_cache(cfg, batch, dtype, device):
     """``dtype`` is unused (every sLSTM leaf is f32); kept for the common
     signature of the ``init_*_cache`` functions."""
-    d = cfg.d_model
-    f32 = dict(dtype=torch.float32, device=device)
-    return {"c": torch.zeros((batch, d), **f32), "n": torch.zeros((batch, d), **f32),
-            "h": torch.zeros((batch, d), **f32),
-            "m": torch.full((batch, cfg.num_heads), NEG_INF, **f32)}
+    return _slstm_state(batch, cfg.num_heads, cfg.d_model // cfg.num_heads, device)

@@ -21,6 +21,18 @@ gather):
   The model group's after an output projection (training and the sharded
   paged serving path alike); the batch group's in the loss, where every
   rank then holds the global loss and its gradient is its own share.
+* ``gather_from_model(x, group, dim)``: all-gather along ``dim`` forward,
+  the rank's block of the gradient backward. Where each rank's part (its
+  heads' states, its slice of a weight) enters work every rank of
+  ``group`` does whole, the whole tensor's gradient is the same on every
+  rank, and the rank's block of it is its part's (an all-gather's usual
+  reduce-scatter would count it once per rank). The sLSTM's states before
+  its group norm; a weight whose cut the shard-local code cannot use.
+* ``reduce_scatter_to_model(x, group, dim)``: reduce-scatter along ``dim``
+  forward (partial sums completed, the rank's block kept), all-gather of
+  the blocks' gradients backward. Where row-cut projections give partial
+  sums of every column and each rank goes on with its own columns (the
+  mLSTM's q, k, v and gates of its heads).
 
 A group of one rank (or None) makes each of them the identity. Every rank
 of a group must issue the same collectives in the same order: callers make
@@ -65,6 +77,29 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.group.size
+        return g.narrow(ctx.dim, ctx.group.index * n, n), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g.contiguous(), ctx.dim), None, None
+
+
 def _trivial(group) -> bool:
     return group is None or group.size == 1
 
@@ -79,3 +114,11 @@ def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     return x if _trivial(group) else _ReduceFrom.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return x if _trivial(group) else _GatherFrom.apply(x, group, dim)
+
+
+def reduce_scatter_to_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    return x if _trivial(group) else _ReduceScatter.apply(x, group, dim)

@@ -113,7 +113,10 @@ def grads_of(model, params, batch, shard=None):
     gradient slices: the FSDP slices were reduce-scattered by their
     gathers' backward pass, the leaves replicated over a batch axis are
     all-reduced over it here (``TrainSharding.reduce_grads``), and the
-    leaves replicated over the model axis are already equal there."""
+    leaves replicated over the model axis are whole and equal there: each
+    was used whole on every rank, or entered the rank's part (the mLSTM's
+    ``head_norm``, the sLSTM's ``r``, MLA's latents) through
+    ``copy_to_model``, whose backward summed it over the model group."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(model, tree_unflatten(params, leaves), batch, shard=shard)

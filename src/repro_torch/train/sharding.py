@@ -13,22 +13,37 @@ go:
   checkpoint), and its gradient is reduce-scattered by the gather's
   backward pass (``sharding/collectives.py::fsdp_gather``).
 * Tensor parallelism over the model axis (Megatron's identity /
-  all-reduce pair, ``tp``): attention heads, MLP hidden units, experts
-  (expert parallelism) and, where it divides, the vocabulary
-  (``vocab_tp``: the vocab-parallel embedding and loss). Under a model
-  axis above 1 the attention stacks with an MLP or a MoE train (olmo-1b,
-  gemma-2b, qwen2.5-32b, starcoder2-3b, llama4-scout); MLA, Mamba, xLSTM,
-  whisper and internvl raise ``NotImplementedError``. On a model axis of 1
-  every family trains: the model code sees whole leaves.
+  all-reduce pair, ``tp``), for every family the reference trains:
+  attention heads (self-attention, whisper's encoder and
+  cross-attention), MLA heads (the low-rank down-projections, their norms
+  and the shared rope key whole on every rank), MLP hidden units, experts
+  (expert parallelism), Mamba's and the mLSTM's inner channels, the
+  mLSTM's and the sLSTM's heads, and, where it divides, the vocabulary
+  (``vocab_tp``: the vocab-parallel embedding, head and loss, the MTP
+  head's too). Each width a rank cuts must divide the model axis
+  (``ValueError`` otherwise). ``layer_cfg`` is the config a layer runs
+  with: the rank's ``num_heads`` and ``tp_ff_sharded``. A leaf whose axis
+  holds pieces side by side takes an order first (``model_order``) so a
+  rank holds its share of each piece; where a piece does not split over
+  the ranks (the sLSTM's ``ffn_up`` at 2 x 341 columns on 2 ranks, its
+  ``ffn_down`` whole) the leaf is cut contiguously and gathered over the
+  model group where it is used (``gather_from_model``), and its gradient
+  is the rank's block of the whole one, which every rank of the group
+  computes alike (a reduce-scatter would count it once per rank). On a
+  model axis of 1 the model code sees whole leaves.
 * The batch over (pod, data) (``batch``): each rank's loss is the global
   loss (its sums completed over the batch group), and each gradient leaf
   not cut over a batch axis is all-reduced over it after the backward
-  pass (``reduce_grads``); leaves replicated over the model axis already
-  agree there.
+  pass (``reduce_grads``). A leaf replicated over the model axis that a
+  rank uses only in part (the mLSTM's ``head_norm`` and ``w_if`` bias on
+  its heads, the sLSTM's ``r`` blocks of its heads) enters through
+  ``copy_to_model``, whose backward sums its gradient over the model
+  group; so every leaf's gradient is complete when the backward pass ends,
+  and the model-replicated ones agree over the model axis.
 
 ``norm_sq`` gives the global gradient norm from the slices, each
 replicated copy counted once; ``unshard`` assembles the whole tree (the
-permutations undone) for a checkpoint.
+orders undone) for a checkpoint.
 """
 from __future__ import annotations
 
@@ -39,10 +54,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.executor.sharded import (_glu_leaf, glu_order, tp_layout, train_params,
-                                               train_slicer)
+from repro_torch.core.executor.sharded import model_order, tp_layout, train_params, train_slicer
 from repro_torch.launch.mesh import BATCH_AXES
+from repro_torch.models.mamba import d_inner_of
 from repro_torch.models.model import param_axes, param_shapes
+from repro_torch.models.xlstm import mlstm_d_inner
 from repro_torch.sharding.collectives import fsdp_gather
 from repro_torch.sharding.rules import mode_rules
 
@@ -70,20 +86,13 @@ def _pairs(tree, specs, path=()):
     return out
 
 
-def tp_train_supported(cfg: ModelConfig) -> bool:
-    """Whether tensor parallelism covers this stack in training: attention
-    layers (global, sliding-window, chunked) with an MLP or a MoE, no
-    encoder, image splice or multi-token head."""
-    return (cfg.family not in ("audio", "vlm") and not cfg.mtp_depth
-            and all(s.mixer == "attn" and s.ff in ("mlp", "moe") for s in cfg.layer_specs()))
-
-
 class TrainSharding:
     """One rank's plan of the train step on ``mesh`` (``launch.mesh.Mesh``)
     for ``cfg`` at ``global_batch`` rows. ``options``: the rules' options
     ("sharded_moe", "onehot_ce"), which the model and the loss read from
     ``self.rules``. ``layer_cfg``: the config a layer runs with (under a
-    model group, ``tp_ff_sharded``: an MLP's hidden units are the rank's).
+    model group the rank's ``num_heads``, and ``tp_ff_sharded``: an MLP's
+    hidden units are the rank's).
     ``device``: where the rank's tensors live (the mesh's device by
     default)."""
 
@@ -99,7 +108,8 @@ class TrainSharding:
         self.local_batch = global_batch // self.batch.size
         mp = mesh.shape.get("model", 1)
         self.tp = mesh.model if mp > 1 else None
-        self.layer_cfg = dataclasses.replace(cfg, tp_ff_sharded=True) if mp > 1 else cfg
+        self.layer_cfg = dataclasses.replace(
+            cfg, tp_ff_sharded=True, num_heads=cfg.num_heads // mp) if mp > 1 else cfg
         self.axes = param_axes(cfg)
         shapes = param_shapes(cfg, max_seq)
         self.specs = _map2(lambda shape, axes, _: self.rules.pspec(axes, shape), shapes,
@@ -115,21 +125,23 @@ class TrainSharding:
                                           "another axis in one dimension")
 
     def _check_tp(self, mp: int) -> None:
+        """Every width a rank cuts must divide the model axis: the heads
+        (attention, MLA, the xLSTM's, whisper's; ``tp_layout`` also checks
+        the replicated-KV fallback), an MLP's hidden units, the experts and
+        the shared experts' units, Mamba's and the mLSTM's inner widths."""
         cfg = self.cfg
-        if not tp_train_supported(cfg):
-            kinds = sorted({s.mixer for s in cfg.layer_specs()} | (
-                {cfg.family} if cfg.family in ("audio", "vlm") else set())
-                | ({"mtp"} if cfg.mtp_depth else set()))
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}: {', '.join(kinds)}): tensor-parallel training "
-                "covers attention stacks with an MLP or a MoE; train it on a model axis of 1 "
-                "(FSDP over data)")
+        specs = cfg.layer_specs()
         tp_layout(cfg, mp)  # raises where the heads do not split
-        widths = {"d_ff": cfg.d_ff} if any(s.ff == "mlp" for s in cfg.layer_specs()) else {}
-        if any(s.ff == "moe" for s in cfg.layer_specs()):
+        mixers = {s.mixer for s in specs}
+        widths = {"d_ff": cfg.d_ff} if any(s.ff == "mlp" for s in specs) else {}
+        if any(s.ff == "moe" for s in specs):
             widths["num_experts"] = cfg.num_experts
             if cfg.num_shared_experts:
                 widths["shared expert width"] = cfg.moe_d_ff * cfg.num_shared_experts
+        if "mamba" in mixers:
+            widths["Mamba d_inner"] = d_inner_of(cfg)
+        if "mlstm" in mixers:
+            widths["mLSTM d_inner"] = mlstm_d_inner(cfg)
         bad = {k: v for k, v in widths.items() if v % mp}
         if bad:
             raise ValueError(f"{cfg.name}: {bad} do not divide the model axis ({mp})")
@@ -167,7 +179,10 @@ class TrainSharding:
     def reduce_grads(self, grads):
         """Each gradient slice summed over the batch axes it is not cut
         over (a leaf cut over data was reduce-scattered over data by its
-        gather; it is replicated over pod)."""
+        gather; it is replicated over pod). Nothing is summed over the
+        model axis here: a leaf replicated there was used whole on every
+        rank, or entered the rank's part through ``copy_to_model``, whose
+        backward summed its gradient over the model group already."""
         groups = {a: self.mesh.axis(a) for a in BATCH_AXES if a in self.mesh.shape}
 
         def leaf(g, spec, _):
@@ -196,10 +211,10 @@ class TrainSharding:
 
     # ---- whole trees ------------------------------------------------------
     def unshard(self, tree):
-        """The whole tree from every rank's slices (the GQA and GLU orders
-        undone), on the host: every rank takes part and gets it."""
+        """The whole tree from every rank's slices (the head orders and the
+        orders of pieces side by side undone, ``model_order``), on the
+        host: every rank takes part and gets it."""
         mp = self.mesh.shape.get("model", 1)
-        head_order = tp_layout(self.cfg, mp).head_order if mp > 1 else None
 
         def leaf(t, spec, path):
             axes = tree_at(self.axes, path)
@@ -207,11 +222,9 @@ class TrainSharding:
                 for a in reversed(_parts(part)):
                     t = self.mesh.axis(a).all_gather(t.contiguous(), dim)
                 if "model" in _parts(part) and mp > 1:
-                    if axes[dim] == "heads" and head_order is not None:
-                        t = t.index_select(dim, _inverse(head_order, t.device))
-                    if axes[dim] == "ff" and _glu_leaf(self.cfg, path):
-                        t = t.index_select(dim, _inverse(glu_order(t.shape[dim], mp),
-                                                         t.device))
+                    order = model_order(self.cfg, path, axes[dim], t.shape[dim], mp)
+                    if order is not None:
+                        t = t.index_select(dim, _inverse(order, t.device))
             return t.detach().cpu()
         return _map2(leaf, tree, self.specs)
 

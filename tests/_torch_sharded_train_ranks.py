@@ -16,7 +16,9 @@ from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core.executor.sharded import train_slicer
 from repro_torch.data import SyntheticLM, make_batches
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import batch_extras
 from repro_torch.models import build_model
+from repro_torch.models.model import ENC_SPEC, _layer_forward
 from repro_torch.models.moe import moe_apply, moe_param_axes
 from repro_torch.optim import clip_by_global_norm
 from repro_torch.train.loop import grads_of, init_train_state, make_train_step
@@ -36,7 +38,10 @@ MOE_ROWS, MOE_SEQ, MOE_CF = 2, 4200, 1.0
 
 
 def synthetic_batches(cfg, steps, batch=B, seq=S):
-    return list(make_batches(SyntheticLM(cfg.vocab_size, seq, seed=0), batch, steps))
+    """``SyntheticLM(seed=0)`` batches with the family's extras
+    (``launch/train.py::batch_extras``: audio frames, image rows)."""
+    return list(make_batches(SyntheticLM(cfg.vocab_size, seq, seed=0), batch, steps,
+                             batch_extras(cfg, batch)))
 
 
 def smoke_batch(cfg, seed=0, batch=2, seq=16):
@@ -74,18 +79,28 @@ def _data_leaves(shard):
     return count(shard.specs), count(shard.specs["layers"])
 
 
-def train_run(arch, shape, options, batches, *, whole=False):
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in tree_paths(tree))
+
+
+def train_run(arch, shape, options, batches, *, whole=False, grad0=False):
     """The port's train steps on this rank of ``shape``: per-step metrics,
     the collectives counted on the first step beside the number of leaves
-    cut over data (all of them, the layers'), and with ``whole`` the final
-    params gathered into one tree (numpy)."""
+    cut over data (all of them, the layers'), the bytes of the rank's
+    parameter slices, with ``whole`` the final params gathered into one
+    tree and with ``grad0`` the first batch's gradient gathered into one
+    tree (numpy)."""
     cfg = configs.smoke_config(arch)
     mesh = make_mesh(shape, backend="gloo", device="cpu")
     shard = TrainSharding(cfg, mesh, len(batches[0]["tokens"]), options)
     model = build_model(cfg, device="cpu")
     state = init_train_state(model, 0, shard=shard)
     step = make_train_step(model, shard=shard, **STEP)
-    out = {"metrics": []}
+    out = {"metrics": [], "param_bytes": _bytes(state.params)}
+    if grad0:
+        g, _ = grads_of(model, state.params,
+                        {k: torch.from_numpy(v) for k, v in shard.rows(batches[0]).items()}, shard)
+        out["grad0"] = _numpy(shard.unshard(g))
     for i, b in enumerate(batches):
         for g in mesh.groups.values():
             g.reset_counts()
@@ -193,4 +208,104 @@ def fsdp_grads(archs):
         _, norm = clip_by_global_norm(grads, STEP_MAX_NORM, shard)
         out[arch] = {"metrics": {k: float(v) for k, v in metrics.items()},
                      "grad_norm": float(norm), "grads": _numpy(shard.unshard(grads))}
+    return out
+
+
+# the families tensor parallelism reaches through their own mixers, encoder
+# and MTP block: MLA (+ MoE + MTP) and Mamba, then the xLSTM's, whisper's
+# and internvl's; each trains TP_STEPS steps on TP_MESH against JAX's
+# single-device step, xlstm also on MESH
+MLA_ARCHS = ("deepseek-v3-671b", "jamba-v0.1-52b")
+MIXER_ARCHS = ("xlstm-1.3b", "whisper-base", "internvl2-2b")
+TP_MESH = {"data": 1, "model": 2}
+TP_STEPS = 2
+
+
+def family_cases(archs):
+    """On a world of 2 ranks, (data 1, model 2): each of ``archs`` trains
+    ``TP_STEPS`` steps (metrics, the first batch's gradient and the final
+    params gathered, the rank's parameter bytes); the JAX modules held."""
+    torch.set_num_threads(1)
+    out = {arch: train_run(arch, TP_MESH, {}, synthetic_batches(
+        configs.smoke_config(arch), TP_STEPS), whole=True, grad0=True) for arch in archs}
+    out["modules"] = sorted(n for n in sys.modules
+                            if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return out
+
+
+def _counted(mesh, fn):
+    """(fn(), the model group's collectives during it: all-reduces,
+    all-gathers, reduce-scatters)."""
+    g = mesh.axis("model")
+    g.reset_counts()
+    out = fn()
+    return out, (g.all_reduces, g.all_gathers, g.reduce_scatters)
+
+
+def layer_collectives(archs):
+    """On a world of 2 ranks, (data 1, model 2): for each of ``archs``, the
+    model group's collectives of one forward and of its backward pass, per
+    decoder layer (in ``layer_specs()`` order; whisper's with its
+    cross-attention over encoder states) and, for whisper, over its whole
+    encoder (with the encoder's layer count)."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(TP_MESH, backend="gloo", device="cpu")
+    out = {}
+    for arch in archs:
+        cfg = configs.smoke_config(arch)
+        shard = TrainSharding(cfg, mesh, 2)
+        model = build_model(cfg, device="cpu")
+        # leaves that take a gradient, as grads_of's do: a leaf that enters
+        # the rank's part through copy_to_model all-reduces it
+        params = tree_map(lambda t: t.detach().requires_grad_(), shard.params(model, 0))
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randn((2, 16, cfg.d_model), generator=gen)
+        enc = torch.randn((2, cfg.n_audio_ctx, cfg.d_model), generator=gen).requires_grad_() \
+            if cfg.family == "audio" else None
+        pos = torch.arange(16)
+        rows = []
+        for p, spec in zip(params["layers"], model.specs):
+            xi = x.clone().requires_grad_()
+            (y, aux), fwd = _counted(mesh, lambda: _layer_forward(
+                p, spec, shard.layer_cfg, xi, pos, enc, shard))
+            _, bwd = _counted(mesh, lambda: (y.sum() + aux).backward())
+            rows.append({"spec": (spec.mixer, spec.ff), "forward": fwd, "backward": bwd})
+        out[arch] = {"layers": rows}
+        if enc is not None:
+            frames = enc.clone().requires_grad_()
+            e, fwd = _counted(mesh, lambda: model.run_encoder(params, frames, shard))
+            _, bwd = _counted(mesh, lambda: e.sum().backward())
+            out[arch]["encoder"] = {"layers": cfg.encoder_layers, "forward": fwd,
+                                    "backward": bwd, "spec": (ENC_SPEC.mixer, ENC_SPEC.ff)}
+    return out
+
+
+def mixer_cases(archs):
+    """The 2-rank world of the mixers file: ``family_cases`` of ``archs``
+    and ``layer_collectives`` of every family of both files."""
+    out = family_cases(archs)
+    out["layer_collectives"] = layer_collectives(MLA_ARCHS + MIXER_ARCHS)
+    return out
+
+
+def xlstm_mesh_cases(tmpdir):
+    """On a world of 4 ranks, (data 2, model 2): xlstm trains ``TP_STEPS``
+    steps (as ``family_cases``), and its seed-0 slices are saved through the
+    mesh and restored onto it (the checkpoint through the sLSTM's and the
+    mLSTM's column orders)."""
+    torch.set_num_threads(1)
+    arch = "xlstm-1.3b"
+    cfg = configs.smoke_config(arch)
+    out = {arch: train_run(arch, MESH, {}, synthetic_batches(cfg, TP_STEPS), whole=True,
+                           grad0=True)}
+    mesh = make_mesh(MESH, backend="gloo", device="cpu")
+    shard = TrainSharding(cfg, mesh, B)
+    params = shard.params(build_model(cfg, device="cpu"), 0)
+    path = os.path.join(tmpdir, "xlstm_sharded.npz")
+    save_checkpoint(path, params, step=2, shard=shard)
+    mesh.barrier()
+    restored, step = load_checkpoint(path, params, shard=shard)
+    out["checkpoint"] = {"restored_equal": all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(tree_paths(restored), tree_paths(params))),
+        "step": step}
     return out

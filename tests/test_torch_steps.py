@@ -176,7 +176,7 @@ def test_build_step_refusals():
     tp2 = Mesh(shape={"data": 1, "model": 2}, rank=0, backend="local",
                device=torch.device("cpu"), groups=groups)
     for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="A.7"):
+        with pytest.raises(NotImplementedError, match="A.5"):
             build_step(cfg, tconfigs.InputShape("x", 16, 2, kind), tp2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -12,12 +12,19 @@
   the option bound by ``use_rules`` or given (``onehot=``, as a rank's
   plan gives it).
 * ``use_rules`` nests and restores, and ``Rules.opt`` reads the options.
-* No fallback: a stack tensor parallelism does not cover refuses a model
-  axis above 1 and names its family; an indivisible expert count refuses
-  it; the production mesh asks for the world it needs; ``launch/train.py
-  --multi-pod`` alone stops.
+* Every family trains on a model axis of 2: the plan builds for all ten
+  smoke configs, and every leaf's slice is the rank's block of the whole
+  leaf, an axis of pieces side by side (a GLU up-projection, Mamba's
+  ``in_proj``, the mLSTM's ``up_proj``, the sLSTM's ``wx`` and, where its
+  units split, ``ffn_up``) taking its share of each piece;
+  ``build_step``'s train step of each family this reaches on (1, 2) holds
+  the rank's slices.
+* No fallback: heads that do not divide the model axis (xlstm's 4 on 8)
+  and an indivisible expert count refuse it; the production mesh asks for
+  the world it needs; ``launch/train.py --multi-pod`` alone stops.
 """
 import dataclasses
+import math
 import os
 import sys
 import types
@@ -40,7 +47,10 @@ from repro.sharding import use_rules as juse_rules  # noqa: E402
 from repro.train.loop import cross_entropy as jcross_entropy  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.core.executor.sharded import tp_layout, train_slicer  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.launch.steps import build_step  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import convert_params  # noqa: E402
 from repro_torch.models.model import param_axes, param_shapes  # noqa: E402
 from repro_torch.sharding import Rules, current_rules, mode_rules, use_rules  # noqa: E402
@@ -156,15 +166,107 @@ def _stand_in_mesh(shape):
                                  device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("arch,family", [
-    ("deepseek-v3-671b", "mla"), ("jamba-v0.1-52b", "mamba"), ("xlstm-1.3b", "mlstm"),
-    ("whisper-base", "audio"), ("internvl2-2b", "vlm")])
-def test_tp_training_refuses_uncovered_families(arch, family):
+def _stand_in_rank(shape, index):
+    """A ``launch/mesh.Mesh`` of ``shape`` seen from model rank ``index``
+    (data 0), whose groups run no collective: what the slicer and
+    ``build_step`` read."""
+    world = math.prod(shape.values())
+    groups = {n: tmesh.AxisGroup(n, tuple(range(shape.get(n, world))), index
+                                 if n == "model" else 0, None)
+              for n in ("data", "model", "batch", "world")}
+    return tmesh.Mesh(shape=shape, rank=index, backend="local", device=torch.device("cpu"),
+                      groups=groups)
+
+
+# (owner of the leaf, logical axis) -> pieces side by side on that axis
+PIECES = {("in_proj", "ssm_inner"): 2, ("up_proj", "lstm_inner"): 2, ("wx", "lstm_inner"): 4,
+          ("ffn_up", "ff"): 2}
+
+
+def _pieces(cfg, path, axis, width, mp):
+    owner = path[-2] if len(path) > 1 else None
+    n = 2 if (owner in ("w1", "shared_w1") and axis == "ff"
+              and cfg.activation.endswith("_glu")) else PIECES.get((owner, axis), 1)
+    return n if (width // n) % mp == 0 else 1  # a piece that does not split: contiguous
+
+
+def _expected_block(cfg, t, axes, spec, path, index, mp):
+    """The rank's block of a whole leaf along every dimension cut over
+    model: its 1/mp of each piece of the axis, the pieces in order."""
+    for dim, (axis, part) in enumerate(zip(axes, spec)):
+        if part != "model":
+            continue
+        assert axis != "heads" or tp_layout(cfg, mp).head_order is None
+        n = _pieces(cfg, path, axis, t.shape[dim], mp)
+        shape = t.shape[:dim] + (n, mp, t.shape[dim] // (n * mp)) + t.shape[dim + 1:]
+        t = t.reshape(shape).select(dim + 1, index).flatten(dim, dim + 1)
+    return t
+
+
+def _leaves(tree, axes, path=()):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k], axes[k], path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, (t, a) in enumerate(zip(tree, axes, strict=True))
+                for x in _leaves(t, a, path + (str(i),))]
+    return [(path, tree, axes)]
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_tp_training_takes_every_family(arch):
+    """On (data 1, model 2) the plan builds, and each rank's slice of every
+    leaf equals its block of the whole leaf in the pieces' order (checked
+    against a reshape, not the slicer's order)."""
     cfg = tconfigs.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=rf"{cfg.name} \(.*{family}"):
-        TrainSharding(cfg, _stand_in_mesh({"data": 1, "model": 2}), 4)
-    # a model axis of 1 (pure FSDP) takes every family
-    TrainSharding(cfg, _stand_in_mesh({"data": 2, "model": 1}), 4)
+    shape = {"data": 1, "model": 2}
+    whole = build_model(cfg, device="cpu").init(0)
+    ordered = 0
+    for index in range(2):
+        mesh = _stand_in_rank(shape, index)
+        shard = TrainSharding(cfg, mesh, 4)
+        assert shard.layer_cfg.num_heads == cfg.num_heads // 2
+        mine = train_slicer(cfg, mesh, shard.rules)(whole, shard.axes)
+        for (path, t, axes), (_, got, _) in zip(_leaves(whole, shard.axes),
+                                                _leaves(mine, shard.axes)):
+            spec = shard.rules.pspec(axes, tuple(t.shape))
+            want = _expected_block(cfg, t, axes, spec, path, index, 2)
+            assert torch.equal(got, want), path
+            ordered += any(p == "model" and _pieces(cfg, path, a, w, 2) > 1
+                           for a, p, w in zip(axes, spec, t.shape))
+    glu = cfg.activation.endswith("_glu") and cfg.d_ff
+    assert (ordered > 0) == (bool(glu) or arch in ("jamba-v0.1-52b", "xlstm-1.3b")), ordered
+
+
+def test_tp_training_refuses_indivisible_heads():
+    """xlstm's 4 heads on a model axis of 8 (its 512 inner channels would
+    divide, cutting inside a head)."""
+    cfg = tconfigs.smoke_config("xlstm-1.3b")
+    with pytest.raises(ValueError, match="num_heads=4 is not divisible by the model axis"):
+        TrainSharding(cfg, _stand_in_mesh({"data": 1, "model": 8}), 4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-v0.1-52b", "xlstm-1.3b",
+                                  "whisper-base", "internvl2-2b"])
+def test_build_step_trains_on_a_model_axis(arch):
+    """``build_step``'s train step on (data 1, model 2): its plan cuts the
+    model group, and its parameters are the rank's slices (each leaf's
+    whole shape over the cut of its spec)."""
+    cfg = tconfigs.smoke_config(arch)
+    mesh = _stand_in_rank({"data": 1, "model": 2}, 1)
+    step = build_step(cfg, tconfigs.InputShape("tr", 16, 4, "train"), mesh)
+    assert step.shard.tp is mesh.model and step.shard.layer_cfg.num_heads == cfg.num_heads // 2
+    params = step.params(0)
+    shapes = param_shapes(cfg, step.init_max_seq)
+    cut = 0
+    for (path, t, axes), (_, whole, _) in zip(_leaves(params, step.shard.axes),
+                                              _leaves(shapes, step.shard.axes)):
+        spec = step.shard.specs
+        for k in path:
+            spec = spec[int(k)] if isinstance(spec, list) else spec[k]
+        want = tuple(w // 2 if p == "model" else w for w, p in zip(whole, spec))
+        assert tuple(t.shape) == want, path
+        cut += want != tuple(whole)
+    assert cut > 0
 
 
 def test_tp_training_refuses_indivisible_experts():
