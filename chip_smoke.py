@@ -298,6 +298,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                (disagg_demo, fleet_demo, moe_serving) at smoke width in f32
                from the CPU's seed-0 weights: the card's streams and
                counters equal the CPU's.
+ 15. tp steps — ``build_step``'s tensor-parallel prefill (B 2, S 2048)
+               and 8 decode steps on (data 1, model 2), two ranks sharing
+               the card over gloo, bf16 at published width: the
+               qwen2.5-32b block (4 of 64 layers: 20 local heads over 4
+               KV heads), the deepseek-v3 block (1 dense + 1 MoE MLA
+               layer: 64 heads and 128 experts a rank) and internvl2-2b
+               whole with an image (its vocab whole). Against one process
+               fed the same tokens: logits within 2^-4 of the largest
+               (2^-3 for the MoE block), each rank's requested device
+               bytes after its slices, cache and rows within 64 KiB of its
+               dry-run's argument_bytes (``launch/dryrun.py::measure`` on
+               the meta device over a virtual mesh), each step's
+               collectives equal to the dry-run's, flash_prefill's
+               launches a rank equal to the dry-run's and held against its
+               plain version at the local shapes, max_memory_allocated
+               beside the dry-run's argument + temp bytes. Then the
+               dry-run of olmo-1b at every shape on the (16, 16) mesh and
+               its roofline rows against the card's data-sheet row.
 Prints one ``{"kernels": [...]}`` line, then as the very last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -359,8 +377,10 @@ from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.roofline import card_for  # noqa: E402
 from repro_torch.core.executor.sharded import (rank_slicer, shard_params,  # noqa: E402
                                                tp_layout)
+from repro_torch.launch.dryrun import measure as dryrun_measure  # noqa: E402
+from repro_torch.launch.dryrun import run_one as dryrun_run_one  # noqa: E402
 from repro_torch.launch.mesh import (make_local_mesh, make_mesh,  # noqa: E402
-                                     make_serving_mesh, spawn_ranks)
+                                     make_serving_mesh, make_virtual_mesh, spawn_ranks)
 from repro_torch.launch.specs import DECODE_PAD, cache_axes_tree, shard_cache  # noqa: E402
 from repro_torch.launch.steps import build_step  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
@@ -6512,6 +6532,279 @@ REPLACES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor-parallel prefill and decode steps; the dry-run
+# ---------------------------------------------------------------------------
+
+TP_STEP_MESH = {"data": 1, "model": 2}
+TP_STEP_B, TP_STEP_S, TP_STEP_DECODES = 2, 2048, 8
+TP_STEP_PRE = configs.InputShape("prefill_2k", TP_STEP_S, TP_STEP_B, "prefill")
+TP_STEP_DEC = configs.InputShape("decode_2k", TP_STEP_S, TP_STEP_B, "decode")
+# the prefill logits held: these positions of every row (qwen's whole (B, S,
+# V) f32 block would be 2.5 GB on the host)
+TP_STEP_POSITIONS = (0, 1023, 2047)
+# a rank's requested device bytes after its slices, cache and rows are
+# drawn, against the dry-run's argument_bytes of the same step
+TP_STEP_MEM_SLACK = 2 ** 16
+DRYRUN_DIR = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+
+
+# the deepseek-v3 block's logits: its router runs on every rank from the
+# all-reduced hidden state, which rounds in bf16 apart from one process's
+# (TP_LOGITS_RTOL), so a token whose 8th and 9th expert scores sit within a
+# rounding takes another expert on the ranks: that token's routed output
+# moves by about one expert's share (1/8), and its logits with it (on an
+# H100: 11.7% at a held row, with every greedy token equal). A
+# wrong cut (an expert on two ranks, a head missing) moves every row by O(1)
+# of the scale.
+TP_MOE_LOGITS_RTOL = 2 ** -3
+
+
+def tp_step_configs():
+    """Phase 15's configs at published width, bf16: (label, config, the
+    logits' tolerance against one process)."""
+    return (("qwen2.5-32b block (4 of 64 layers)", qwen_block()[0], TP_LOGITS_RTOL),
+            ("deepseek-v3 block (1 dense + 1 MoE MLA layer of 61)", deepseek_block()[0],
+             TP_MOE_LOGITS_RTOL),
+            ("internvl2-2b whole (an image)", configs.get_config(INTERNVL), TP_LOGITS_RTOL))
+
+
+def tp_step_inputs(cfg):
+    """Seeded prompt tokens (B, S - image rows) and internvl's image rows
+    (N(0, 0.1^2) rounded to bf16)."""
+    rng = np.random.default_rng(15)
+    n_img = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    toks = rng.integers(2, cfg.vocab_size, size=(TP_STEP_B, TP_STEP_S - n_img))
+    extras = {}
+    if n_img:  # in the activation dtype, as the dry-run's inputs are
+        extras["vision_embeds"] = torch.from_numpy(
+            bf16_rows(rng, (TP_STEP_B, n_img, cfg.d_model), 0.1)).to(torch.bfloat16)
+    return torch.from_numpy(toks.astype(np.int32)), extras
+
+
+def _vocab_whole(step, logits):
+    """The step's logits over the whole vocab (gathered over the model group
+    where the step cut it), f32 numpy on the host (a rank's result travels
+    back by pickle)."""
+    sh = step.sharding
+    if sh is not None and sh.vocab_tp is not None:
+        logits = sh.vocab_tp.all_gather(logits.contiguous(), -1)
+    return logits.float().cpu().numpy()
+
+
+def tp_step_drive(cfg, mesh, draw, feed=None):
+    """``build_step``'s prefill (B 2, S 2048) and TP_STEP_DECODES decode
+    steps of ``cfg`` on ``mesh``: the parameters from ``draw(step)``, the
+    cache and rows drawn after them (their requested device bytes
+    measured), the prefill's cache copied into the decode step's; decode
+    tokens ``feed`` (else greedy). Returns the held logits, each step's input
+    and greedy tokens, each step's collectives, flash_prefill's launches
+    and the device bytes."""
+    pre = build_step(cfg, TP_STEP_PRE, mesh)
+    dec = build_step(cfg, TP_STEP_DEC, mesh)
+    toks, extras = tp_step_inputs(cfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = np.array(device_bytes())
+    params = draw(pre)
+    cache = pre.init_cache()
+    rows = {k: v.to("cuda") for k, v in pre.rows(dict(tokens=toks, **extras)).items()}
+    cache_len = torch.zeros(rows["tokens"].shape[0], dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    out = dict(drawn=np.array(device_bytes()) - base, logits=[], collectives=[], tokens=[],
+               inputs=[])
+    groups = list({id(g): g for g in mesh.groups.values()}.values())
+
+    def counted(fn, *args):
+        for g in groups:
+            g.reset_counts()
+        res = fn(*args)
+        out["collectives"].append(group_counts(mesh))
+        return res
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    extra = {k: v for k, v in rows.items() if k != "tokens"} or None
+    logits, cache = counted(pre.fn, params, rows["tokens"], cache, cache_len, extra)
+    out["prefill_launches"] = read_counts()
+    pos = torch.tensor(TP_STEP_POSITIONS, device="cuda")
+    out["logits"].append(_vocab_whole(pre, logits.index_select(1, pos)))
+    tok = logits[:, -1:].argmax(-1) if pre.sharding is None or \
+        pre.sharding.vocab_tp is None else None
+    del logits
+    dcache = dec.init_cache()
+    for layer, src in zip(dcache, cache):
+        for name, t in layer.items():
+            s = src[name]
+            (t if t.shape == s.shape else t[:, :s.shape[1]]).copy_(s)
+    del cache
+    zero_counts()
+    for t in range(TP_STEP_DECODES):
+        if feed is not None:
+            tok = torch.tensor(feed[t], device="cuda").reshape(-1, 1)
+        elif tok is None:
+            raise ValueError("greedy decode needs the whole vocab on one process")
+        out["inputs"].append(tok.reshape(-1).tolist())
+        lens = torch.full((tok.shape[0],), TP_STEP_S + t, device="cuda")
+        logits, dcache = counted(dec.fn, params, tok, dcache, lens)
+        whole = _vocab_whole(dec, logits)
+        out["logits"].append(whole)
+        out["tokens"].append(whole[:, -1].argmax(-1).tolist())
+        tok = torch.tensor(out["tokens"][-1], device="cuda").reshape(-1, 1)
+    out["decode_launches"] = read_counts()
+    torch.cuda.synchronize()
+    out["max_allocated"] = torch.cuda.max_memory_allocated() - int(base[1])
+    out["layout"] = None if pre.sharding is None else pre.sharding.layout
+    del params, dcache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_step_rank(feeds):
+    """One of phase 15's two ranks on (data 1, model 2) sharing the card
+    over gloo: per config, the dry-run of its prefill and decode steps on
+    the meta device over a virtual mesh (this rank's), its slices drawn one
+    rank at a time (a whole deepseek-v3 MoE layer, 22.5 GB bf16 and its f32
+    draw, on the way), the steps driven with the one process's greedy
+    tokens, then flash_prefill held against its plain version at the local
+    shapes (after the counts were read)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(TP_STEP_MESH, backend="gloo")
+    out = dict(rank=mesh.rank, configs={})
+    for label, cfg, _ in tp_step_configs():
+        virtual = make_virtual_mesh(TP_STEP_MESH, rank=mesh.rank)
+        dry = {kind: dryrun_measure(build_step(cfg, shape, virtual))
+               for kind, shape in (("prefill", TP_STEP_PRE), ("decode", TP_STEP_DEC))}
+
+        def draw(step):
+            params = None
+            for r in range(mesh.world.size):  # one whole layer on the card at a time
+                if r == mesh.rank:
+                    params = step.params(0)
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                mesh.barrier()
+            return params
+        res = tp_step_drive(cfg, mesh, draw, feeds[label])
+        lay = res.pop("layout")
+        lcfg = lay.layer_cfg
+        res["local_heads"] = (lcfg.num_heads, cfg.num_kv_heads // (
+            mesh.model.size if lay.kv_sharded else 1))
+        errs = []
+        if res["prefill_launches"]["flash_prefill"]:
+            H, KV = res["local_heads"]
+            q, k, v = flash_inputs(15, TP_STEP_B, H, KV, TP_STEP_S, cfg.head_dim,
+                                   torch.bfloat16)
+            scale = cfg.head_dim ** -0.5
+            errs.append(float((FLASH(q, k, v, scale=scale).float()
+                               - flash_prefill_ref(q, k, v, scale=scale).float()).abs().max()))
+            del q, k, v
+        res.update(flash_err=errs, dry=dry, whole=list(lay.whole))
+        out["configs"][label] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    return out
+
+
+def phase_tp_steps(card):
+    """Phase 15 (see the module docstring). Returns each kernel's launches
+    on the tensor-parallel step path, per rank (the three configs' sum, the
+    most of either rank)."""
+    t_phase = time.perf_counter()
+    refs, feeds = {}, {}
+    for label, cfg, _ in tp_step_configs():
+        free_device(f"15's one-process {label}")
+        refs[label] = tp_step_drive(cfg, make_local_mesh("cuda"), lambda s: s.params(0))
+        feeds[label] = refs[label]["inputs"]
+    free_device("phase 15's two ranks")
+    t0 = time.perf_counter()
+    # a rank's slices would otherwise be carved from the segment its whole
+    # layer's f32 draw left (28 GiB for deepseek-v3's w1), which then stays
+    # reserved while the other rank draws: expandable segments hand freed
+    # pages back
+    with mock.patch.dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"):
+        ranks = spawn_ranks(tp_step_rank, 2, feeds, timeout=600)
+    rank_s = time.perf_counter() - t0
+    log(f"[15 tp steps] build_step's prefill (B={TP_STEP_B}, S={TP_STEP_S}) and "
+        f"{TP_STEP_DECODES} decode steps on (data 1, model 2): 2 ranks spawned on this card "
+        f"over gloo ({rank_s:.1f} s for the ranks' run), bf16, against one process fed the "
+        f"same tokens; logits held within {TP_LOGITS_RTOL:g} of the largest |logit| "
+        f"({TP_MOE_LOGITS_RTOL:g} for the MoE block: TP_MOE_LOGITS_RTOL)")
+    bad = []
+    per_rank = {r["rank"]: {n: 0 for n in COUNTERS} for r in ranks}
+    for label, cfg, rtol in tp_step_configs():
+        ref = refs[label]
+        for r in ranks:
+            res = r["configs"][label]
+            dry = res["dry"]
+            errs = [float(np.abs(g - w).max() / np.abs(w).max())
+                    for g, w in zip(res["logits"], ref["logits"])]
+            worst = max(errs)
+            agree = sum(a == b for a, b in zip(res["tokens"], ref["tokens"]))
+            arg = dry["prefill"]["memory"]["argument_bytes"]
+            temp = dry["prefill"]["memory"]["temp_bytes"]
+            n_flash = dry["prefill"]["kernel_launches"]["flash_prefill"]
+            coll_ok = all(
+                {k: c[k] for k in ("all_reduces", "all_gathers", "reduce_scatters")} ==
+                {"all_reduces": d["collective_calls"].get("all-reduce", 0),
+                 "all_gathers": d["collective_calls"].get("all-gather", 0),
+                 "reduce_scatters": d["collective_calls"].get("reduce-scatter", 0)}
+                for c, d in zip(res["collectives"], [dry["prefill"]] + [dry["decode"]]
+                                * TP_STEP_DECODES))
+            ok = (worst <= rtol and abs(int(res["drawn"][0]) - arg)
+                  <= TP_STEP_MEM_SLACK and res["prefill_launches"]["flash_prefill"] == n_flash
+                  and not res["decode_launches"]["flash_prefill"] and coll_ok
+                  and all(e <= FLASH_ATOL[torch.bfloat16] for e in res["flash_err"]))
+            bad += [] if ok else [(label, r["rank"])]
+            c0, c1 = res["collectives"][0], res["collectives"][1]
+            log(f"  {label} rank {r['rank']} (local heads {res['local_heads'][0]} over KV "
+                f"{res['local_heads'][1]}; whole: {res['whole'] or 'none'}): logits |diff| "
+                f"<= {worst:.3%} of the largest (prefill rows {errs[0]:.3%}, decode steps "
+                f"{', '.join(f'{e:.2%}' for e in errs[1:])}); greedy tokens {agree} of "
+                f"{TP_STEP_DECODES} steps equal; requested after slices + cache + rows "
+                f"{int(res['drawn'][0])} B (dry-run argument_bytes {arg}, |diff| "
+                f"{abs(int(res['drawn'][0]) - arg)}); max_memory_allocated of the steps "
+                f"{res['max_allocated']} B beside the dry-run's argument + temp {arg + temp} B; "
+                f"prefill {c0['all_reduces']} all-reduces ({c0['all_reduce_bytes']} B), "
+                f"{c0['all_gathers']} all-gathers, decode step {c1['all_reduces']} all-reduces "
+                f"({c1['all_reduce_bytes']} B), {c1['all_gathers']} all-gathers "
+                f"({'=' if coll_ok else '!='} the dry-run's); flash_prefill "
+                f"{res['prefill_launches']['flash_prefill']} launches (dry-run {n_flash}), "
+                f"held at the local shapes within {res['flash_err'] or '-'}: "
+                f"{'ok' if ok else 'FAIL'}")
+            for n in COUNTERS:
+                per_rank[r["rank"]][n] += res["prefill_launches"][n] + res["decode_launches"][n]
+    if bad:
+        raise AssertionError(f"15: {bad} differ from one process or from the dry-run")
+    launches = {n: max(c[n] for c in per_rank.values()) for n in COUNTERS}
+    # the dry-run of olmo-1b at every shape on the production mesh, and its
+    # roofline rows on this card's data-sheet row
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    rows = [dryrun_run_one(OLMO_ARCH, shape, "single", DRYRUN_DIR) for shape in configs.SHAPES]
+    log(f"[15 tp steps] python -m repro_torch.launch.dryrun --arch {OLMO_ARCH} (every shape, "
+        f"(data 16, model 16), rank 0 on the meta device) in {time.perf_counter() - t0:.1f} s; "
+        f"roofline against {card.name}'s data-sheet row, on {smi}:")
+    for r in rows:
+        a = troofline.analyze(r, card)
+        if a is None:
+            assert r["status"] == "skipped", r
+            log(f"  {r['shape']}: {r['status']} ({r['reason']})")
+            continue
+        log(f"  {r['shape']}: compute {a['t_compute_s']:.3e} s, memory {a['t_memory_s']:.3e} s, "
+            f"collective {a['t_collective_s']:.3e} s (a lower bound), {a['dominant']}; "
+            f"useful/counted {a['model_flops_ratio']:.2f}; {a['hbm_gib_per_dev']:.2f} GiB a "
+            f"rank ({'fits' if a['fits'] else 'does not fit'}); "
+            f"{r['hlo_collective_ops']} collectives")
+    log(f"[15 tp steps] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
 def main() -> None:
     name, card = phase_device()
     phase_build()
@@ -6608,6 +6901,7 @@ def main() -> None:
     mesh_counts, tp_train_counts = phase_train_mesh(card, train_records)
     prompt_counts, decode_counts = phase_decode(card)
     example_counts = phase_examples()
+    tp_step_counts = phase_tp_steps(card)
     # each kernel's launches on the path it serves: fp pages for
     # paged_attention, KIVI pages for paged_attention_quant and
     # quantize_pages, the gathered KIVI starcoder2-3b serve for
@@ -6641,7 +6935,9 @@ def main() -> None:
                                       "train mesh, per rank": mesh_counts[k],
                                       "tensor-parallel train (12d), per rank":
                                           tp_train_counts[k],
-                                      "Model.decode (13a-13c)": decode_counts[k]})
+                                      "Model.decode (13a-13c)": decode_counts[k],
+                                      "tensor-parallel prefill + decode (15), per rank":
+                                          tp_step_counts[k]})
                for k in REPLACES]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

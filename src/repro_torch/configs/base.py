@@ -142,5 +142,23 @@ class ModelConfig:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class TPLayerConfig(ModelConfig):
+    """The config a layer runs with on a rank of a model group
+    (``core/executor/sharded.tp_layout``): ``tp_whole`` names the logical
+    widths the group holds whole on every rank (the reference's
+    divisibility rule), whose parts the layer runs whole with no
+    all-reduce after them. A subclass, so the registered configs keep the
+    reference's fields."""
+    tp_whole: Tuple[str, ...] = ()
+
+
+def with_tp_whole(cfg: ModelConfig, whole: Tuple[str, ...], **changes) -> TPLayerConfig:
+    """``cfg`` with ``changes`` as a ``TPLayerConfig`` holding ``whole``."""
+    values = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    values.update(changes)
+    return TPLayerConfig(**values, tp_whole=tuple(whole))
+
+
 def dense_stages(n: int, attn_kind: str = "global") -> tuple:
     return (((LayerSpec(mixer="attn", ff="mlp", attn_kind=attn_kind),), n),)

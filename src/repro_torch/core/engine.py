@@ -102,7 +102,7 @@ import torch
 from repro_torch.core.block_manager import BlockManager, OutOfBlocks
 from repro_torch.core.executor import PagedModelState, make_runners, marshal_batch
 from repro_torch.core.executor.base import ModelRunner, chunk_carries_extras
-from repro_torch.core.executor.sharded import tp_layout
+from repro_torch.core.executor.sharded import paged_layout
 from repro_torch.core.executor.speculative import SpeculativeRunner
 from repro_torch.core.kv_quant import QuantConfig
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore
@@ -203,7 +203,7 @@ class LLMEngine:
                 "draft_params; the target's model and whole tree to self-speculate)")
         store_cfg, kv_div = model.cfg, 1
         if self.sharded and model.decode_paged is not None:
-            layout = tp_layout(model.cfg, sh.model_axis)
+            layout = paged_layout(model.cfg, sh.model_axis)
             store_cfg, kv_div = layout.local_cfg, sh.model_axis if layout.kv_sharded else 1
         self.store = PagedModelState(store_cfg, self.cfg, device=self.device)
         self.runner, self.paged_runner = make_runners(model, params, self.cfg,

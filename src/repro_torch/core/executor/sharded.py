@@ -44,10 +44,13 @@ What this buys the serving engine:
     draft is a whole model, replicated on every rank, so a sharded engine
     is given it (``SpeculativeConfig.draft_model`` / ``draft_params``).
 
-Head layout subtleties, decided ONCE at construction (``tp_layout``):
+Head layout subtleties, decided ONCE at construction (``paged_layout``:
+``tp_layout``'s decisions, and the layouts this runner refuses as the
+reference's does):
 
-  * ``num_heads % mp != 0`` is an error — there is no partial-head split
-    under the 3D (d, H, hd) param layout.
+  * ``num_heads % mp != 0`` is an error here — there is no partial-head
+    split under the 3D (d, H, hd) param layout (a train or step plan holds
+    such heads whole on every rank instead: ``tp_layout``).
   * GQA replicated-KV fallback: when ``num_kv_heads % mp != 0`` the KV
     heads stay replicated. A CONTIGUOUS head split would then break group
     assignment — the local model maps its head ``l`` to KV head
@@ -57,7 +60,9 @@ Head layout subtleties, decided ONCE at construction (``tp_layout``):
     are PERMUTED so rank i's block is
     ``[g*G + i*G/mp + t for g in range(KV) for t in range(G/mp)]``; the sum
     over ranks is permutation-invariant, K/V and the pages are untouched.
-    When KV divides mp the contiguous split is exact and nothing permutes.
+    When KV divides mp the contiguous split is exact and nothing permutes;
+    where (H / mp) % KV != 0 no permutation exists and this runner raises
+    (the step and train plans take a contiguous split and ``local_kv``).
   * GLU MLPs under a sharded hidden axis: ``w1`` emits 2*d_ff columns that
     ``mlp_apply`` splits in half — a contiguous column split would hand a
     rank half "up" and half "gate" columns of DIFFERENT units. ``w1``'s
@@ -68,28 +73,49 @@ Head layout subtleties, decided ONCE at construction (``tp_layout``):
 Which leaf splits where comes from the leaves' logical axes
 (``models.model.param_axes``: "heads", "kv_heads", "ff") through
 ``serving_tp_rules``, never from their shapes.
+
+``StepSharding`` is a rank's plan of ``build_step``'s tensor-parallel
+prefill and decode steps: ``tp_layout``'s decisions over every width, the
+rank's slices by ``train_slicer`` under the step's rules.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, with_tp_whole
 from repro_torch.core.executor.paged import PagedRunner
 from repro_torch.core.executor.state import PagedModelState
 from repro_torch.models.common import is_glu
 from repro_torch.models.model import build_model, param_axes
 from repro_torch.sharding import ShardingConfig, serving_tp_rules
+from repro_torch.sharding.rules import Rules
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TPLayout:
-    """What a model axis of ``mp`` ranks does to one model: whether KV heads
-    and MLP hidden units shard, the shard-local config, and the head and
-    GLU column orders (None where the contiguous split is exact)."""
+    """What a model axis of ``mp`` ranks does to one model, one decision per
+    width (the reference's divisibility rule): a width that does not divide
+    the axis is whole on every rank, which then computes that part whole
+    with no all-reduce after it. ``heads_cut``: attention, MLA and
+    whisper's query heads (and the KV heads where ``kv_sharded``); under
+    ``heads_cut`` without ``kv_sharded`` the KV heads are replicated and
+    the query heads split in ``head_order`` (permuted, where (H / mp) % KV
+    == 0) or contiguously (``kv_contiguous``: each local head reads global
+    KV head h // G, ``attention.local_kv``). ``ff_sharded``: the runner's
+    MLP hidden units cut. ``whole``: the logical axes held whole ("heads"
+    and "kv_heads"; "ff": an MLP's d_ff or the shared experts' units;
+    "experts"; "ssm_inner": Mamba's d_inner; "lstm_inner": the xLSTM's
+    heads and inner widths together; "vocab"), which ``rules`` forces
+    off. ``local_cfg``: the sharded
+    paged runner's shard-local config (its KV heads and d_ff divided);
+    ``layer_cfg``: the config a layer of the sharded train step or of a
+    tensor-parallel prefill / decode step runs with (its query heads
+    divided, ``tp_ff_sharded`` and ``tp_whole`` set; the KV heads' count
+    global)."""
     mp: int
     kv_sharded: bool
     ff_sharded: bool
@@ -97,6 +123,20 @@ class TPLayout:
     head_order: Optional[np.ndarray]
     head_order_blocked: Optional[np.ndarray]  # head order over H * hd columns
     glu_order: Optional[np.ndarray]
+    heads_cut: bool = True
+    kv_contiguous: bool = False
+    whole: Tuple[str, ...] = ()
+    layer_cfg: Optional[ModelConfig] = None
+
+    def rules(self, rules: Rules) -> Rules:
+        """``rules`` with every axis of ``whole`` mapped to no mesh axis: the
+        leaves of a width held whole stay whole even where their own
+        dimension would divide (a GLU ``w1``'s 2 f columns, an sLSTM's 4 d
+        gate columns)."""
+        if not self.whole:
+            return rules
+        mapping = dict(rules.mapping, **{axis: None for axis in self.whole})
+        return Rules(rules.mesh_shape, mapping, rules.options)
 
 
 def piece_order(width: int, pieces: int, mp: int) -> np.ndarray:
@@ -119,26 +159,54 @@ def glu_order(width: int, mp: int) -> np.ndarray:
     return piece_order(width, 2, mp)
 
 
+def _ff_widths(cfg: ModelConfig):
+    """Every hidden width the logical axis "ff" names in this stack: an
+    MLP's d_ff, the shared experts' units."""
+    specs = cfg.layer_specs()
+    out = []
+    if any(s.ff == "mlp" for s in specs) or cfg.encoder_layers:
+        out.append(cfg.d_ff)
+    if any(s.ff == "moe" for s in specs) and cfg.num_shared_experts:
+        out.append(cfg.moe_d_ff * cfg.num_shared_experts)
+    return out
+
+
 def tp_layout(cfg: ModelConfig, mp: int) -> TPLayout:
-    """The reference's divisibility checks, permutations and local config
-    (``ShardedPagedRunner.__init__``) for a model axis of ``mp``."""
+    """The reference's divisibility rule for a model axis of ``mp``, one
+    decision per width, with the replicated-KV head order, the GLU order
+    and the local configs. Nothing raises here: the sharded paged runner
+    refuses the layouts it does not serve (``paged_layout``)."""
+    from repro_torch.models.mamba import d_inner_of
+    from repro_torch.models.xlstm import mlstm_d_inner
+
     H, KV, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-    if mp > 1 and H % mp != 0:
-        raise ValueError(
-            f"num_heads={H} is not divisible by the model axis ({mp}); "
-            "the 3D head-split param layout cannot shard inside a head")
-    kv_sharded = mp > 1 and KV % mp == 0
-    if mp > 1 and not kv_sharded and (H // mp) % KV != 0:
-        raise ValueError(
-            f"replicated-KV fallback needs the GQA group count "
-            f"({H // KV}) divisible by the model axis ({mp}): each "
-            f"shard's {H // mp} local heads must split evenly over the "
-            f"{KV} replicated KV heads")
+    specs = cfg.layer_specs()
+    mixers = {s.mixer for s in specs}
+    heads_cut = mp == 1 or H % mp == 0
+    kv_sharded = mp > 1 and heads_cut and KV % mp == 0
+    kv_contiguous = mp > 1 and heads_cut and not kv_sharded and (H // mp) % KV != 0
     ff_ok = all(s.ff in ("mlp", "none") for pattern, _ in cfg.stages for s in pattern)
-    ff_sharded = mp > 1 and f % mp == 0 and ff_ok
+    ff_div = all(w % mp == 0 for w in _ff_widths(cfg))
+    lstm_cut = mp == 1 or not mixers & {"mlstm", "slstm"} or (
+        H % mp == 0 and (2 * cfg.d_model) % mp == 0
+        and ("mlstm" not in mixers or mlstm_d_inner(cfg) % mp == 0))
+    experts_cut = mp == 1 or not cfg.num_experts or cfg.num_experts % mp == 0
+    ssm_cut = mp == 1 or "mamba" not in mixers or d_inner_of(cfg) % mp == 0
+    vocab_cut = mp == 1 or cfg.vocab_size % mp == 0
+    whole = []
+    if not heads_cut:
+        whole += ["heads", "kv_heads"]
+    if not ff_div or not lstm_cut:  # an sLSTM's FFN runs with its heads
+        whole.append("ff")
+    whole += [axis for axis, cut in (("experts", experts_cut), ("ssm_inner", ssm_cut),
+                                     ("lstm_inner", lstm_cut), ("vocab", vocab_cut))
+              if not cut]
+    whole = tuple(whole) if mp > 1 else ()
+    ff_cut = "ff" not in whole
+    ff_sharded = mp > 1 and ff_cut and ff_ok
 
     head_order = head_order_blocked = None
-    if mp > 1 and not kv_sharded:
+    if mp > 1 and heads_cut and not kv_sharded and not kv_contiguous:
         G, Hl = H // KV, H // mp
         Gl = G // mp
         order = np.empty(H, np.int64)
@@ -150,14 +218,38 @@ def tp_layout(cfg: ModelConfig, mp: int) -> TPLayout:
             head_order = order
             head_order_blocked = (order[:, None] * hd + np.arange(hd)).reshape(-1)
     glu = glu_order(2 * f, mp) if ff_sharded and is_glu(cfg.activation) else None
-    local_cfg = cfg
+    local_cfg = layer_cfg = cfg
     if mp > 1:
+        Hl = H // mp if heads_cut else H
         local_cfg = dataclasses.replace(
-            cfg, num_heads=H // mp, num_kv_heads=KV // mp if kv_sharded else KV,
+            cfg, num_heads=Hl, num_kv_heads=KV // mp if kv_sharded else KV,
             d_ff=f // mp if ff_sharded else f, tp_axis="model",
             tp_ff_sharded=ff_sharded)
+        layer_cfg = with_tp_whole(cfg, whole, num_heads=Hl if lstm_cut else H,
+                                  tp_ff_sharded=ff_cut)
     return TPLayout(mp, kv_sharded, ff_sharded, local_cfg, head_order,
-                    head_order_blocked, glu)
+                    head_order_blocked, glu, heads_cut=heads_cut,
+                    kv_contiguous=kv_contiguous, whole=whole, layer_cfg=layer_cfg)
+
+
+def paged_layout(cfg: ModelConfig, mp: int) -> TPLayout:
+    """``tp_layout`` for the sharded paged runner, which serves the
+    layouts the reference's runner serves: every query head cut, and the
+    KV heads cut or replicated under the permuted head order (raises
+    otherwise, with the reference's messages)."""
+    lay = tp_layout(cfg, mp)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if not lay.heads_cut:
+        raise ValueError(
+            f"num_heads={H} is not divisible by the model axis ({mp}); "
+            "the 3D head-split param layout cannot shard inside a head")
+    if lay.kv_contiguous:
+        raise ValueError(
+            f"replicated-KV fallback needs the GQA group count "
+            f"({H // KV}) divisible by the model axis ({mp}): each "
+            f"shard's {H // mp} local heads must split evenly over the "
+            f"{KV} replicated KV heads")
+    return lay
 
 
 def _take(t: torch.Tensor, order: np.ndarray, dim: int) -> torch.Tensor:
@@ -326,7 +418,7 @@ class ShardedPagedRunner(PagedRunner):
         from repro_torch.launch.mesh import make_serving_mesh, normalize_device
 
         sh = engine_cfg.sharding or ShardingConfig()
-        self.layout = tp_layout(model.cfg, sh.model_axis)
+        self.layout = paged_layout(model.cfg, sh.model_axis)
         lay = self.layout
         want_kv = lay.local_cfg.num_kv_heads
         if any(s.shape[0] != want_kv for s in store.stores):
@@ -418,3 +510,69 @@ class ShardedPagedRunner(PagedRunner):
         if lora is None or self.mp == 1:
             return lora
         return {"ids": lora["ids"], "layers": self._fix_lora(lora["layers"])}
+
+
+class StepSharding:
+    """One rank's plan of a tensor-parallel prefill or decode step
+    (``launch/steps.py``) on ``mesh`` under ``rules`` (``mode_rules`` of
+    the step's kind, with its overrides): ``tp_layout``'s decisions force
+    the rules (``layout.rules``), the rank's parameters are its slices under
+    them (``params``, ``shard``: ``train_slicer``, orders included), and
+    the model reads ``tp`` (the model group), ``layer_cfg``, ``vocab_tp``
+    (the model group where the vocab is cut: the rank's block of the
+    logits), ``batch`` (the group the batch rows are cut over, for a MoE's
+    global capacity; None where every rank holds every row) and ``ep_data``
+    (the data group where the rules put the experts over (data, model)).
+    No leaf is cut over data otherwise, so ``gather`` is the identity."""
+
+    def __init__(self, cfg: ModelConfig, mesh, rules: Rules, global_batch: int,
+                 max_seq: int = 0):
+        from repro_torch.launch.mesh import BATCH_AXES
+
+        self.cfg, self.mesh = cfg, mesh
+        mp = mesh.shape.get("model", 1)
+        self.tp = mesh.model if mp > 1 else None
+        self.layout = tp_layout(cfg, mp)
+        self.rules = self.layout.rules(rules)
+        self.layer_cfg = self.layout.layer_cfg
+        self.axes = param_axes(cfg)
+
+        def specs(shape, axes):
+            if isinstance(shape, dict):
+                return {k: specs(shape[k], axes[k]) for k in shape}
+            if isinstance(shape, list):
+                return [specs(a, b) for a, b in zip(shape, axes, strict=True)]
+            return self.rules.pspec(axes, shape)
+        from repro_torch.models.model import param_shapes
+        self.specs = specs(param_shapes(cfg, max_seq), self.axes)
+        self.vocab_tp = self.tp if self.specs["embed"][0] == "model" else None
+        exp = self.rules.pspec(("experts",), (cfg.num_experts,))[0] if cfg.num_experts \
+            else None
+        exp = () if exp is None else ((exp,) if isinstance(exp, str) else tuple(exp))
+        self.ep_data = mesh.axis("data") if "data" in exp else None
+        cut = self.rules.pspec(("batch",), (global_batch,))[0]
+        cut = () if cut is None else ((cut,) if isinstance(cut, str) else tuple(cut))
+        present = tuple(a for a in BATCH_AXES if mesh.shape.get(a, 1) > 1)
+        cut = tuple(a for a in cut if mesh.shape.get(a, 1) > 1)
+        if self.ep_data is not None or not cut:
+            self.batch = None
+        elif set(cut) == set(present):
+            self.batch = mesh.batch
+        elif len(cut) == 1:
+            self.batch = mesh.axis(cut[0])
+        else:
+            raise NotImplementedError(f"batch rows over {cut}: a group over part of the "
+                                      "batch axes")
+
+    def gather(self, tree, specs):
+        return tree
+
+    def params(self, model, seed: int = 0, max_seq: int = 0, device=None):
+        """``model.init(seed)``'s values as the rank's slices, each layer cut
+        as soon as it is drawn (``train_params`` under the step's rules)."""
+        return train_params(model, seed, mesh=self.mesh, rules=self.rules, max_seq=max_seq,
+                            device=device)
+
+    def shard(self, params, device=None):
+        """The rank's slices of a whole tree (converted weights)."""
+        return train_slicer(self.cfg, self.mesh, self.rules, device)(params, self.axes)

@@ -29,6 +29,10 @@ runs on ``cuda:{local rank % cards}`` unless the caller gives a device
 (``cpu`` in the tests). A world may hold several meshes of its size (their
 groups are made collectively by every rank, as the world was).
 
+``make_virtual_mesh`` is one rank's view of a mesh of any shape in this
+one process, with no process group (the dry-run's, on the meta device):
+its groups count each collective as a real group does and move nothing.
+
 ``spawn_ranks`` runs a function on every rank of a fresh world of
 processes on this host (``launch/serve.py --tp``, ``launch/train.py --dp
 --tp``, ``chip_smoke.py``'s phases 11 and 12, the CPU tests) and returns
@@ -103,9 +107,7 @@ class AxisGroup:
             return x
         self.all_reduces += 1
         self.all_reduce_bytes += x.numel() * x.element_size()
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        self._call(lambda: dist.all_reduce(x, op=red, group=self.group), x)
-        return x
+        return self._all_reduce(x, op)
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         if self.size == 1:
@@ -114,10 +116,7 @@ class AxisGroup:
         out_shape = (self.size * src.shape[0],) + tuple(src.shape[1:])
         self.all_gathers += 1
         self.all_gather_bytes += math.prod(out_shape) * x.element_size()
-
-        out = src.new_empty(out_shape)
-        self._call(lambda: dist.all_gather_into_tensor(out, src, group=self.group), x)
-        return out.movedim(0, dim)
+        return self._all_gather(src, out_shape).movedim(0, dim)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         if self.size == 1:
@@ -129,10 +128,41 @@ class AxisGroup:
         out_shape = (src.shape[0] // self.size,) + tuple(src.shape[1:])
         self.reduce_scatters += 1
         self.reduce_scatter_bytes += src.numel() * src.element_size()
+        return self._reduce_scatter(src, out_shape).movedim(0, dim)
 
+    # ---- the collectives themselves (a virtual group runs none) -----------
+    def _all_reduce(self, x, op):
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        self._call(lambda: dist.all_reduce(x, op=red, group=self.group), x)
+        return x
+
+    def _all_gather(self, src, out_shape):
         out = src.new_empty(out_shape)
-        self._call(lambda: dist.reduce_scatter_tensor(out, src, group=self.group), x)
-        return out.movedim(0, dim)
+        self._call(lambda: dist.all_gather_into_tensor(out, src, group=self.group), src)
+        return out
+
+    def _reduce_scatter(self, src, out_shape):
+        out = src.new_empty(out_shape)
+        self._call(lambda: dist.reduce_scatter_tensor(out, src, group=self.group), src)
+        return out
+
+
+class VirtualAxisGroup(AxisGroup):
+    """An ``AxisGroup`` of a virtual mesh (``make_virtual_mesh``): one
+    process stands for one rank of a group of ``size`` and runs no
+    collective, returning tensors of the right shape: ``all_reduce`` its
+    input, ``all_gather`` ``size`` copies of it concatenated,
+    ``reduce_scatter`` this rank's block. Calls and bytes are counted by
+    ``AxisGroup``'s own code, so they equal a real group's."""
+
+    def _all_reduce(self, x, op):
+        return x
+
+    def _all_gather(self, src, out_shape):
+        return torch.cat([src] * self.size, dim=0)
+
+    def _reduce_scatter(self, src, out_shape):
+        return src.narrow(0, self.index * out_shape[0], out_shape[0]).clone()
 
 
 @dataclasses.dataclass
@@ -171,8 +201,9 @@ class Mesh:
         return {name: self.groups[name].index for name in self.shape}
 
     def barrier(self) -> None:
-        """Every rank of the world waits here for the others."""
-        if self.world.size > 1:
+        """Every rank of the world waits here for the others (a virtual
+        mesh's one process has none to wait for)."""
+        if self.world.size > 1 and self.backend != "virtual":
             dist.barrier()
 
 
@@ -283,25 +314,13 @@ def make_mesh(shape: Mapping[str, int], *, backend: Optional[str] = None, device
         dist.init_process_group(backend, init_method=f"tcp://{addr}:{_env_int('MASTER_PORT')}",
                                 rank=rank, world_size=world, **kw)
 
-    # each rank's coordinates, in rank order: row-major over the axes
-    coords = list(itertools.product(*(range(n) for n in shape.values())))
-
-    def members(axes):
-        """The groups of ranks that differ only along ``axes``, each in
-        row-major order over those axes; groups in order of their first rank."""
-        out: Dict[tuple, List[int]] = {}
-        for r, c in enumerate(coords):
-            fixed = tuple(v for n, v in zip(names, c) if n not in axes)
-            out.setdefault(fixed, []).append(r)
-        return list(out.values())
-
     made: Dict[tuple, Any] = {}
 
     def group_of(name, axes):
         """Every rank makes every group, in one order; returns this rank's.
         Groups over the same ranks are made once."""
         mine = None
-        for ranks in members(axes):
+        for ranks in _members(shape, axes):
             key = tuple(ranks)
             if key not in made:
                 made[key] = dist.new_group(ranks) if len(ranks) > 1 else None
@@ -315,6 +334,47 @@ def make_mesh(shape: Mapping[str, int], *, backend: Optional[str] = None, device
     mesh = Mesh(shape=shape, rank=rank, backend=backend, device=dev, groups=groups)
     _MESHES[key] = mesh
     return mesh
+
+
+def _members(shape: Mapping[str, int], axes) -> List[List[int]]:
+    """The groups of ranks of a mesh of ``shape`` (rank order row-major over
+    its axes) that differ only along ``axes``, each in row-major order over
+    those axes; groups in order of their first rank."""
+    names = tuple(shape)
+    out: Dict[tuple, List[int]] = {}
+    for r, c in enumerate(itertools.product(*(range(n) for n in shape.values()))):
+        fixed = tuple(v for n, v in zip(names, c) if n not in axes)
+        out.setdefault(fixed, []).append(r)
+    return list(out.values())
+
+
+def make_virtual_mesh(shape: Mapping[str, int], rank: int = 0, device="meta") -> Mesh:
+    """Rank ``rank``'s view of a mesh of ``shape`` in this one process, with
+    no process group: its groups are ``VirtualAxisGroup``s of the sizes and
+    members a real mesh's would have, which return tensors of the right
+    shape and count each collective as a real group counts it. The dry-run
+    (``launch/dryrun.py``) builds rank 0's step over the production mesh so,
+    on the meta device (the default; ``cpu`` runs real tensors through
+    collectives that move nothing)."""
+    shape = dict(shape)
+    names = tuple(shape)
+    if names != tuple(a for a in AXES if a in shape):
+        raise ValueError(f"mesh axes {names}: a subsequence of {AXES}, in that order")
+    world = math.prod(shape.values())
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a mesh of {world} ranks")
+
+    def group_of(name, axes):
+        return next(VirtualAxisGroup(name, ranks, rank, None)
+                    for ranks in _members(shape, axes) if rank in ranks)
+
+    groups = {name: group_of(name, (name,)) for name in names}
+    groups["batch"] = group_of("batch", tuple(a for a in BATCH_AXES if a in shape))
+    groups["world"] = VirtualAxisGroup("world", range(world), rank, None)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        raise ValueError("a virtual mesh runs on the meta device or the CPU, never a card")
+    return Mesh(shape=shape, rank=rank, backend="virtual", device=dev, groups=groups)
 
 
 def make_local_mesh(device="cuda") -> Mesh:

@@ -11,37 +11,59 @@ one paged decode step is the reference's formula over that row:
 
 The engine annotates every paged decode dispatch span with the implied
 tokens/s (``LLMEngine._decode_bound``), and ``tools/trace_summary.py``
-reports live tokens/s against it. ``model_flops``, ``analyze`` and the
-report read XLA dry-run artifacts and have no counterpart here.
+reports live tokens/s against it.
+
+``model_flops``, ``analyze``, ``report`` and ``main`` read the port's
+dry-run artifacts (``launch/dryrun.py``: one rank's counts on the meta
+device over a virtual mesh) against a card's row:
+
+    compute    = max(flops / bf16 tensor-core rate, eltwise / fp32 rate)
+    memory     = bytes (unfused: an upper bound) / HBM bandwidth
+    collective = collective bytes / link bandwidth
+
+"fits" reads argument + temp bytes against the card's HBM capacity. The
+link row is NVLink 4's 900 GB/s, one node of 8 cards; a (16, 16) mesh of
+H100s spans 32 such nodes and its data-axis collectives cross nodes,
+whose network is slower, so the collective term is a lower bound.
+
+    PYTHONPATH=src python -m repro_torch.launch.roofline [--dir artifacts/dryrun_torch]
 """
 from __future__ import annotations
 
+import argparse
+import glob
+import json
 import math
+import os
 from typing import Dict, NamedTuple, Optional
 
+from repro_torch import configs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import SHAPES
 from repro_torch.models.common import is_glu
 
 
 class Card(NamedTuple):
     """One card's data-sheet rates: HBM bytes/s, fp32 FLOP/s outside the
-    tensor cores, dense bf16 tensor-core FLOP/s, and the link bytes/s the
-    collective term divides by (None where no figure is recorded)."""
+    tensor cores, dense bf16 tensor-core FLOP/s, the link bytes/s the
+    collective term divides by (None where no figure is recorded) and the
+    HBM capacity in bytes."""
     name: str
     hbm_bw: float
     fp32_flops: float
     bf16_flops: float
     link_bw: Optional[float] = None
+    hbm_bytes: Optional[float] = None
 
 
 # NVIDIA data sheets, dense rates without sparsity; a device name matches
 # the first row whose name it contains, so the SXM H100 ("NVIDIA H100
 # 80GB HBM3") comes after the PCIe and NVL parts. Its link figure is NVLink
 # 4's 900 GB/s per GPU (H100 Tensor Core GPU data sheet, SXM form factor).
-CARDS = (Card("H100 PCIe", 2.0e12, 51e12, 756e12),
-         Card("H100 NVL", 3.9e12, 60e12, 835e12),
-         Card("H200", 4.8e12, 67e12, 989e12),
-         Card("H100", 3.35e12, 67e12, 989e12, 900e9))
+CARDS = (Card("H100 PCIe", 2.0e12, 51e12, 756e12, hbm_bytes=80e9),
+         Card("H100 NVL", 3.9e12, 60e12, 835e12, hbm_bytes=94e9),
+         Card("H200", 4.8e12, 67e12, 989e12, hbm_bytes=141e9),
+         Card("H100", 3.35e12, 67e12, 989e12, 900e9, 80e9))
 
 H100_SXM = "NVIDIA H100 80GB HBM3"
 
@@ -119,14 +141,38 @@ def param_counts(cfg: ModelConfig) -> Dict[str, float]:
     # encoder's attention + MLP layers and each decoder layer's
     # cross-attention (q, k, v, o at the decoder's heads); the reference's
     # count has the encoder only
-    extra = cfg.learned_positions * cfg.d_model
-    if cfg.encoder_layers:
-        extra += cfg.encoder_layers * (_mixer_params(cfg, "attn") +
-                                       _ff_params(cfg, "mlp", False))
-        extra += cfg.num_layers * _mixer_params(cfg, "attn")
+    extra = _encoder_params(cfg) + _beyond_reference(cfg)
     total += extra
     active += extra
     return {"total": total, "active": active}
+
+
+def _encoder_params(cfg: ModelConfig) -> float:
+    return cfg.encoder_layers * (_mixer_params(cfg, "attn") + _ff_params(cfg, "mlp", False))
+
+
+def _beyond_reference(cfg: ModelConfig) -> float:
+    """What ``param_counts`` counts and the reference's does not: the
+    learned positions and whisper's cross-attention."""
+    n = cfg.learned_positions * cfg.d_model
+    if cfg.encoder_layers:
+        n += cfg.num_layers * _mixer_params(cfg, "attn")
+    return n
+
+
+def model_flops(cfg: ModelConfig, shape_name: str) -> float:
+    """Analytic useful flops of the whole step (global, every rank), as the
+    reference defines them: 6 N D for training, 2 N D for a prefill's
+    tokens, 2 N a decoded token, N the active parameters of the
+    reference's count (the head's matmul in, the cross-attention and the
+    position table out)."""
+    shape = SHAPES[shape_name]
+    n = param_counts(cfg)["active"] - _beyond_reference(cfg)
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch
 
 
 # ---------------------------------------------------------------------------
@@ -178,3 +224,115 @@ def decode_step_bound(cfg: ModelConfig, *, batch: int, seq_len: int,
     return {"t_compute_s": t_compute, "t_memory_s": t_memory,
             "t_collective_s": t_coll, "t_step_s": t_step,
             "tokens_per_s": batch / t_step if t_step else float("inf")}
+
+
+# ---------------------------------------------------------------------------
+# report over the dry-run's artifacts
+# ---------------------------------------------------------------------------
+
+def analyze(artifact: dict, card: Card = card_for(H100_SXM)) -> Optional[dict]:
+    """One artifact's roofline terms on ``card`` (None unless its status is
+    ok): the three terms in seconds, the dominant one, useful / counted
+    flops (``model_flops`` over the mesh's ranks against the rank's count),
+    the rank's argument + temp GiB and whether they fit the card's HBM."""
+    if artifact.get("status") != "ok":
+        return None
+    chips = math.prod(artifact["mesh_shape"].values())
+    flops = artifact.get("flops_loopaware", artifact["flops"])
+    nbytes = artifact.get("bytes_loopaware", artifact["bytes_accessed"])
+    coll = sum(artifact.get("collectives_loopaware", artifact["collective_bytes"]).values())
+    eltwise = artifact.get("eltwise_loopaware", 0.0)
+    t_compute = max(flops / card.bf16_flops, eltwise / card.fp32_flops)
+    t_memory = nbytes / card.hbm_bw
+    t_coll = coll / card.link_bw if coll else 0.0
+    dom = max((t_compute, "compute"), (t_memory, "memory"), (t_coll, "collective"))[1]
+    mf = model_flops(configs.get_config(artifact["arch"]), artifact["shape"])
+    mem = artifact["memory"]
+    hbm = mem["argument_bytes"] + mem["temp_bytes"]
+    return {"arch": artifact["arch"], "shape": artifact["shape"], "mesh": artifact["mesh"],
+            "tag": artifact.get("tag", ""), "chips": chips, "t_compute_s": t_compute,
+            "t_memory_s": t_memory, "t_collective_s": t_coll, "dominant": dom,
+            "model_flops_ratio": (mf / chips) / flops if flops else 0.0,
+            "hbm_gib_per_dev": hbm / 2**30, "fits": hbm <= card.hbm_bytes,
+            "collective_breakdown": artifact["collective_bytes"]}
+
+
+def report(art_dir: str, fmt: str = "md", card: Card = card_for(H100_SXM)) -> str:
+    """Every artifact of ``art_dir`` as a table (``fmt`` "md"), JSON rows,
+    or a brief table of one row per (arch, shape, tag) with the single- and
+    multi-pod meshes side by side and the rows that are not ok listed
+    below it ("brief"); the time columns divided by ``card``'s data-sheet row."""
+    rows = []
+    for path in sorted(glob.glob(os.path.join(art_dir, "*.json"))):
+        with open(path) as f:
+            a = json.load(f)
+        r = analyze(a, card)
+        if r is None:
+            rows.append({"arch": a["arch"], "shape": a["shape"], "mesh": a.get("mesh", "?"),
+                         "tag": a.get("tag", ""),
+                         "skipped": a.get("reason", a.get("error", ""))[:60]})
+            continue
+        rows.append(r)
+    if fmt == "json":
+        return json.dumps(rows, indent=2)
+    if fmt == "brief":
+        return _brief(rows, card)
+    cap = card.hbm_bytes / 1e9
+    out = [f"Card row: {card.name} (bf16 {card.bf16_flops / 1e12:g} TFLOP/s, fp32 "
+           f"{card.fp32_flops / 1e12:g} TFLOP/s, HBM {card.hbm_bw / 1e12:g} TB/s, link "
+           f"{card.link_bw / 1e9:g} GB/s, {cap:g} GB); the collective term is a lower bound "
+           "(one NVLink domain's rate across nodes)",
+           "",
+           f"| arch | shape | mesh | tag | compute s ({card.name}) | memory s ({card.name}) | "
+           f"collective s ({card.name}) | dominant | useful/counted | HBM GiB/dev | "
+           f"fits {cap:g} GB |",
+           "|---|---|---|---|---|---|---|---|---|---|---|"]
+    for r in rows:
+        if "skipped" in r:
+            out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['tag']} | "
+                       f"— | — | — | skipped: {r['skipped']} | — | — | — |")
+            continue
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['tag']} | "
+            f"{r['t_compute_s']:.2e} | {r['t_memory_s']:.2e} | {r['t_collective_s']:.2e} | "
+            f"**{r['dominant']}** | {r['model_flops_ratio']:.2f} | "
+            f"{r['hbm_gib_per_dev']:.2f} | {'✓' if r['fits'] else '✗'} |")
+    return "\n".join(out)
+
+
+def _brief(rows, card: Card) -> str:
+    def cell(r):
+        if r is None:
+            return "—"
+        return (f"{r['t_compute_s']:.2e} / {r['t_memory_s']:.2e} / {r['t_collective_s']:.2e}, "
+                f"{r['dominant']}, {r['hbm_gib_per_dev']:.1f}{'' if r['fits'] else ' ✗'}")
+    keyed, not_ok = {}, []
+    for r in rows:
+        if "skipped" in r:
+            not_ok.append(f"{r['arch']} {r['shape']} {r['mesh']} ({r['skipped']})")
+            continue
+        keyed.setdefault((r["arch"], r["shape"], r["tag"]), {})[r["mesh"]] = r
+    out = [f"| arch | shape | tag | single (16 x 16): compute / memory / collective s "
+           f"({card.name} row), dominant, GiB a rank | multi (2 x 16 x 16): the same |",
+           "|---|---|---|---|---|"]
+    for (arch, shape, tag), by_mesh in keyed.items():
+        out.append(f"| {arch} | {shape} | {tag} | {cell(by_mesh.get('single'))} | "
+                   f"{cell(by_mesh.get('multi'))} |")
+    if not_ok:
+        out.append("")
+        out.append("Not ok: " + "; ".join(not_ok) + ".")
+    return "\n".join(out)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default=os.path.normpath(os.path.join(
+        os.path.dirname(__file__), "..", "..", "..", "artifacts", "dryrun_torch")))
+    ap.add_argument("--fmt", default="md", choices=["md", "json", "brief"])
+    ap.add_argument("--card", default=H100_SXM, help="a device name (card_for)")
+    args = ap.parse_args()
+    print(report(args.dir, args.fmt, card_for(args.card)))
+
+
+if __name__ == "__main__":
+    main()

@@ -18,6 +18,8 @@ attention K/V ("batch", "kv_seq", "kv_heads", None), a whisper layer's
 cross K/V ("batch", None, "kv_heads", None), MLA latents ("batch",
 "kv_seq", None), Mamba's conv ("batch", None, "ssm_inner") and ssm
 ("batch", "ssm_inner", None), every other state ("batch", None, ...).
+A tensor-parallel step cuts the xLSTM's states over "lstm_inner" as well
+(``tp_cache_axes``).
 """
 from __future__ import annotations
 
@@ -157,14 +159,37 @@ def shard_cache(model: Model, cache: list, mesh, rules, axes, device=None) -> li
     return [place(i, layer) for i, layer in enumerate(cache)]
 
 
+def tp_cache_axes(model: Model, axes: List[Dict[str, Axes]]) -> List[Dict[str, Axes]]:
+    """``axes`` (``cache_axes_tree``) with the xLSTM's states cut over
+    "lstm_inner", as a tensor-parallel step cuts them (the rank's heads'
+    ``C``, ``n``, ``m`` and its channels' ``conv`` for an mLSTM, its heads'
+    slices of ``c``, ``n``, ``h`` and ``m`` for an sLSTM); the reference
+    names them replicated, its XLA gathering what a layer needs. Mamba's
+    states are already cut over "ssm_inner"."""
+    out = []
+    for spec, layer in zip(model.specs, axes):
+        layer = dict(layer)
+        if spec.mixer in ("mlstm", "slstm"):
+            for name, a in layer.items():
+                if name != "conv" or spec.mixer == "mlstm":
+                    # the mLSTM's conv (B, 3, di) on its channels, every other
+                    # state on its first axis after the batch (heads, or d)
+                    at = 2 if name == "conv" else 1
+                    layer[name] = a[:at] + ("lstm_inner",) + a[at + 1:]
+        out.append(layer)
+    return out
+
+
 def rank_cache(model: Model, batch: int, max_seq: int, mesh, rules, *,
-               window_ring: bool = False, fill=None) -> list:
+               window_ring: bool = False, fill=None, axes=None) -> list:
     """This rank's block of ``model.init_cache(batch, max_seq,
     window_ring=...)``, made layer by layer: each whole layer is built on
     the model's device, ``fill(i, layer)`` (where given) writes it in
     place, and the rank keeps its block (``cache_slicer``) before the next
-    layer is made, so at most one whole layer lives on the way."""
-    axes, _ = cache_axes_tree(model, batch, max_seq, window_ring=window_ring)
+    layer is made, so at most one whole layer lives on the way. ``axes``:
+    the leaves' axes (``cache_axes_tree``'s by default)."""
+    if axes is None:
+        axes, _ = cache_axes_tree(model, batch, max_seq, window_ring=window_ring)
     place = cache_slicer(model, mesh, rules, axes)
 
     def one(i, layer):

@@ -27,11 +27,20 @@ of the cache, its parameters. There is no lowering.
   sequence whole (the reference's XLA would gather a cut one each step).
 
 Rules come from ``mode_rules(mesh.shape, kind, global_batch)`` with
-``rules_overrides`` and ``options`` on top, as in the reference. A model
-axis above 1 on prefill or decode raises ``NotImplementedError``: the
-tensor-parallel serving steps belong to the dry-run's tooling (ROADMAP
-A.5); tensor-parallel serving runs through the engine
-(``core/executor/sharded.py``).
+``rules_overrides`` and ``options`` on top, as in the reference. On a
+model axis above 1 a prefill or decode step is tensor-parallel at any
+width (``core/executor/sharded.py::StepSharding``): the reference's
+divisibility rule decides each width once (``tp_layout``: a width that
+does not divide the axis is whole on every rank, which runs that part
+whole), the rank holds its slices of the parameters (``Step.params``) and
+its block of the cache (the KV heads, Mamba's channels and the xLSTM's
+states cut as the layers cut them, ``specs.tp_cache_axes``), the layers
+all-reduce over the model group after each cut part, and the step returns
+the rank's vocab block of the logits where the vocab is cut (the
+reference's out sharding ("batch", None, "vocab")); with the rules'
+"experts" on (data, model) a MoE's experts are cut over both
+(``moe.moe_apply``'s ``ep_data``). Tensor-parallel paged serving runs
+through the engine (``core/executor/sharded.py::ShardedPagedRunner``).
 """
 from __future__ import annotations
 
@@ -42,10 +51,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
-from repro_torch.core.executor.sharded import rank_block
+from repro_torch.core.executor.sharded import StepSharding, rank_block
 from repro_torch.launch.mesh import BATCH_AXES
 from repro_torch.launch.specs import (DECODE_PAD, _parts, batch_axes, cache_axes_tree,
-                                      rank_cache, shard_cache, token_inputs)
+                                      rank_cache, shard_cache, token_inputs, tp_cache_axes)
 from repro_torch.models.model import Model, build_model
 from repro_torch.sharding.rules import Rules, mode_rules, use_rules
 from repro_torch.train.loop import grads_of
@@ -62,7 +71,9 @@ class Step:
     decode merges over; ``shard``: the rank's training plan (train);
     ``init_max_seq``: the learned positions' rows ``params`` draws
     (``seq_len + DECODE_PAD`` where the config has learned positions, as
-    the reference's ``build_step`` asks; 0: the config's own count)."""
+    the reference's ``build_step`` asks; 0: the config's own count);
+    ``sharding``: the rank's tensor-parallel plan of a prefill or decode
+    step on a model axis above 1 (``StepSharding``), else None."""
     kind: str
     model: Model
     mesh: Any
@@ -76,6 +87,7 @@ class Step:
     cp: Any = None
     shard: Optional[TrainSharding] = None
     init_max_seq: int = 0
+    sharding: Optional[StepSharding] = None
 
     @property
     def global_batch(self) -> int:
@@ -96,17 +108,29 @@ class Step:
 
     def params(self, seed: int = 0):
         """The rank's parameters from ``model.init(seed)``: its slices for
-        a train step, the whole tree otherwise (a model axis of 1)."""
+        a train step or a tensor-parallel step, the whole tree otherwise (a
+        model axis of 1)."""
         if self.shard is not None:
             return self.shard.params(self.model, seed, self.init_max_seq)
+        if self.sharding is not None:
+            return self.sharding.params(self.model, seed, self.init_max_seq)
         return self.model.init(seed, self.init_max_seq)
+
+    def shard_params(self, params):
+        """The rank's slices of a whole tree (converted weights): the tree
+        itself on a model axis of 1."""
+        if self.shard is not None:
+            return self.shard.shard(params)
+        if self.sharding is not None:
+            return self.sharding.shard(params)
+        return params
 
     def init_cache(self, fill=None) -> list:
         """This rank's block of the step's empty cache, made layer by layer
         (``specs.rank_cache``; ``fill(i, layer)`` writes each whole layer
         first)."""
         return rank_cache(self.model, self.global_batch, self.max_seq, self.mesh, self.rules,
-                          window_ring=self.window_ring, fill=fill)
+                          window_ring=self.window_ring, fill=fill, axes=self.cache_axes)
 
     def shard_cache(self, cache: list) -> list:
         """This rank's block of a whole cache of the step's shape."""
@@ -154,17 +178,27 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
         return Step("train", model, mesh, shard.rules, train_fn, inputs, axes, shard=shard,
                     init_max_seq=max_seq_for_init)
 
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{shape.kind} on a model axis of {mesh.shape['model']}: tensor-parallel "
-            "prefill and decode steps come with the dry-run tooling (ROADMAP A.5); "
-            "tensor-parallel serving runs through the engine")
+    if shape.kind not in ("prefill", "decode"):
+        raise ValueError(f"unknown step kind {shape.kind!r}")
     rules = mode_rules(mesh.shape, shape.kind, B, options)
     if rules_overrides:
         rules.mapping.update(rules_overrides)
+    ring = bool(rules.opt("window_ring"))
+    cp = None
+    if shape.kind == "decode":
+        cp = _cp_group(mesh, rules) if rules.opt("cp_decode") else None
+        if cp is None:
+            rules.mapping["kv_seq"] = None  # each rank holds the sequence whole
+    sharding = None
+    if mesh.shape.get("model", 1) > 1:
+        sharding = StepSharding(cfg, mesh, rules, B, max_seq_for_init)
+        rules = sharding.rules
+
+    def tp_axes(cache_axes):
+        return tp_cache_axes(model, cache_axes) if sharding is not None else cache_axes
 
     if shape.kind == "prefill":
-        cache_axes, _ = cache_axes_tree(model, B, S)
+        cache_axes = tp_axes(cache_axes_tree(model, B, S)[0])
 
         def prefill_fn(params, tokens, cache, cache_len, extras=None):
             extras = extras or {}
@@ -173,23 +207,19 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
                 N = extras["vision_embeds"].shape[1]
                 tokens = torch.cat([tokens.new_zeros((tokens.shape[0], N)), tokens], dim=1)
             with use_rules(rules):
-                return model.extend(params, tokens, cache, cache_len, batch=extras or None)
+                return model.extend(params, tokens, cache, cache_len, batch=extras or None,
+                                    shard=sharding)
 
         return Step("prefill", model, mesh, rules, prefill_fn, inputs, axes, max_seq=S,
-                    cache_axes=cache_axes, init_max_seq=max_seq_for_init)
+                    cache_axes=cache_axes, init_max_seq=max_seq_for_init, sharding=sharding)
 
-    if shape.kind != "decode":
-        raise ValueError(f"unknown step kind {shape.kind!r}")
     max_seq = S + DECODE_PAD
-    ring = bool(rules.opt("window_ring"))
-    cp = _cp_group(mesh, rules) if rules.opt("cp_decode") else None
-    if cp is None:
-        rules.mapping["kv_seq"] = None  # each rank holds the sequence whole
-    cache_axes, _ = cache_axes_tree(model, B, max_seq, window_ring=ring)
+    cache_axes = tp_axes(cache_axes_tree(model, B, max_seq, window_ring=ring)[0])
 
     def decode_fn(params, tokens, cache, cache_len):
         with use_rules(rules):
-            return model.decode(params, tokens, cache, cache_len, cp=cp)
+            return model.decode(params, tokens, cache, cache_len, cp=cp, shard=sharding)
 
     return Step("decode", model, mesh, rules, decode_fn, inputs, axes, max_seq=max_seq,
-                window_ring=ring, cache_axes=cache_axes, cp=cp, init_max_seq=max_seq_for_init)
+                window_ring=ring, cache_axes=cache_axes, cp=cp, init_max_seq=max_seq_for_init,
+                sharding=sharding)

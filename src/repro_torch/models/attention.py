@@ -31,6 +31,10 @@ Under tensor parallelism (the sharded paged runner) each rank runs these
 functions on its shard-local heads, and ``proj_out_lora`` takes the rank's
 model group ``tp``: the local output projection (and its ``wo`` LoRA
 delta) is a partial sum that one all-reduce completes before the bias.
+``attn_extend`` and ``attn_decode`` take the same ``tp`` in a
+tensor-parallel prefill or decode step (``launch/steps.py``), the cache
+holding the rank's KV heads or all of them (``local_kv`` picks the ones a
+contiguous split's heads read).
 
 The contiguous decode path (the twin of the reference's ``attn_decode``,
 which only ``Model.decode`` calls): ``attn_decode`` writes one token's K/V
@@ -62,6 +66,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_prefill
@@ -178,6 +183,27 @@ def _uses_rope(cfg, spec) -> bool:
 
 def _scale(cfg) -> float:
     return cfg.softmax_scale or 1.0 / math.sqrt(cfg.head_dim)
+
+
+def local_kv(t, cfg, tp, dim: int):
+    """The KV heads of ``t`` (along ``dim``) that a rank's query heads read.
+    Where a contiguous head split meets replicated KV heads (``tp_layout``'s
+    ``kv_contiguous``: cfg.num_heads = Hl local heads, Hl % KV != 0) local
+    head l is global head index * Hl + l and reads KV head (index * Hl +
+    l) // G: a view of those KV heads where each takes an equal run of
+    local heads (Hl < G: one KV head), else one KV head per local head
+    (``index_select``). Everywhere else (no group, KV heads cut, the
+    permuted split) ``t`` as it is."""
+    KV = t.shape[dim]
+    Hl = cfg.num_heads
+    if tp is None or Hl % KV == 0:
+        return t
+    G = Hl * tp.size // KV
+    kv = (tp.index * Hl + np.arange(Hl)) // G
+    lo, n = int(kv[0]), int(kv[-1]) - int(kv[0]) + 1
+    if Hl % n == 0 and np.array_equal(kv, lo + np.arange(Hl) // (Hl // n)):
+        return t.narrow(dim, lo, n)
+    return t.index_select(dim, torch.from_numpy(kv).to(t.device))
 
 
 def quantized_pages(pages) -> bool:
@@ -387,9 +413,12 @@ class ExtendRoute:
 
 def extend_route(cache_len: torch.Tensor, C: int, W: int) -> ExtendRoute:
     """The row split and window-write indices of one extend call (one host
-    read of ``cache_len``, one upload of the indices)."""
+    read of ``cache_len``, one upload of the indices). A ``cache_len`` on
+    the meta device holds no values: the dry-run's prefill from an empty
+    cache, every row fresh."""
     dev = cache_len.device
-    cl = cache_len.long().cpu()
+    cl = torch.zeros(cache_len.shape, dtype=torch.long) if dev.type == "meta" \
+        else cache_len.long().cpu()
     pos = cl[:, None] + torch.arange(C)
     wb, wc = torch.nonzero(pos < W, as_tuple=True)
     idx = [torch.nonzero(cl == 0)[:, 0], torch.nonzero(cl > 0)[:, 0],
@@ -413,7 +442,7 @@ def fresh_rows_take_kernel(cfg, spec, C: int) -> bool:
 
 
 def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
-                lora=None, lora_ids=None):
+                lora=None, lora_ids=None, tp=None):
     """Write a chunk's K/V at [cache_len, cache_len + C) of the cache window
     and attend. x: (B, C, d); cache: {"k", "v"} (B, W, KV, D), written IN
     PLACE; cache_len: (B,) tokens already in the window. Where
@@ -446,15 +475,16 @@ def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
         ki = None if nk == B else route.fresh
         # (B, C, heads, D) read through its strides as (B, heads, C, D)
         out = flash_prefill(rows(q, ki).transpose(1, 2),
-                            rows(k_new, ki).transpose(1, 2),
-                            rows(v_new, ki).transpose(1, 2),
+                            local_kv(rows(k_new, ki), cfg, tp, 2).transpose(1, 2),
+                            local_kv(rows(v_new, ki), cfg, tp, 2).transpose(1, 2),
                             scale=scale, window=window).transpose(1, 2)
     if nk < B:
         pi = route.cont if nk else None  # the continuation rows, or every row
         W = cache["k"].shape[1]
         kpos = torch.arange(W, device=x.device)
         oc = flash_attention(
-            rows(q, pi), rows(cache["k"], pi), rows(cache["v"], pi),
+            rows(q, pi), local_kv(rows(cache["k"], pi), cfg, tp, 2),
+            local_kv(rows(cache["v"], pi), cfg, tp, 2),
             q_pos=rows(pos, pi), k_pos=kpos, kind=spec.attn_kind,
             window=cfg.sliding_window, chunk=cfg.chunk_size, scale=scale,
             kv_valid=kpos[None, :] < (rows(cache_len.long(), pi)[:, None] + C))
@@ -465,7 +495,7 @@ def attn_extend(p, cfg, spec, x, cache, cache_len, route: ExtendRoute,
             full.index_copy_(0, route.fresh, out)
             full.index_copy_(0, pi, oc)
             out = full
-    return proj_out_lora(p["wo"], out, lora, lora_ids), cache
+    return proj_out_lora(p["wo"], out, lora, lora_ids, tp), cache
 
 
 # ---------------------------------------------------------------------------
@@ -552,7 +582,7 @@ def window_ring_applies(cfg, spec, width: int, rules=None) -> bool:
                 and cfg.sliding_window and width <= cfg.sliding_window + 1024)
 
 
-def attn_decode(p, cfg, spec, x, cache, cache_len, cp=None):
+def attn_decode(p, cfg, spec, x, cache, cache_len, cp=None, tp=None):
     """One-token decode over a contiguous cache (the twin of the
     reference's ``attn_decode``). x: (B, 1, d); cache: {"k", "v"} (B, Smax,
     KV, D), written IN PLACE; cache_len: (B,) entries before this token,
@@ -572,7 +602,8 @@ def attn_decode(p, cfg, spec, x, cache, cache_len, cp=None):
     * Otherwise the token goes to slot ``pos`` and ``decode_attention``
       masks the layer's kind.
 
-    Returns (out (B, 1, d), cache)."""
+    ``tp``: as in ``attn_extend`` (the rank's heads, ``local_kv`` of the
+    cache, one all-reduce after ``wo``). Returns (out (B, 1, d), cache)."""
     B = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     pos = cache_len.long()
@@ -591,7 +622,8 @@ def attn_decode(p, cfg, spec, x, cache, cache_len, cp=None):
         L = pos[:, None]
         p_abs = L - ((L - torch.arange(W, device=x.device)[None, :]) % W)
         valid = (p_abs >= 0) & (p_abs > L - cfg.sliding_window)
-        out = decode_attention(q, cache["k"], cache["v"], pos + 1, kind="global",
+        out = decode_attention(q, local_kv(cache["k"], cfg, tp, 2),
+                               local_kv(cache["v"], cfg, tp, 2), pos + 1, kind="global",
                                scale=scale, valid_override=valid)
     elif cp is not None:
         local = pos - cp.index * W
@@ -600,16 +632,18 @@ def attn_decode(p, cfg, spec, x, cache, cache_len, cp=None):
         # rows another rank owns write back what the slot holds
         cache["k"][bidx, at] = torch.where(mine, k_new, cache["k"][bidx, at])
         cache["v"][bidx, at] = torch.where(mine, v_new, cache["v"][bidx, at])
-        out = decode_attention_cp(q, cache["k"], cache["v"], pos + 1, cp=cp,
+        out = decode_attention_cp(q, local_kv(cache["k"], cfg, tp, 2),
+                                  local_kv(cache["v"], cfg, tp, 2), pos + 1, cp=cp,
                                   kind=spec.attn_kind, window=cfg.sliding_window,
                                   chunk=cfg.chunk_size, scale=scale)
     else:
         cache["k"][bidx, pos] = k_new
         cache["v"][bidx, pos] = v_new
-        out = decode_attention(q, cache["k"], cache["v"], pos + 1, kind=spec.attn_kind,
+        out = decode_attention(q, local_kv(cache["k"], cfg, tp, 2),
+                               local_kv(cache["v"], cfg, tp, 2), pos + 1, kind=spec.attn_kind,
                                window=cfg.sliding_window, chunk=cfg.chunk_size,
                                scale=scale)
-    return proj_out(p["wo"], out), cache
+    return proj_out_lora(p["wo"], out, tp=tp), cache
 
 
 def init_attn_cache(cfg, batch, max_seq, dtype, device):
@@ -659,6 +693,7 @@ def attn_forward(p, cfg, spec, x, positions, *, causal=True, tp=None):
     if _uses_rope(cfg, spec):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = local_kv(k, cfg, tp, 2), local_kv(v, cfg, tp, 2)
     out = flash_attention(q, k, v, q_pos=positions, k_pos=positions, kind=spec.attn_kind,
                           window=cfg.sliding_window, chunk=cfg.chunk_size,
                           scale=_scale(cfg), causal=causal)
@@ -689,6 +724,7 @@ def cross_attend(p, cfg, x, enc_k, enc_v, tp=None):
     bias). Returns (B, S, d)."""
     S, T = x.shape[1], enc_k.shape[1]
     q = proj_qkv(p["wq"], copy_to_model(x, tp))
+    enc_k, enc_v = local_kv(enc_k, cfg, tp, 2), local_kv(enc_v, cfg, tp, 2)
     out = flash_attention(q, enc_k, enc_v, q_pos=torch.arange(S, device=x.device),
                           k_pos=torch.arange(T, device=x.device), kind="global",
                           scale=1.0 / math.sqrt(cfg.head_dim), causal=False)

@@ -12,6 +12,7 @@ sharded paged runner splits a parameter by those names, never by its shape.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -173,6 +174,47 @@ def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # chunked (sqrt-remat) time loop
 # ---------------------------------------------------------------------------
+
+_loop = threading.local()  # the cost counter that asks loops to run one step
+
+
+class counted_loops:
+    """While active (``launch/op_cost.py``'s counter enters it), every
+    ``time_loop`` of this thread runs its first step alone inside
+    ``scale(n)``: a context manager that multiplies the counts of the ops
+    inside it by the trip count ``n``. Loops over tens of thousands of
+    positions then cost one step's dispatches to count."""
+
+    def __init__(self, scale):
+        self.scale = scale
+
+    def __enter__(self):
+        self.prev = getattr(_loop, "scale", None)
+        _loop.scale = self.scale
+        return self
+
+    def __exit__(self, *exc):
+        _loop.scale = self.prev
+
+
+def time_loop(step, n: int, carry):
+    """``step(t, carry) -> (y, carry)`` for t in range(n): the list of the
+    ys and the last carry. The one loop of the state mixers' recurrences
+    (Mamba's selective scan, the mLSTM's steps and chunks, the sLSTM's
+    steps). Under ``counted_loops`` (the cost counter alone) it runs step 0
+    with its counts multiplied by n, and the list repeats that step's y n
+    times: the shapes, and the counts, of the whole loop."""
+    scale = getattr(_loop, "scale", None)
+    if scale is None or n <= 1:
+        ys = []
+        for t in range(n):
+            y, carry = step(t, carry)
+            ys.append(y)
+        return ys, carry
+    with scale(n):
+        y, carry = step(0, carry)
+    return [y] * n, carry
+
 
 def chunked_scan(run, xs, carry, *, chunk: int = 64):
     """``run(xs, carry) -> (ys, carry)``: a Python loop over the time axis

@@ -29,7 +29,9 @@ the scan runs on its channels alone. x enters through ``copy_to_model``;
 ``x_proj``'s rows give partial sums of (dt, B, C), which one
 ``reduce_from_model`` completes and which enter the rank's channels
 through ``copy_to_model``; one ``reduce_from_model`` after ``out_proj``.
-Two all-reduces a layer forward, two backward.
+Two all-reduces a layer forward, two backward. A tensor-parallel prefill
+or decode step passes the same ``tp`` with the rank's states (``conv``
+and ``ssm`` over its channels): a chunk or one token from them.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (chunked_scan, dense, dense_axes, make_dense,
-                                       normal_init)
+                                       normal_init, time_loop)
 from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
 
 
@@ -95,11 +97,12 @@ def ssm_scan(A, Bc, Cc, dt, x, h):
     N) f32. Returns (y (B, S, di) f32, h after the last step)."""
     def run(xs, h):
         Bc, Cc, dt, x = xs
-        ys = []
-        for t in range(x.shape[1]):
+
+        def step(t, h):
             dt_t = dt[:, t, :, None]
             h = torch.exp(dt_t * A) * h + dt_t * Bc[:, t, None, :] * x[:, t, :, None]
-            ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t]))
+            return torch.einsum("bdn,bn->bd", h, Cc[:, t]), h
+        ys, h = time_loop(step, x.shape[1], h)
         return torch.stack(ys, dim=1), h
 
     return chunked_scan(run, (Bc.float(), Cc.float(), dt, x), h)

@@ -25,8 +25,9 @@ Three forms of the same attention:
 No kernel runs here: the reference's ``_mla_extend`` calls its plain
 blockwise attention too, and ``flash_prefill`` takes only Dqk == Dv.
 
-``mla_forward``'s ``tp`` (the sharded train step's model group) cuts the
-heads: ``wq_b`` (or ``wq``), ``wkv_b`` and ``wo`` hold the rank's, and
+``mla_forward``'s, ``mla_extend``'s and ``mla_decode``'s ``tp`` (the
+sharded train step's or a tensor-parallel prefill / decode step's model
+group) cuts the heads: ``wq_b`` (or ``wq``), ``wkv_b`` and ``wo`` hold the rank's, and
 ``cfg.num_heads`` is its count (``TrainSharding.layer_cfg``). The
 down-projections, their norms and the shared rope key stay whole on every
 rank, each rank computing them alike; the latents (and x, without a query
@@ -155,20 +156,21 @@ def mla_forward(p, cfg, spec, x, positions, *, kv_valid=None, causal=True, tp=No
     return out, (c_kv, k_pe[:, :, 0])
 
 
-def mla_extend(p, cfg, spec, x, cache, cache_len, route=None):
+def mla_extend(p, cfg, spec, x, cache, cache_len, route=None, tp=None):
     """Write a chunk's latents at [cache_len, cache_len + C) of the window
     and attend. x: (B, C, d); cache: {"c_kv": (B, W, r), "k_pe": (B, W,
     rope)}, written IN PLACE (slots past W dropped, as ``route`` gives
     them); cache_len: (B,). Every W cached latent is expanded through
     ``wkv_b`` and the chunk attends through the plain ``flash_attention``
-    with ``kv_valid = position < cache_len + C``. Returns (out (B, C, d),
-    cache)."""
+    with ``kv_valid = position < cache_len + C``. ``tp``: a tensor-parallel
+    step's model group, whose heads ``p`` holds (the latents whole on every
+    rank, one all-reduce after ``wo``). Returns (out (B, C, d), cache)."""
     B, C, _ = x.shape
     W = cache["c_kv"].shape[1]
     if route is None:
         route = attn.extend_route(cache_len, C, W)
     pos = cache_len.long()[:, None] + torch.arange(C, device=x.device)
-    q_nope, q_pe = _project_q(p, cfg, x)
+    q_nope, q_pe = _project_q(p, cfg, x, tp)
     q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
     c_new, pe_new = _latent_kv(p, cfg, x, pos)
     c_cache, pe_cache = cache["c_kv"], cache["k_pe"]
@@ -180,18 +182,19 @@ def mla_extend(p, cfg, spec, x, cache, cache_len, route=None):
         q, k, v, q_pos=pos, k_pos=kpos, kind=spec.attn_kind,
         window=cfg.sliding_window, chunk=cfg.chunk_size, scale=_scale(cfg),
         kv_valid=kpos[None, :] < (cache_len.long()[:, None] + C))
-    return torch.einsum("bshv,hvd->bsd", out, p["wo"]["w"]), cache
+    return reduce_from_model(torch.einsum("bshv,hvd->bsd", out, p["wo"]["w"]), tp), cache
 
 
-def mla_decode(p, cfg, spec, x, cache, cache_len):
+def mla_decode(p, cfg, spec, x, cache, cache_len, tp=None):
     """Absorbed-form one-token decode. x: (B, 1, d); cache: {"c_kv": (B,
     Smax, r), "k_pe": (B, Smax, rope)}, the new token's latents written IN
     PLACE at ``cache_len``. Scores are taken against the cached latents in
     their own dtype with f32 products, as the reference's
-    ``preferred_element_type`` does. Returns (out (B, 1, d), cache)."""
+    ``preferred_element_type`` does. ``tp``: as in ``mla_extend``. Returns
+    (out (B, 1, d), cache)."""
     B = x.shape[0]
     pos = cache_len.long()
-    q_nope, q_pe = _project_q(p, cfg, x)  # (B, 1, H, *)
+    q_nope, q_pe = _project_q(p, cfg, x, tp)  # (B, 1, H, *)
     q_pe = apply_rope(q_pe, pos[:, None], cfg.rope_theta)
     c_new, pe_new = _latent_kv(p, cfg, x, pos[:, None])
     c_cache, pe_cache = cache["c_kv"], cache["k_pe"]
@@ -212,7 +215,7 @@ def mla_decode(p, cfg, spec, x, cache, cache_len):
     ctx = torch.einsum("bhs,bsr->bhr", pr.to(c_cache.dtype).float(), c32)
     out_h = torch.einsum("bhr,rhv->bhv", ctx, w_uv.float())
     out = torch.einsum("bhv,hvd->bd", out_h.to(x.dtype), p["wo"]["w"])[:, None, :]
-    return out, cache
+    return reduce_from_model(out, tp), cache
 
 
 def init_mla_cache(cfg, batch, max_seq, dtype, device):

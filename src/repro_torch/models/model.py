@@ -55,6 +55,11 @@ the sharded train step cuts them (``forward``'s ``shard``: a rank's
 ``train/sharding.py`` plan, FSDP slices gathered per layer; heads, inner
 channels, hidden units, experts and vocab over the model group, for every
 family).
+``extend`` and ``decode`` take ``shard``, a rank's plan of a
+tensor-parallel prefill or decode step (``core/executor/sharded.py::
+StepSharding``): every family's layers run shard-locally as ``forward``'s
+do under a training plan, each width the model group holds whole run
+whole (``sharding/collectives.py::cut_group``).
 ``build_model(cfg, device=...)`` runs on ``cuda`` unless asked for ``cpu``
 and raises when CUDA is asked for and absent.
 
@@ -89,7 +94,8 @@ from repro_torch.models import mamba, mla, moe, xlstm
 from repro_torch.models.common import (apply_norm, dense, dense_axes, gated, is_glu,
                                        make_dense, make_norm, norm_axes, normal_init,
                                        sinusoidal_positions)
-from repro_torch.sharding.collectives import copy_to_model, reduce_from_model
+from repro_torch.sharding.collectives import (MIXER_AXES, copy_to_model, cut_group,
+                                              reduce_from_model)
 from repro_torch.sharding.rules import current_rules
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -199,13 +205,20 @@ def _ff_branch(p, spec, cfg, x, lora=None, lora_ids=None, cf: float = 2.0, tp=No
     ``cfg.tp_ff_sharded``). ``shard``: a rank's training plan
     (``train/sharding.py``): a MoE runs the rank's experts over ``tp`` and
     dispatches over the plan's batch group as its rules' "sharded_moe"
-    option says."""
+    option says (a tensor-parallel step's plan, ``executor/sharded.py::
+    StepSharding``, likewise, with its experts over (data, model) where its
+    rules say so). Under the plan's layer config a width the group holds
+    whole (``cut_group``) runs whole: the experts, the shared experts'
+    units (``cfg.tp_ff_sharded``)."""
     if spec.ff == "none":
         return x, 0.0
     h = apply_norm(cfg.norm, p["norm2"], x)
     if spec.ff == "moe":
         mesh = {} if shard is None else dict(
-            tp=tp, dp=shard.batch, sharded_moe=shard.rules.opt("sharded_moe"))
+            tp=cut_group(cfg, "experts", tp), dp=shard.batch,
+            sharded_moe=shard.rules.opt("sharded_moe"),
+            shared_tp=tp if cfg.tp_ff_sharded else None,
+            ep_data=getattr(shard, "ep_data", None))
         y, aux = moe.moe_apply(p["ff"], cfg, h, capacity_factor=cf, **mesh)
         return x + y, aux
     return x + mlp_apply(p["ff"], cfg, h, lora, lora_ids, tp), 0.0
@@ -232,71 +245,85 @@ def _layer_extend_paged(p, spec, cfg, x, pages, block_tables, lengths, *,
     return _ff_branch(p, spec, cfg, x + y, lora, lora_ids, tp=tp)[0], pages, kv_new
 
 
-def _state_extend(p, spec, cfg, h, state):
+def _state_extend(p, spec, cfg, h, state, tp=None):
     """A state mixer over a chunk from each row's carried state: (y, the
     state after the chunk). Every row's C positions are real (the engine
-    groups state stacks by exact chunk length)."""
+    groups state stacks by exact chunk length). ``tp``: the mixer runs the
+    rank's channels or heads, and ``state`` is the rank's."""
     if spec.mixer == "mamba":
         y, (conv, ssm) = mamba.mamba_forward(p, cfg, h, conv_state=state["conv"],
-                                             ssm_state=state["ssm"])
+                                             ssm_state=state["ssm"], tp=tp)
         return y, {"conv": conv, "ssm": ssm}
     fwd = xlstm.mlstm_forward if spec.mixer == "mlstm" else xlstm.slstm_forward
-    return fwd(p, cfg, h, state=state)
+    return fwd(p, cfg, h, state=state, tp=tp)
 
 
 def _layer_extend(p, spec, cfg, x, cache, cache_len, route, *, lora=None,
-                  lora_ids=None):
+                  lora_ids=None, shard=None):
     """C-token extend over a gathered cache window, or from a state mixer's
     carried state (the twin of the reference's ``_layer_extend``); a
     whisper decoder layer then attends over its ``cross_k`` / ``cross_v``
-    leaves. Returns (x, the layer's cache: the window written in place, or
-    the new state)."""
+    leaves. ``shard``: a tensor-parallel step's plan (``cfg`` its layer
+    config): the mixer, cross-attention and feed-forward run the rank's
+    heads, channels, hidden units and experts over ``shard.tp``, each
+    width the group holds whole run whole. Returns (x, the layer's cache:
+    the window written in place, or the new state)."""
+    tp = None if shard is None else shard.tp
+    mt = cut_group(cfg, MIXER_AXES[spec.mixer], tp)
     h = apply_norm(cfg.norm, p["norm1"], x)
     if spec.mixer in STATE_MIXERS:
-        y, cache = _state_extend(p["mixer"], spec, cfg, h, cache)
+        y, cache = _state_extend(p["mixer"], spec, cfg, h, cache, mt)
     elif spec.mixer == "mla":
-        y, cache = mla.mla_extend(p["mixer"], cfg, spec, h, cache, cache_len, route)
+        y, cache = mla.mla_extend(p["mixer"], cfg, spec, h, cache, cache_len, route, mt)
     else:
         y, cache = attn.attn_extend(p["mixer"], cfg, spec, h, cache, cache_len,
-                                    route, lora, lora_ids)
+                                    route, lora, lora_ids, mt)
     x = x + y
     if "cross" in p:
         hc = apply_norm(cfg.norm, p["cross_norm"], x)
-        x = x + attn.cross_attend(p["cross"], cfg, hc, cache["cross_k"], cache["cross_v"])
-    return _ff_branch(p, spec, cfg, x, lora, lora_ids)[0], cache
+        x = x + attn.cross_attend(p["cross"], cfg, hc, cache["cross_k"], cache["cross_v"],
+                                  cut_group(cfg, "heads", tp))
+    return _ff_branch(p, spec, cfg, x, lora, lora_ids, tp=tp, shard=shard)[0], cache
 
 
-def _layer_decode(p, spec, cfg, x, cache, cache_len, cp=None):
+def _layer_decode(p, spec, cfg, x, cache, cache_len, cp=None, shard=None):
     """One token through one layer over its contiguous cache (the twin of
     the reference's ``_layer_decode``): ``attn_decode`` (K/V written in
     place; ``cp``: the rank's slice of the sequence), ``mla_decode`` (the
     absorbed form), or a state mixer's step from its
     state; a whisper decoder layer then attends over every row of its
     ``cross_k`` / ``cross_v`` through ``decode_attention`` at
-    1/sqrt(head_dim); the feed-forward at capacity factor 2.0. Returns (x,
-    the layer's cache)."""
+    1/sqrt(head_dim); the feed-forward at capacity factor 2.0. ``shard``:
+    as in ``_layer_extend``. Returns (x, the layer's cache)."""
+    tp = None if shard is None else shard.tp
+    mt = cut_group(cfg, MIXER_AXES[spec.mixer], tp)
     h = apply_norm(cfg.norm, p["norm1"], x)
     if spec.mixer in STATE_MIXERS:
-        y, cache = _state_extend(p["mixer"], spec, cfg, h, cache)
+        y, cache = _state_extend(p["mixer"], spec, cfg, h, cache, mt)
     elif spec.mixer == "mla":
-        y, cache = mla.mla_decode(p["mixer"], cfg, spec, h, cache, cache_len)
+        y, cache = mla.mla_decode(p["mixer"], cfg, spec, h, cache, cache_len, mt)
     else:
-        y, cache = attn.attn_decode(p["mixer"], cfg, spec, h, cache, cache_len, cp)
+        y, cache = attn.attn_decode(p["mixer"], cfg, spec, h, cache, cache_len, cp, mt)
     x = x + y
     if "cross" in p:
+        ct = cut_group(cfg, "heads", tp)
         hc = apply_norm(cfg.norm, p["cross_norm"], x)
         ek, ev = cache["cross_k"], cache["cross_v"]
         q = attn.proj_qkv(p["cross"]["wq"], hc)
         total = torch.full((x.shape[0],), ek.shape[1], dtype=torch.long, device=x.device)
-        out = attn.decode_attention(q, ek, ev, total, scale=1.0 / math.sqrt(cfg.head_dim))
-        x = x + attn.proj_out(p["cross"]["wo"], out)
-    return _ff_branch(p, spec, cfg, x)[0], cache
+        out = attn.decode_attention(q, attn.local_kv(ek, cfg, ct, 2),
+                                    attn.local_kv(ev, cfg, ct, 2), total,
+                                    scale=1.0 / math.sqrt(cfg.head_dim))
+        x = x + attn.proj_out_lora(p["cross"]["wo"], out, tp=ct)
+    return _ff_branch(p, spec, cfg, x, tp=tp, shard=shard)[0], cache
 
 
 def _mixer_forward(p, spec, cfg, h, positions, tp=None):
     """A layer's mixer over a whole sequence from an empty history; ``tp``:
     the mixer runs the rank's heads or channels (``attn.attn_forward``,
-    ``mla.mla_forward``, ``mamba.mamba_forward``, the xLSTM's)."""
+    ``mla.mla_forward``, ``mamba.mamba_forward``, the xLSTM's), or runs
+    whole where the group holds its width whole (``cut_group``)."""
+    tp = cut_group(cfg, MIXER_AXES[spec.mixer], tp)
     if spec.mixer == "attn":
         return attn.attn_forward(p, cfg, spec, h, positions, tp=tp)
     if spec.mixer == "mla":
@@ -322,8 +349,9 @@ def _layer_forward(p, spec, cfg, x, positions, enc=None, shard=None):
                            positions, tp)
     if enc is not None:
         hc = apply_norm(cfg.norm, p["cross_norm"], x)
-        k, v = attn.cross_kv(p["cross"], enc, x.dtype, cfg, tp)
-        x = x + attn.cross_attend(p["cross"], cfg, hc, k, v, tp)
+        ct = cut_group(cfg, "heads", tp)
+        k, v = attn.cross_kv(p["cross"], enc, x.dtype, cfg, ct)
+        x = x + attn.cross_attend(p["cross"], cfg, hc, k, v, ct)
     return _ff_branch(p, spec, cfg, x, cf=1.25, tp=tp, shard=shard)
 
 
@@ -662,25 +690,32 @@ class Model:
             tp, lcfg = shard.tp, shard.layer_cfg
         for p in enc["layers"]:
             h = apply_norm(cfg.norm, p["norm1"], x)
-            y = attn.attn_forward(p["mixer"], lcfg, ENC_SPEC, h, pos, causal=False, tp=tp)
+            y = attn.attn_forward(p["mixer"], lcfg, ENC_SPEC, h, pos, causal=False,
+                                  tp=cut_group(lcfg, "heads", tp))
             x, _ = _ff_branch(p, ENC_SPEC, lcfg, x + y, tp=tp)
         return apply_norm(cfg.norm, enc["final_norm"], x)
 
-    def cross_kv_all(self, params, enc):
+    def cross_kv_all(self, params, enc, shard=None):
         """Each decoder layer's cross K/V over the encoder states enc
         (B, T, d): a list over layers of {"cross_k", "cross_v"} (B, T, KV,
-        D) in the activation dtype."""
-        return [dict(zip(CROSS_LEAVES, attn.cross_kv(p["cross"], enc, self.dtype)))
+        D) in the activation dtype; under a step's ``shard`` the rank's KV
+        heads where the group cuts them."""
+        tp = cfg = None
+        if shard is not None:
+            cfg = shard.layer_cfg
+            tp = cut_group(cfg, "heads", shard.tp)
+        return [dict(zip(CROSS_LEAVES, attn.cross_kv(p["cross"], enc, self.dtype, cfg, tp)))
                 for p in params["layers"]]
 
-    def splice_vision(self, params, tokens, vision_embeds, cache_len):
+    def splice_vision(self, params, tokens, vision_embeds, cache_len, tp=None):
         """The token embeddings of a (B, C) chunk at positions [cache_len,
         cache_len + C), with the rows at absolute positions below N replaced
         by image rows ``vision_embeds`` (B, N, d): position i < N takes
         image row i. From cache_len 0 over the whole image, this is the
         reference's ``splice_vision`` (the image ahead of the text) with N
-        placeholder tokens in front of the text."""
-        x = self.embed_tokens(params, tokens)
+        placeholder tokens in front of the text. ``tp``: the embedding's
+        vocab group (``embed_tokens``)."""
+        x = self.embed_tokens(params, tokens, tp)
         B, C, d = x.shape
         N = vision_embeds.shape[1]
         pos = cache_len.long()[:, None] + torch.arange(C, device=x.device)
@@ -778,7 +813,7 @@ class Model:
 
     # ---------------- extend (gathered cache windows) -------------------------
     @torch.no_grad()
-    def extend(self, params, tokens, cache, cache_len, lora=None, batch=None):
+    def extend(self, params, tokens, cache, cache_len, lora=None, batch=None, shard=None):
         """tokens: (B, C) at positions [cache_len, cache_len + C); cache: a
         list over layers (``init_cache``) of windows, written in place, and
         of states; cache_len: (B,) tokens already cached per row. ``lora``
@@ -791,16 +826,27 @@ class Model:
         garbage the caller ignores (a state stack takes no ragged rows: its
         states would run over the padding). Returns (logits (B, C, V), the
         cache list with each state layer's entry replaced by its state
-        after the chunk)."""
+        after the chunk).
+
+        ``shard``: a rank's plan of a tensor-parallel prefill step
+        (``core/executor/sharded.py::StepSharding``): ``params`` are its
+        slices and ``cache`` its block; each layer runs under the plan's
+        layer config over its model group (``_layer_extend``), whisper's
+        encoder and cross K/V on the rank's heads, the embedding (internvl's
+        too) and head vocab-parallel where the vocab is cut, and the logits
+        are then the rank's (B, C, V_l) block."""
         cfg = self.cfg
+        lcfg = cfg if shard is None else shard.layer_cfg
+        vtp = None if shard is None else shard.vocab_tp
         if isinstance(cache, RingCache):
             raise ValueError(f"{cfg.name}: extend takes no window ring (the reference has no "
                              "ring-aware extend); fill a ring from a whole cache")
         extras = batch or {}
         C = tokens.shape[1]
         if has_cross(cfg) and "audio_frames" in extras:
-            enc = self.run_encoder(params, extras["audio_frames"])
-            cache = [dict(c, **kv) for c, kv in zip(cache, self.cross_kv_all(params, enc))]
+            enc = self.run_encoder(params, extras["audio_frames"], shard)
+            cache = [dict(c, **kv) for c, kv in zip(cache,
+                                                    self.cross_kv_all(params, enc, shard))]
         windows = [w for w in map(_window, cache, self.specs) if w is not None]
         # the window width comes from an attention layer's leaf; a stack of
         # state mixers alone writes no window
@@ -813,18 +859,18 @@ class Model:
             self.route_rows["flash_attention"] += len(route.cont) + (
                 0 if all(kernel) else nf)
         if cfg.family == "vlm" and "vision_embeds" in extras:
-            x = self.splice_vision(params, tokens, extras["vision_embeds"], cache_len)
+            x = self.splice_vision(params, tokens, extras["vision_embeds"], cache_len, vtp)
         else:
-            x = self.embed_tokens(params, tokens)
+            x = self.embed_tokens(params, tokens, vtp)
         x = self.add_positions(params, x, cache_len.long()[:, None]
                                + torch.arange(C, device=x.device))
         tables, ids = _layer_lora(lora)
         out = []
         for p, spec, c, lt in zip(params["layers"], self.specs, cache, tables):
-            x, c = _layer_extend(p, spec, self.cfg, x, c, cache_len, route, lora=lt,
-                                 lora_ids=ids)
+            x, c = _layer_extend(p, spec, lcfg, x, c, cache_len, route, lora=lt,
+                                 lora_ids=ids, shard=shard)
             out.append(c)
-        return self.head(params, x), out
+        return self.head(params, x, vtp), out
 
     # ---------------- decode (one token, contiguous cache) ---------------------
     def _check_positions(self, cache, cache_len, cp) -> None:
@@ -843,6 +889,8 @@ class Model:
                                                  and rules.opt("window_ring")):
             raise ValueError(f"{self.cfg.name}: a window ring decodes only under the "
                              "rules' \"window_ring\" option (use_rules)")
+        if cache_len.device.type == "meta":
+            return  # shapes without values (the dry-run): nothing to read
         top = int(cache_len.max()) if cache_len.numel() else 0
         for i, (spec, c) in enumerate(zip(self.specs, cache)):
             w = _window(c, spec)
@@ -858,7 +906,7 @@ class Model:
                                  f"past its {width}-slot cache")
 
     @torch.no_grad()
-    def decode(self, params, tokens, cache, cache_len, *, cp=None):
+    def decode(self, params, tokens, cache, cache_len, *, cp=None, shard=None):
         """tokens: (B, 1) at positions ``cache_len`` (B,); cache: the list of
         ``init_cache`` (attention K/V written in place, a state layer's
         entry replaced by its state after the token). The twin of the
@@ -873,15 +921,20 @@ class Model:
         S_loc), and merges over the group (two all-reduces a layer); a
         ring, the state mixers' states and whisper's cross K/V stay whole
         on every rank, and an MLA layer raises ``NotImplementedError``.
+        ``shard``: a rank's plan of a tensor-parallel decode step, as in
+        ``extend`` (the logits then the rank's (B, 1, V_l) block).
         Returns (logits (B, 1, V), the cache list)."""
         self._check_positions(cache, cache_len, cp)
-        x = self.add_positions(params, self.embed_tokens(params, tokens),
+        lcfg = self.cfg if shard is None else shard.layer_cfg
+        vtp = None if shard is None else shard.vocab_tp
+        x = self.add_positions(params, self.embed_tokens(params, tokens, vtp),
                                cache_len.long()[:, None])
         out = []
         for p, spec, c in zip(params["layers"], self.specs, cache):
-            x, c = _layer_decode(p, spec, self.cfg, x, c, cache_len, cp)
+            x, c = _layer_decode(p, spec, lcfg, x, c, cache_len, cp, shard)
             out.append(c)
-        return self.head(params, x), (RingCache(out) if isinstance(cache, RingCache) else out)
+        return self.head(params, x, vtp), (RingCache(out) if isinstance(cache, RingCache)
+                                           else out)
 
     # ---------------- decode_paged (one token) --------------------------------
     def _check_tp(self, tp) -> None:

@@ -159,8 +159,23 @@ def _add_shared(p, cfg, x, y):
     return y
 
 
+_SAME = object()  # shared_tp default: the experts' group
+
+
+def _local_counts(key, E_l: int, cap: int, T: int, k: int, E: int, before: int = 0):
+    """Pairs each local expert runs: the kept counts (one host read), or on
+    the meta device, which holds no routing, a balanced routing capped at
+    the capacity: each expert takes ceil(T * k / E) of these T tokens'
+    pairs, after ``before`` shards' as many, and keeps those below ``cap``
+    (the dry-run's assumption, ``launch/dryrun.py``)."""
+    if key.device.type == "meta":
+        n = -(-T * k // E)
+        return [max(0, min(n, cap - before * n))] * E_l
+    return torch.bincount(key, minlength=E_l + 1)[:E_l].tolist()
+
+
 def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25, tp=None, dp=None,
-              sharded_moe: bool = False):
+              sharded_moe: bool = False, shared_tp=_SAME, ep_data=None):
     """x: (B, S, d) -> (y (B, S, d), aux loss). Capacity is per expert over
     all B * S positions (padded ones included, as in the reference). Each
     expert's kept tokens go through its FFN in one matmul per weight, in
@@ -186,7 +201,23 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25, tp=None, dp=None,
     mesh every local expert runs its matmuls, with no rows where it has no
     tokens, so each rank's graph (and the collectives of its backward
     pass) is the same whatever its tokens route to; on one device an
-    expert without tokens is skipped."""
+    expert without tokens is skipped.
+
+    ``shared_tp``: the group the shared experts' hidden units are cut over
+    (``tp`` unless given; None: whole on every rank, added after the
+    routed experts' all-reduce). ``ep_data``: the data group where the
+    experts are cut over (data, model) in one group (the rules' "experts"
+    on both axes): rank (i, m) holds experts [(i * tp.size + m) E_l, ...),
+    every row of the data group is gathered first (the routing, capacity
+    and positions those of the gathered rows), the partial outputs are
+    summed over ``tp`` and reduce-scattered back to each rank's rows over
+    ``ep_data``."""
+    if shared_tp is _SAME:
+        shared_tp = tp
+    rows, x_own = None, x
+    if ep_data is not None and ep_data.size > 1:
+        rows = x.shape[0]
+        x = ep_data.all_gather(x.contiguous(), 0)
     B, S, d = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.top_k
@@ -208,11 +239,14 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25, tp=None, dp=None,
         aux = E * torch.sum(f_e * reduce_from_model(probs.sum(dim=0), dp) / Tg)
     E_l = p["w1"].shape[0]
     lo = 0 if tp is None else tp.index * E_l
+    if rows is not None:
+        lo += ep_data.index * (1 if tp is None else tp.size) * E_l
     local = (pos < cap) & (flat_e >= lo) & (flat_e < lo + E_l)
     key = torch.where(local, flat_e - lo, E_l)
     order = torch.sort(key, stable=True).indices  # each local expert's pairs in token order
-    counts = torch.bincount(key, minlength=E_l + 1)[:E_l].tolist()
-    mesh = tp is not None or dp is not None
+    global_pos = shards > 1 and not sharded_moe
+    counts = _local_counts(key, E_l, cap, T, k, E, dp.index if global_pos else 0)
+    mesh = tp is not None or dp is not None or rows is not None
     xm = copy_to_model(x_flat, tp)
     w_flat = copy_to_model(weights, tp).reshape(T * k)
     y = torch.zeros((T, d), dtype=x.dtype, device=x.device)
@@ -225,9 +259,21 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25, tp=None, dp=None,
         tok = src // k
         ye = gated(cfg.activation, xm[tok] @ p["w1"][e]) @ p["w2"][e]
         y.index_add_(0, tok, ye * w_flat[src][:, None])
+    ys = None
     if cfg.num_shared_experts:
-        y = y + gated(cfg.activation, dense(p["shared_w1"], xm)) @ p["shared_w2"]["w"]
+        if shared_tp is tp and rows is None:
+            xs = xm
+        else:  # over another group, or whole, or (ep_data) the rank's rows alone
+            xs = copy_to_model(x_own.reshape(-1, d), shared_tp)
+        ys = gated(cfg.activation, dense(p["shared_w1"], xs)) @ p["shared_w2"]["w"]
+        if xs is xm:
+            y, ys = y + ys, None
     y = reduce_from_model(y, tp)
+    if rows is not None:  # each rank keeps its rows of the data group's sum
+        y = ep_data.reduce_scatter(y.reshape(B, S, d), 0).reshape(-1, d)
+        B = rows
+    if ys is not None:
+        y = y + reduce_from_model(ys, shared_tp)
     if cfg.num_shared_experts and "b" in p["shared_w2"]:
         y = y + p["shared_w2"]["b"]
     return y.reshape(B, S, d), aux

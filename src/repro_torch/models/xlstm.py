@@ -42,6 +42,11 @@ recurrences of its own heads, x entering through ``copy_to_model``:
   "pairs" (``ffn_up``'s [a ; g] in ``piece_order``, ``ffn_down``'s rows,
   one ``reduce_from_model``), "gather" (``ffn_up`` cut but its pieces do
   not split: gathered where it is used, ``ffn_down`` whole), or whole.
+
+A tensor-parallel prefill or decode step passes the same ``tp`` with the
+rank's states (its heads' ``C``, ``n``, ``m`` and its channels' ``conv``;
+its heads' slices of the sLSTM's ``c``, ``n``, ``h``, ``m``) and gets
+them back: a chunk or one token from them.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import (act_fn, apply_norm, chunked_scan, dense,
                                        dense_axes, make_dense, make_norm, norm_axes,
-                                       normal_init)
+                                       normal_init, time_loop)
 from repro_torch.models.mamba import causal_conv
 from repro_torch.sharding.collectives import (copy_to_model, gather_from_model,
                                               reduce_from_model, reduce_scatter_to_model)
@@ -100,9 +105,9 @@ def mlstm_recurrence(q, k, v, ig, fg, state):
     H, dh) f32, the state after the last step)."""
     def run(xs, state):
         q, k, v, ig, fg = xs
-        C, n, m = state
-        hs = []
-        for t in range(q.shape[1]):
+
+        def step(t, state):
+            C, n, m = state
             q_t, k_t, v_t, i_t, f_t = q[:, t], k[:, t], v[:, t], ig[:, t], fg[:, t]
             m_new = torch.maximum(f_t + m, i_t)
             i_p = torch.exp(i_t - m_new)
@@ -112,9 +117,9 @@ def mlstm_recurrence(q, k, v, ig, fg, state):
             n = f_p[..., None] * n + i_p[..., None] * k_t
             num = torch.einsum("bhvk,bhk->bhv", C, q_t)
             den = torch.clamp_min(torch.abs(torch.einsum("bhk,bhk->bh", n, q_t)), 1.0)
-            hs.append(num / den[..., None])
-            m = m_new
-        return torch.stack(hs, dim=1), (C, n, m)
+            return num / den[..., None], (C, n, m_new)
+        hs, state = time_loop(step, q.shape[1], state)
+        return torch.stack(hs, dim=1), state
 
     return chunked_scan(run, tuple(a.float() for a in (q, k, v, ig, fg)), tuple(state))
 
@@ -134,8 +139,10 @@ def mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int = 64):
     C_p, n_p, m_p = state
     L = chunk
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
-    hs = []
-    for c0 in range(0, S, L):
+
+    def step(j, state):
+        C_p, n_p, m_p = state
+        c0 = j * L
         qc, kc, vc = (a[:, c0: c0 + L].float() for a in (q, k, v))  # (B, L, H, dh)
         ic, fc = ig[:, c0: c0 + L].float(), fg[:, c0: c0 + L].float()  # (B, L, H)
         b = torch.cumsum(fc, dim=1)
@@ -152,7 +159,7 @@ def mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int = 64):
         num = alpha[..., None] * num_inter + num_intra
         n_t = alpha[..., None] * n_p[:, None] + n_intra
         den = torch.clamp_min(torch.abs(torch.einsum("blhd,blhd->blh", n_t, qc)), 1.0)
-        hs.append(num / den[..., None])
+        h = num / den[..., None]
         # end-of-chunk state: weights e^{g_s + b_L - m_new}
         bL = b[:, -1]  # (B, H)
         m_new = bL + torch.maximum(m_p, g.amax(dim=1))
@@ -161,8 +168,9 @@ def mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int = 64):
         C_p = beta[..., None, None] * C_p + torch.einsum(
             "bshd,bshk->bhdk", w_state[..., None] * vc, kc)
         n_p = beta[..., None] * n_p + torch.einsum("bsh,bshd->bhd", w_state, kc)
-        m_p = m_new
-    return torch.cat(hs, dim=1), (C_p, n_p, m_p)
+        return h, (C_p, n_p, m_new)
+    hs, state = time_loop(step, S // L, (C_p, n_p, m_p))
+    return torch.cat(hs, dim=1), state
 
 
 def _mlstm_inputs_tp(p, xc, xin, H, tp):
@@ -267,9 +275,9 @@ def slstm_recurrence(gx, r, state, H, dh):
 
     def run(xs, state):
         gx, = xs
-        c, n, h, m = state
-        hs = []
-        for t in range(gx.shape[1]):
+
+        def step(t, state):
+            c, n, h, m = state
             rec = torch.einsum("bhd,hdk->bhk", h.reshape(B, H, dh), r)  # (B, H, 4dh)
             # head-major (H, 4, dh) -> gate-major (4, H, dh), wx's layout
             rec = rec.reshape(B, H, 4, dh).transpose(1, 2).reshape(B, 4 * H * dh)
@@ -283,9 +291,9 @@ def slstm_recurrence(gx, r, state, H, dh):
             c = f_p * c + i_p * torch.tanh(gz)
             n = f_p * n + i_p
             h = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
-            m = m_new
-            hs.append(h)
-        return torch.stack(hs, dim=1), (c, n, h, m)
+            return h, (c, n, h, m_new)
+        hs, state = time_loop(step, gx.shape[1], state)
+        return torch.stack(hs, dim=1), state
 
     return chunked_scan(run, (gx.float(),), tuple(state))
 

@@ -122,3 +122,18 @@ def gather_from_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def reduce_scatter_to_model(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return x if _trivial(group) else _ReduceScatter.apply(x, group, dim)
+
+
+# the logical width each mixer kind cuts over a model group
+MIXER_AXES = {"attn": "heads", "mla": "heads", "mamba": "ssm_inner", "mlstm": "lstm_inner",
+              "slstm": "lstm_inner"}
+
+
+def cut_group(cfg, axis: str, group):
+    """``group`` where the layer config ``cfg`` cuts the logical width
+    ``axis`` over it; None where the group holds that width whole on every
+    rank (``TPLayerConfig.tp_whole``): the part then runs whole, with no
+    collective."""
+    if group is None or axis in getattr(cfg, "tp_whole", ()):
+        return None
+    return group

@@ -20,9 +20,12 @@ go:
   (expert parallelism), Mamba's and the mLSTM's inner channels, the
   mLSTM's and the sLSTM's heads, and, where it divides, the vocabulary
   (``vocab_tp``: the vocab-parallel embedding, head and loss, the MTP
-  head's too). Each width a rank cuts must divide the model axis
-  (``ValueError`` otherwise). ``layer_cfg`` is the config a layer runs
-  with: the rank's ``num_heads`` and ``tp_ff_sharded``. A leaf whose axis
+  head's too). A width that does not divide the model axis is whole on
+  every rank, which runs that part whole with no all-reduce after it (the
+  reference's divisibility rule, ``tp_layout``; its ``rules`` force those
+  axes off). ``layer_cfg`` is the config a layer runs with: the rank's
+  ``num_heads``, ``tp_ff_sharded`` and the widths held whole
+  (``TPLayerConfig.tp_whole``). A leaf whose axis
   holds pieces side by side takes an order first (``model_order``) so a
   rank holds its share of each piece; where a piece does not split over
   the ranks (the sLSTM's ``ffn_up`` at 2 x 341 columns on 2 ranks, its
@@ -47,7 +50,6 @@ orders undone) for a checkpoint.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -56,9 +58,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.executor.sharded import model_order, tp_layout, train_params, train_slicer
 from repro_torch.launch.mesh import BATCH_AXES
-from repro_torch.models.mamba import d_inner_of
 from repro_torch.models.model import param_axes, param_shapes
-from repro_torch.models.xlstm import mlstm_d_inner
 from repro_torch.sharding.collectives import fsdp_gather
 from repro_torch.sharding.rules import mode_rules
 
@@ -108,43 +108,20 @@ class TrainSharding:
         self.local_batch = global_batch // self.batch.size
         mp = mesh.shape.get("model", 1)
         self.tp = mesh.model if mp > 1 else None
-        self.layer_cfg = dataclasses.replace(
-            cfg, tp_ff_sharded=True, num_heads=cfg.num_heads // mp) if mp > 1 else cfg
+        self.layout = tp_layout(cfg, mp)
+        self.rules = self.layout.rules(self.rules)
+        self.layer_cfg = self.layout.layer_cfg
         self.axes = param_axes(cfg)
         shapes = param_shapes(cfg, max_seq)
         self.specs = _map2(lambda shape, axes, _: self.rules.pspec(axes, shape), shapes,
                            self.axes)
         self.shapes = shapes
-        if mp > 1:
-            self._check_tp(mp)
         vocab = self.specs["embed"][0]
         self.vocab_tp = self.tp if "model" in _parts(vocab) else None
         for _, spec, path in _pairs(self.specs, self.specs):
             if any("data" in _parts(p) and len(_parts(p)) > 1 for p in spec):
                 raise NotImplementedError(f"{'/'.join(path)}: a leaf cut over data and "
                                           "another axis in one dimension")
-
-    def _check_tp(self, mp: int) -> None:
-        """Every width a rank cuts must divide the model axis: the heads
-        (attention, MLA, the xLSTM's, whisper's; ``tp_layout`` also checks
-        the replicated-KV fallback), an MLP's hidden units, the experts and
-        the shared experts' units, Mamba's and the mLSTM's inner widths."""
-        cfg = self.cfg
-        specs = cfg.layer_specs()
-        tp_layout(cfg, mp)  # raises where the heads do not split
-        mixers = {s.mixer for s in specs}
-        widths = {"d_ff": cfg.d_ff} if any(s.ff == "mlp" for s in specs) else {}
-        if any(s.ff == "moe" for s in specs):
-            widths["num_experts"] = cfg.num_experts
-            if cfg.num_shared_experts:
-                widths["shared expert width"] = cfg.moe_d_ff * cfg.num_shared_experts
-        if "mamba" in mixers:
-            widths["Mamba d_inner"] = d_inner_of(cfg)
-        if "mlstm" in mixers:
-            widths["mLSTM d_inner"] = mlstm_d_inner(cfg)
-        bad = {k: v for k, v in widths.items() if v % mp}
-        if bad:
-            raise ValueError(f"{cfg.name}: {bad} do not divide the model axis ({mp})")
 
     # ---- parameters -------------------------------------------------------
     def params(self, model, seed: int = 0, max_seq: int = 0):

@@ -35,7 +35,7 @@ from repro.models.common import is_param  # noqa: E402
 from repro.sharding import Rules as JRules  # noqa: E402
 from repro.sharding import serving_tp_rules as jserving_tp_rules  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.core.executor.sharded import tp_layout  # noqa: E402
+from repro_torch.core.executor.sharded import paged_layout, tp_layout  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.launch.roofline import card_for, decode_step_bound, H100_SXM  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
@@ -161,8 +161,15 @@ def test_glu_order_matches_closed_form(activation, glu):
 
 
 def test_indivisible_heads_raise():
+    """Heads that do not divide the model axis: the sharded paged runner's
+    layout raises the reference's error; ``tp_layout`` itself keeps them
+    whole on every rank (the divisibility rule of the train and step
+    plans)."""
     with pytest.raises(ValueError, match="num_heads=6 is not divisible by the model axis"):
-        tp_layout(_cfg(6, 6), 4)
+        paged_layout(_cfg(6, 6), 4)
+    lay = tp_layout(_cfg(6, 6), 4)
+    assert not lay.heads_cut and {"heads", "kv_heads"} <= set(lay.whole)
+    assert lay.layer_cfg.num_heads == 6 and lay.head_order is None
 
 
 # ---------------------------------------------------------------------------

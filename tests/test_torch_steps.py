@@ -9,8 +9,9 @@ leaf by leaf with equal shapes, for every published config at
 the meta device, and by ``jax.eval_shape``). ``build_step`` on a one-rank
 CPU mesh (``make_local_mesh``): its decode equals ``Model.decode`` (olmo-1b,
 and starcoder2-3b on a ring), its prefill ``Model.extend`` (internvl with
-an image over placeholder tokens), its train step ``grads_of``; a model
-axis above 1 and an absent CUDA raise.
+an image over placeholder tokens), its train step ``grads_of``; what it
+still refuses raises (an unknown kind, MLA under context parallelism,
+an absent CUDA).
 """
 import dataclasses
 import os
@@ -28,7 +29,8 @@ from repro.launch import specs as jspecs  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.launch import specs as tspecs  # noqa: E402
-from repro_torch.launch.mesh import AxisGroup, Mesh, make_local_mesh  # noqa: E402
+from repro_torch.launch.dryrun import step_arguments  # noqa: E402
+from repro_torch.launch.mesh import AxisGroup, Mesh, make_local_mesh, make_virtual_mesh  # noqa: E402
 from repro_torch.launch.steps import build_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.model import fill_ring  # noqa: E402
@@ -170,14 +172,30 @@ def test_build_step_prefill_and_train():
 
 
 def test_build_step_refusals():
+    """What ``build_step`` still refuses: an unknown kind, train rules'
+    overrides, MLA under context-parallel decode (no long-context config
+    has MLA), CUDA where there is none. Prefill and decode on a model axis
+    above 1 build (tensor-parallel steps, tests/test_torch_tp_steps.py)."""
     cfg = tconfigs.smoke_config("olmo-1b")
     groups = {n: AxisGroup(n, (0, 1) if n in ("model", "world") else (0,), 0, None)
               for n in ("data", "model", "batch", "world")}
     tp2 = Mesh(shape={"data": 1, "model": 2}, rank=0, backend="local",
                device=torch.device("cpu"), groups=groups)
     for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            build_step(cfg, tconfigs.InputShape("x", 16, 2, kind), tp2)
+        step = build_step(cfg, tconfigs.InputShape("x", 16, 2, kind), tp2)
+        assert step.sharding is not None and step.sharding.tp is tp2.model
+    with pytest.raises(ValueError, match="unknown step kind"):
+        build_step(cfg, tconfigs.InputShape("x", 16, 2, "score"), tp2)
+    with pytest.raises(ValueError, match="train rules of its plan"):
+        build_step(cfg, tconfigs.InputShape("x", 16, 2, "train"), tp2,
+                   rules_overrides={"ff": None})
+    mla = tconfigs.smoke_config("deepseek-v3-671b")
+    cp = build_step(mla, tconfigs.InputShape("x", 16, 1, "decode"),
+                    make_virtual_mesh({"data": 2, "model": 1}, device="cpu"),
+                    options={"cp_decode": True})
+    params, args = step_arguments(cp)
+    with pytest.raises(NotImplementedError, match="context-parallel decode of MLA"):
+        cp.fn(params, *args)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_step(cfg, tconfigs.get_shape("decode_32k"), make_local_mesh())

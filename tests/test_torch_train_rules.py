@@ -19,9 +19,10 @@
   units split, ``ffn_up``) taking its share of each piece;
   ``build_step``'s train step of each family this reaches on (1, 2) holds
   the rank's slices.
-* No fallback: heads that do not divide the model axis (xlstm's 4 on 8)
-  and an indivisible expert count refuse it; the production mesh asks for
-  the world it needs; ``launch/train.py --multi-pod`` alone stops.
+* The reference's divisibility rule: heads that do not divide the model
+  axis (xlstm's 4 on 8) and an indivisible expert count are held whole on
+  every rank (no leaf of theirs cut over model); the production mesh asks
+  for the world it needs; ``launch/train.py --multi-pod`` alone stops.
 """
 import dataclasses
 import math
@@ -239,10 +240,17 @@ def test_tp_training_takes_every_family(arch):
 
 def test_tp_training_refuses_indivisible_heads():
     """xlstm's 4 heads on a model axis of 8 (its 512 inner channels would
-    divide, cutting inside a head)."""
+    divide, cutting inside a head): the plan no longer refuses them but,
+    by the reference's divisibility rule, holds the xLSTM's heads and inner
+    widths whole on every rank, so no leaf of its layers is cut over model
+    and the layers run whole."""
     cfg = tconfigs.smoke_config("xlstm-1.3b")
-    with pytest.raises(ValueError, match="num_heads=4 is not divisible by the model axis"):
-        TrainSharding(cfg, _stand_in_mesh({"data": 1, "model": 8}), 4)
+    shard = TrainSharding(cfg, _stand_in_mesh({"data": 1, "model": 8}), 4)
+    assert {"heads", "lstm_inner", "ff"} <= set(shard.layout.whole)
+    assert shard.layer_cfg.num_heads == cfg.num_heads
+    for layer in shard.specs["layers"]:
+        for spec in tree_leaves_specs(layer["mixer"]):
+            assert "model" not in spec
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-v0.1-52b", "xlstm-1.3b",
@@ -270,10 +278,17 @@ def test_build_step_trains_on_a_model_axis(arch):
 
 
 def test_tp_training_refuses_indivisible_experts():
+    """3 experts on a model axis of 2: by the reference's divisibility rule
+    the experts are whole on every rank (no refusal), the heads and the
+    shared expert's units still cut."""
     cfg = tconfigs.smoke_config("llama4-scout-17b-a16e")  # 4 experts, 4 heads
-    with pytest.raises(ValueError, match="num_experts"):
-        TrainSharding(dataclasses.replace(cfg, num_experts=3),
-                      _stand_in_mesh({"data": 1, "model": 2}), 4)
+    shard = TrainSharding(dataclasses.replace(cfg, num_experts=3),
+                          _stand_in_mesh({"data": 1, "model": 2}), 4)
+    assert shard.layout.whole == ("experts",)
+    ff = shard.specs["layers"][0]["ff"]
+    assert "model" not in ff["w1"] and "model" not in ff["w2"]
+    assert "model" in ff["shared_w1"]["w"]
+    assert shard.layer_cfg.num_heads == cfg.num_heads // 2
 
 
 @pytest.mark.parametrize("multi_pod,need", [(False, 256), (True, 512)])
@@ -289,3 +304,12 @@ def test_production_mesh_needs_its_world(monkeypatch, multi_pod, need):
 def test_multi_pod_alone_stops():
     with pytest.raises(SystemExit, match="512 ranks"):
         ttrain.main(["--debug", "--device", "cpu", "--multi-pod"])
+
+
+def tree_leaves_specs(tree):
+    """The pspecs of a spec tree (tuples), in leaf order."""
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in tree_leaves_specs(v)]
+    if isinstance(tree, list):
+        return [s for v in tree for s in tree_leaves_specs(v)]
+    return [tree]
