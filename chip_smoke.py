@@ -271,8 +271,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                against 13b's, 60 all-reduces a step (2 x 30 layers) with
                their bytes and timed share. 13d: f32 smoke twins: every
                config's decode on the card equals the CPU's, the ring its
-               whole cache over 40 steps, CP over 2 ranks one process.
-               13a's and 13b's steps (whole and ring) are profiled once.
+               whole cache over 40 steps, CP over 2 ranks one process, and
+               deepseek-v3's MLA under CP on the card (a row crossing the
+               ranks' boundary) the CPU's one process. 13e: deepseek-v3 at
+               published width cut to its first 3 (dense MLA) layers,
+               ``build_step``'s decode at long_500k: one process over the
+               whole latents (1 813 708 800 B, filled layer by layer from
+               seeded generators), then "cp_decode" on two ranks sharing
+               the card over gloo, each holding 906 854 400 B of latents
+               and the whole weights against its requested device bytes,
+               its 8 greedy tokens equal to the one process's and its
+               logits within 2^-4, 6 all-reduces (789 504 B) a step with
+               their timed share, the median step beside its bytes bound.
+               13a's, 13b's and 13e's one-process steps are profiled once.
                Model.decode launches none of the six kernels (plain
                PyTorch, as the reference decodes outside Pallas).
  14. examples — the six example twins (``examples/<name>_torch.py``). 14a:
@@ -5897,6 +5908,8 @@ RING = {"window_ring": True}
 DECODE_LOGITS_RTOL = 2 ** -4
 DECODE_SMOKE_ATOL = 1e-4  # f32 smoke twins, card vs CPU, no TF32
 CP_SMOKE_ATOL = 2e-4  # tests/test_distributed.py's bound for CP decode
+MLA_CP_LAYERS = 3  # 13e: deepseek-v3's first three layers, its dense MLA ones
+MLA_LONG_SEED = 19  # 13e's latents: layer i from a generator at MLA_LONG_SEED + i
 
 
 def greedy_decode(fn, params, cache, first, start, steps):
@@ -6112,26 +6125,23 @@ def cp_twin(device):
     return cp_lg.cpu(), one.cpu()
 
 
-def cp_rank(first):
-    """One of 13c's ranks (run by ``spawn_ranks``): ``build_step``'s decode
-    at long_500k with "cp_decode" on (data 2) over gloo on this card, its
-    weights whole and its half of the sequence of 13b's cache contents;
-    8 greedy steps from 13b's first token, each step's all-reduces, one more
-    step with them timed; then 13d's CP smoke twin."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = configs.get_config(STARCODER)
-    mesh = make_mesh({"data": CP_RANKS, "model": 1}, backend="gloo")
+def long_cp_rank(mesh, cfg, fill, first):
+    """One rank's ``build_step`` decode of ``cfg`` at long_500k with
+    "cp_decode" on ``mesh``'s data group over gloo on this card, its
+    weights whole and its slice of the sequence of ``fill``'s cache
+    contents (attention K/V or MLA latents): its bytes, 8 greedy steps from
+    ``first`` with each step's all-reduces and the launches, then one more
+    step with the all-reduces timed."""
     step = build_step(cfg, LONG, mesh, options={"cp_decode": True})
     assert step.cp is mesh.batch and step.cp.size == CP_RANKS
     torch.cuda.synchronize()
     base = np.array(device_bytes())
     torch.cuda.reset_peak_memory_stats()
     params = step.params(0)
-    cache = step.init_cache(fill=fill_long)
+    cache = step.init_cache(fill=fill)
     torch.cuda.synchronize()
     out = dict(rank=mesh.rank, index=mesh.batch.index, weights=tree_bytes(params),
-               cache=tree_bytes(cache), width=cache[0]["k"].shape[1],
+               cache=tree_bytes(cache), width=next(iter(cache[0].values())).shape[1],
                drawn=np.array(device_bytes()) - base,
                draw_peak=np.array(peak_device_bytes()) - base)
     group = mesh.batch
@@ -6158,6 +6168,17 @@ def cp_rank(first):
     group.timed = False
     del params, cache, lg
     torch.cuda.empty_cache()
+    return out
+
+
+def cp_rank(first):
+    """One of 13c's ranks (run by ``spawn_ranks``): ``long_cp_rank`` on
+    starcoder2-3b whole with 13b's cache contents from 13b's first token;
+    then 13d's CP smoke twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh({"data": CP_RANKS, "model": 1}, backend="gloo")
+    out = long_cp_rank(mesh, configs.get_config(STARCODER), fill_long, first)
     cp_lg, one = cp_twin(mesh.device)
     out["twin"] = float((cp_lg - one).abs().max())
     return out
@@ -6207,6 +6228,162 @@ def phase_decode_cp(card, first, whole_run):
     if bad:
         raise AssertionError(f"13c ranks {bad}: bytes, logits, all-reduces or the twin off")
     return {n: max(r["launches"][n] for r in ranks) for n in COUNTERS}
+
+
+def mla_cp_config():
+    """13e's config: deepseek-v3 at published width, its depth cut to its
+    first 3 layers (of 61), its dense MLA layers, so no MoE router can flip
+    between ranks; no MTP block (decode reads none)."""
+    cfg = configs.get_config(DEEPSEEK)
+    return dataclasses.replace(cfg, stages=((cfg.stages[0][0], MLA_CP_LAYERS),), mtp_depth=0)
+
+
+def fill_latents(i, layer):
+    """13e's cache contents: layer i's ``c_kv`` and ``k_pe`` at positions
+    [0, L) drawn (bf16 normals, the RMS of a normalized latent) from a
+    generator on the card seeded with MLA_LONG_SEED + i; the same on every
+    process."""
+    gen = torch.Generator(device="cuda").manual_seed(MLA_LONG_SEED + i)
+    for name in ("c_kv", "k_pe"):
+        t = layer[name][:, :LONG.seq_len]
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda", dtype=t.dtype))
+
+
+def latent_slot_bytes(cfg, slots: int) -> int:
+    """Bytes of ``c_kv`` and ``k_pe`` over every MLA layer at ``slots``
+    slots, B=1."""
+    return (cfg.num_layers * slots * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+            * model_mod.DTYPES[cfg.dtype].itemsize)
+
+
+def phase_decode_mla_long(card):
+    """13e, one process: ``build_step``'s decode of ``mla_cp_config`` at
+    long_500k (B=1, 524 800 latent slots a layer, filled layer by layer),
+    8 greedy steps from a seeded token, one more profiled. Returns (the
+    first token, the run, the weights' bytes, the steps' counts)."""
+    free_device("phase 13e")
+    cfg = mla_cp_config()
+    step = build_step(cfg, LONG, make_local_mesh())
+    params = step.params(0)
+    weights = tree_bytes(params)
+    t0 = time.perf_counter()
+    cache = step.init_cache(fill=fill_latents)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    size, want = tree_bytes(cache), latent_slot_bytes(cfg, step.max_seq)
+    first = int(np.random.default_rng(20).integers(2, cfg.vocab_size))
+    zero_counts()
+    run = greedy_decode(step.fn, params, cache, first, LONG.seq_len, LONG_STEPS)
+    counts = read_counts()
+    ok = size == want and not any(counts.values()) and bool(torch.isfinite(run[1]).all())
+    log(f"[13 decode] 13e {DEEPSEEK} at published width cut to its first {MLA_CP_LAYERS} "
+        f"(dense MLA) layers of 61 ({weights} B of bf16 weights), long_500k (B=1, "
+        f"L={LONG.seq_len}) through build_step's decode on one process: latents of "
+        f"{step.max_seq} slots a layer filled from generators at seed {MLA_LONG_SEED} + layer "
+        f"in {fill_s:.1f} s, {size} B (count {want}); tokens {run[0]}; median step "
+        f"{statistics.median(run[2]) * 1e3:.2f} ms (first {run[2][0] * 1e3:.1f}), bytes bound "
+        f"(weights + latents) {(weights + size) / card[1] * 1e3:.3f} ms; launches {counts}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("13e: latent bytes, finite logits or the launches are off")
+    profile_steps("13e", [("whole latents", step.fn, cache)], params, run[0][-1],
+                  LONG.seq_len + LONG_STEPS)
+    del cache, params, step
+    return first, run, weights, counts
+
+
+def mla_cp_twin(mesh):
+    """deepseek-v3's smoke config in f32 (a dense and a MoE MLA layer) from
+    the CPU's seed-0 weights: a 40-token prefill into a 64-slot cache at
+    B=2, then 3 decode steps from positions 15 and 40 (row 0 rewriting the
+    slots it passes, crossing the ranks' boundary at 32) with this rank's
+    slice of the latents over the batch group on the card, against one
+    process's decode on the CPU: the largest |logit diff|."""
+    cfg = configs.smoke_config(DEEPSEEK)
+    cpu_params = build_model(cfg, device="cpu").init(0)
+    toks = torch.from_numpy(np.random.default_rng(18).integers(2, cfg.vocab_size, (2, 43)))
+    starts, rows = torch.tensor([15, 40]), torch.arange(2)
+    rules = Rules(mesh.shape, {"batch": None, "kv_seq": "data"}, {"cp_decode": True})
+
+    def run(device, cp):
+        model = build_model(cfg, device=device)
+        params = _to_device(cpu_params, device)
+        cache = model.init_cache(2, 64)
+        model.extend(params, toks[:, :40].to(device), cache,
+                     torch.zeros(2, dtype=torch.long, device=device))
+        if cp is not None:
+            cache = shard_cache(model, cache, mesh, rules, cache_axes_tree(model, 2, 64)[0])
+        out = []
+        for t in range(3):
+            pos = starts + t
+            with use_rules(rules):
+                lg, cache = model.decode(params, toks[rows, pos, None].to(device), cache,
+                                         pos.to(device), cp=cp)
+            out.append(lg.cpu())
+        return torch.stack(out)
+    return float((run(mesh.device, mesh.batch) - run("cpu", None)).abs().max())
+
+
+def mla_cp_rank(first):
+    """One of 13e's ranks: ``long_cp_rank`` on ``mla_cp_config`` with
+    13e's latents from its one process's first token; then 13d's MLA CP
+    smoke twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh({"data": CP_RANKS, "model": 1}, backend="gloo")
+    out = long_cp_rank(mesh, mla_cp_config(), fill_latents, first)
+    out["twin"] = mla_cp_twin(mesh)
+    return out
+
+
+def phase_decode_mla_cp(card, first, whole_run, weights):
+    """13e on two ranks sharing the card over gloo: each rank's latent
+    bytes and requested device bytes against the count, its tokens and
+    logits against the one process's, 2 all-reduces per MLA layer a step
+    with their bytes and timed share, the median step beside its bytes
+    bound; 13d's MLA CP smoke twin. Returns the ranks' largest counts."""
+    cfg = mla_cp_config()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mla_cp_rank, CP_RANKS, first, timeout=600)
+    rank_s = time.perf_counter() - t0
+    slots = (LONG.seq_len + DECODE_PAD) // CP_RANKS
+    want_cache = latent_slot_bytes(cfg, slots)
+    L, H, r = cfg.num_layers, cfg.num_heads, cfg.kv_lora_rank
+    want_ar = (2 * L, L * H * 4 * (2 + r))
+    log(f"[13 decode] 13e context-parallel decode of MLA latents at long_500k: {CP_RANKS} "
+        f"ranks of (data {CP_RANKS}) spawned on this one card over gloo ({rank_s:.1f} s for "
+        f"the ranks' whole run, 13d's MLA CP twin included); gloo stages each all-reduce "
+        f"through the host, so this measures the port's code path and memory layout, not "
+        f"NVLink")
+    bad = []
+    for rk in sorted(ranks, key=lambda x: x["index"]):
+        part, diff, top = part_stream((whole_run[0], whole_run[1]),
+                                      (rk["tokens"], torch.from_numpy(rk["logits"])))
+        drawn = int(rk["drawn"][0])
+        ok = (rk["cache"] == want_cache and rk["width"] == slots and rk["weights"] == weights
+              and abs(drawn - (weights + want_cache)) <= 2 ** 16
+              and part is None and diff <= DECODE_LOGITS_RTOL * top
+              and all(c == want_ar for c in rk["all_reduces"])
+              and not any(rk["launches"].values()) and rk["twin"] <= CP_SMOKE_ATOL)
+        bad += [] if ok else [rk["rank"]]
+        tm = rk["timed"]
+        same = "equal to the one process" if part is None else f"part at step {part}"
+        log(f"  rank {rk['rank']} (slots [{rk['index'] * slots}, {(rk['index'] + 1) * slots})): "
+            f"latents {rk['cache']} B (count {want_cache}), weights {rk['weights']} B whole; "
+            f"requested after the draw {drawn} (weights + latents {weights + want_cache}; "
+            f"{int(rk['drawn'][1])} allocated), draw peak {int(rk['draw_peak'][0])}; tokens "
+            f"{rk['tokens']} ({same}), largest |logit diff| {diff:.4g} of {top:.4g} ({diff / top:.3%}, limit "
+            f"{DECODE_LOGITS_RTOL:.2%}); all-reduces per step {sorted(set(rk['all_reduces']))} "
+            f"(want {want_ar}); median step {statistics.median(rk['secs']) * 1e3:.2f} ms, bytes "
+            f"bound (weights + latents) {(weights + want_cache) / card[1] * 1e3:.3f} ms; timed "
+            f"step {tm['step_s'] * 1e3:.2f} ms, {tm['seconds'] / tm['step_s']:.1%} of it in "
+            f"{tm['all_reduces']} all-reduces of {tm['bytes']} B; launches {rk['launches']}; "
+            f"13d MLA CP smoke twin (card vs CPU) |diff| {rk['twin']:.3g}: "
+            f"{'ok' if ok else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"13e ranks {bad}: bytes, tokens, logits, all-reduces, launches "
+                             "or the twin off")
+    return {n: max(rk["launches"][n] for rk in ranks) for n in COUNTERS}
 
 
 def decode_twin(arch, params, device):
@@ -6271,7 +6448,8 @@ def phase_decode_twins():
 
 def phase_decode(card):
     """Phase 13 (see the module docstring). Returns (13a's prefill counts,
-    the decode path's counts: 13a, 13b and every 13c rank)."""
+    the decode path's counts: 13a, 13b and every 13c rank; the MLA CP
+    path's: 13e's one process and every rank)."""
     t_phase = time.perf_counter()
     prefill_counts, a_counts = phase_decode_prompt(card)
     first, whole_run, b_counts = phase_decode_long(card)
@@ -6280,8 +6458,13 @@ def phase_decode(card):
     phase_decode_twins()
     counts = {n: a_counts[n] + b_counts[n] + c_counts[n] for n in COUNTERS}
     assert not any(counts.values()), counts
+    first, mla_run, weights, e_counts = phase_decode_mla_long(card)
+    free_device("13e's ranks")
+    e_rank_counts = phase_decode_mla_cp(card, first, mla_run, weights)
+    mla_counts = {n: e_counts[n] + e_rank_counts[n] for n in COUNTERS}
+    assert not any(mla_counts.values()), mla_counts
     log(f"[13 decode] phase 13 took {time.perf_counter() - t_phase:.1f} s")
-    return prefill_counts, counts
+    return prefill_counts, counts, mla_counts
 
 
 # ---------------------------------------------------------------------------
@@ -6899,7 +7082,7 @@ def main() -> None:
     del model, params
     tp_counts, _ = phase_tp(card)
     mesh_counts, tp_train_counts = phase_train_mesh(card, train_records)
-    prompt_counts, decode_counts = phase_decode(card)
+    prompt_counts, decode_counts, mla_cp_counts = phase_decode(card)
     example_counts = phase_examples()
     tp_step_counts = phase_tp_steps(card)
     # each kernel's launches on the path it serves: fp pages for
@@ -6936,6 +7119,8 @@ def main() -> None:
                                       "tensor-parallel train (12d), per rank":
                                           tp_train_counts[k],
                                       "Model.decode (13a-13c)": decode_counts[k],
+                                      "MLA context-parallel decode (13e), per rank":
+                                          mla_cp_counts[k],
                                       "tensor-parallel prefill + decode (15), per rank":
                                           tp_step_counts[k]})
                for k in REPLACES]

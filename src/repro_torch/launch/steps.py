@@ -21,10 +21,12 @@ of the cache, its parameters. There is no lowering.
   ``seq_len + DECODE_PAD`` slots: ``fn(params, tokens, cache, cache_len)
   -> (logits, cache)``. Under the "window_ring" option a window layer's
   cache is a ring; under "cp_decode" with the rules' "kv_seq" on mesh axes
-  (``mode_rules`` of one sequence: (pod, data)) each attention cache is
-  the rank's slice of the sequence and ``Model.decode`` takes the group
-  over those axes as ``cp``. Without "cp_decode" a rank holds its cache's
-  sequence whole (the reference's XLA would gather a cut one each step).
+  (``mode_rules`` of one sequence: (pod, data)) each attention cache and
+  each MLA layer's latents are the rank's slice of the sequence and
+  ``Model.decode`` takes the group over those axes as ``cp`` (on a model
+  axis above 1 as well: heads over model, the sequence over data). Without
+  "cp_decode" a rank holds its cache's sequence whole (the reference's XLA
+  would gather a cut one each step).
 
 Rules come from ``mode_rules(mesh.shape, kind, global_batch)`` with
 ``rules_overrides`` and ``options`` on top, as in the reference. On a

@@ -541,6 +541,19 @@ def decode_attention(q, k_cache, v_cache, total_len, *, kind: str = "global",
     return o.reshape(B, 1, H, Dv).to(q.dtype)
 
 
+def cp_combine(m_loc, l_loc, o_loc, cp):
+    """Merge each rank's flash-decode partial over the context-parallel
+    group ``cp`` by exactly two all-reduces: the max of ``m_loc`` (...),
+    then one sum of ``l_loc * alpha`` (...) and ``o_loc * alpha`` (..., D)
+    packed into one tensor, alpha = exp(m_loc - max). All f32; returns
+    ``o / max(l, 1e-30)`` (..., D), equal on every rank (the reference: one
+    pmax and two psums of the same values)."""
+    m_g = cp.all_reduce(m_loc.clone(), op="max")
+    alpha = torch.exp(m_loc - m_g)[..., None]
+    lo = cp.all_reduce(torch.cat([l_loc[..., None] * alpha, o_loc * alpha], dim=-1))
+    return lo[..., 1:] / torch.clamp_min(lo[..., :1], 1e-30)
+
+
 def decode_attention_cp(q, k_cache, v_cache, total_len, *, cp, kind: str = "global",
                         window: int = 0, chunk: int = 0, scale: float):
     """Context-parallel decode attention (the twin of the reference's
@@ -550,8 +563,8 @@ def decode_attention_cp(q, k_cache, v_cache, total_len, *, cp, kind: str = "glob
     takes its flash-decode partial (m, l, o) in f32 (q, k and v upcast, as
     the reference does) and the shards merge by exactly two all-reduces:
     the max of m, then one sum of l * alpha and o * alpha packed into one
-    tensor (the reference: one pmax and two psums of the same values).
-    Returns (B, 1, H, Dv) in q's dtype, equal on every rank."""
+    tensor (``cp_combine``). Returns (B, 1, H, Dv) in q's dtype, equal on
+    every rank."""
     B, _, H, D = q.shape
     S_loc, KV = k_cache.shape[1], k_cache.shape[2]
     G, Dv = H // KV, v_cache.shape[-1]
@@ -564,10 +577,7 @@ def decode_attention_cp(q, k_cache, v_cache, total_len, *, cp, kind: str = "glob
     m_loc = s.amax(dim=-1)  # (B, KV, G)
     p = torch.where(valid, torch.exp(s - m_loc[..., None]), 0.0)
     o_loc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    m_g = cp.all_reduce(m_loc.clone(), op="max")
-    alpha = torch.exp(m_loc - m_g)[..., None]
-    lo = cp.all_reduce(torch.cat([p.sum(dim=-1)[..., None] * alpha, o_loc * alpha], dim=-1))
-    o = lo[..., 1:] / torch.clamp_min(lo[..., :1], 1e-30)
+    o = cp_combine(m_loc, p.sum(dim=-1), o_loc, cp)
     return o.reshape(B, 1, H, Dv).to(q.dtype)
 
 

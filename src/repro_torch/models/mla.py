@@ -21,7 +21,8 @@ Three forms of the same attention:
     nope + rope, Dv = v), scaled by 1/sqrt(nope + rope);
   * ``mla_decode``: the absorbed form of one-token decode (queries
     multiplied by ``wkv_b``'s key half, scores taken against the latents),
-    which no serving path calls; it checks ``mla_extend`` at C = 1.
+    ``Model.decode``'s, also over a rank's slice of the latent sequence
+    under context parallelism (``cp``); no serving path calls it.
 No kernel runs here: the reference's ``_mla_extend`` calls its plain
 blockwise attention too, and ``flash_prefill`` takes only Dqk == Dv.
 
@@ -185,12 +186,19 @@ def mla_extend(p, cfg, spec, x, cache, cache_len, route=None, tp=None):
     return reduce_from_model(torch.einsum("bshv,hvd->bsd", out, p["wo"]["w"]), tp), cache
 
 
-def mla_decode(p, cfg, spec, x, cache, cache_len, tp=None):
+def mla_decode(p, cfg, spec, x, cache, cache_len, tp=None, cp=None):
     """Absorbed-form one-token decode. x: (B, 1, d); cache: {"c_kv": (B,
     Smax, r), "k_pe": (B, Smax, rope)}, the new token's latents written IN
     PLACE at ``cache_len``. Scores are taken against the cached latents in
     their own dtype with f32 products, as the reference's
-    ``preferred_element_type`` does. ``tp``: as in ``mla_extend``. Returns
+    ``preferred_element_type`` does. ``tp``: as in ``mla_extend``.
+
+    ``cp`` (a rank's ``AxisGroup`` of a context-parallel decode): the cache
+    holds the rank's slots [index * S_loc, (index + 1) * S_loc); only the
+    rank owning slot ``cache_len`` writes the token's latents, the scores
+    run over the rank's valid slots, and its f32 partials (the max, the sum
+    and the latent context (B, H, r)) merge over the group by
+    ``attention.cp_combine``'s two all-reduces before ``w_uv``. Returns
     (out (B, 1, d), cache)."""
     B = x.shape[0]
     pos = cache_len.long()
@@ -198,21 +206,38 @@ def mla_decode(p, cfg, spec, x, cache, cache_len, tp=None):
     q_pe = apply_rope(q_pe, pos[:, None], cfg.rope_theta)
     c_new, pe_new = _latent_kv(p, cfg, x, pos[:, None])
     c_cache, pe_cache = cache["c_kv"], cache["k_pe"]
+    c_new, pe_new = c_new[:, 0].to(c_cache.dtype), pe_new[:, 0, 0].to(pe_cache.dtype)
     bidx = torch.arange(B, device=x.device)
-    c_cache[bidx, pos] = c_new[:, 0].to(c_cache.dtype)
-    pe_cache[bidx, pos] = pe_new[:, 0, 0].to(pe_cache.dtype)
+    S = c_cache.shape[1]
+    if cp is None:
+        first = 0
+        c_cache[bidx, pos] = c_new
+        pe_cache[bidx, pos] = pe_new
+    else:
+        first = cp.index * S
+        local = pos - first
+        mine = ((local >= 0) & (local < S))[:, None]
+        at = local.clamp(0, S - 1)
+        # rows another rank owns write back what the slot holds
+        c_cache[bidx, at] = torch.where(mine, c_new, c_cache[bidx, at])
+        pe_cache[bidx, at] = torch.where(mine, pe_new, pe_cache[bidx, at])
     w_uk, w_uv = _split_wkv_b(p, cfg)
     # absorb: q_eff[h, r] = sum_n q_nope[h, n] * w_uk[r, h, n]
     q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk.float())
     c32, pe32 = c_cache.float(), pe_cache.float()
     s = torch.einsum("bhr,bsr->bhs", q_eff.to(c_cache.dtype).float(), c32)
     s = s + torch.einsum("bhe,bse->bhs", q_pe[:, 0].to(pe_cache.dtype).float(), pe32)
-    valid = (torch.arange(c_cache.shape[1], device=x.device)[None, :]
+    valid = ((first + torch.arange(S, device=x.device))[None, :]
              < (pos + 1)[:, None])[:, None, :]
     s = torch.where(valid, s * _scale(cfg), NEG_INF)
-    pr = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
-    pr = pr / torch.clamp_min(pr.sum(dim=-1, keepdim=True), 1e-30)
-    ctx = torch.einsum("bhs,bsr->bhr", pr.to(c_cache.dtype).float(), c32)
+    m = s.amax(dim=-1, keepdim=True)
+    pr = torch.where(valid, torch.exp(s - m), 0.0)
+    if cp is None:
+        pr = pr / torch.clamp_min(pr.sum(dim=-1, keepdim=True), 1e-30)
+        ctx = torch.einsum("bhs,bsr->bhr", pr.to(c_cache.dtype).float(), c32)
+    else:
+        ctx = attn.cp_combine(m[..., 0], pr.sum(dim=-1),
+                              torch.einsum("bhs,bsr->bhr", pr, c32), cp)
     out_h = torch.einsum("bhr,rhv->bhv", ctx, w_uv.float())
     out = torch.einsum("bhv,hvd->bd", out_h.to(x.dtype), p["wo"]["w"])[:, None, :]
     return reduce_from_model(out, tp), cache

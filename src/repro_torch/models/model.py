@@ -22,8 +22,9 @@ caller is its ``build_step``, ``launch/steps.py`` here) writes each
 attention layer's K/V in place, runs MLA's absorbed form and the state
 mixers' one-token step; ``init_cache(..., window_ring=True)`` gives a
 window layer a ring of ``sliding_window + 512`` slots (a ``RingCache``),
-and ``decode``'s ``cp`` cuts each attention layer's cache over a group of
-ranks (context parallelism, ``attention.attn_decode``).
+and ``decode``'s ``cp`` cuts each attention layer's cache and each MLA
+layer's latents over a group of ranks (context parallelism,
+``attention.attn_decode``, ``mla.mla_decode``).
 A MoE layer's feed-forward is ``moe.moe_apply`` at capacity factor 2.0, as
 the reference serves it, with its aux loss dropped (1.25 and the aux loss
 kept in ``forward``, as the reference trains it). Parameters are plain
@@ -290,7 +291,7 @@ def _layer_decode(p, spec, cfg, x, cache, cache_len, cp=None, shard=None):
     """One token through one layer over its contiguous cache (the twin of
     the reference's ``_layer_decode``): ``attn_decode`` (K/V written in
     place; ``cp``: the rank's slice of the sequence), ``mla_decode`` (the
-    absorbed form), or a state mixer's step from its
+    absorbed form; ``cp`` likewise), or a state mixer's step from its
     state; a whisper decoder layer then attends over every row of its
     ``cross_k`` / ``cross_v`` through ``decode_attention`` at
     1/sqrt(head_dim); the feed-forward at capacity factor 2.0. ``shard``:
@@ -301,7 +302,7 @@ def _layer_decode(p, spec, cfg, x, cache, cache_len, cp=None, shard=None):
     if spec.mixer in STATE_MIXERS:
         y, cache = _state_extend(p["mixer"], spec, cfg, h, cache, mt)
     elif spec.mixer == "mla":
-        y, cache = mla.mla_decode(p["mixer"], cfg, spec, h, cache, cache_len, mt)
+        y, cache = mla.mla_decode(p["mixer"], cfg, spec, h, cache, cache_len, mt, cp)
     else:
         y, cache = attn.attn_decode(p["mixer"], cfg, spec, h, cache, cache_len, cp, mt)
     x = x + y
@@ -385,7 +386,7 @@ def paged_decode_supported(cfg: ModelConfig) -> bool:
 # model
 # ---------------------------------------------------------------------------
 
-def ported_stack(cfg: ModelConfig) -> bool:
+def supported_stack(cfg: ModelConfig) -> bool:
     """Whether the port builds this stack: attention layers of the global,
     sliding-window and chunked kinds, MLA layers or state mixers (Mamba,
     mLSTM, sLSTM), with an MLP, a MoE or no feed-forward; learned positions
@@ -511,7 +512,7 @@ class Model:
     neither."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if not ported_stack(cfg):
+        if not supported_stack(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the port serves attention (global, sliding-window "
                 "or chunked), MLA and state-mixer (Mamba, mLSTM, sLSTM) stacks "
@@ -877,13 +878,8 @@ class Model:
         """Every row's new position must lie inside each layer's cache (a
         ring's takes any): the reference's scatter drops a write past the
         cache and attends without it, the port raises (one host read of
-        cache_len a step). Under ``cp`` an attention cache is the rank's
-        1/cp.size of the sequence, and an MLA layer is refused before any
-        rank starts a collective."""
-        if cp is not None and any(s.mixer == "mla" for s in self.specs):
-            raise NotImplementedError(
-                f"{self.cfg.name}: context-parallel decode of MLA latents is not ported "
-                "(no long-context config has MLA)")
+        cache_len a step). Under ``cp`` an attention cache and an MLA
+        layer's latents are the rank's 1/cp.size of the sequence."""
         rules = current_rules()
         if isinstance(cache, RingCache) and not (rules is not None
                                                  and rules.opt("window_ring")):
@@ -897,10 +893,9 @@ class Model:
             if w is None:
                 continue
             width = w.shape[1]
-            if spec.mixer == "attn":
-                if attn.window_ring_applies(self.cfg, spec, width):
-                    continue
-                width *= 1 if cp is None else cp.size
+            if spec.mixer == "attn" and attn.window_ring_applies(self.cfg, spec, width):
+                continue
+            width *= 1 if cp is None else cp.size
             if top >= width:
                 raise IndexError(f"{self.cfg.name} layer {i}: a row decodes position {top} "
                                  f"past its {width}-slot cache")
@@ -918,9 +913,10 @@ class Model:
         ``cp``: a rank's group of a context-parallel decode (``launch/
         mesh.AxisGroup``): each attention layer's cache holds the rank's
         1/cp.size of the sequence, slots [index * S_loc, (index + 1) *
-        S_loc), and merges over the group (two all-reduces a layer); a
+        S_loc), and so does each MLA layer's latents (``c_kv``, ``k_pe``);
+        each such layer merges over the group (two all-reduces a layer); a
         ring, the state mixers' states and whisper's cross K/V stay whole
-        on every rank, and an MLA layer raises ``NotImplementedError``.
+        on every rank.
         ``shard``: a rank's plan of a tensor-parallel decode step, as in
         ``extend`` (the logits then the rank's (B, 1, V_l) block).
         Returns (logits (B, 1, V), the cache list)."""

@@ -22,6 +22,9 @@ collectives and argument bytes against real gloo ranks are held in
   all-reduces (two a layer, one for the vocab-parallel embedding), the
   rank's argument bytes its slices and cache; the report prints its row
   against the SXM H100.
+* deepseek-v3 ``long_500k`` under "cp_decode" on the same mesh: the
+  rank's MLA latents 1/16 of the whole, 2 combine all-reduces a layer of
+  the predicted sizes (the CLI row stays skipped, as the reference's).
 """
 import json
 import os
@@ -39,7 +42,9 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_prefill  # noqa: E402
 from repro_torch.launch import dryrun, perf_runs  # noqa: E402
 from repro_torch.launch import roofline as troofline  # noqa: E402
+from repro_torch.launch.mesh import make_virtual_mesh, production_shape  # noqa: E402
 from repro_torch.launch.op_cost import OpCost  # noqa: E402
+from repro_torch.launch.steps import build_step  # noqa: E402
 from repro_torch.models import mamba, xlstm  # noqa: E402
 from repro_torch.models.attention import flash_attention  # noqa: E402
 
@@ -144,6 +149,35 @@ def test_production_row_and_report(tmp_path):
     assert "H100" in md and "| olmo-1b | decode_32k | single |" in md
     brief = troofline.report(str(tmp_path), "brief")
     assert "| olmo-1b | decode_32k |  | " in brief and brief.rstrip().endswith("| — |")
+
+
+def test_mla_cp_decode_dry_run(tmp_path):
+    """deepseek-v3 at ``long_500k`` under "cp_decode" on the virtual (16, 16)
+    mesh, rank 0: its latents are 1/16 of the whole (32 800 of 524 800
+    slots a layer), and the data group's all-reduces are the CP combine's,
+    2 per MLA layer: the max of m (8 local heads) and [l, ctx] (8, 1 + 512)
+    in f32; the model group's are one after ``wo``, one after the
+    feed-forward a layer and one for the vocab-parallel embedding, d_model
+    wide in bf16. The CLI row stays skipped, as the reference's."""
+    cfg = tconfigs.get_config("deepseek-v3-671b")
+    mesh = make_virtual_mesh(production_shape())
+    step = build_step(cfg, tconfigs.get_shape("long_500k"), mesh, options={"cp_decode": True})
+    assert step.cp is mesh.batch and step.cp.size == 16
+    r = dryrun.measure(step)
+    L, slots = cfg.num_layers, step.max_seq
+    latents = [t for layer in step.init_cache() for t in layer.values()]
+    assert {t.shape[1] for t in latents} == {slots // 16}
+    whole = L * slots * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
+    assert 16 * sum(t.numel() * t.element_size() for t in latents) == whole
+    assert r["memory"]["argument_bytes"] > whole // 16
+    H = cfg.num_heads // 16
+    assert (step.cp.all_reduces, step.cp.all_reduce_bytes) == (
+        2 * L, L * H * 4 * (2 + cfg.kv_lora_rank))
+    assert r["collective_calls"] == {"all-reduce": 2 * L + 2 * L + 1}
+    assert r["collective_bytes"]["all-reduce"] == (step.cp.all_reduce_bytes
+                                                   + (2 * L + 1) * cfg.d_model * 2)
+    assert dryrun.run_one("deepseek-v3-671b", "long_500k", "single",
+                          str(tmp_path))["status"] == "skipped"
 
 
 def test_perf_runs_are_the_references_nine():

@@ -9,9 +9,9 @@ leaf by leaf with equal shapes, for every published config at
 the meta device, and by ``jax.eval_shape``). ``build_step`` on a one-rank
 CPU mesh (``make_local_mesh``): its decode equals ``Model.decode`` (olmo-1b,
 and starcoder2-3b on a ring), its prefill ``Model.extend`` (internvl with
-an image over placeholder tokens), its train step ``grads_of``; what it
-still refuses raises (an unknown kind, MLA under context parallelism,
-an absent CUDA).
+an image over placeholder tokens), its train step ``grads_of``; MLA under
+context parallelism builds and runs on a virtual mesh; what it still
+refuses raises (an unknown kind, train rules' overrides, an absent CUDA).
 """
 import dataclasses
 import os
@@ -173,9 +173,10 @@ def test_build_step_prefill_and_train():
 
 def test_build_step_refusals():
     """What ``build_step`` still refuses: an unknown kind, train rules'
-    overrides, MLA under context-parallel decode (no long-context config
-    has MLA), CUDA where there is none. Prefill and decode on a model axis
-    above 1 build (tensor-parallel steps, tests/test_torch_tp_steps.py)."""
+    overrides, CUDA where there is none. Prefill and decode on a model axis
+    above 1 build (tensor-parallel steps, tests/test_torch_tp_steps.py), and
+    so does MLA under context-parallel decode, which runs on its half of the
+    latents (held against JAX in tests/test_torch_cp_decode.py)."""
     cfg = tconfigs.smoke_config("olmo-1b")
     groups = {n: AxisGroup(n, (0, 1) if n in ("model", "world") else (0,), 0, None)
               for n in ("data", "model", "batch", "world")}
@@ -194,8 +195,9 @@ def test_build_step_refusals():
                     make_virtual_mesh({"data": 2, "model": 1}, device="cpu"),
                     options={"cp_decode": True})
     params, args = step_arguments(cp)
-    with pytest.raises(NotImplementedError, match="context-parallel decode of MLA"):
-        cp.fn(params, *args)
+    assert {t.shape[1] for layer in args[1] for t in layer.values()} == {(16 + 512) // 2}
+    logits, _ = cp.fn(params, *args)
+    assert logits.shape == (1, 1, mla.vocab_size) and bool(torch.isfinite(logits).all())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_step(cfg, tconfigs.get_shape("decode_32k"), make_local_mesh())
