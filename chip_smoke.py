@@ -213,7 +213,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                mixed LoRA and speculative k = 3; gemma-2b's replicated MQA
                KV; olmo-1b at 6 heads over 3 KV heads, the permuted
                fallback): both ranks' streams equal each other and the
-               CPU's single-device streams.
+               CPU's single-device streams. 11c: KV migration across
+               tensor-parallel layouts, on two ranks sharing the card over
+               gloo: the same qwen2.5-32b block, each rank drawing the
+               whole tree, through ``DisaggregatedServer(model, whole
+               params, ...)`` with phase 6's traffic: prefill on one device
+               and decode at model axis 2 over fp and KIVI 8-bit pages, and
+               prefill at model axis 2 into a whole decode engine over fp
+               pages. Both ranks' streams equal; transfer_bytes equal to a
+               one-process server's on the same traffic (fp: blocks x 262
+               144 B, a rank storing 131 072 B of each block); one
+               all-gather per migrated sequence from the tp=2 prefill, of
+               the payload's bytes, none into a tp=2 decode engine; every
+               migrated block in the decode engine's device mirror
+               byte-equal to its cut of the payload; launches a rank =
+               4 x the paged steps of both engines (quantize_pages = the
+               pack calls), every kernel held against its plain version at
+               every served shape on rank 0; the export + import host time
+               beside phase 7a's; the tokens equal to phase 11's
+               one-process serve reported. Then f32 smoke twins (olmo-1b
+               1->2 and 2->1, qwen2.5-32b KIVI 8-bit 1->2, gemma-2b's
+               replicated MQA head 1->2): streams and transfer_bytes equal
+               to the CPU's one-device DisaggregatedServer's.
  12. train mesh — the sharded train step (launch/mesh.py, train/sharding.py):
                ranks spawned on this one card over gloo (the port's code
                path and memory layout, not NVLink); each rank checks gloo's
@@ -363,6 +384,7 @@ from repro_torch.core.disagg import DisaggregatedServer  # noqa: E402
 from repro_torch.core.fleet import ServingFleet  # noqa: E402
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore, make_adapter  # noqa: E402
 from repro_torch.core.executor import state as state_mod  # noqa: E402
+from repro_torch.core.executor.state import map_page  # noqa: E402
 from repro_torch.core.executor.base import marshal_batch  # noqa: E402
 from repro_torch.core.scheduler import ChunkWork  # noqa: E402
 from repro_torch.core.executor import GatheredRunner, PagedRunner  # noqa: E402
@@ -2777,8 +2799,10 @@ class MigrationProbe:
     engine step; at each destination's next mirror sync, the imported
     blocks in its device mirror are held byte for byte against the payload
     (``check_s``: the seconds that check takes, to be taken out of the
-    serve's time), and a migrated adapter-bound sequence scheduled in that
-    step is confirmed when its adapter is loaded there."""
+    serve's time; a rank of a sharded destination holds its contiguous cut
+    of each global page, ``LLMEngine.kv_group``), and a migrated
+    adapter-bound sequence scheduled in that step is confirmed when its
+    adapter is loaded there."""
 
     def __init__(self, engines):
         self.host_s, self.blocks, self.payload_bytes, self.import_bytes = [], [], [], []
@@ -2794,6 +2818,13 @@ class MigrationProbe:
         export, import_ = eng.export_seq, eng.import_seq
         plan, sync = eng.scheduler.plan, eng.paged_runner.sync
         pending, bound = [], {}  # (rid, table, blocks) to check; rid -> adapter
+        g = eng.kv_group
+
+        def local(page):
+            if g is None:
+                return page
+            return map_page(page, lambda t: t.narrow(0, g.index * t.shape[0] // g.size,
+                                                     t.shape[0] // g.size))
 
         def export_seq(rid):
             self._t_export = time.perf_counter()
@@ -2809,7 +2840,8 @@ class MigrationProbe:
             self.filling.append(sum(isinstance(page[-1], bool) and not page[-1]
                                     for page in payload["blocks"]))
             self.import_bytes.append(eng.last_import_bytes)
-            pending.append((seq.request_id, list(seq.block_table), payload["blocks"]))
+            pending.append((seq.request_id, list(seq.block_table),
+                            [local(page) for page in payload["blocks"]]))
             if seq.request.adapter_id is not None:
                 bound[seq.request_id] = seq.request.adapter_id
             return seq
@@ -2930,7 +2962,7 @@ def phase_disagg(model, params, ref_label, ref_streams, kv_quant=None, fp_bytes=
         f"engine {dec.steps} (chunks of 1); launches: {kernel} {counts[kernel]} (= {L} x "
         f"{steps}), quantize_pages {counts['quantize_pages']}; tokens equal to "
         f"{ref_label}'s streams (common prefixes) {same} of {total} ({same / total:.1%})")
-    return st.transfer_bytes
+    return st.transfer_bytes, statistics.median(probe.host_s) * 1e3
 
 
 def phase_interference(model, params):
@@ -5235,7 +5267,214 @@ def phase_tp(card):
             f"single-device streams: {same} of {total} tokens, {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"tp=2 twin {label}: the ranks' streams differ from the CPU's")
-    return {kind: r0[kind]["counts"] for kind in ("fp", "KIVI", "LoRA")}, r0["timing"]
+    return ({kind: r0[kind]["counts"] for kind in ("fp", "KIVI", "LoRA")}, r0["timing"],
+            fp1["streams"])
+
+
+# ---------------------------------------------------------------------------
+# phase 11c: KV migration across tensor-parallel layouts
+# ---------------------------------------------------------------------------
+
+# label, KIVI bits, prefill sharding, decode sharding (None: one device)
+TP_DISAGG = (
+    ("whole -> tp=2, fp", None, None, ShardingConfig(model_axis=TP)),
+    ("whole -> tp=2, KIVI 8-bit", 8, None, ShardingConfig(model_axis=TP)),
+    ("tp=2 -> whole, fp", None, ShardingConfig(model_axis=TP), None),
+)
+# the f32 smoke twins: label, arch, KIVI bits, prefill, decode
+TP_DISAGG_TWINS = (
+    ("olmo-1b fp 1->2", "olmo-1b", None, None, ShardingConfig(model_axis=TP)),
+    ("olmo-1b fp 2->1", "olmo-1b", None, ShardingConfig(model_axis=TP), None),
+    ("qwen2.5-32b KIVI 8-bit 1->2", "qwen2.5-32b", 8, None, ShardingConfig(model_axis=TP)),
+    ("gemma-2b MQA 1->2 (KV replicated)", "gemma-2b", None, None,
+     ShardingConfig(model_axis=TP)),
+)
+
+
+def tp_disagg_serve(model, params, bits=None, pre=None, dec=None):
+    """Phase 6's 8-request traffic through the reference's call,
+    ``DisaggregatedServer(model, whole_params, ...)``, on the qwen block:
+    prefill at sharding ``pre``, decode at ``dec`` (None: one device),
+    KIVI pages at ``bits``; every kernel count and each model group's
+    collective counts set to 0 just before, a ``MigrationProbe`` on both
+    engines (the decode engine's mirror held against its cut of each
+    payload), the kernels' served arguments recorded. Returns (result
+    dict, records)."""
+    q = QuantConfig(bits=bits) if bits else None
+    srv = DisaggregatedServer(model, params, prefill_cfg=migration_cfg(kv_quant=q, sharding=pre),
+                              decode_cfg=migration_cfg(kv_quant=q, sharding=dec))
+    pre_e, dec_e = srv.prefill_engine, srv.decode_engine
+    probe = MigrationProbe((pre_e, dec_e))
+    add_traffic(pre_e, np.random.default_rng(7), "r")
+    groups = [e.paged_runner.tp for e in (pre_e, dec_e)]
+    for g in groups:
+        if g is not None:
+            g.reset_counts()
+    rec, patches = record_served()
+    with patches:
+        metrics, dt, counts = run_migrating(srv, COUNTERS)
+    st = srv.stats
+    assert st.migrated == len(probe.blocks) == 8, st
+    assert st.transfer_bytes == sum(probe.import_bytes) == sum(probe.payload_bytes), st
+    assert probe.checked_blocks == sum(probe.blocks), (probe.checked_blocks, probe.blocks)
+    return dict(streams={rid: list(s.generated) for rid, s in srv.seqs.items()},
+                seconds=dt - probe.check_s, gen=sum(m.num_generated for m in metrics),
+                counts=counts, migrated=st.migrated, transfer_bytes=st.transfer_bytes,
+                blocks=sum(probe.blocks), checked=probe.checked_blocks,
+                host_ms=[t * 1e3 for t in probe.host_s],
+                steps=(pre_e.paged_steps, dec_e.paged_steps), pack_calls=rec["pack_calls"],
+                kv_cut=[e.kv_group is not None for e in (pre_e, dec_e)],
+                gathers=[(g.all_gathers, g.all_gather_bytes) if g is not None else (0, 0)
+                         for g in groups],
+                store_bytes=[e.store.kv_bytes_per_block() for e in (pre_e, dec_e)]), rec
+
+
+def disagg_twin(arch, bits, pre, dec, values, device):
+    """The f32 smoke config of ``arch`` on ``device`` (weights from the
+    numpy tree ``values``) through ``DisaggregatedServer`` at prefill
+    sharding ``pre`` and decode ``dec``: 4 greedy requests (prompts of 20,
+    33, 9 and 41 tokens, 6 tokens each), block 8, KIVI pages at ``bits``.
+    Returns (streams, transfer_bytes)."""
+    cfg = configs.smoke_config(arch)
+    model = build_model(cfg, device=device)
+    params = _to_device(_from_numpy(values), device)
+
+    def ecfg(sharding):
+        return EngineConfig(block_size=8, num_blocks=128, max_model_len=128,
+                            device=str(device), enable_prefix_cache=False, sharding=sharding,
+                            kv_quant=QuantConfig(bits=bits) if bits else None,
+                            scheduler=SchedulerConfig(max_batch_slots=4, max_batched_tokens=48,
+                                                      prefill_chunk=16))
+    srv = DisaggregatedServer(model, params, prefill_cfg=ecfg(pre), decode_cfg=ecfg(dec))
+    rng = np.random.default_rng(11)
+    for i, n in enumerate((20, 33, 9, 41)):
+        srv.add_request(Request(request_id=f"r{i}",
+                                prompt=[int(t) for t in rng.integers(2, cfg.vocab_size, n)],
+                                sampling=SamplingParams(max_new_tokens=6)))
+    srv.run()
+    return {rid: list(s.generated) for rid, s in srv.seqs.items()}, srv.stats.transfer_bytes
+
+
+def tp_disagg_rank(ref):
+    """One of the two ranks of phase 11c (run by ``spawn_ranks``): the qwen
+    block's whole tree drawn on the rank's card, then each ``TP_DISAGG``
+    serve (rank 0 holds each kernel against its plain version at every
+    shape the serve gave it while rank 1 waits), then the f32 twins."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(1, TP, backend="gloo")
+    cfg, _ = qwen_block()
+    model = build_model(cfg, device=mesh.device)
+    params = qwen_params(model)
+    out = {"rank": mesh.rank}
+    for label, bits, pre, dec in TP_DISAGG:
+        out[label], rec = tp_disagg_serve(model, params, bits, pre, dec)
+        if mesh.rank == 0:
+            log(f"  [11c] rank 0, {label}: each kernel at every served shape")
+            check_served(rec, f"rank 0 {label}")
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["twins"] = {label: disagg_twin(arch, bits, pre, dec, ref["twin_values"][arch],
+                                       mesh.device)
+                    for label, arch, bits, pre, dec in TP_DISAGG_TWINS}
+    return out
+
+
+def phase_tp_disagg(card, serve_streams, same_layout_ms):
+    """Phase 11c (see the module docstring): the one-process
+    ``DisaggregatedServer`` on the qwen block (fp, KIVI 8-bit) and the f32
+    twins on the CPU first, then the two ranks, then every check against
+    them. ``serve_streams``: phase 11's one-process serve; ``same_layout_ms``:
+    phase 7a's median export + import host time. Returns rank 0's launch
+    counts by serve."""
+    t_phase = time.perf_counter()
+    free_device("phase 11c")
+    cfg, published = qwen_block()
+    L = cfg.num_layers
+    model = build_model(cfg, device="cuda")
+    params = qwen_params(model)
+    one = {bits: tp_disagg_serve(model, params, bits)[0] for bits in (None, 8)}
+    del model, params
+    free_device("11c's ranks")
+    twin_values, twin_cpu = {}, {}
+    for label, arch, bits, _, _ in TP_DISAGG_TWINS:
+        if arch not in twin_values:
+            twin_values[arch] = _to_numpy(build_model(configs.smoke_config(arch),
+                                                      device="cpu").init(0))
+        twin_cpu[label] = disagg_twin(arch, bits, None, None, twin_values[arch],
+                                      torch.device("cpu"))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_disagg_rank, TP, dict(twin_values=twin_values), timeout=600)
+    rank_s = time.perf_counter() - t0
+    # one block over every KV head: 4 x 2 x 8 x 16 x 128 x 2 B at bf16
+    page = L * 2 * cfg.num_kv_heads * 16 * cfg.head_dim * torch.finfo(
+        getattr(torch, cfg.dtype)).bits // 8
+    assert one[None]["store_bytes"] == [page, page], (one[None]["store_bytes"], page)
+    log(f"[11c tp disagg] {QWEN} at published width, {L} of {published} layers, bf16: "
+        f"DisaggregatedServer(model, whole params, ...) with prefill and decode at "
+        f"different model axes, {TP} ranks on this one card over gloo ({rank_s:.1f} s for "
+        f"the ranks' whole run); a global block {page} B, {page // TP} B of it a rank")
+    r0 = ranks[0]
+    for label, bits, pre, dec in TP_DISAGG:
+        ref = one[bits]
+        for r in ranks:
+            res = r[label]
+            assert res["streams"] == r0[label]["streams"], (label, r["rank"])
+            assert res["counts"] == r0[label]["counts"], (label, r["rank"])
+            assert res["transfer_bytes"] == ref["transfer_bytes"], \
+                (label, res["transfer_bytes"], ref["transfer_bytes"])
+            assert res["kv_cut"] == [pre is not None, dec is not None], res["kv_cut"]
+            if bits is None:
+                assert res["transfer_bytes"] == res["blocks"] * page, label
+            want = (8, res["transfer_bytes"]) if pre is not None else (0, 0)
+            assert res["gathers"] == [want, (0, 0)], (label, res["gathers"])
+            cut = 1 + (dec is not None)
+            assert res["store_bytes"][1] * cut == ref["store_bytes"][1], res["store_bytes"]
+            steps = sum(res["steps"])
+            kernel = "paged_attention" if bits is None else "paged_attention_quant"
+            assert res["counts"][kernel] == L * steps, (label, res["counts"], res["steps"])
+            assert res["counts"]["quantize_pages"] == res["pack_calls"], res["counts"]
+            assert (bits is None) == (res["pack_calls"] == 0), res["pack_calls"]
+            assert all(n == 0 for k, n in res["counts"].items()
+                       if k not in (kernel, "quantize_pages")), res["counts"]
+        res = r0[label]
+        same, total = equal_share(res["streams"], ref["streams"])
+        line = (f"  {label}: 8 requests, {res['gen']} generated tokens in {res['seconds']:.2f} s "
+                f"= {res['gen'] / res['seconds']:.1f} tok/s (one process "
+                f"{ref['gen'] / ref['seconds']:.1f}); {res['migrated']} migrations, "
+                f"{res['blocks']} blocks, transfer_bytes {res['transfer_bytes']} (= the "
+                f"one-process server's); all-gathers on the prefill rank's model group "
+                f"{res['gathers'][0][0]} ({res['gathers'][0][1]} B), on the decode rank's "
+                f"{res['gathers'][1][0]}; store bytes a block prefill {res['store_bytes'][0]}, "
+                f"decode {res['store_bytes'][1]}; {res['checked']} migrated blocks in the "
+                f"decode engine's device mirror byte-equal to their cut of the payload; "
+                f"export + import host time median {statistics.median(res['host_ms']):.1f} "
+                f"ms, max {max(res['host_ms']):.1f} (one process on the qwen block "
+                f"{statistics.median(ref['host_ms']):.1f}; phase 7a's olmo-1b "
+                f"{same_layout_ms:.1f}); launches a rank: {kernel} "
+                f"{res['counts'][kernel]} (= {L} x {steps} paged steps of both engines), "
+                f"quantize_pages {res['counts']['quantize_pages']}; both ranks' streams equal; "
+                f"tokens equal to the one-process server's {same} of {total}")
+        if bits is None:
+            same, total = equal_share(res["streams"], serve_streams)
+            line += f", to phase 11's one-process serve's {same} of {total}"
+        log(line + " (reported, not required: bf16 sums in another order)")
+    for label, *_ in TP_DISAGG_TWINS:
+        want = twin_cpu[label]
+        ok = all(r["twins"][label] == want for r in ranks)
+        same, total = equal_share(r0["twins"][label][0], want[0])
+        log(f"  f32 smoke twin {label}: both ranks' streams and transfer_bytes "
+            f"({want[1]}) equal the CPU's one-device DisaggregatedServer's: {same} of "
+            f"{total} tokens, {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"11c twin {label}: the card's ranks differ from the CPU")
+    log(f"[11c tp disagg] phase 11c took {time.perf_counter() - t_phase:.1f} s")
+    return {label: r0[label]["counts"] for label, *_ in TP_DISAGG}
 
 
 # ---------------------------------------------------------------------------
@@ -7028,7 +7267,7 @@ def main() -> None:
     phase_serve_spec_lora_f32()
     torch.cuda.empty_cache()
     model, params = olmo_model("bfloat16")
-    fp_bytes = phase_disagg(model, params, "the fp serve", fp_streams)
+    fp_bytes, same_layout_ms = phase_disagg(model, params, "the fp serve", fp_streams)
     phase_interference(model, params)
     phase_disagg(model, params, "the KIVI serve", q_streams, kv_quant=QuantConfig(bits=8),
                  fp_bytes=fp_bytes)
@@ -7080,7 +7319,8 @@ def main() -> None:
     assert not any(train_counts.values()), train_counts
     phase_train_checkpoint(model, params)
     del model, params
-    tp_counts, _ = phase_tp(card)
+    tp_counts, _, tp1_streams = phase_tp(card)
+    tp_disagg_counts = phase_tp_disagg(card, tp1_streams, same_layout_ms)
     mesh_counts, tp_train_counts = phase_train_mesh(card, train_records)
     prompt_counts, decode_counts, mla_cp_counts = phase_decode(card)
     example_counts = phase_examples()
@@ -7106,6 +7346,8 @@ def main() -> None:
              "qwen2.5-32b tp=2 paged fp, per rank": tp_counts["fp"],
              "qwen2.5-32b tp=2 paged KIVI, per rank": tp_counts["KIVI"],
              "qwen2.5-32b tp=2 paged LoRA, per rank": tp_counts["LoRA"],
+             **{f"qwen2.5-32b disaggregated {label}, per rank": c
+                for label, c in tp_disagg_counts.items()},
              "starcoder2-3b extend of an 8192-token prompt": prompt_counts,
              **example_counts}
     kernels = [dict(name=k, route="cuda", source=os.path.relpath(sources[k], ROOT),

@@ -74,7 +74,9 @@ dispatch spans carry the card's roofline bound (``launch/roofline.py``).
 ``export_seq`` / ``import_seq`` move a sequence's tokens and KV pages
 (fp, or KIVI codes, planes and a still-filling page's staging) and its
 state slot between engines: the primitive of ``core.disagg`` and
-``core.fleet``.
+``core.fleet``. A payload holds the model's global pages (every KV head)
+whatever either engine's layout, as the reference's global host store
+gives them, so a sequence moves between engines of any model axes.
 
 With ``EngineConfig.sharding`` asking for more than one rank, the paged
 slot holds a ``ShardedPagedRunner`` (``executor/sharded.py``): the engine
@@ -83,7 +85,11 @@ same engine on the same requests, and the paged calls run the shard-local
 model with one all-reduce per layer over the rank's model group. Its page
 store holds the rank's KV heads (all of them under the replicated-KV
 fallback), and ``host_copy_bytes`` stays 0 as on the single-device paged
-path. The gathered backend is single-device, so such an engine builds no
+path. Where its KV heads are cut (``kv_group``), ``export_seq`` gathers a
+sequence's pages over the model group in one all-gather and
+``import_seq`` keeps the rank's contiguous cut of global pages; the
+prefix cache's host tier stays rank-local (no collective). The gathered
+backend is single-device, so such an engine builds no
 gathered runner (``self.runner`` is None) and refuses a stack without a
 paged family and requests with modality extras. It takes the rank's
 parameters (``executor.sharded.rank_params`` / ``shard_params``), and
@@ -103,6 +109,7 @@ from repro_torch.core.block_manager import BlockManager, OutOfBlocks
 from repro_torch.core.executor import PagedModelState, make_runners, marshal_batch
 from repro_torch.core.executor.base import ModelRunner, chunk_carries_extras
 from repro_torch.core.executor.sharded import paged_layout
+from repro_torch.core.executor.state import map_page, page_bytes, page_tensors
 from repro_torch.core.executor.speculative import SpeculativeRunner
 from repro_torch.core.kv_quant import QuantConfig
 from repro_torch.core.lora import LoRAConfig, PagedAdapterStore
@@ -208,6 +215,9 @@ class LLMEngine:
         self.store = PagedModelState(store_cfg, self.cfg, device=self.device)
         self.runner, self.paged_runner = make_runners(model, params, self.cfg,
                                                       self.store)
+        # the model group the store's KV heads are cut over; None where it
+        # holds every KV head (one device, the replicated-KV fallback)
+        self.kv_group = self.paged_runner.tp if kv_div > 1 else None
         if self.paged_runner is not None:
             # sacrificial page: ragged-chunk padding writes land here —
             # reserved up front so it can never be a member of a real table
@@ -919,8 +929,17 @@ class LLMEngine:
     # ------------------------------------------------------------------
     def export_seq(self, request_id: str) -> dict:
         """Extract a sequence's tokens, pages and state slot (``"state"``:
-        the slot's leaves, or None without one) and release it locally."""
-        seq = self.seqs.pop(request_id)
+        the slot's leaves, or None without one) and release it locally.
+        ``"blocks"`` are the model's global pages, every KV head in the
+        model's order, whatever this engine's layout: a rank of a sharded
+        engine gathers its blocks' pages over its model group in one
+        all-gather, which every rank makes at once (they export the same
+        sequence in lockstep)."""
+        seq = self.seqs[request_id]
+        pages = [self.store.block_payload(b) for b in seq.block_table]
+        if self.kv_group is not None and pages:
+            pages = self.store.gather_payloads(pages, self.kv_group, self.device)
+        del self.seqs[request_id]
         if self.spec_runner is not None:
             self.spec_runner.forget(request_id)
         payload = {
@@ -930,7 +949,7 @@ class LLMEngine:
             "prefix_hit_tokens": seq.prefix_hit_tokens,
             "first_token_time": seq.first_token_time,
             "token_times": list(seq.token_times),
-            "blocks": [self.store.block_payload(b) for b in seq.block_table],
+            "blocks": pages,
             "state": (self.store.state_payload(seq.state_slot)
                       if seq.state_slot is not None else None),
         }
@@ -942,10 +961,34 @@ class LLMEngine:
                              blocks=len(payload["blocks"]))
         return payload
 
+    def _local_page(self, rid: str, page: list) -> list:
+        """A migrated block's pages as this store holds them: as they come
+        when they hold the store's KV heads, this rank's contiguous cut of
+        them when they hold the whole model's (``kv_group``); raises
+        otherwise."""
+        local = [s.shape[0] for s in self.store.stores]
+        entries = [e for e in page if not isinstance(e, bool)]
+        if len(entries) != len(local):
+            raise ValueError(f"migrated request {rid!r} carries pages of {len(entries)} "
+                             f"leaves for a store of {len(local)}")
+        got = [page_tensors([e])[0].shape[0] for e in entries]
+        if got == local:
+            return page
+        div = self.kv_group.size if self.kv_group is not None else 1
+        if got == [n * div for n in local]:
+            i = self.kv_group.index
+            return map_page(page, lambda t: t.narrow(0, i * t.shape[0] // div,
+                                                     t.shape[0] // div))
+        raise ValueError(
+            f"migrated request {rid!r} carries pages of {got[0]} KV heads: neither the "
+            f"model's {local[0] * div} nor the {local[0]} this engine's store holds")
+
     def import_seq(self, payload: dict) -> SeqState:
-        """Admit a migrated sequence; the bytes restored (pages and state)
-        are left in ``last_import_bytes``. Restored blocks are dirty, so the
-        paged runner's device mirror uploads them at its next sync. A state
+        """Admit a migrated sequence; the bytes it carried (pages and state)
+        are left in ``last_import_bytes``: a payload's global pages count
+        whole, as the reference counts them, and a rank of a sharded engine
+        restores its cut of them. Restored blocks are dirty, so the paged
+        runner's device mirror uploads them at its next sync. A state
         payload lands in a fresh slot as it was exported (no reset)."""
         req = payload["request"]
         if req.adapter_id is not None and self.adapters is None:
@@ -965,10 +1008,11 @@ class LLMEngine:
                        prefix_hit_tokens=payload["prefix_hit_tokens"],
                        first_token_time=payload["first_token_time"],
                        token_times=list(payload["token_times"]))
-        nbytes = 0
-        blocks = self.bm.allocate(len(payload["blocks"]))
-        for b, page in zip(blocks, payload["blocks"]):
-            nbytes += self.store.restore_block(b, page)
+        pages = [self._local_page(req.request_id, page) for page in payload["blocks"]]
+        nbytes = sum(page_bytes(page) for page in payload["blocks"])
+        blocks = self.bm.allocate(len(pages))
+        for b, page in zip(blocks, pages):
+            self.store.restore_block(b, page)
         seq.block_table = blocks
         if payload["state"] is not None:
             seq.state_slot = self.bm.allocate_state_slot()

@@ -29,7 +29,11 @@ What this buys the serving engine:
     rank holds all of them. The reference's host store is global
     (``jax.device_get`` gathers the sharded writes); a global store per
     rank here would need an all-gather of each step's writes, which the
-    reference's device path does not have (ROADMAP C).
+    reference's device path does not have. Migration still moves global
+    pages, as the reference's does: ``LLMEngine.export_seq`` gathers a
+    sequence's pages over the model group in one all-gather, and
+    ``import_seq`` keeps the rank's contiguous cut, so a sequence moves
+    between engines of any layouts (``core/disagg.py``).
   * The LoRA adapter tables shard over the same axis (the B factor of q/k/v
     projections by output column, the A factor of o/down projections by
     input row), so adapter deltas stay shard-local and join the SAME
@@ -37,9 +41,10 @@ What this buys the serving engine:
   * Weights: a sharded engine takes the rank's parameters, never the whole
     tree. ``rank_params`` draws them (``Model.init`` cutting each layer
     as soon as it is drawn), ``shard_params`` cuts them from a whole tree
-    (converted weights); a rank's device holds its slices and the
-    replicated leaves (embedding, head, norms, the biases added after an
-    all-reduce), and no gathered runner is built.
+    (converted weights), ``engine_params`` picks between the tree and
+    its cut for an engine's sharding; a rank's device holds its slices and
+    the replicated leaves (embedding, head, norms, the biases added after
+    an all-reduce), and no gathered runner is built.
   * The speculative runner verifies through this runner's ``verify``; its
     draft is a whole model, replicated on every rank, so a sharded engine
     is given it (``SpeculativeConfig.draft_model`` / ``draft_params``).
@@ -308,6 +313,31 @@ def shard_params(params, cfg: ModelConfig, mesh):
     """The rank's slices of a whole parameter tree (converted weights, a
     checkpoint): what a sharded engine takes."""
     return rank_slicer(cfg, mesh)(params, param_axes(cfg))
+
+
+def engine_params(model, params, sharding: Optional[ShardingConfig]):
+    """The tree an engine at ``sharding`` takes from ``params``: ``params``
+    itself where it holds the query heads such an engine serves (the whole
+    tree on one device, the rank's slices on a sharded engine), the rank's
+    slices cut from it (``shard_params`` on the engine's serving mesh) where
+    it is whole and the engine is sharded. Rank slices for an engine of
+    another cut raise. A stack without a paged family passes through (a
+    sharded engine refuses it)."""
+    if model.decode_paged is None:
+        return params
+    H = model.cfg.num_heads
+    sharded = sharding is not None and sharding.num_devices > 1
+    want = paged_layout(model.cfg, sharding.model_axis).local_cfg.num_heads if sharded else H
+    heads = params["layers"][0]["mixer"]["wq"]["w"].shape[1]
+    if heads == want:
+        return params
+    if heads == H:
+        from repro_torch.launch.mesh import make_serving_mesh
+        mesh = make_serving_mesh(sharding.data_axis, sharding.model_axis, device=model.device)
+        return shard_params(params, model.cfg, mesh)
+    raise ValueError(f"the parameters hold {heads} query heads a layer: an engine at "
+                     f"model axis {sharding.model_axis if sharded else 1} takes {want} "
+                     f"(its rank's slices) or the whole tree's {H}")
 
 
 def rank_params(model, seed: int = 0, *, mesh, max_seq: int = 0):

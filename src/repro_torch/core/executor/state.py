@@ -26,6 +26,13 @@ recycled slot there starts from its previous owner's final state (ROADMAP
 C). Page-only bookkeeping (the KIVI layout's eligibility,
 ``repeat_groups``, bytes per block) sees page leaves only.
 
+``block_payload`` / ``restore_block`` move one block's pages as the store
+holds them (the prefix cache's host tier, rank-local); migration moves
+the model's global pages, which a store whose KV heads are cut over a
+model group assembles with ``gather_payloads`` (one all-gather of every
+page of a sequence, packed as bytes per head). ``page_bytes`` counts a
+payload as the reference counts it.
+
 The paged path reads pages on the device through block tables and writes
 each chunk's own K/V back here (O(tokens), ``write_token_group``), which
 keeps this store authoritative for copy-on-write, prefix-cache payloads and
@@ -66,6 +73,26 @@ import torch
 from repro_torch.core.kv_quant import QuantConfig, dequantize, quantize
 from repro_torch.kernels.kv_quant import quantize_kv_pages
 from repro_torch.models.model import DTYPES, cache_leaf_shapes, init_state
+
+
+def page_tensors(page: list) -> List[torch.Tensor]:
+    """The tensors of one ``block_payload``, in its order: each fp page, or
+    each KIVI leaf's codes, planes and staging page (not the packed flag)."""
+    return [t for entry in page if not isinstance(entry, bool)
+            for t in (entry if isinstance(entry, tuple) else (entry,))]
+
+
+def map_page(page: list, fn) -> list:
+    """``page`` (a ``block_payload``) with ``fn`` applied to each of its
+    tensors, its structure and packed flag kept."""
+    return [entry if isinstance(entry, bool) else
+            tuple(fn(t) for t in entry) if isinstance(entry, tuple) else fn(entry)
+            for entry in page]
+
+
+def page_bytes(page: list) -> int:
+    """Bytes of one ``block_payload``: what migrating or restoring it moves."""
+    return sum(t.numel() * t.element_size() for t in page_tensors(page))
 
 
 def next_pow2(n: int) -> int:
@@ -453,7 +480,8 @@ class PagedModelState:
         self._touch([dst])
 
     def block_payload(self, block: int) -> list:
-        """One block's pages across layers (host-tier demotion). Quantized
+        """One block's pages across layers, this store's KV heads (host-tier
+        demotion; migration, gathered where the heads are cut). Quantized
         leaves give (codes, scale, zero) — plus the fp staging page ONLY
         while the block is still filling, so a packed payload stays smaller
         than the fp16 pages it replaces — and the list ends with the
@@ -474,8 +502,29 @@ class PagedModelState:
             out.append(packed)
         return out
 
+    def gather_payloads(self, payloads: List[list], group, device) -> List[list]:
+        """``block_payload``s of this rank's KV heads as the same blocks'
+        pages over every KV head of ``group``, the model group the store's
+        heads are cut over (contiguously, in rank order): every tensor of
+        every payload packed into one byte matrix with a row per head, ONE
+        ``all_gather`` of it along the heads on ``device`` (the group's),
+        then unpacked. Every rank of the group must call it at once with
+        payloads of the same blocks' shapes (SPMD); a failing collective
+        raises."""
+        tensors = [t for page in payloads for t in page_tensors(page)]
+        heads = tensors[0].shape[0]
+        flat = torch.cat([t.reshape(heads, -1).view(torch.uint8) for t in tensors], dim=1)
+        full = group.all_gather(flat.to(device), dim=0).cpu()
+        parts, at = [], 0
+        for t in tensors:
+            n = t[0].numel() * t.element_size()
+            parts.append(full[:, at: at + n].contiguous().view(t.dtype).reshape(
+                (full.shape[0],) + tuple(t.shape[1:])))
+            at += n
+        rest = iter(parts)
+        return [map_page(page, lambda _: next(rest)) for page in payloads]
+
     def restore_block(self, block: int, payload: list) -> int:
-        nbytes = 0
         for idx, (store, page) in enumerate(zip(self.stores, payload)):
             if idx in self.qplanes:
                 codes, scale, zero = page[:3]
@@ -490,14 +539,12 @@ class PagedModelState:
                     self.qstage[idx][:, block] = (
                         codes.float() * scale.float() + zero.float()
                     ).to(self.qdtype[idx])
-                nbytes += sum(a.numel() * a.element_size() for a in page)
             else:
                 store[:, block] = page
-                nbytes += page.numel() * page.element_size()
         if self.quantized:
             self.block_quantized[block] = payload[-1]
         self._touch([block])
-        return nbytes
+        return page_bytes(payload)
 
     # ------------------------------------------------------------------
     # state slots
